@@ -1,0 +1,612 @@
+#!/usr/bin/env python3
+"""Run the PyTorch/CUDA port's perception path on one NVIDIA GPU.
+
+Phases, each of which must pass:
+  1. build the hand-written Hopper kernels from the sources in the checkout;
+  2. hold every kernel against its plain PyTorch version on the card at
+     the shapes the main path gives it: max error, kernel / plain / library
+     time, and the least time the card could take (bound);
+  3. drive `perceive` at full width -- the serving configuration of
+     bench.py: the large preset (ViT-L/14 at 224^2, 768-wide 12+12-layer
+     decoder, 49,408-token vocabulary, post-LN MiniLM-class sentence
+     encoder), the committed R50/FPN detector artifact, int8 weights and
+     int8 cross K/V, 4 caption slots per frame, 1280^2 frames -- on seeded
+     synthetic frames with random captioner weights from a seeded
+     generator; count each kernel's launches in that run, check the outputs
+     are finite and well shaped, and compare with the plain versions: the
+     ViT embeddings, the sentence embeddings of the rows whose free-running
+     tokens agree, and a teacher-forced decode (the plain path fed the
+     kernel path's tokens: per-step argmax and chosen-token log-probs);
+  4. run the tiny preset through the kernels on the card and through the
+     plain versions on the CPU (the path the CPU tests hold to the JAX
+     package) and compare;
+  5. profile one full-width batch: device time by kernel, the ported
+     kernels' share, the device's idle share.
+
+Float32 products and convolutions run without TF32 so the comparisons see
+the kernels' own error. Prints the card's name and power limit, a frames/s
+line, one JSON line of kernel results, and last
+{"ok": true, "device": {...}}. Exits non-zero, printing no result, when a
+phase fails or no CUDA device is present.
+
+Usage: python3 chip_smoke.py
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM
+BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
+REPO = Path(__file__).resolve().parent
+TPU_KERNELS = "embodied_captioning_tpu/ops/pallas/"
+PORT_KERNELS = "embodied_captioning_tpu_torch/kernels/csrc/"
+FRAMES = 16                    # sensor frames per perceive batch (bench.py)
+SLOTS = 4                      # caption slots per frame
+ROWS = FRAMES * SLOTS          # crops / decode rows per batch
+BATCHES = 2                    # timed perceive batches
+DECODE_LEN = 30                # large preset's max caption tokens
+# Kernel path vs plain path (see perceive_full_width). Readings on an H100
+# at 64 rows, frame seeds 100 and 101: argmax agreement 0.9720 and 0.9709
+# of 1856 steps; log-prob max 2.001 and 2.029 ulps; ViT cosine min
+# 0.9999792 and 0.9999852.
+MIN_ARGMAX_AGREE = 0.9
+# Logits are bf16: the two paths' hidden states differ in the last bits,
+# so chosen log-probs differ by a few bf16 ulps of the logits' magnitude
+# (0.03125 for |logit| in [4, 8)).
+MAX_LOGPROB_ULPS = 4.0
+MIN_IMG_COSINE = 0.9999
+# equal tokens go through the same sentence encoder (no ported kernel)
+MIN_EMB_COSINE = 0.9999
+
+
+def log(*a) -> None:
+    print(*a, flush=True)
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, flops: float):
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
+                atol: float) -> float:
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    rel = (diff / want.float().abs().clamp(min=1e-6)).max().item()
+    log(f"  {name}: max_abs_err {err:.3e} (tolerance {atol:.1e}), "
+        f"max_rel_err {rel:.3e}")
+    if not math.isfinite(err) or err > atol:
+        raise AssertionError(f"{name}: max_abs_err {err} > {atol}")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def kernel_checks(K, QZ, dev) -> dict:
+    """Kernel vs plain at the main path's shapes: FRAMES x SLOTS = ROWS
+    crops; ViT-L attention [ROWS, 16, 257, 64]; decode batch ROWS, 12 heads
+    of 64, self cache T=30, cross K=256 int8; MLP 768 -> 3072 -> 768 int8."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    bf = torch.bfloat16
+
+    def rn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    rows = {}
+
+    # flash attention ------------------------------------------------------
+    # tolerance: bf16 outputs of |o| < 2 whose f32 sums run in another
+    # order (a flipped rounding of p or o is 1-2 bf16 ulps)
+    b, h, t, d = ROWS, 16, 257, 64
+    q, k, v = rn(b, h, t, d), rn(b, h, t, d), rn(b, h, t, d)
+    err = check_close(f"flash_attention [{b},{h},{t},{d}]",
+                      K.flash_attention(q, k, v),
+                      K.flash_attention_plain(q, k, v), 2e-2)
+    for causal, tt, vl in ((True, 257, None), (False, 640, 600),
+                           (True, 640, 600)):
+        qs, ks, vs = rn(2, 4, tt, d), rn(2, 4, tt, d), rn(2, 4, tt, d)
+        check_close(f"flash_attention [2,4,{tt},64] causal={causal} "
+                    f"valid_len={vl}",
+                    K.flash_attention(qs, ks, vs, causal, vl)[:, :, :vl or tt],
+                    K.flash_attention_plain(qs, ks, vs, causal,
+                                            vl)[:, :, :vl or tt], 2e-2)
+    fb, ff = bound_ms(4 * nbytes(q), 4 * b * h * t * t * d)
+    qt, kt_, vt = (x.contiguous() for x in (q, k, v))
+    rows["flash_attention"] = dict(
+        source=PORT_KERNELS + "flash_attention.cu",
+        replaces=TPU_KERNELS + "flash_attention.py:147",
+        max_abs_err=err,
+        ms=time_ms(lambda: K.flash_attention(q, k, v)),
+        plain_ms=time_ms(lambda: K.flash_attention_plain(q, k, v), 5, 1),
+        bound_ms=fb, bound_by=ff,
+        library_ms=time_ms(lambda: torch.nn.functional.
+                           scaled_dot_product_attention(qt, kt_, vt)))
+
+    # decode self-attention (f32 out; tolerance covers summation order) ----
+    b, h, dh, t = ROWS, 12, 64, DECODE_LEN
+    q = rn(b, h, dh)
+    kc, vc = rn(b, h, dh, t), rn(b, t, h, dh)
+    check_close("decode_self_attention pos=14",
+                K.decode_self_attention(q, kc, vc, 14),
+                K.decode_self_attention_plain(q, kc, vc, 14), 1e-3)
+    err = check_close("decode_self_attention pos=29",
+                      K.decode_self_attention(q, kc, vc, t - 1),
+                      K.decode_self_attention_plain(q, kc, vc, t - 1), 1e-3)
+    out = torch.empty(b, h, dh, device=dev)
+    sb, sf = bound_ms(nbytes(q, kc, vc, out), 4 * b * h * dh * t)
+    k_l, v_l = kc.transpose(-1, -2), vc.permute(0, 2, 1, 3)
+    rows["decode_self_attention"] = dict(
+        source=PORT_KERNELS + "decode_attention.cu",
+        replaces=TPU_KERNELS + "decode_attention.py:82",
+        max_abs_err=err,
+        ms=time_ms(lambda: K.decode_self_attention(q, kc, vc, t - 1), 100),
+        plain_ms=time_ms(lambda: K.decode_self_attention_plain(
+            q, kc, vc, t - 1), 100),
+        bound_ms=sb, bound_by=sf,
+        library_ms=time_ms(lambda: torch.nn.functional.
+                           scaled_dot_product_attention(q[:, :, None], k_l,
+                                                        v_l), 100))
+
+    # decode cross-attention over int8 K/V ---------------------------------
+    nk = 256
+    q = rn(b, h, dh)
+    qkv = QZ.quantize_kv(rn(b, h, dh, nk), rn(b, nk, h, dh))
+    kt8, v8 = qkv.kt.contiguous(), qkv.v.permute(0, 2, 1, 3).contiguous()
+    ks, vs = qkv.kt_scale.contiguous(), qkv.v_scale.contiguous()
+    err = check_close("decode_cross_attention int8",
+                      K.decode_cross_attention(q, kt8, v8, ks, vs),
+                      K.decode_cross_attention_plain(q, kt8, v8, ks, vs),
+                      1e-3)
+    ktb, vb = rn(b, h, dh, nk), rn(b, h, nk, dh)
+    check_close("decode_cross_attention bf16",
+                K.decode_cross_attention(q, ktb, vb),
+                K.decode_cross_attention_plain(q, ktb, vb), 1e-3)
+    cb, cf = bound_ms(nbytes(q, kt8, v8, ks, vs, out), 4 * b * h * dh * nk)
+    rows["decode_cross_attention"] = dict(
+        source=PORT_KERNELS + "decode_attention.cu",
+        replaces=TPU_KERNELS + "decode_attention.py:137",
+        max_abs_err=err,
+        ms=time_ms(lambda: K.decode_cross_attention(q, kt8, v8, ks, vs), 100),
+        plain_ms=time_ms(lambda: K.decode_cross_attention_plain(
+            q, kt8, v8, ks, vs), 100),
+        bound_ms=cb, bound_by=cf,
+        library_ms=None)  # no PyTorch call takes int8 K/V with scales
+
+    # decode MLP, int8 weights (tolerance: bf16 output of |x + y| < 8) ------
+    dm, f = 768, 3072
+    x = rn(b, dm)
+    lg, lb = 1.0 + rn(dm, scale=0.1, dtype=torch.float32), rn(
+        dm, scale=0.1, dtype=torch.float32)
+    wfc = QZ.quantize_array(rn(dm, f, scale=dm ** -0.5, dtype=torch.float32))
+    wpj = QZ.quantize_array(rn(f, dm, scale=f ** -0.5, dtype=torch.float32))
+    bfc, bpj = rn(f, scale=0.02, dtype=torch.float32), rn(
+        dm, scale=0.02, dtype=torch.float32)
+    margs = (x, lg, lb, wfc.q, wfc.scale, bfc, wpj.q, wpj.scale, bpj)
+    err = check_close("decode_mlp int8", K.decode_mlp(*margs),
+                      K.decode_mlp_plain(*margs), 5e-2)
+    fargs = (x, lg, lb, wfc.dequantize(), torch.ones_like(wfc.scale), bfc,
+             wpj.dequantize(), torch.ones_like(wpj.scale), bpj)
+    check_close("decode_mlp bf16", K.decode_mlp(*fargs),
+                K.decode_mlp_plain(*fargs), 5e-2)
+    mb, mf = bound_ms(nbytes(x, lg, lb, wfc.q, wfc.scale, bfc, wpj.q,
+                             wpj.scale, bpj, x), 4 * b * dm * f)
+    w1, w2 = wfc.dequantize(), wpj.dequantize()
+    xn = x.clone()
+
+    def two_matmuls():
+        hh = torch.nn.functional.gelu(torch.matmul(xn, w1), approximate="tanh")
+        return x + torch.matmul(hh, w2)
+
+    rows["decode_mlp"] = dict(
+        source=PORT_KERNELS + "decode_mlp.cu",
+        replaces=TPU_KERNELS + "decode_attention.py:186",
+        max_abs_err=err,
+        ms=time_ms(lambda: K.decode_mlp(*margs), 100),
+        plain_ms=time_ms(lambda: K.decode_mlp_plain(*margs), 100),
+        bound_ms=mb, bound_by=mf,
+        library_ms=time_ms(two_matmuls, 100))
+    for name, r in rows.items():
+        lib = ("n/a" if r["library_ms"] is None
+               else f"{r['library_ms'] * 1e3:.1f} us")
+        log(f"  {name}: {r['ms'] * 1e3:.1f} us kernel, "
+            f"{r['plain_ms'] * 1e3:.1f} us plain, bound "
+            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), library {lib}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3: perceive at full width
+# ---------------------------------------------------------------------------
+
+def synthetic_frames(n: int, size: int, seed: int, dev) -> torch.Tensor:
+    """Seeded frames: a smooth background with a few flat-coloured boxes
+    and pixel noise (uint8 [n, size, size, 3])."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    yy = torch.linspace(0, 1, size, device=dev)[:, None, None]
+    xx = torch.linspace(0, 1, size, device=dev)[None, :, None]
+    out = []
+    for _ in range(n):
+        c0, c1 = (torch.rand(2, 3, generator=g, device=dev) * 200 + 30)
+        img = c0 * (1 - yy) + c1 * xx
+        for _ in range(6):
+            x0, y0 = (torch.rand(2, generator=g, device=dev) * 0.7 * size
+                      ).long().tolist()
+            w, h = (torch.rand(2, generator=g, device=dev) * 0.25 * size
+                    + size // 10).long().tolist()
+            img[y0:y0 + h, x0:x0 + w] = torch.rand(
+                3, generator=g, device=dev) * 255
+        img = img + torch.randn(img.shape, generator=g, device=dev) * 6
+        out.append(img.clamp(0, 255).to(torch.uint8))
+    return torch.stack(out)
+
+
+class plain_kernels:
+    """Route the model code to the kernels' plain versions (on the card)
+    for the comparison run; restores the kernels on exit."""
+
+    NAMES = ("flash_attention", "decode_self_attention",
+             "decode_cross_attention", "decode_mlp")
+
+    def __init__(self, common, K):
+        self.common, self.K = common, K
+
+    def __enter__(self):
+        for n in self.NAMES:
+            setattr(self.common, n, getattr(self.K, n + "_plain"))
+
+    def __exit__(self, *exc):
+        for n in self.NAMES:
+            setattr(self.common, n, getattr(self.K, n))
+
+
+def center_crops(frames: torch.Tensor, size: int) -> torch.Tensor:
+    """Four quadrant crops per frame, resized to the ViT input (uint8)."""
+    from embodied_captioning_tpu_torch.ops.image import crop_and_resize
+
+    s = frames.shape[1]
+    h = s / 2
+    boxes = torch.tensor([[0, 0, h, h], [h, 0, s, h], [0, h, h, s],
+                          [h, h, s, s]], dtype=torch.float32,
+                         device=frames.device)
+    crops = crop_and_resize(frames.float(),
+                            boxes.expand(frames.shape[0], 4, 4), size)
+    return crops.reshape(-1, size, size, 3).to(torch.uint8)
+
+
+@torch.no_grad()
+def teacher_forced(cp, crops, ccfg, common, K) -> dict:
+    """Greedy-decode `crops` through the kernels, then feed those tokens to
+    the plain path step by step; compare the plain path's argmax and
+    chosen-token log-probs with the kernel path's, and the ViT global
+    embeddings of both. The log-prob difference is returned in bf16 ulps
+    of the largest |logit| of its row."""
+    from embodied_captioning_tpu_torch.models import captioner as CAP
+    from embodied_captioning_tpu_torch.models.common import KVCache
+    from embodied_captioning_tpu_torch.models.vit import encode_image
+
+    tokens, lp_k, lengths = CAP.generate(cp, crops, ccfg)
+    _, g_k = encode_image(cp["vision"], crops, ccfg.vision)
+    t = ccfg.text
+    b, L = tokens.shape
+    with plain_kernels(common, K):
+        pooled, g_p = encode_image(cp["vision"], crops, ccfg.vision)
+        hd = t.width // t.heads
+        tc = [KVCache.create(b, L, t.heads, hd, crops.device)
+              for _ in range(t.layers)]
+        mc = [KVCache.create(b, L, t.heads, hd, crops.device)
+              for _ in range(t.cross_layers)]
+        cross = CAP._cross_kvs(cp, pooled, t.heads)
+        agree = n = 0
+        lp_err = lp_ulps = ulps_sum = 0.0
+        for pos in range(L - 1):
+            live = lengths > pos + 1
+            if not bool(live.any()):
+                break
+            logits, tc, mc = CAP._decode_step(cp, tokens[:, pos].long(), pos,
+                                              cross, tc, mc, ccfg)
+            logits = logits.float()
+            nxt = tokens[:, pos + 1].long()
+            lp = torch.log_softmax(logits, -1).gather(1, nxt[:, None])[:, 0]
+            agree += int((logits.argmax(-1) == nxt)[live].sum())
+            n += int(live.sum())
+            diff = (lp - lp_k[:, pos]).abs()
+            ulp = torch.exp2(torch.floor(torch.log2(
+                logits.abs().amax(-1).clamp(min=1e-30))) - 7)
+            u = (diff / ulp)[live]
+            lp_err = max(lp_err, diff[live].max().item())
+            lp_ulps = max(lp_ulps, u.max().item())
+            ulps_sum += u.sum().item()
+    img_cos = torch.nn.functional.cosine_similarity(g_k, g_p, dim=-1)
+    return dict(agree=agree / max(n, 1), n=n, lp_err=lp_err,
+                lp_ulps=lp_ulps, mean_ulps=ulps_sum / max(n, 1),
+                img_cos=img_cos.min().item())
+
+
+def perceive_full_width(dev) -> dict:
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch.config import (
+        ExperimentConfig, apply_dotlist, merge)
+    from embodied_captioning_tpu_torch.models import common
+    from embodied_captioning_tpu_torch.models.captioner import init_captioner
+    from embodied_captioning_tpu_torch.models.quantize import quantize_params
+    from embodied_captioning_tpu_torch.models.sbert import (
+        init_sentence_encoder)
+    from embodied_captioning_tpu_torch.params import (
+        PerceptionParams, load_detector_artifact)
+    from embodied_captioning_tpu_torch.perception import perceive
+
+    cfg = apply_dotlist(ExperimentConfig.preset_config("large"), [
+        f"runtime.caption_slots_per_frame={SLOTS}",
+        "runtime.caption_invalid_slots=true"])
+    det_params, det_cfg = load_detector_artifact(
+        str(REPO / "embodied_captioning_tpu/models/data/det_serving_256.pkl"),
+        dev)
+    cfg = merge(cfg, {"detector": det_cfg})
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = PerceptionParams(
+        detector=det_params,
+        captioner=quantize_params(init_captioner(g, cfg.captioner, dev)),
+        sbert=quantize_params(init_sentence_encoder(g, cfg.sentence_encoder,
+                                                    dev)))
+    e, s = FRAMES, cfg.sensors.height
+    log(f"  config: detector {det_cfg['block']} {det_cfg['norm']} "
+        f"{det_cfg['image_size']}^2, ViT {cfg.captioner.vision.layers}x"
+        f"{cfg.captioner.vision.width}, decoder {cfg.captioner.text.layers}+"
+        f"{cfg.captioner.text.cross_layers}x{cfg.captioner.text.width}, "
+        f"{e} frames of {s}^2 per batch, {SLOTS} slots per frame")
+    batches = [synthetic_frames(e, s, 100 + i, dev)
+               for i in range(BATCHES + 1)]
+    t0 = time.perf_counter()
+    ref = perceive(params, batches[0], cfg)  # warm-up (cuBLAS/cuDNN plans)
+    torch.cuda.synchronize()
+    log(f"  warm-up batch {time.perf_counter() - t0:.2f} s")
+
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = [perceive(params, x, cfg) for x in batches[1:]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(K.launches)
+    fps = e * BATCHES / dt
+    log(f"  launches in the main-path run: {counts}")
+
+    steps = counts["decode_self_attention"] // 24
+    expect = {"flash_attention": 24 * BATCHES,
+              "decode_self_attention": 24 * steps,
+              "decode_cross_attention": 12 * steps,
+              "decode_mlp": 24 * steps}
+    if (counts != expect or steps < BATCHES
+            or steps > (DECODE_LEN - 1) * BATCHES):
+        raise AssertionError(f"launch counts {counts} != expected {expect} "
+                             f"for {steps} decode steps")
+    n_det = cfg.detector.max_detections
+    for r in results:
+        d = r.detections
+        shapes = {"boxes": (e, n_det, 4), "masks": (e, n_det, 256, 256),
+                  "embeddings": (e, n_det, cfg.sentence_encoder.embed_dim)}
+        for k, shp in shapes.items():
+            if tuple(getattr(d, k).shape) != shp:
+                raise AssertionError(f"{k} shape {getattr(d, k).shape}")
+        if tuple(r.caption_tokens.shape) != (e, n_det, DECODE_LEN):
+            raise AssertionError(f"tokens shape {r.caption_tokens.shape}")
+        for k in ("boxes", "scores", "masks", "embeddings"):
+            if not torch.isfinite(getattr(d, k).float()).all():
+                raise AssertionError(f"non-finite {k}")
+        if not torch.isfinite(r.caption_logprobs).all():
+            raise AssertionError("non-finite log-probs")
+        if int((r.caption_lengths > 0).sum()) != ROWS:
+            raise AssertionError(f"expected {SLOTS} captioned slots per frame")
+    n_valid = sum(int(r.detections.valid.sum()) for r in results)
+
+    # kernel path vs plain path. The random-weight captioner is nearly
+    # uniform over its 49,408 tokens, so free-running greedy decodes part
+    # ways at the first near-tie whatever the source of a last-bit
+    # difference; that agreement is printed. The checks are teacher-forced:
+    # the plain path decodes the kernel path's tokens. Two frame seeds.
+    bad = False
+    for seed, frames, kern in ((100, batches[0], ref),
+                               (101, batches[1], results[0])):
+        with plain_kernels(common, K):
+            plain = perceive(params, frames, cfg)
+        cap = kern.caption_lengths.reshape(-1) > 0
+        free = (kern.caption_tokens.reshape(-1, DECODE_LEN)[cap]
+                == plain.caption_tokens.reshape(-1, DECODE_LEN)[cap]).all(1)
+        crops = center_crops(frames, cfg.captioner.vision.image_size)
+        forced = teacher_forced(params.captioner, crops, cfg.captioner,
+                                common, K)
+        box_diff = (kern.detections.boxes.float()
+                    - plain.detections.boxes.float()).abs().max().item()
+        # sentence embeddings (kept for valid detections only) of the rows
+        # whose free-running tokens agree
+        same = free & kern.detections.valid.reshape(-1)[cap].bool()
+        dim = kern.detections.embeddings.shape[-1]
+        emb_cos = torch.nn.functional.cosine_similarity(
+            kern.detections.embeddings.reshape(-1, dim)[cap][same].float(),
+            plain.detections.embeddings.reshape(-1, dim)[cap][same].float(),
+            dim=-1).min().item() if bool(same.any()) else 1.0
+        log(f"  kernel vs plain path, frame seed {seed}: free-running tokens "
+            f"equal on {free.float().mean().item():.3f} of {int(cap.sum())} "
+            f"rows; sentence-embedding cosine min {emb_cos:.7f} over the "
+            f"{int(same.sum())} valid ones (limit {MIN_EMB_COSINE}); "
+            f"teacher-forced: argmax agrees on {forced['agree']:.4f} "
+            f"of {forced['n']} steps (limit {MIN_ARGMAX_AGREE}), chosen "
+            f"log-prob max diff {forced['lp_err']:.3e} = "
+            f"{forced['lp_ulps']:.3f} bf16 logit ulps, mean "
+            f"{forced['mean_ulps']:.3f} (limit on max "
+            f"{MAX_LOGPROB_ULPS}), ViT embedding cosine min "
+            f"{forced['img_cos']:.7f} (limit {MIN_IMG_COSINE}); det boxes "
+            f"max diff {box_diff:.3e}")
+        bad |= (forced["agree"] < MIN_ARGMAX_AGREE
+                or forced["lp_ulps"] > MAX_LOGPROB_ULPS
+                or forced["img_cos"] <= MIN_IMG_COSINE
+                or emb_cos <= MIN_EMB_COSINE)
+    if bad:
+        raise AssertionError("kernel path and plain path disagree")
+    return dict(fps=fps, seconds=dt, batches=BATCHES, counts=counts,
+                steps=steps, valid_detections=n_valid, params=params,
+                cfg=cfg, frames=batches[1])
+
+
+# ---------------------------------------------------------------------------
+# phase 4: tiny preset, card (kernels) vs CPU (plain versions)
+# ---------------------------------------------------------------------------
+
+def tiny_card_vs_cpu(dev) -> None:
+    from embodied_captioning_tpu_torch.config import ExperimentConfig, merge
+    from embodied_captioning_tpu_torch.models.quantize import quantize_params
+    from embodied_captioning_tpu_torch.params import init_perception
+    from embodied_captioning_tpu_torch.perception import perceive
+
+    cfg = merge(ExperimentConfig.preset_config("tiny"),
+                {"runtime": {"caption_slots_per_frame": 2},
+                 "detector": {"score_threshold": 0.0}})
+    g = torch.Generator().manual_seed(3)
+    p_cpu = quantize_params(init_perception(g, cfg, "cpu"))
+
+    def to_dev(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(dev)
+        if isinstance(x, dict):
+            return {k: to_dev(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [to_dev(v) for v in x]
+        if x is None:
+            return None
+        return type(x)(*(to_dev(v) for v in x))
+
+    frames = synthetic_frames(2, 96, 7, "cpu")
+    r_cpu = perceive(p_cpu, frames, cfg)
+    r_gpu = perceive(to_dev(p_cpu), frames.to(dev), cfg)
+    cap = r_cpu.caption_lengths.reshape(-1) > 0
+    tok = (r_cpu.caption_tokens.reshape(-1, 12)[cap]
+           == r_gpu.caption_tokens.cpu().reshape(-1, 12)[cap]).all(1)
+    box = (r_cpu.detections.boxes.float()
+           - r_gpu.detections.boxes.float().cpu()).abs().max().item()
+    log(f"  tiny preset card vs CPU: tokens equal on {tok.float().mean():.3f}"
+        f" of {int(cap.sum())} rows, boxes max diff {box:.3e}")
+    if tok.float().mean().item() < 0.9:
+        raise AssertionError("tiny preset: card and CPU disagree")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: where one full-width perceive batch spends its time
+# ---------------------------------------------------------------------------
+
+def profile_perceive(res: dict, top: int = 15) -> None:
+    """Device time by kernel over one perceive batch (torch.profiler), the
+    share of the four ported kernels, and the device's idle share of the
+    unprofiled batch time measured in phase 3."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from embodied_captioning_tpu_torch.perception import perceive
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        perceive(res["params"], res["frames"], res["cfg"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in rows)
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time")
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    ours = sum(e.self_device_time_total for e in rows
+               if any(k in e.key for k in ("flash_fwd", "decode_self_kernel",
+                                           "decode_cross_kernel",
+                                           "mlp_kernel")))
+    batch_us = res["seconds"] / res["batches"] * 1e6  # unprofiled
+    log(f"  one batch: device busy {busy / 1e3:.1f} ms; wall "
+        f"{batch_us / 1e3:.1f} ms unprofiled (phase 3), "
+        f"{wall_us / 1e3:.1f} ms under the profiler; idle share "
+        f"{max(0.0, 1 - busy / batch_us):.3f} of the unprofiled batch; "
+        f"ported kernels {ours / 1e3:.1f} ms ({ours / busy:.3f} of device "
+        f"time)")
+    for e in rows[:top]:
+        log(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  "
+            f"{e.key[:90]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        from embodied_captioning_tpu_torch import kernels as K
+        from embodied_captioning_tpu_torch.models import quantize as QZ
+    except ImportError as exc:
+        print(f"chip_smoke: the port package is missing ({exc})",
+              file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}; TF32 off for matmul and cuDNN")
+    dev = torch.device("cuda")
+    try:
+        t0 = time.perf_counter()
+        K.build()
+        log(f"[1] kernels built in {time.perf_counter() - t0:.1f} s")
+        log("[2] kernels vs plain versions at the main path's shapes")
+        rows = kernel_checks(K, QZ, dev)
+        log("[3] perceive at full width")
+        res = perceive_full_width(dev)
+        log(f"perceive: {res['fps']:.2f} frames/s on {smi} "
+            f"({FRAMES} frames x {BATCHES} batches in "
+            f"{res['seconds']:.3f} s, {res['steps']} decode steps, "
+            f"{res['valid_detections']} valid detections)")
+        log("[4] tiny preset: card vs CPU")
+        tiny_card_vs_cpu(dev)
+        log("[5] device time of one full-width perceive batch")
+        profile_perceive(res)
+    except Exception:
+        traceback.print_exc()
+        return 1
+    kernels = [dict(name=n, route="cuda", launches=res["counts"][n], **r)
+               for n, r in rows.items()]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

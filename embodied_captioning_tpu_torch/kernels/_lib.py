@@ -1,0 +1,142 @@
+"""Build and load the port's CUDA kernels; count their launches.
+
+The sources under `csrc/` are compiled with nvcc for sm_90a at first use,
+one nvcc process per source started together, then linked into one shared
+library with a plain C interface, loaded with ctypes. The build directory
+is keyed by a hash of the sources and flags, so an edited source rebuilds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# launches of each kernel by its wrapper, for showing that a run went
+# through the kernels (comparison launches are counted too; callers reset)
+launches: Dict[str, int] = {
+    "flash_attention": 0,
+    "decode_self_attention": 0,
+    "decode_cross_attention": 0,
+    "decode_mlp": 0,
+}
+
+_lib: Optional[ctypes.CDLL] = None
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "ecap_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "ecap_decode_self_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ecap_decode_cross_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _P],
+    "ecap_decode_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                        _I, _F, _I, _P],
+}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    cand = home / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build() -> Path:
+    """Compile the kernels if this source set is not built yet; return the
+    shared library's path. Prints nvcc's register/spill report."""
+    sources = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    out = BUILD / h.hexdigest()[:16] / "libecap_kernels.so"
+    if out.exists():
+        return out
+    nvcc = _nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [Path(tmp) / (s.stem + ".o") for s in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o",
+                                   str(o)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(sources, objs)]
+        failed = []
+        for s, p in zip(sources, procs):
+            log, _ = p.communicate()
+            print(f"[nvcc {s.name}]\n{log}", flush=True)
+            if p.returncode != 0:
+                failed.append(s.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}")
+        lib_tmp = Path(tmp) / out.name
+        subprocess.run([nvcc, *NVCC_FLAGS[:4], "-shared", *map(str, objs),
+                        "-o", str(lib_tmp)], check=True)
+        os.replace(lib_tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def call(name: str, *args) -> None:
+    """Launch `name` on the current stream; raise if CUDA refused it."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(library(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err}")
+
+
+def check(t: torch.Tensor, name: str, dtypes, shape=None) -> None:
+    """Validate a tensor handed to a kernel."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtypes}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def dispatch_device(t: torch.Tensor) -> str:
+    """'cpu' -> the plain version; 'cuda' -> the kernel; anything else
+    raises."""
+    if t.device.type in ("cpu", "cuda"):
+        return t.device.type
+    raise ValueError(f"no kernel or plain version for device {t.device}")

@@ -1,0 +1,57 @@
+// Helpers shared by the hand-written Hopper kernels of the port.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace ecap {
+
+constexpr float kNegInf = -1e30f;  // the JAX kernels' masking value
+
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Block-wide reductions; `scratch` holds >= 32 floats. Every thread of the
+// block must call them; all get the result.
+__device__ __forceinline__ float block_sum(float v, float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  v = warp_sum(v);
+  __syncthreads();
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  float r = lane < nwarps ? scratch[lane] : 0.f;
+  return warp_sum(r);
+}
+__device__ __forceinline__ float block_max(float v, float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  v = warp_max(v);
+  __syncthreads();
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  float r = lane < nwarps ? scratch[lane] : kNegInf;
+  return warp_max(r);
+}
+
+}  // namespace ecap

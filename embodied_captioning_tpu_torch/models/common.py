@@ -1,0 +1,307 @@
+"""Transformer building blocks, in the numerics of the JAX package's
+kernel path (`ECAP_USE_PALLAS=1`).
+
+Products take bf16 operands with float32 accumulation and a float32
+result; the bias is added in float32 and the sum rounded to bf16 once
+(JAX's `preferred_element_type=f32` then `.astype(bf16)`). Parameters are
+plain dicts of tensors in the JAX package's layouts.
+
+The attention paths:
+  - uncached self-attention without a mask: the flash kernel;
+  - one-token cached self-attention: the decode self-attention kernel;
+  - one-token attention over precomputed cross K/V: the decode
+    cross-attention kernel;
+  - everything else (masked, or cross over a feature map): plain tensor
+    ops with bf16 scores and bf16 probabilities, as the JAX fallback path.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import (
+    decode_cross_attention, decode_mlp, decode_self_attention,
+    flash_attention,
+)
+from .quantize import QuantizedArray, QuantizedKV, maybe_dequant, quantize_kv
+
+BERT_LN_EPS = 1e-12  # HF BertConfig.layer_norm_eps
+NEG_INF = -1e30
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [..., M, K] @ b [K, N] or [..., K, N] with float32 accumulation
+    and a float32 result. bf16 products are exact in float32, so on the
+    CPU the operands are widened; on the card cuBLAS multiplies the bf16
+    operands on the tensor cores and writes float32."""
+    if a.device.type == "cpu":
+        return torch.matmul(a.float(), b.float())
+    if b.dim() == 2:
+        lead = a.shape[:-1]
+        y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return y.reshape(*lead, b.shape[-1])
+    lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    a3 = a.expand(*lead, *a.shape[-2:]).reshape(-1, *a.shape[-2:])
+    b3 = b.expand(*lead, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
+    y = torch.bmm(a3, b3, out_dtype=torch.float32)
+    return y.reshape(*lead, *y.shape[-2:])
+
+
+def dense(p: dict, x: torch.Tensor, compute_dtype=torch.bfloat16
+          ) -> torch.Tensor:
+    """x @ w + b in `compute_dtype` with float32 accumulation; int8
+    weights are dequantized in bf16 first."""
+    w = maybe_dequant(p["w"], compute_dtype)
+    if compute_dtype == torch.float32:
+        y = torch.matmul(x.float(), w)
+    else:
+        y = matmul_f32(x.to(compute_dtype), w)
+    return (y + p["b"]).to(compute_dtype)
+
+
+def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5,
+              out_dtype=None) -> torch.Tensor:
+    """LayerNorm over the last axis with float32 statistics. bf16 input:
+    one-pass E[x^2]-E[x]^2 with a relative floor m1^2 * 3e-7 (a
+    near-constant row cannot cancel to 0 and be amplified by 1/sqrt(eps));
+    float32 input: two-pass variance."""
+    out_dtype = out_dtype or x.dtype
+    xf = x.float()
+    m1 = xf.mean(dim=-1, keepdim=True)
+    if x.dtype == torch.bfloat16:
+        var = torch.maximum((xf * xf).mean(dim=-1, keepdim=True) - m1 * m1,
+                            m1 * m1 * 3e-7)
+    else:
+        var = torch.square(xf - m1).mean(dim=-1, keepdim=True)
+    y = (xf - m1) * torch.rsqrt(var + eps) * p["g"] + p["b"]
+    return y.to(out_dtype)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.gelu`'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp(p: dict, x: torch.Tensor, compute_dtype=torch.bfloat16
+        ) -> torch.Tensor:
+    return dense(p["proj"], gelu_tanh(dense(p["fc"], x, compute_dtype)),
+                 compute_dtype)
+
+
+class KVCache(NamedTuple):
+    """Per-layer decode cache: k [B, H, Dh, T_max] (time minor), v
+    [B, T_max, H, Dh]; `index` is the next write position. `mha` writes
+    the new key/value into k and v in place and returns the cache with
+    index + 1."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    index: int
+
+    @staticmethod
+    def create(batch: int, t_max: int, heads: int, head_dim: int,
+               device, dtype=torch.bfloat16) -> "KVCache":
+        return KVCache(
+            k=torch.zeros(batch, heads, head_dim, t_max, dtype=dtype,
+                          device=device),
+            v=torch.zeros(batch, t_max, heads, head_dim, dtype=dtype,
+                          device=device),
+            index=0)
+
+
+def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    b, t, d = x.shape
+    return x.reshape(b, t, heads, d // heads)
+
+
+def precompute_kv(p: dict, kv_src: torch.Tensor, heads: int):
+    """Project cross-attention K/V once per generation: kt [B, H, Dh, K],
+    v head-major [B, H, K, Dh]. With int8 projection weights the K/V are
+    quantized to int8 as well (`QuantizedKV`)."""
+    kt = _split_heads(dense(p["k"], kv_src), heads).permute(0, 2, 3, 1)
+    v = _split_heads(dense(p["v"], kv_src), heads)
+    if isinstance(p["k"]["w"], QuantizedArray):
+        q = quantize_kv(kt, v)
+        return q._replace(kt=q.kt.contiguous(),
+                          v=q.v.permute(0, 2, 1, 3).contiguous())
+    return kt.contiguous(), v.permute(0, 2, 1, 3).contiguous()
+
+
+def _attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """q [B,Tq,H,Dh], k/v [B,Tk,H,Dh] bf16 -> [B,Tq,H*Dh] f32. bf16 scores,
+    float32 max/denominator, bf16 probabilities, normalisation after PV."""
+    dh = q.shape[-1]
+    logits = matmul_f32(q.permute(0, 2, 1, 3), k.permute(0, 2, 3, 1))
+    logits = logits.to(torch.bfloat16).float() / math.sqrt(dh)
+    if mask is not None:
+        logits = torch.where(mask, logits, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    pexp = torch.exp(logits - m).to(torch.bfloat16)
+    denom = pexp.float().sum(dim=-1)  # [B, H, Tq]
+    out = matmul_f32(pexp, v.permute(0, 2, 1, 3))  # [B, H, Tq, Dh]
+    out = out / denom[..., None]
+    b, h, tq, d = out.shape
+    return out.permute(0, 2, 1, 3).reshape(b, tq, h * d)
+
+
+def mha(p: dict, x: torch.Tensor, heads: int,
+        kv: Optional[torch.Tensor] = None,
+        mask: Optional[torch.Tensor] = None,
+        cache: Optional[KVCache] = None,
+        compute_dtype=torch.bfloat16,
+        kv_precomputed=None,
+        ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Multi-head attention. x [B, Tq, D]; kv [B, Tk, Dkv] (cross source,
+    default x); mask broadcastable to [B, H, Tq, Tk] (True = attend);
+    cache: one-token cached decoding; kv_precomputed: (kt, v) or
+    QuantizedKV from `precompute_kv`. Returns (out [B, Tq, D], cache)."""
+    b, tq = x.shape[:2]
+    if kv_precomputed is not None:
+        if cache is not None or mask is not None or tq != 1:
+            raise ValueError("precomputed cross K/V serve one-token "
+                             "unmasked decoding only")
+        q = _split_heads(dense(p["q"], x, compute_dtype), heads)
+        if isinstance(kv_precomputed, QuantizedKV):
+            out = decode_cross_attention(
+                q[:, 0].to(compute_dtype), kv_precomputed.kt,
+                kv_precomputed.v, kv_precomputed.kt_scale,
+                kv_precomputed.v_scale)
+        else:
+            kt, v = kv_precomputed
+            out = decode_cross_attention(q[:, 0].to(compute_dtype), kt, v)
+        out = out.reshape(b, 1, -1).to(compute_dtype)
+        return dense(p["o"], out, compute_dtype), None
+
+    q = _split_heads(dense(p["q"], x, compute_dtype), heads)
+    src = x if kv is None else kv
+    k = _split_heads(dense(p["k"], src, compute_dtype), heads)
+    v = _split_heads(dense(p["v"], src, compute_dtype), heads)
+
+    if cache is not None:
+        if kv is not None or mask is not None or tq != 1:
+            raise ValueError("the cache serves one-token self-attention "
+                             "without an explicit mask")
+        pos = cache.index
+        cache.k[:, :, :, pos] = k[:, 0].to(cache.k.dtype)
+        cache.v[:, pos] = v[:, 0].to(cache.v.dtype)
+        cache = KVCache(cache.k, cache.v, pos + 1)
+        out = decode_self_attention(q[:, 0].to(compute_dtype), cache.k,
+                                    cache.v, pos)
+        out = out.reshape(b, 1, -1).to(compute_dtype)
+        return dense(p["o"], out, compute_dtype), cache
+
+    if kv is None and mask is None:
+        out = flash_attention(
+            q.transpose(1, 2).to(compute_dtype).contiguous(),
+            k.transpose(1, 2).to(compute_dtype).contiguous(),
+            v.transpose(1, 2).to(compute_dtype).contiguous())
+        out = out.transpose(1, 2).reshape(b, tq, -1)
+        return dense(p["o"], out, compute_dtype), None
+
+    out = _attention_plain(q.to(compute_dtype), k.to(compute_dtype),
+                           v.to(compute_dtype), mask)
+    return dense(p["o"], out.to(compute_dtype), compute_dtype), None
+
+
+def block(p: dict, x: torch.Tensor, heads: int,
+          mask: Optional[torch.Tensor] = None,
+          cache: Optional[KVCache] = None, compute_dtype=torch.bfloat16,
+          cross_kv=None,
+          ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Pre-LN transformer block with an optional cross-attention sublayer
+    over precomputed K/V. One-token cached decoding runs the MLP sublayer
+    (LN + fc + GELU + proj + residual) as the fused decode-MLP kernel."""
+    if "attn" in p:
+        h, cache = mha(p["attn"], layernorm(p["ln1"], x), heads, mask=mask,
+                       cache=cache, compute_dtype=compute_dtype)
+        x = x + h
+    if cross_kv is not None and "xattn" in p:
+        h, _ = mha(p["xattn"], layernorm(p["ln_x"], x), heads,
+                   compute_dtype=compute_dtype, kv_precomputed=cross_kv)
+        x = x + h
+    if (cache is not None and x.shape[1] == 1
+            and compute_dtype == torch.bfloat16
+            and x.dtype == torch.bfloat16):
+        return _decode_mlp_block(p["mlp"], p["ln2"], x), cache
+    return x + mlp(p["mlp"], layernorm(p["ln2"], x), compute_dtype), cache
+
+
+def _kernel_weight(w) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int8 or bf16 weight, float32 per-output-channel scale)."""
+    if isinstance(w, QuantizedArray):
+        return w.q, w.scale.float()
+    return w.to(torch.bfloat16), torch.ones(w.shape[-1], dtype=torch.float32,
+                                            device=w.device)
+
+
+def _decode_mlp_block(p_mlp: dict, p_ln: dict, x: torch.Tensor
+                      ) -> torch.Tensor:
+    wfc, sfc = _kernel_weight(p_mlp["fc"]["w"])
+    wpj, spj = _kernel_weight(p_mlp["proj"]["w"])
+    out = decode_mlp(x[:, 0].contiguous(), p_ln["g"], p_ln["b"],
+                     wfc, sfc, p_mlp["fc"]["b"], wpj, spj,
+                     p_mlp["proj"]["b"])
+    return out[:, None]
+
+
+def block_post_ln(p: dict, x: torch.Tensor, heads: int,
+                  mask: Optional[torch.Tensor] = None,
+                  compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Post-LN (BERT/MiniLM) block: x = LN1(x + attn(x));
+    x = LN2(x + mlp(x)) with exact (erf) GELU and BERT's eps."""
+    h, _ = mha(p["attn"], x, heads, mask=mask, compute_dtype=compute_dtype)
+    x = layernorm(p["ln1"], x + h, eps=BERT_LN_EPS)
+    h = dense(p["mlp"]["proj"],
+              F.gelu(dense(p["mlp"]["fc"], x, compute_dtype)),
+              compute_dtype)
+    return layernorm(p["ln2"], x + h, eps=BERT_LN_EPS)
+
+
+# ---------------------------------------------------------------------------
+# initialisation (shapes and scales of the JAX package's init functions)
+# ---------------------------------------------------------------------------
+
+def randn(g: torch.Generator, shape, device, scale: float = 1.0
+          ) -> torch.Tensor:
+    t = torch.randn(*shape, generator=g, dtype=torch.float32,
+                    device=g.device)
+    return (t * scale).to(device)
+
+
+def dense_init(g, d_in: int, d_out: int, device,
+               scale: Optional[float] = None) -> dict:
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return {"w": randn(g, (d_in, d_out), device, scale),
+            "b": torch.zeros(d_out, device=device)}
+
+
+def layernorm_init(dim: int, device) -> dict:
+    return {"g": torch.ones(dim, device=device),
+            "b": torch.zeros(dim, device=device)}
+
+
+def mha_init(g, dim: int, kv_dim: Optional[int], device) -> dict:
+    kv_dim = kv_dim or dim
+    return {"q": dense_init(g, dim, dim, device),
+            "k": dense_init(g, kv_dim, dim, device),
+            "v": dense_init(g, kv_dim, dim, device),
+            "o": dense_init(g, dim, dim, device, scale=1.0 / math.sqrt(dim))}
+
+
+def block_init(g, dim: int, mlp_ratio: float, device,
+               cross_dim: Optional[int] = None) -> dict:
+    hidden = int(dim * mlp_ratio)
+    p = {"ln1": layernorm_init(dim, device),
+         "attn": mha_init(g, dim, None, device),
+         "ln2": layernorm_init(dim, device),
+         "mlp": {"fc": dense_init(g, dim, hidden, device),
+                 "proj": dense_init(g, hidden, dim, device)}}
+    if cross_dim is not None:
+        p["ln_x"] = layernorm_init(dim, device)
+        p["xattn"] = mha_init(g, dim, cross_dim, device)
+    return p

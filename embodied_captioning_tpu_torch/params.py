@@ -1,0 +1,126 @@
+"""Weight bridge: JAX parameter trees and the detector artifact -> tensors.
+
+Layouts are kept as the JAX package has them (dense kernels [in, out],
+int8 `QuantizedArray(q, scale)` with per-output-channel scales), with one
+exception: 4-D convolution kernels named "w" arrive HWIO and are stored
+OIHW, the layout `torch.nn.functional.conv2d` takes. For an int8 conv
+kernel the scale stays per output channel, now axis 0.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import pickle
+from typing import Any, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from .config import DetectorConfig, ExperimentConfig
+from .models.quantize import QuantizedArray
+
+
+class PerceptionParams(NamedTuple):
+    detector: dict
+    captioner: dict
+    sbert: dict
+
+
+def _tensor(arr: Any, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def _hwio_to_oihw(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(3, 2, 0, 1).contiguous()
+
+
+def _is_quantized(node: Any) -> bool:
+    # the JAX QuantizedArray, the artifact's stand-in, or the port's own
+    return getattr(node, "_fields", None) == ("q", "scale")
+
+
+def from_jax(tree: Any, device="cuda") -> Any:
+    """Convert a JAX parameter tree (nested dicts/lists/NamedTuples of
+    arrays, with `QuantizedArray` leaves) into the port's tensors on
+    `device`. Array leaves may be numpy or anything `np.asarray` takes."""
+
+    def walk(node: Any, name: str) -> Any:
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if _is_quantized(node):
+            q = _tensor(node.q, device)
+            if name == "w" and q.dim() == 4:
+                q = _hwio_to_oihw(q)
+            return QuantizedArray(q, _tensor(node.scale, device))
+        if hasattr(node, "_fields"):
+            fields = node._fields
+            vals = [walk(getattr(node, f), "") for f in fields]
+            if fields == PerceptionParams._fields:
+                return PerceptionParams(*vals)
+            return tuple(vals)
+        if isinstance(node, (list, tuple)):
+            return [walk(v, "") for v in node]
+        t = _tensor(node, device)
+        if name == "w" and t.dim() == 4:
+            t = _hwio_to_oihw(t)
+        return t
+
+    return walk(tree, "")
+
+
+class _ArtifactUnpickler(pickle.Unpickler):
+    """Resolves only numpy's array reconstruction and the JAX package's
+    `QuantizedArray` (mapped to a plain (q, scale) tuple), so the artifact
+    loads without JAX and cannot name any other class."""
+
+    def find_class(self, module: str, name: str):
+        if (module == "embodied_captioning_tpu.models.quantize"
+                and name == "QuantizedArray"):
+            return _PickledQuantized
+        if module == "numpy" or module.startswith("numpy."):
+            # the artifact was pickled under numpy 2 (numpy._core); numpy 1
+            # names that module numpy.core
+            if module.startswith("numpy._core") and not hasattr(np, "_core"):
+                module = "numpy.core" + module[len("numpy._core"):]
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"detector artifact names a class outside numpy: {module}.{name}")
+
+
+class _PickledQuantized(NamedTuple):
+    q: Any
+    scale: Any
+
+
+def load_detector_artifact(path: str, device="cuda"
+                           ) -> Tuple[dict, dict]:
+    """Read a serving artifact (`det_serving_256.pkl`): returns (served
+    detector params on `device`, serving config as a dict of the port's
+    `DetectorConfig` fields). Query-family settings are dropped; the
+    port's proposal top-k is always exact."""
+    with open(path, "rb") as fh:
+        artifact = _ArtifactUnpickler(fh).load()
+    cfg = dict(artifact["serving_cfg"])
+    if cfg.get("family", "rcnn") != "rcnn" or cfg.get("stem_s2d", False):
+        raise ValueError("the port serves the rcnn family with the direct "
+                         "stem only")
+    known = {f.name for f in dataclasses.fields(DetectorConfig)}
+    cfg = {k: v for k, v in cfg.items() if k in known}
+    return from_jax(artifact["served"], device), cfg
+
+
+def init_perception(generator: torch.Generator, cfg: ExperimentConfig,
+                    device="cuda") -> PerceptionParams:
+    """Random weights with the shapes and init scales of the JAX `init_*`
+    functions, drawn from `generator` (numbers differ from jax.random)."""
+    from .models.captioner import init_captioner
+    from .models.detector import init_detector
+    from .models.sbert import init_sentence_encoder
+
+    return PerceptionParams(
+        detector=init_detector(generator, cfg.detector, device),
+        captioner=init_captioner(generator, cfg.captioner, device),
+        sbert=init_sentence_encoder(generator, cfg.sentence_encoder, device),
+    )

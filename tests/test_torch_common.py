@@ -1,0 +1,150 @@
+"""The port's transformer building blocks against the JAX package's, with
+the JAX kernel path on (ECAP_USE_PALLAS=1, Pallas in interpret mode)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from embodied_captioning_tpu.models import common as JC
+from embodied_captioning_tpu.models.quantize import quantize_params as jqp
+from embodied_captioning_tpu_torch.models import common as TC
+from embodied_captioning_tpu_torch.params import from_jax
+from torch_parity import jax_kernel_path, np32, t
+
+D, H = 64, 2
+
+
+def _block_params(seed: int, cross: bool, int8: bool):
+    p = JC.block_init(jax.random.PRNGKey(seed), D, H, 4.0,
+                      cross_dim=D if cross else None)
+    return jqp(p, min_size=0) if int8 else p
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_layernorm_with_near_constant_row(dtype):
+    # bf16: one-pass variance with the m1^2*3e-7 floor (row 0 is constant
+    # and engages it); f32: two-pass. Tolerance: one ulp of the out dtype.
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((4, 3, D)) * 3 + 1
+    x[0, 0] = 100.0
+    jx = jnp.asarray(x, dtype)
+    p = {"g": jnp.asarray(1 + 0.1 * rng.standard_normal(D), jnp.float32),
+         "b": jnp.asarray(0.1 * rng.standard_normal(D), jnp.float32)}
+    ref = JC.layernorm(p, jx)
+    out = TC.layernorm(from_jax(p, "cpu"), t(jx))
+    assert out.dtype == t(jx).dtype
+    tol = 2 ** -7 * 8 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(np32(out), np32(ref), atol=tol, rtol=0)
+    assert np.all(np.isfinite(np32(out)))
+
+
+def test_dense_int8_weights():
+    # bf16 output, f32 accumulation over bf16-dequantized int8 weights;
+    # tolerance one bf16 ulp at |y| < 4
+    rng = np.random.default_rng(1)
+    p = jqp({"w": jnp.asarray(rng.standard_normal((D, 128)) / 8, jnp.float32),
+             "b": jnp.asarray(rng.standard_normal(128) * .1, jnp.float32)})
+    x = jnp.asarray(rng.standard_normal((5, D)), jnp.float32)
+    ref = JC.dense(p, x)
+    out = TC.dense(from_jax(p, "cpu"), t(x))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(np32(out), np32(ref), atol=2 ** -6, rtol=0)
+
+
+def test_mha_uncached_through_flash():
+    rng = np.random.default_rng(2)
+    p = JC.mha_init(jax.random.PRNGKey(0), D, H)
+    x = jnp.asarray(rng.standard_normal((2, 70, D)), jnp.bfloat16)
+    with jax_kernel_path():
+        ref, _ = JC.mha(p, x, H)
+    out, _ = TC.mha(from_jax(p, "cpu"), t(x), H)
+    # bf16 [2,70,64] through q/k/v/o products and attention: 2 ulps at 1
+    np.testing.assert_allclose(np32(out), np32(ref), atol=2 ** -6, rtol=0)
+
+
+def test_mha_masked_and_cross_plain_attention():
+    # masked self-attention (the sentence encoder's) and cross-attention
+    # over a feature map (the attentional pooler's) take the plain path
+    rng = np.random.default_rng(3)
+    p = JC.mha_init(jax.random.PRNGKey(1), D, H)
+    x = jnp.asarray(rng.standard_normal((2, 9, D)), jnp.float32)
+    kv = jnp.asarray(rng.standard_normal((2, 13, D)), jnp.bfloat16)
+    mask = jnp.asarray(rng.random((2, 1, 1, 9)) > 0.3).at[:, :, :, 0].set(
+        True)
+    tp = from_jax(p, "cpu")
+    with jax_kernel_path():
+        ref_m, _ = JC.mha(p, x, H, mask=mask)
+        ref_c, _ = JC.mha(p, x, H, kv=kv)
+    out_m, _ = TC.mha(tp, t(x), H, mask=t(mask))
+    out_c, _ = TC.mha(tp, t(x), H, kv=t(kv))
+    np.testing.assert_allclose(np32(out_m), np32(ref_m), atol=2 ** -6, rtol=0)
+    np.testing.assert_allclose(np32(out_c), np32(ref_c), atol=2 ** -6, rtol=0)
+
+
+def test_mha_cached_mid_cache():
+    rng = np.random.default_rng(4)
+    b, tmax, pos = 3, 10, 4
+    p = JC.mha_init(jax.random.PRNGKey(2), D, H)
+    k0 = jnp.asarray(rng.standard_normal((b, H, D // H, tmax)), jnp.bfloat16)
+    v0 = jnp.asarray(rng.standard_normal((b, tmax, H, D // H)), jnp.bfloat16)
+    x = jnp.asarray(rng.standard_normal((b, 1, D)), jnp.bfloat16)
+    with jax_kernel_path():
+        ref, rc = JC.mha(p, x, H, cache=JC.KVCache(k0, v0, jnp.int32(pos)))
+    tcache = TC.KVCache(t(k0), t(v0), pos)
+    out, oc = TC.mha(from_jax(p, "cpu"), t(x), H, cache=tcache)
+    assert oc.index == int(rc.index) == pos + 1
+    np.testing.assert_array_equal(np32(oc.k), np32(rc.k))
+    np.testing.assert_array_equal(np32(oc.v), np32(rc.v))
+    np.testing.assert_allclose(np32(out), np32(ref), atol=2 ** -6, rtol=0)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_precompute_kv_layouts(int8):
+    rng = np.random.default_rng(5)
+    p = _block_params(3, cross=True, int8=int8)["xattn"]
+    src = jnp.asarray(rng.standard_normal((2, 11, D)), jnp.bfloat16)
+    with jax_kernel_path():
+        ref = JC.precompute_kv(p, src, H)
+    out = TC.precompute_kv(from_jax(p, "cpu"), t(src), H)
+    assert len(out) == len(ref)  # (kt, v) or (kt, kt_scale, v, v_scale)
+    for a, b in zip(out, ref):
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_allclose(np32(a), np32(b), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_block_decode_step(int8):
+    # one cached decode step through a multimodal block: self-attention
+    # kernel, cross-attention kernel over precomputed K/V, fused decode MLP
+    rng = np.random.default_rng(6)
+    b, tmax, pos = 3, 8, 2
+    p = _block_params(4, cross=True, int8=int8)
+    img = jnp.asarray(rng.standard_normal((b, 11, D)), jnp.bfloat16)
+    k0 = jnp.asarray(rng.standard_normal((b, H, D // H, tmax)), jnp.bfloat16)
+    v0 = jnp.asarray(rng.standard_normal((b, tmax, H, D // H)), jnp.bfloat16)
+    x = jnp.asarray(rng.standard_normal((b, 1, D)), jnp.bfloat16)
+    with jax_kernel_path():
+        ckv = JC.precompute_kv(p["xattn"], img, H)
+        ref, rc = JC.block(p, x, H, cache=JC.KVCache(k0, v0, jnp.int32(pos)),
+                           cross_kv=ckv)
+    tp = from_jax(p, "cpu")
+    out, oc = TC.block(tp, t(x), H, cache=TC.KVCache(t(k0), t(v0), pos),
+                       cross_kv=TC.precompute_kv(tp["xattn"], t(img), H))
+    assert out.dtype == torch.bfloat16 and oc.index == pos + 1
+    np.testing.assert_allclose(np32(oc.k), np32(rc.k), atol=2 ** -6, rtol=0)
+    # residual stream |x| < 8: two bf16 ulps there
+    np.testing.assert_allclose(np32(out), np32(ref), atol=2 ** -4, rtol=0)
+
+
+def test_block_post_ln_with_mask():
+    rng = np.random.default_rng(7)
+    p = _block_params(5, cross=False, int8=False)
+    x = jnp.asarray(rng.standard_normal((2, 9, D)), jnp.float32)
+    mask = jnp.ones((2, 1, 1, 9), bool).at[1, :, :, 6:].set(False)
+    with jax_kernel_path():
+        ref = JC.block_post_ln(p, x, H, mask=mask)
+    out = TC.block_post_ln(from_jax(p, "cpu"), t(x), H, mask=t(mask))
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(np32(out), np32(ref), atol=2e-2, rtol=0)

@@ -1,0 +1,26 @@
+"""The port imports neither JAX nor the JAX package (AST scan)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+FILES = sorted((REPO / "embodied_captioning_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "embodied_captioning_tpu")
+
+
+def _imported(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_imports(path):
+    bad = [m for m in _imported(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
