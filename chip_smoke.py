@@ -1,31 +1,46 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's perception path on one NVIDIA GPU.
+"""Run the PyTorch/CUDA port's perception path and fused exploration loop
+on one NVIDIA GPU.
 
 Phases, each of which must pass:
   1. build the hand-written Hopper kernels from the sources in the checkout;
   2. hold every kernel against its plain PyTorch version on the card at
-     the shapes the main path gives it: max error, kernel / plain / library
-     time, and the least time the card could take (bound);
+     the shapes the main paths give it: max error, kernel / plain / library
+     time, and the least time the card could take (bound). The raycast
+     kernel must equal its plain version bit for bit (16 envs x 1280^2
+     rays x 96 boxes, and adversarial inputs); LayerNorm is checked in
+     both statistics modes at the ViT, decoder and sentence-encoder shapes;
   3. drive `perceive` at full width -- the serving configuration of
      bench.py: the large preset (ViT-L/14 at 224^2, 768-wide 12+12-layer
      decoder, 49,408-token vocabulary, post-LN MiniLM-class sentence
      encoder), the committed R50/FPN detector artifact, int8 weights and
-     int8 cross K/V, 4 caption slots per frame, 1280^2 frames -- on seeded
-     synthetic frames with random captioner weights from a seeded
-     generator; count each kernel's launches in that run, check the outputs
-     are finite and well shaped, and compare with the plain versions: the
-     ViT embeddings, the sentence embeddings of the rows whose free-running
-     tokens agree, and a teacher-forced decode (the plain path fed the
-     kernel path's tokens: per-step argmax and chosen-token log-probs);
-  4. run the tiny preset through the kernels on the card and through the
+     int8 cross K/V, 4 caption slots per frame, 1280^2 frames -- on frames
+     rendered by the port's simulator (16 seeded 96-box scenes) with random
+     captioner weights from a seeded generator; count each kernel's
+     launches in that run, check the outputs are finite and well shaped,
+     and compare with the plain versions: the ViT embeddings, the sentence
+     embeddings of the rows whose free-running tokens agree, and a
+     teacher-forced decode (the plain path fed the kernel path's tokens:
+     per-step argmax and chosen-token log-probs);
+  4. drive the exploration loop at full width: the render through the
+     raycast kernel against the render through its plain version (equal
+     depth, instances, classes and rgb); one window of
+     `rollout_perception`; one warm-up and two timed windows of
+     `rollout_fused` (step -> render -> perceive -> voxel-map fusion ->
+     disagreement reward; 16 envs, 256 x 64 x 256 voxel grids) with the
+     launch counts of all kernels, the per-step time split and peak device
+     memory; then the map fusion and reward on the card against the same
+     functions on the CPU, fed the same detections;
+  5. run the tiny preset through the kernels on the card and through the
      plain versions on the CPU (the path the CPU tests hold to the JAX
      package) and compare;
-  5. profile one full-width batch: device time by kernel, the ported
-     kernels' share, the device's idle share.
+  6. profile one full-width perceive batch and one rollout_fused step:
+     device time by kernel, the ported kernels' share, the device's idle
+     share.
 
 Float32 products and convolutions run without TF32 so the comparisons see
-the kernels' own error. Prints the card's name and power limit, a frames/s
-line, one JSON line of kernel results, and last
+the kernels' own error. Prints the card's name and power limit, frames/s
+lines, one JSON line of kernel results, and last
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when a
 phase fails or no CUDA device is present.
 
@@ -46,6 +61,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
+FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 REPO = Path(__file__).resolve().parent
 TPU_KERNELS = "embodied_captioning_tpu/ops/pallas/"
 PORT_KERNELS = "embodied_captioning_tpu_torch/kernels/csrc/"
@@ -54,6 +70,11 @@ SLOTS = 4                      # caption slots per frame
 ROWS = FRAMES * SLOTS          # crops / decode rows per batch
 BATCHES = 2                    # timed perceive batches
 DECODE_LEN = 30                # large preset's max caption tokens
+LOOP_STEPS = 2                 # K: env steps per rollout window
+LOOP_WINDOWS = 2               # timed rollout_fused windows after a warm-up
+# FP32 operations of the slab test per ray and box: 6 multiplies, 10 min/max,
+# 3 compares, the clamp, and 4 selects/compares of the running minimum
+RAYCAST_OPS = 24
 # Kernel path vs plain path (see perceive_full_width). Readings on an H100
 # at 64 rows, frame seeds 100 and 101: argmax agreement 0.9720 and 0.9709
 # of 1856 steps; log-prob max 2.001 and 2.029 ulps; ViT cosine min
@@ -86,8 +107,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float):
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOP_PER_S):
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -150,6 +171,24 @@ def kernel_checks(K, QZ, dev) -> dict:
         bound_ms=fb, bound_by=ff,
         library_ms=time_ms(lambda: torch.nn.functional.
                            scaled_dot_product_attention(qt, kt_, vt)))
+
+    # the same kernel at T = 640, where the TPU package switches to its
+    # blocked kernel (not reached at ViT-L, T = 257): timed for the record
+    t6 = 640
+    q6, k6, v6 = rn(b, h, t6, d), rn(b, h, t6, d), rn(b, h, t6, d)
+    err6 = check_close(f"flash_attention [{b},{h},{t6},{d}]",
+                       K.flash_attention(q6, k6, v6),
+                       K.flash_attention_plain(q6, k6, v6), 2e-2)
+    fb6, ff6 = bound_ms(4 * nbytes(q6), 4 * b * h * t6 * t6 * d)
+    rows["flash_attention"]["cases"] = [dict(
+        shape=[b, h, t6, d], replaces=TPU_KERNELS + "flash_attention.py:166",
+        max_abs_err=err6,
+        ms=time_ms(lambda: K.flash_attention(q6, k6, v6), 5, 1),
+        plain_ms=time_ms(lambda: K.flash_attention_plain(q6, k6, v6), 3, 1),
+        bound_ms=fb6, bound_by=ff6,
+        library_ms=time_ms(lambda: torch.nn.functional.
+                           scaled_dot_product_attention(q6, k6, v6)))]
+    del q6, k6, v6
 
     # decode self-attention (f32 out; tolerance covers summation order) ----
     b, h, dh, t = ROWS, 12, 64, DECODE_LEN
@@ -234,12 +273,138 @@ def kernel_checks(K, QZ, dev) -> dict:
         plain_ms=time_ms(lambda: K.decode_mlp_plain(*margs), 100),
         bound_ms=mb, bound_by=mf,
         library_ms=time_ms(two_matmuls, 100))
+    log_rows(rows)
+    return rows
+
+
+def log_rows(rows: dict) -> None:
     for name, r in rows.items():
-        lib = ("n/a" if r["library_ms"] is None
-               else f"{r['library_ms'] * 1e3:.1f} us")
-        log(f"  {name}: {r['ms'] * 1e3:.1f} us kernel, "
-            f"{r['plain_ms'] * 1e3:.1f} us plain, bound "
-            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), library {lib}")
+        for c in [r] + r.get("cases", []):
+            lib = ("n/a" if c["library_ms"] is None
+                   else f"{c['library_ms'] * 1e3:.1f} us")
+            what = f"{name} {c['case']}" if "case" in c else (
+                f"{name} {c['shape']}" if "shape" in c else name)
+            log(f"  {what}: {c['ms'] * 1e3:.1f} us kernel, "
+                f"{c['plain_ms'] * 1e3:.1f} us plain, bound "
+                f"{c['bound_ms'] * 1e3:.2f} us ({c['bound_by']}), "
+                f"library {lib}")
+
+
+def loop_kernel_checks(K, dev, scenes, poses, cfg) -> dict:
+    """The exploration loop's kernels against their plain versions: the
+    raycast at the render's shape (FRAMES envs x 1280^2 rays x 96 boxes,
+    exactly equal) and on adversarial inputs; LayerNorm in both modes at
+    the ViT [ROWS, 257, 1024] bf16, decoder [ROWS, 768] bf16 and
+    sentence-encoder [ROWS, 64, 384] f32 shapes."""
+    import numpy as np
+
+    from embodied_captioning_tpu_torch.envs.sim import ray_directions
+
+    rows = {}
+    sn = cfg.sensors
+
+    # raycast ---------------------------------------------------------------
+    def equal(name, got, want):
+        for part, g, w in zip(("t_best", "best"), got, want):
+            if not torch.equal(g, w):
+                bad = int((g != w).sum())
+                raise AssertionError(f"{name}: {part} differs from the plain "
+                                     f"version on {bad} of {g.numel()} rays")
+        log(f"  {name}: t_best and best equal the plain version bit for bit "
+            f"({got[0].numel()} rays, {int(torch.isinf(got[0]).sum())} miss)")
+
+    # adversarial: all-miss rays, an invalid box, a duplicate box (ties go
+    # to the first index), zero ray components (clamped reciprocals)
+    rng = np.random.default_rng(0)
+    nb, h, w = 7, 16, 128
+    box_min = rng.uniform(-4, 4, (nb, 3)).astype(np.float32)
+    box_max = (box_min + rng.uniform(0.2, 2.0, (nb, 3))).astype(np.float32)
+    box_min[3], box_max[3] = box_min[2], box_max[2]
+    valid = np.ones((nb,), bool)
+    valid[5] = False
+    dirs = rng.standard_normal((h, w, 3)).astype(np.float32)
+    dirs[0, :, :] = np.array([0.0, 0.0, 1.0])
+    dirs[1, :, :] = np.array([0.0, 1.0, 0.0])
+    inv_np = (1.0 / np.where(np.abs(dirs) < 1e-8,
+                             np.where(dirs >= 0, 1e-8, -1e-8), dirs)
+              ).astype(np.float32)
+    adv = [torch.from_numpy(x)[None].to(dev)
+           for x in (box_min, box_max, valid, inv_np)]
+    got, want = K.raycast_minargmin(*adv), K.raycast_minargmin_plain(*adv)
+    equal("raycast_minargmin adversarial", got, want)
+    hit = torch.isfinite(got[0])
+    if bool(hit.all()) or bool((got[1][hit] == 5).any()) or bool(
+            (got[1][hit] == 3).any()) or bool((got[1][~hit] != 0).any()):
+        raise AssertionError("raycast_minargmin: adversarial semantics")
+    none = [adv[0], adv[1], torch.zeros_like(adv[2]), adv[3]]
+    equal("raycast_minargmin no valid box", K.raycast_minargmin(*none),
+          K.raycast_minargmin_plain(*none))
+
+    origin, _, inv = ray_directions(poses, sn.height, sn.width, sn.hfov_deg)
+    a_min = scenes.box_min - origin[:, None, :]
+    a_max = scenes.box_max - origin[:, None, :]
+    e, nb = a_min.shape[:2]
+    got = K.raycast_minargmin(a_min, a_max, scenes.valid, inv)
+    equal(f"raycast_minargmin [{e},{sn.height},{sn.width}] x {nb} boxes",
+          got, K.raycast_minargmin_plain(a_min, a_max, scenes.valid, inv))
+    rays = e * sn.height * sn.width
+    rb, rf = bound_ms(nbytes(a_min, a_max, inv, *got) + e * nb,
+                      RAYCAST_OPS * rays * nb, FP32_FLOP_PER_S)
+    rows["raycast_minargmin"] = dict(
+        source=PORT_KERNELS + "raycast.cu",
+        replaces=TPU_KERNELS + "raycast.py:106",
+        max_abs_err=0.0,
+        ms=time_ms(lambda: K.raycast_minargmin(a_min, a_max, scenes.valid,
+                                               inv)),
+        plain_ms=time_ms(lambda: K.raycast_minargmin_plain(
+            a_min, a_max, scenes.valid, inv), 2, 1),
+        bound_ms=rb, bound_by=rf,
+        library_ms=None)  # no one PyTorch call computes it
+    del inv, got
+
+    # layernorm ---------------------------------------------------------------
+    g = torch.Generator(device=dev).manual_seed(2)
+    cases = []
+    for case, shape, dtype, main_two_pass in (
+            ("vit", (ROWS, 257, 1024), torch.bfloat16, False),
+            ("decoder", (ROWS, 768), torch.bfloat16, False),
+            ("sentence_encoder", (ROWS, 64, 384), torch.float32, True)):
+        d = shape[-1]
+        x = (torch.randn(*shape, generator=g, device=dev) * 1.5 + 0.3
+             ).to(dtype)
+        lg = 1.0 + 0.1 * torch.randn(d, generator=g, device=dev)
+        lb = 0.1 * torch.randn(d, generator=g, device=dev)
+        for two_pass in (main_two_pass, not main_two_pass):
+            want = K.layernorm_plain(x, lg, lb, 1e-5, None, two_pass)
+            # bf16 output: one bf16 ulp of the largest |y|; f32 output:
+            # 1e-5 (sums in another order, rsqrt within 2 ulps)
+            tol = (2.0 ** (math.floor(math.log2(
+                want.float().abs().max().item())) - 7)
+                   if dtype == torch.bfloat16 else 1e-5)
+            mode = "two-pass" if two_pass else "one-pass"
+            err = check_close(f"layernorm {case} {list(shape)} {mode}",
+                              K.layernorm(x, lg, lb, 1e-5, None, two_pass),
+                              want, tol)
+            if two_pass != main_two_pass:
+                continue
+            wg, wb = lg.to(dtype), lb.to(dtype)
+            lnb, lnf = bound_ms(2 * nbytes(x) + nbytes(lg, lb),
+                                8 * x.numel(), FP32_FLOP_PER_S)
+            cases.append(dict(
+                case=f"{case} {mode}", shape=list(shape),
+                replaces=TPU_KERNELS + ("layernorm.py:50" if len(shape) == 2
+                                        else "layernorm.py:85"),
+                max_abs_err=err,
+                ms=time_ms(lambda: K.layernorm(x, lg, lb), 100),
+                plain_ms=time_ms(lambda: K.layernorm_plain(x, lg, lb), 20),
+                bound_ms=lnb, bound_by=lnf,
+                library_ms=time_ms(lambda: torch.nn.functional.layer_norm(
+                    x, (d,), wg, wb, 1e-5), 100)))
+    # the row is the ViT case (most of the LayerNorm device time); the
+    # decoder and sentence-encoder cases ride along
+    rows["layernorm"] = dict(source=PORT_KERNELS + "layernorm.cu", **cases[0],
+                             cases=cases[1:])
+    log_rows(rows)
     return rows
 
 
@@ -270,22 +435,29 @@ def synthetic_frames(n: int, size: int, seed: int, dev) -> torch.Tensor:
 
 
 class plain_kernels:
-    """Route the model code to the kernels' plain versions (on the card)
-    for the comparison run; restores the kernels on exit."""
+    """Route the model code and the simulator to the kernels' plain
+    versions (on the card) for a comparison run; restores the kernels on
+    exit."""
 
-    NAMES = ("flash_attention", "decode_self_attention",
-             "decode_cross_attention", "decode_mlp")
+    def __init__(self, K):
+        from embodied_captioning_tpu_torch.envs import sim
+        from embodied_captioning_tpu_torch.models import common
 
-    def __init__(self, common, K):
-        self.common, self.K = common, K
+        # (module, attribute the module calls, kernel name)
+        self.routes = [(common, n, n) for n in (
+            "flash_attention", "decode_self_attention",
+            "decode_cross_attention", "decode_mlp")] + [
+            (common, "layernorm_kernel", "layernorm"),
+            (sim, "raycast_minargmin", "raycast_minargmin")]
+        self.K = K
 
     def __enter__(self):
-        for n in self.NAMES:
-            setattr(self.common, n, getattr(self.K, n + "_plain"))
+        for mod, attr, name in self.routes:
+            setattr(mod, attr, getattr(self.K, name + "_plain"))
 
     def __exit__(self, *exc):
-        for n in self.NAMES:
-            setattr(self.common, n, getattr(self.K, n))
+        for mod, attr, name in self.routes:
+            setattr(mod, attr, getattr(self.K, name))
 
 
 def center_crops(frames: torch.Tensor, size: int) -> torch.Tensor:
@@ -303,7 +475,7 @@ def center_crops(frames: torch.Tensor, size: int) -> torch.Tensor:
 
 
 @torch.no_grad()
-def teacher_forced(cp, crops, ccfg, common, K) -> dict:
+def teacher_forced(cp, crops, ccfg, K) -> dict:
     """Greedy-decode `crops` through the kernels, then feed those tokens to
     the plain path step by step; compare the plain path's argmax and
     chosen-token log-probs with the kernel path's, and the ViT global
@@ -317,7 +489,7 @@ def teacher_forced(cp, crops, ccfg, common, K) -> dict:
     _, g_k = encode_image(cp["vision"], crops, ccfg.vision)
     t = ccfg.text
     b, L = tokens.shape
-    with plain_kernels(common, K):
+    with plain_kernels(K):
         pooled, g_p = encode_image(cp["vision"], crops, ccfg.vision)
         hd = t.width // t.heads
         tc = [KVCache.create(b, L, t.heads, hd, crops.device)
@@ -351,22 +523,25 @@ def teacher_forced(cp, crops, ccfg, common, K) -> dict:
                 img_cos=img_cos.min().item())
 
 
-def perceive_full_width(dev) -> dict:
-    from embodied_captioning_tpu_torch import kernels as K
+def full_width_setup(dev) -> dict:
+    """The serving configuration, its weights, the FRAMES seeded scenes
+    (seeds 100.., as bench.py's loop mode) with their spawned agents, and
+    BATCHES + 1 batches of frames rendered along the "explore" plan."""
     from embodied_captioning_tpu_torch.config import (
         ExperimentConfig, apply_dotlist, merge)
-    from embodied_captioning_tpu_torch.models import common
+    from embodied_captioning_tpu_torch.envs import device_loop as DL
+    from embodied_captioning_tpu_torch.envs.sim import RaycastSim
     from embodied_captioning_tpu_torch.models.captioner import init_captioner
     from embodied_captioning_tpu_torch.models.quantize import quantize_params
     from embodied_captioning_tpu_torch.models.sbert import (
         init_sentence_encoder)
     from embodied_captioning_tpu_torch.params import (
         PerceptionParams, load_detector_artifact)
-    from embodied_captioning_tpu_torch.perception import perceive
 
     cfg = apply_dotlist(ExperimentConfig.preset_config("large"), [
         f"runtime.caption_slots_per_frame={SLOTS}",
-        "runtime.caption_invalid_slots=true"])
+        "runtime.caption_invalid_slots=true",
+        f"runtime.num_envs={FRAMES}"])
     det_params, det_cfg = load_detector_artifact(
         str(REPO / "embodied_captioning_tpu/models/data/det_serving_256.pkl"),
         dev)
@@ -377,14 +552,32 @@ def perceive_full_width(dev) -> dict:
         captioner=quantize_params(init_captioner(g, cfg.captioner, dev)),
         sbert=quantize_params(init_sentence_encoder(g, cfg.sentence_encoder,
                                                     dev)))
-    e, s = FRAMES, cfg.sensors.height
+    sims = [RaycastSim(cfg.sim, cfg.sensors, seed=100 + i, device=dev)
+            for i in range(FRAMES)]
+    scenes, state = DL.states_from_sims(sims)
+    plan = torch.from_numpy(DL.make_action_plan(BATCHES + 1, FRAMES)).to(dev)
+    batches, st = [], state
+    for acts in plan:
+        st = DL.step_agents(scenes, st, acts, cfg.sim)
+        batches.append(
+            DL._render_scan(scenes, DL.camera_poses(st), cfg)["rgb"])
     log(f"  config: detector {det_cfg['block']} {det_cfg['norm']} "
         f"{det_cfg['image_size']}^2, ViT {cfg.captioner.vision.layers}x"
         f"{cfg.captioner.vision.width}, decoder {cfg.captioner.text.layers}+"
         f"{cfg.captioner.text.cross_layers}x{cfg.captioner.text.width}, "
-        f"{e} frames of {s}^2 per batch, {SLOTS} slots per frame")
-    batches = [synthetic_frames(e, s, 100 + i, dev)
-               for i in range(BATCHES + 1)]
+        f"{FRAMES} envs of {cfg.sim.max_boxes}-box scenes, frames of "
+        f"{cfg.sensors.height}^2, {SLOTS} slots per frame, voxel grid "
+        f"{cfg.map.grid} at {cfg.map.voxel_size} m")
+    return dict(cfg=cfg, params=params, scenes=scenes, state=state,
+                batches=batches)
+
+
+def perceive_full_width(setup: dict) -> dict:
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch.perception import perceive
+
+    cfg, params, batches = setup["cfg"], setup["params"], setup["batches"]
+    e = FRAMES
     t0 = time.perf_counter()
     ref = perceive(params, batches[0], cfg)  # warm-up (cuBLAS/cuDNN plans)
     torch.cuda.synchronize()
@@ -401,10 +594,18 @@ def perceive_full_width(dev) -> dict:
     log(f"  launches in the main-path run: {counts}")
 
     steps = counts["decode_self_attention"] // 24
+    # LayerNorm: at least the ViT's ln_pre and 2 x 24 block norms per
+    # batch; the decoder and the sentence encoder add theirs
     expect = {"flash_attention": 24 * BATCHES,
               "decode_self_attention": 24 * steps,
               "decode_cross_attention": 12 * steps,
-              "decode_mlp": 24 * steps}
+              "decode_mlp": 24 * steps,
+              "raycast_minargmin": 0}
+    n_ln = counts.pop("layernorm")
+    if n_ln < 49 * BATCHES + steps:
+        raise AssertionError(f"{n_ln} LayerNorm launches in {BATCHES} "
+                             f"batches and {steps} decode steps")
+    counts_all = dict(counts, layernorm=n_ln)
     if (counts != expect or steps < BATCHES
             or steps > (DECODE_LEN - 1) * BATCHES):
         raise AssertionError(f"launch counts {counts} != expected {expect} "
@@ -436,14 +637,13 @@ def perceive_full_width(dev) -> dict:
     bad = False
     for seed, frames, kern in ((100, batches[0], ref),
                                (101, batches[1], results[0])):
-        with plain_kernels(common, K):
+        with plain_kernels(K):
             plain = perceive(params, frames, cfg)
         cap = kern.caption_lengths.reshape(-1) > 0
         free = (kern.caption_tokens.reshape(-1, DECODE_LEN)[cap]
                 == plain.caption_tokens.reshape(-1, DECODE_LEN)[cap]).all(1)
         crops = center_crops(frames, cfg.captioner.vision.image_size)
-        forced = teacher_forced(params.captioner, crops, cfg.captioner,
-                                common, K)
+        forced = teacher_forced(params.captioner, crops, cfg.captioner, K)
         box_diff = (kern.detections.boxes.float()
                     - plain.detections.boxes.float()).abs().max().item()
         # sentence embeddings (kept for valid detections only) of the rows
@@ -472,13 +672,175 @@ def perceive_full_width(dev) -> dict:
                 or emb_cos <= MIN_EMB_COSINE)
     if bad:
         raise AssertionError("kernel path and plain path disagree")
-    return dict(fps=fps, seconds=dt, batches=BATCHES, counts=counts,
+    return dict(fps=fps, seconds=dt, batches=BATCHES, counts=counts_all,
                 steps=steps, valid_detections=n_valid, params=params,
                 cfg=cfg, frames=batches[1])
 
 
 # ---------------------------------------------------------------------------
-# phase 4: tiny preset, card (kernels) vs CPU (plain versions)
+# phase 4: the fused exploration loop at full width
+# ---------------------------------------------------------------------------
+
+def render_kernel_vs_plain(setup: dict) -> None:
+    """The render through the raycast kernel against the render through
+    its plain version, same scenes and poses: everything after visibility
+    is the same tensor code, so the outputs must be equal."""
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch.envs import device_loop as DL
+
+    cfg, scenes, e = setup["cfg"], setup["scenes"], FRAMES
+    poses = DL.camera_poses(setup["state"])
+    out_k = DL._render_scan(scenes, poses, cfg)
+    with plain_kernels(K):
+        out_p = DL._render_scan(scenes, poses, cfg)
+    for k in ("depth", "instances", "classes", "rgb"):
+        if not torch.equal(out_k[k], out_p[k]):
+            raise AssertionError(
+                f"render: {k} differs between the kernel path and the plain "
+                f"path on {int((out_k[k] != out_p[k]).sum())} elements")
+    hit = out_k["depth"] < cfg.sensors.max_depth
+    log(f"  render kernel path == plain path (depth, instances, classes, "
+        f"rgb of {e} x {cfg.sensors.height}^2); "
+        f"{hit.float().mean().item():.3f} of the rays hit within "
+        f"{cfg.sensors.max_depth} m, "
+        f"{(out_k['instances'] >= 0).float().mean().item():.3f} hit an object")
+
+
+def rollouts_full_width(setup: dict, smi: str) -> dict:
+    """One window of rollout_perception, then a warm-up and LOOP_WINDOWS
+    timed windows of rollout_fused along the "explore" plan."""
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch.envs import device_loop as DL
+    from embodied_captioning_tpu_torch.mapping import voxel_map as V
+
+    cfg, params = setup["cfg"], setup["params"]
+    scenes, state0 = setup["scenes"], setup["state"]
+    dev = state0.x.device
+    e = FRAMES
+    plan = DL.make_action_plan(LOOP_STEPS, e, "explore")
+
+    # rollout_perception: one window
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, cs, n_valid = DL.rollout_perception(params, scenes, state0, plan, cfg)
+    cs = float(cs)
+    dt = time.perf_counter() - t0
+    if not math.isfinite(cs) or K.launches["raycast_minargmin"] != LOOP_STEPS:
+        raise AssertionError(f"rollout_perception: checksum {cs}, launches "
+                             f"{dict(K.launches)}")
+    log(f"rollout_perception: {e * LOOP_STEPS / dt:.2f} frames/s on {smi} "
+        f"({e} envs x {LOOP_STEPS} steps in {dt:.3f} s, {int(n_valid)} valid "
+        f"detections, checksum {cs:.1f})")
+
+    # rollout_fused: one warm-up window, then the timed windows
+    maps = V.create(cfg.map, scenes.lower, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    state, maps, rew, _ = DL.rollout_fused(params, scenes, state0, maps, plan,
+                                           cfg)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    split: dict = {}
+    rewards, collided = [rew], []
+    t0 = time.perf_counter()
+    for _ in range(LOOP_WINDOWS):
+        state, maps, rew, col = DL.rollout_fused(params, scenes, state, maps,
+                                                 plan, cfg, timings=split)
+        rewards.append(rew)
+        collided.append(col)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(K.launches)
+    peak = torch.cuda.max_memory_allocated()
+    steps = LOOP_STEPS * LOOP_WINDOWS
+    rewards = torch.cat(rewards).cpu()
+    moved = ((state.x - state0.x).abs() + (state.z - state0.z).abs()) > 1e-3
+    log(f"  launches in the rollout_fused windows: {counts}")
+    log(f"  rewards per step (rows) and env (columns), warm-up window first:")
+    for row in rewards:
+        log("    " + " ".join(f"{v:.5f}" for v in row.tolist()))
+    log(f"  {int(moved.sum())} of {e} agents moved; "
+        f"{int(torch.cat(collided).sum())} blocked forward moves; objects per "
+        f"map {maps.num_objects.tolist()}")
+    per = {k: v / steps * 1e3 for k, v in split.items()}
+    log(f"rollout_fused: {e * steps / dt:.2f} frames/s on {smi} ({e} envs x "
+        f"{steps} steps in {dt:.3f} s); ms per step: step+render "
+        f"{per['step_render']:.1f}, perceive {per['perceive']:.1f}, "
+        f"fuse+reward {per['fuse_reward']:.1f}; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    if not torch.isfinite(rewards).all():
+        raise AssertionError("non-finite rewards")
+    if not bool((rewards[-1] > 1e-4).any()):
+        raise AssertionError("no env has a reward above 1e-4 (float32 noise "
+                             "is about 1e-7) by the last step")
+    if not bool(moved.any()):
+        raise AssertionError("no agent moved")
+    if counts["raycast_minargmin"] != steps or any(
+            v <= 0 for v in counts.values()):
+        raise AssertionError(f"rollout_fused launch counts {counts}")
+
+    def one_step():
+        DL.rollout_fused(params, scenes, state, maps, plan[:1], cfg)
+
+    return dict(counts=counts, fps=e * steps / dt, per_step_ms=per,
+                peak_bytes=peak, one_step=one_step)
+
+
+def fuse_card_vs_cpu(setup: dict) -> None:
+    """Map fusion and reward on the card against the same functions on
+    the CPU, fed the same depth, poses, detections and embeddings (three
+    frames along the "explore" plan): rewards within rtol 1e-4, atol 1e-6.
+    The
+    rewards of two free-running loops are not compared: with random
+    captioner weights their greedy captions part ways."""
+    from embodied_captioning_tpu_torch.envs import device_loop as DL
+    from embodied_captioning_tpu_torch.mapping import voxel_map as V
+    from embodied_captioning_tpu_torch.perception import perceive
+
+    cfg, params = setup["cfg"], setup["params"]
+    scenes, state0 = setup["scenes"], setup["state"]
+    dev = state0.x.device
+    e = FRAMES
+    m_gpu = V.create(cfg.map, scenes.lower, device=dev)
+    m_cpu = V.create(cfg.map, scenes.lower.cpu(), device="cpu")
+    st = state0
+    worst = 0.0
+    for k, acts in enumerate(DL.make_action_plan(3, e, "explore")):
+        st = DL.step_agents(scenes, st, torch.from_numpy(acts).to(dev),
+                            cfg.sim)
+        poses = DL.camera_poses(st)
+        obs = DL._render_scan(scenes, poses, cfg)
+        det = perceive(params, obs["rgb"], cfg).detections
+        stride = cfg.sensors.height // det.masks.shape[-1]
+        depth = obs["depth"][:, ::stride, ::stride].contiguous()
+        args = (depth, poses, det.masks, det.classes, det.logits,
+                det.embeddings, det.valid)
+        kw = dict(hfov_deg=cfg.sensors.hfov_deg,
+                  min_depth=cfg.sensors.min_depth,
+                  max_depth=cfg.sensors.max_depth)
+        m_gpu = V.integrate_frame(m_gpu, *args, cfg.map, **kw)
+        m_cpu = V.integrate_frame(m_cpu, *(a.cpu() for a in args), cfg.map,
+                                  **kw)
+        r_gpu = V.disagreement_reward(m_gpu, cfg.map, cfg.ppo.reward_scale)
+        r_cpu = V.disagreement_reward(m_cpu, cfg.map, cfg.ppo.reward_scale)
+        diff = (r_gpu.cpu() - r_cpu).abs()
+        big = r_cpu > 1e-4
+        rel = (diff / r_cpu.clamp(min=1e-12))[big]
+        worst = max(worst, rel.max().item() if rel.numel() else 0.0)
+        log(f"  fuse+reward card vs CPU, frame {k}: CPU rewards "
+            + " ".join(f"{v:.2e}" for v in r_cpu.tolist()))
+        log(f"    max abs diff {diff.max().item():.3e} (atol 1e-6: an object "
+            f"whose views carry one caption has a disagreement of float32 "
+            f"noise), max rel diff where the reward > 1e-4 {worst:.3e} "
+            f"(rtol 1e-4)")
+        if not torch.allclose(r_gpu.cpu(), r_cpu, rtol=1e-4, atol=1e-6):
+            raise AssertionError("fuse+reward: card and CPU disagree")
+    if not bool((r_cpu > 1e-4).any()):
+        raise AssertionError("fuse+reward check saw no reward above 1e-4")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: tiny preset, card (kernels) vs CPU (plain versions)
 # ---------------------------------------------------------------------------
 
 def tiny_card_vs_cpu(dev) -> None:
@@ -519,22 +881,20 @@ def tiny_card_vs_cpu(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: where one full-width perceive batch spends its time
+# phase 6: where one full-width perceive batch spends its time
 # ---------------------------------------------------------------------------
 
-def profile_perceive(res: dict, top: int = 15) -> None:
-    """Device time by kernel over one perceive batch (torch.profiler), the
-    share of the four ported kernels, and the device's idle share of the
-    unprofiled batch time measured in phase 3."""
+def profile_run(what: str, fn, unprofiled_us: float, top: int = 15) -> None:
+    """Device time by kernel over one call of `fn` (torch.profiler), the
+    share of the ported kernels, and the device's idle share of the
+    unprofiled time of the same work measured in an earlier phase."""
     from torch.profiler import ProfilerActivity, profile
-
-    from embodied_captioning_tpu_torch.perception import perceive
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        perceive(res["params"], res["frames"], res["cfg"])
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = [e for e in prof.key_averages()
@@ -546,12 +906,12 @@ def profile_perceive(res: dict, top: int = 15) -> None:
     ours = sum(e.self_device_time_total for e in rows
                if any(k in e.key for k in ("flash_fwd", "decode_self_kernel",
                                            "decode_cross_kernel",
-                                           "mlp_kernel")))
-    batch_us = res["seconds"] / res["batches"] * 1e6  # unprofiled
-    log(f"  one batch: device busy {busy / 1e3:.1f} ms; wall "
-        f"{batch_us / 1e3:.1f} ms unprofiled (phase 3), "
+                                           "mlp_kernel", "layernorm_kernel",
+                                           "raycast_kernel")))
+    log(f"  {what}: device busy {busy / 1e3:.1f} ms; wall "
+        f"{unprofiled_us / 1e3:.1f} ms unprofiled, "
         f"{wall_us / 1e3:.1f} ms under the profiler; idle share "
-        f"{max(0.0, 1 - busy / batch_us):.3f} of the unprofiled batch; "
+        f"{max(0.0, 1 - busy / unprofiled_us):.3f} of the unprofiled time; "
         f"ported kernels {ours / 1e3:.1f} ms ({ours / busy:.3f} of device "
         f"time)")
     for e in rows[:top]:
@@ -584,22 +944,42 @@ def main() -> int:
         t0 = time.perf_counter()
         K.build()
         log(f"[1] kernels built in {time.perf_counter() - t0:.1f} s")
-        log("[2] kernels vs plain versions at the main path's shapes")
+        log("[2] kernels vs plain versions at the main paths' shapes")
+        setup = full_width_setup(dev)
         rows = kernel_checks(K, QZ, dev)
+        from embodied_captioning_tpu_torch.envs.device_loop import (
+            camera_poses)
+        rows.update(loop_kernel_checks(K, dev, setup["scenes"],
+                                       camera_poses(setup["state"]),
+                                       setup["cfg"]))
         log("[3] perceive at full width")
-        res = perceive_full_width(dev)
+        res = perceive_full_width(setup)
         log(f"perceive: {res['fps']:.2f} frames/s on {smi} "
             f"({FRAMES} frames x {BATCHES} batches in "
             f"{res['seconds']:.3f} s, {res['steps']} decode steps, "
             f"{res['valid_detections']} valid detections)")
-        log("[4] tiny preset: card vs CPU")
+        log("[4] the exploration loop at full width")
+        render_kernel_vs_plain(setup)
+        loop = rollouts_full_width(setup, smi)
+        fuse_card_vs_cpu(setup)
+        log("[5] tiny preset: card vs CPU")
         tiny_card_vs_cpu(dev)
-        log("[5] device time of one full-width perceive batch")
-        profile_perceive(res)
+        log("[6] device time of one full-width perceive batch and of one "
+            "rollout_fused step")
+        from embodied_captioning_tpu_torch.perception import perceive
+        profile_run("one perceive batch",
+                    lambda: perceive(res["params"], res["frames"],
+                                     res["cfg"]),
+                    res["seconds"] / res["batches"] * 1e6)
+        profile_run("one rollout_fused step", loop["one_step"],
+                    sum(loop["per_step_ms"].values()) * 1e3)
     except Exception:
         traceback.print_exc()
         return 1
-    kernels = [dict(name=n, route="cuda", launches=res["counts"][n], **r)
+    # launches: over the timed rollout_fused windows (the loop runs every
+    # kernel); launches_perceive: over the timed perceive batches of phase 3
+    kernels = [dict(name=n, route="cuda", launches=loop["counts"][n],
+                    launches_perceive=res["counts"].get(n, 0), **r)
                for n, r in rows.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
-"""Configuration dataclasses for the perception slice.
+"""Configuration dataclasses for the perception and exploration-loop slices.
 
 A copy of the fields of the JAX package's configuration tree that the
-perception path reads (detector, captioner, sentence encoder, sensors,
-runtime), with the same presets and the same `merge` / `apply_dotlist`
-overlay rules, so one overlay dict configures both packages alike.
+ported paths read (detector, captioner, sentence encoder, sensors,
+simulator, voxel map, reward scale, runtime), with the same presets and
+the same `merge` / `apply_dotlist` overlay rules, so one overlay dict
+configures both packages alike.
 """
 
 from __future__ import annotations
@@ -23,6 +24,24 @@ CLIP_VOCAB_SIZE = 49408  # open_clip CLIP BPE vocabulary size
 class SensorConfig:
     height: int = 256
     width: int = 256
+    hfov_deg: float = 79.0
+    min_depth: float = 0.5
+    max_depth: float = 15.0
+
+
+@dataclass(frozen=True)
+class SimConfig:
+    """Built-in raycast simulator."""
+
+    scene_seed: int = 0
+    scene_size: float = 12.0  # square room extent in meters
+    num_objects: int = 12
+    max_boxes: int = 96  # static capacity of the scene's AABB set
+    forward_step: float = 0.25
+    turn_angle_deg: float = 10.0
+    num_distractors: int = 0  # non-target clutter objects (class -1)
+    interior_walls: int = 2   # occluding wall segments
+    tex_boost: float = 0.0    # added texture contrast
 
 
 @dataclass(frozen=True)
@@ -152,7 +171,33 @@ class DetectorConfig:
 
 
 @dataclass(frozen=True)
+class MapConfig:
+    """3D semantic voxel map."""
+
+    voxel_size: float = 0.05
+    grid: Tuple[int, int, int] = (256, 64, 256)  # X (x), Y (height), Z
+    max_objects: int = 128
+    max_views_per_object: int = 16  # caption-embedding capacity per object
+    embed_dim: int = 384
+    num_classes: int = NUM_CLASSES
+    solution: str = "max"  # seal | bayesian | ours | avg | max
+    # obstacle height band in world-y meters
+    height_thresh: Tuple[float, float] = (0.10, 0.25)
+
+    @staticmethod
+    def tiny() -> "MapConfig":
+        return MapConfig(grid=(64, 16, 64), max_objects=32,
+                         max_views_per_object=8)
+
+
+@dataclass(frozen=True)
+class PPOConfig:
+    reward_scale: float = 1e-3  # disagreement sum / 1000
+
+
+@dataclass(frozen=True)
 class RuntimeConfig:
+    num_envs: int = 4
     # caption only the top-k scored detection slots of each frame (0 = all)
     caption_slots_per_frame: int = 0
     # decode padded (invalid) slots too, so decode work does not depend on
@@ -164,10 +209,13 @@ class RuntimeConfig:
 class ExperimentConfig:
     preset: str = "tiny"
     sensors: SensorConfig = field(default_factory=SensorConfig)
+    sim: SimConfig = field(default_factory=SimConfig)
     captioner: CaptionerConfig = field(default_factory=CaptionerConfig.tiny)
     sentence_encoder: SentenceEncoderConfig = field(
         default_factory=SentenceEncoderConfig.tiny)
     detector: DetectorConfig = field(default_factory=DetectorConfig.tiny)
+    map: MapConfig = field(default_factory=MapConfig.tiny)
+    ppo: PPOConfig = field(default_factory=PPOConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
 
     @staticmethod
@@ -185,6 +233,7 @@ class ExperimentConfig:
                           else DetectorConfig.large()),
                 sensors=(SensorConfig() if name == "base"
                          else SensorConfig(height=1280, width=1280)),
+                map=MapConfig(),
             )
         raise ValueError(f"unknown preset {name!r}")
 

@@ -8,6 +8,8 @@ from .decode_attention import (
     decode_mlp_plain, decode_self_attention, decode_self_attention_plain,
 )
 from .flash_attention import flash_attention, flash_attention_plain
+from .layernorm import layernorm, layernorm_plain
+from .raycast import raycast_minargmin, raycast_minargmin_plain
 
 __all__ = [
     "build", "launches", "reset_launches",
@@ -15,4 +17,6 @@ __all__ = [
     "decode_self_attention", "decode_self_attention_plain",
     "decode_cross_attention", "decode_cross_attention_plain",
     "decode_mlp", "decode_mlp_plain",
+    "layernorm", "layernorm_plain",
+    "raycast_minargmin", "raycast_minargmin_plain",
 ]

@@ -31,6 +31,8 @@ launches: Dict[str, int] = {
     "decode_self_attention": 0,
     "decode_cross_attention": 0,
     "decode_mlp": 0,
+    "raycast_minargmin": 0,
+    "layernorm": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -44,6 +46,8 @@ _SIGNATURES = {
                                     _I, _P],
     "ecap_decode_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                         _I, _F, _I, _P],
+    "ecap_raycast_minargmin": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ecap_layernorm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
 }
 
 
@@ -119,7 +123,8 @@ def call(name: str, *args) -> None:
         raise RuntimeError(f"{name} failed: CUDA error {err}")
 
 
-def check(t: torch.Tensor, name: str, dtypes, shape=None) -> None:
+def check(t: torch.Tensor, name: str, dtypes, shape=None,
+          align: int = 16) -> None:
     """Validate a tensor handed to a kernel."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor")
@@ -130,8 +135,8 @@ def check(t: torch.Tensor, name: str, dtypes, shape=None) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def dispatch_device(t: torch.Tensor) -> str:

@@ -6,6 +6,8 @@ result; the bias is added in float32 and the sum rounded to bf16 once
 (JAX's `preferred_element_type=f32` then `.astype(bf16)`). Parameters are
 plain dicts of tensors in the JAX package's layouts.
 
+Every LayerNorm runs through the LayerNorm kernel (`layernorm`).
+
 The attention paths:
   - uncached self-attention without a mask: the flash kernel;
   - one-token cached self-attention: the decode self-attention kernel;
@@ -27,6 +29,7 @@ from ..kernels import (
     decode_cross_attention, decode_mlp, decode_self_attention,
     flash_attention,
 )
+from ..kernels import layernorm as layernorm_kernel
 from .quantize import QuantizedArray, QuantizedKV, maybe_dequant, quantize_kv
 
 BERT_LN_EPS = 1e-12  # HF BertConfig.layer_norm_eps
@@ -65,20 +68,11 @@ def dense(p: dict, x: torch.Tensor, compute_dtype=torch.bfloat16
 
 def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5,
               out_dtype=None) -> torch.Tensor:
-    """LayerNorm over the last axis with float32 statistics. bf16 input:
-    one-pass E[x^2]-E[x]^2 with a relative floor m1^2 * 3e-7 (a
-    near-constant row cannot cancel to 0 and be amplified by 1/sqrt(eps));
-    float32 input: two-pass variance."""
-    out_dtype = out_dtype or x.dtype
-    xf = x.float()
-    m1 = xf.mean(dim=-1, keepdim=True)
-    if x.dtype == torch.bfloat16:
-        var = torch.maximum((xf * xf).mean(dim=-1, keepdim=True) - m1 * m1,
-                            m1 * m1 * 3e-7)
-    else:
-        var = torch.square(xf - m1).mean(dim=-1, keepdim=True)
-    y = (xf - m1) * torch.rsqrt(var + eps) * p["g"] + p["b"]
-    return y.to(out_dtype)
+    """LayerNorm over the last axis with float32 statistics, through the
+    LayerNorm kernel in the mode the JAX package's default path uses for
+    the input's dtype: one-pass with a relative floor for bf16 input,
+    two-pass for float32 input."""
+    return layernorm_kernel(x, p["g"], p["b"], eps, out_dtype)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:

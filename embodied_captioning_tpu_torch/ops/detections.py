@@ -25,6 +25,8 @@ class Detections:
     valid: torch.Tensor
     masks: Optional[torch.Tensor] = None
     embeddings: Optional[torch.Tensor] = None
+    object_ids: Optional[torch.Tensor] = None   # [..., N] int32, -1 = none
+    episode_ids: Optional[torch.Tensor] = None  # [..., N] int32
 
     @property
     def capacity(self) -> int:
@@ -32,6 +34,26 @@ class Detections:
 
     def replace(self, **kw) -> "Detections":
         return dataclasses.replace(self, **kw)
+
+
+def boxes_from_masks(masks: torch.Tensor, valid: torch.Tensor
+                     ) -> torch.Tensor:
+    """XYXY float32 boxes from [N, H, W] {0,1} masks: per-mask row and
+    column extents; zeros for empty or invalid masks."""
+    n, h, w = masks.shape
+    on = masks > 0.5
+    cols = on.any(dim=1)  # [N, W]
+    rows = on.any(dim=2)  # [N, H]
+    xs = torch.arange(w, device=masks.device)[None, :]
+    ys = torch.arange(h, device=masks.device)[None, :]
+    big = 1 << 30
+    x1 = torch.where(cols, xs, big).amin(dim=1)
+    x2 = torch.where(cols, xs, -1).amax(dim=1) + 1
+    y1 = torch.where(rows, ys, big).amin(dim=1)
+    y2 = torch.where(rows, ys, -1).amax(dim=1) + 1
+    boxes = torch.stack([x1, y1, x2, y2], dim=-1).float()
+    any_on = on.any(dim=2).any(dim=1) & valid
+    return torch.where(any_on[:, None], boxes, 0.0)
 
 
 def pairwise_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor

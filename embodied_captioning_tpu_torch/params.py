@@ -94,6 +94,34 @@ class _PickledQuantized(NamedTuple):
     scale: Any
 
 
+def _struct_from_jax(cls, obj: Any, device):
+    """A NamedTuple of arrays -> the port's NamedTuple `cls` of tensors,
+    field by field, dtypes kept (bool, int32, float32)."""
+    return cls(*(_tensor(getattr(obj, f), device) for f in cls._fields))
+
+
+def scene_from_jax(scene: Any, device="cuda"):
+    """A JAX `Scene` (single or batched), handed over as numpy or JAX
+    arrays -> the port's `Scene`."""
+    from .envs.sim import Scene
+
+    return _struct_from_jax(Scene, scene, device)
+
+
+def loop_state_from_jax(state: Any, device="cuda"):
+    """A JAX `LoopState` -> the port's."""
+    from .envs.device_loop import LoopState
+
+    return _struct_from_jax(LoopState, state, device)
+
+
+def map_state_from_jax(state: Any, device="cuda"):
+    """A JAX `VoxelMapState` (single or [E]-batched) -> the port's."""
+    from .mapping.voxel_map import VoxelMapState
+
+    return _struct_from_jax(VoxelMapState, state, device)
+
+
 def load_detector_artifact(path: str, device="cuda"
                            ) -> Tuple[dict, dict]:
     """Read a serving artifact (`det_serving_256.pkl`): returns (served

@@ -24,3 +24,17 @@ def test_no_jax_imports(path):
     bad = [m for m in _imported(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_scan_covers_every_subpackage_and_the_smoke_script():
+    scanned = {str(p.relative_to(REPO)) for p in FILES}
+    pkg = "embodied_captioning_tpu_torch/"
+    for rel in ("envs/sim.py", "envs/device_loop.py", "mapping/voxel_map.py",
+                "mapping/consensus.py", "ops/geometry.py", "ops/cosine.py",
+                "kernels/raycast.py", "kernels/layernorm.py",
+                "sensor_data.py", "perception.py"):
+        assert pkg + rel in scanned, rel
+    assert "chip_smoke.py" in scanned
+    # every directory of the package that holds Python files is scanned
+    dirs = {p.parent for p in (REPO / pkg).rglob("*.py")}
+    assert all(any(f.parent == d for f in FILES) for d in dirs)

@@ -119,3 +119,157 @@ def test_wrappers_take_the_plain_version_on_cpu_only():
     assert K.launches == before  # no kernel launched on the CPU
     with pytest.raises(ValueError, match="no kernel or plain version"):
         K.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# raycast and LayerNorm (the exploration-loop slice)
+# ---------------------------------------------------------------------------
+
+def _xla_raycast(box_min, box_max, valid, inv):
+    """The XLA spelling of the visibility pass in the JAX package's
+    envs/sim.render (numpy, float32): slab test, min and argmin."""
+    t0 = box_min[None, None] * inv[:, :, None, :]
+    t1 = box_max[None, None] * inv[:, :, None, :]
+    t_near = np.max(np.minimum(t0, t1), axis=-1)
+    t_far = np.min(np.maximum(t0, t1), axis=-1)
+    hit = (t_near <= t_far) & (t_far > 1e-4) & valid[None, None]
+    t_hit = np.where(hit, np.maximum(t_near, 1e-4), np.inf)
+    return np.min(t_hit, axis=-1), np.argmin(t_hit, axis=-1)
+
+
+def _adversarial_rays():
+    """All-miss rays, an invalid box, a duplicate box (ties go to the
+    first index) and zero ray components (clamped reciprocals)."""
+    rng = np.random.default_rng(0)
+    nb, h, w = 7, 16, 128
+    box_min = rng.uniform(-4, 4, (nb, 3)).astype(np.float32)
+    box_max = (box_min + rng.uniform(0.2, 2.0, (nb, 3))).astype(np.float32)
+    box_min[3], box_max[3] = box_min[2], box_max[2]
+    valid = np.ones((nb,), bool)
+    valid[5] = False
+    dirs = rng.standard_normal((h, w, 3)).astype(np.float32)
+    dirs[0, :, :] = np.array([0.0, 0.0, 1.0])
+    dirs[1, :, :] = np.array([0.0, 1.0, 0.0])
+    inv = (1.0 / np.where(np.abs(dirs) < 1e-8,
+                          np.where(dirs >= 0, 1e-8, -1e-8), dirs)
+           ).astype(np.float32)
+    return box_min, box_max, valid, inv
+
+
+def _scene_rays():
+    """A generated scene seen from its spawned agent, as the render builds
+    the kernel's inputs (boxes translated by -origin)."""
+    from embodied_captioning_tpu_torch.config import SensorConfig, SimConfig
+    from embodied_captioning_tpu_torch.envs.sim import (
+        RaycastSim, ray_directions)
+
+    sim = RaycastSim(SimConfig(), SensorConfig(), seed=3, device="cpu")
+    pose = torch.from_numpy(sim.agent.camera_matrix()).float()[None]
+    origin, _, inv = ray_directions(pose, 48, 64, 79.0)
+    s = sim.scene
+    return ((s.box_min - origin).numpy(), (s.box_max - origin).numpy(),
+            s.valid.numpy(), inv[0].numpy())
+
+
+@pytest.mark.parametrize("rays", [_adversarial_rays, _scene_rays],
+                         ids=["adversarial", "scene"])
+def test_raycast_plain_equals_tpu_kernel_and_xla_spelling(rays):
+    # exactly equal: the slab test is multiplies, min and max only, and
+    # ties resolve to the first box in all three
+    from embodied_captioning_tpu.ops.pallas.raycast import (
+        raycast_minargmin as j_raycast)
+
+    box_min, box_max, valid, inv = rays()
+    ref_t, ref_best = _xla_raycast(box_min, box_max, valid, inv)
+    if rays is _adversarial_rays:
+        assert not np.isfinite(ref_t).all()      # some rays miss everything
+        assert (ref_best[np.isfinite(ref_t)] != 5).all()
+        assert (ref_best != 3).all()             # the duplicate never wins
+    k_t, k_best = j_raycast(jnp.asarray(box_min), jnp.asarray(box_max),
+                            jnp.asarray(valid), jnp.asarray(inv),
+                            interpret=True)
+    t_best, best = K.raycast_minargmin(t(box_min)[None], t(box_max)[None],
+                                       t(valid)[None], t(inv)[None])
+    assert t_best.dtype == torch.float32 and best.dtype == torch.int32
+    for got_t, got_b in ((t_best[0].numpy(), best[0].numpy()),
+                         (np.asarray(k_t), np.asarray(k_best))):
+        np.testing.assert_array_equal(got_t, ref_t)
+        np.testing.assert_array_equal(got_b, ref_best)
+
+
+def test_raycast_plain_row_chunks_and_envs(monkeypatch):
+    # the plain version's memory-bounding row chunks change nothing
+    from embodied_captioning_tpu_torch.kernels import raycast as RC
+
+    box_min, box_max, valid, inv = _adversarial_rays()
+    args = [t(a)[None].repeat(2, *([1] * a.ndim))
+            for a in (box_min, box_max, valid, inv)]
+    args[2][1, :] = False                        # env 1: no valid box
+    whole = RC.raycast_minargmin_plain(*args)
+    monkeypatch.setattr(RC, "PLAIN_CHUNK_ELEMS", 128 * 7 * 3 * 5)
+    chunked = RC.raycast_minargmin_plain(*args)
+    for a, b in zip(whole, chunked):
+        assert torch.equal(a, b)
+    assert torch.isinf(whole[0][1]).all() and (whole[1][1] == 0).all()
+
+
+@pytest.mark.parametrize("shape", [(37, 128), (3, 65, 128)],
+                         ids=["2d", "3d"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_layernorm_plain_two_pass_matches_tpu_kernel(shape, dtype):
+    # the TPU kernel is two-pass; bf16 output within one bf16 ulp of |y| < 8
+    # (1/32), f32 output within 1e-5 (summation order)
+    from embodied_captioning_tpu.ops.pallas.layernorm import layernorm_nd
+
+    rng = np.random.default_rng(5)
+    x = jnp.asarray(rng.standard_normal(shape) * 1.5 + 0.3, dtype)
+    g = jnp.asarray(1 + 0.1 * rng.standard_normal(shape[-1]), jnp.float32)
+    b = jnp.asarray(0.1 * rng.standard_normal(shape[-1]), jnp.float32)
+    ref = layernorm_nd(x, g, b, eps=1e-5, interpret=True)
+    out = K.layernorm(t(x), t(g), t(b), 1e-5, two_pass=True)
+    assert out.shape == tuple(shape) and str(out.dtype) == f"torch.{dtype}"
+    atol = 1 / 32 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(np32(out), np32(ref), atol=atol, rtol=0)
+    if dtype == "bfloat16":
+        assert np.mean(np32(out) == np32(ref)) > 0.99
+
+
+@pytest.mark.parametrize("dtype,out_dtype", [("bfloat16", None),
+                                             ("bfloat16", "float32"),
+                                             ("float32", None)])
+def test_layernorm_default_mode_matches_jax_default_path(dtype, out_dtype):
+    # `_layernorm_ref`: one-pass with the relative floor for bf16 input,
+    # two-pass for f32; a near-constant row exercises the floor
+    from embodied_captioning_tpu.models.common import _layernorm_ref
+
+    rng = np.random.default_rng(6)
+    xs = rng.standard_normal((5, 33, 96)) * 2.0 + 1.0
+    xs[0, 0] = 3.0                                # a constant row
+    xs[0, 1] = 300.0 + 0.01 * rng.standard_normal(96)
+    x = jnp.asarray(xs, dtype)
+    g = jnp.asarray(1 + 0.1 * rng.standard_normal(96), jnp.float32)
+    b = jnp.asarray(0.1 * rng.standard_normal(96), jnp.float32)
+    jo = jnp.dtype(out_dtype or dtype)
+    ref = _layernorm_ref(x, g, b, 1e-5, jo)
+    out = K.layernorm(t(x), t(g), t(b), 1e-5,
+                      None if out_dtype is None else torch.float32)
+    assert str(out.dtype) == f"torch.{out_dtype or dtype}"
+    atol = 1 / 32 if (out_dtype or dtype) == "bfloat16" else 2e-5
+    np.testing.assert_allclose(np32(out), np32(ref), atol=atol, rtol=1e-5)
+
+
+def test_loop_kernel_wrappers_take_the_plain_version_on_cpu_only():
+    before = dict(K.launches)
+    x = torch.randn(4, 32)
+    g, b = torch.ones(32), torch.zeros(32)
+    assert torch.equal(K.layernorm(x, g, b), K.layernorm_plain(x, g, b))
+    box_min, box_max, valid, inv = (t(a)[None] for a in _adversarial_rays())
+    for a, p in zip(K.raycast_minargmin(box_min, box_max, valid, inv),
+                    K.raycast_minargmin_plain(box_min, box_max, valid, inv)):
+        assert torch.equal(a, p)
+    assert K.launches == before and set(before) >= {"layernorm",
+                                                    "raycast_minargmin"}
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        K.layernorm(x.to("meta"), g.to("meta"), b.to("meta"))
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        K.raycast_minargmin(box_min, box_max, valid, inv.to("meta"))

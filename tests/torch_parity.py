@@ -46,3 +46,113 @@ def jax_kernel_path():
         finally:
             jax.clear_caches()
     jax.clear_caches()
+
+
+# ---------------------------------------------------------------------------
+# probes: the measurements behind the tolerances of the loop-slice tests
+# (python tests/torch_parity.py render | rollout-scan); not collected
+# ---------------------------------------------------------------------------
+
+def probe_render(size: int = 128, seeds=(1, 2, 3, 7, 11),
+                 actions=(1, 2, 1, 3, 1, 1)) -> dict:
+    """Pixels on which the port's render differs from the JAX render, over
+    `seeds` x `actions` poses at size^2."""
+    from embodied_captioning_tpu.config import SensorConfig as JSensor
+    from embodied_captioning_tpu.config import SimConfig as JSim
+    from embodied_captioning_tpu.envs import sim as JS
+    from embodied_captioning_tpu_torch.config import SensorConfig, SimConfig
+    from embodied_captioning_tpu_torch.envs import sim as S
+
+    out = dict(pixels=0, depth=0, instances=0, classes=0, rgb_any=0,
+               rgb_over_1_level=0)
+    for seed in seeds:
+        js = JS.RaycastSim(JSim(), JSensor(height=size, width=size), seed=seed)
+        ts = S.RaycastSim(SimConfig(), SensorConfig(height=size, width=size),
+                          seed=seed, device="cpu")
+        for a in actions:
+            js.step(a), ts.step(a)
+            ref, got = js.observe(), ts.observe()
+            out["pixels"] += size * size
+            for k in ("depth", "instances", "classes"):
+                out[k] += int((np.asarray(ref[k]) != got[k].numpy()).sum())
+            d = np.abs(np.asarray(ref["rgb"]).astype(int)
+                       - got["rgb"].numpy().astype(int)).max(-1)
+            out["rgb_any"] += int((d > 0).sum())
+            out["rgb_over_1_level"] += int((d > 1).sum())
+    return out
+
+
+def probe_rollout_scan(bases=(1, 13, 25, 37), envs: int = 12, steps: int = 4):
+    """Tiny `rollout_fused` over env seeds base..base+envs-1 with the
+    random plan of seed 5: for every env with a non-zero reward, the JAX
+    rewards, the port's on the JAX package's frames, and whether they agree
+    within rtol 1e-4 / atol 1e-5."""
+    from embodied_captioning_tpu.config import load_config
+    from embodied_captioning_tpu.envs import device_loop as JDL
+    from embodied_captioning_tpu.envs.sim import RaycastSim as JSim
+    from embodied_captioning_tpu.mapping import voxel_map as JV
+    from embodied_captioning_tpu.perception import init_perception
+    from embodied_captioning_tpu_torch import params as P
+    from embodied_captioning_tpu_torch.config import (
+        ExperimentConfig, apply_dotlist)
+    from embodied_captioning_tpu_torch.envs import device_loop as DL
+
+    ov = ["sensors.height=64", "sensors.width=64", "sim.num_objects=6",
+          "sim.scene_size=8.0", "map.voxel_size=0.2",
+          "runtime.caption_slots_per_frame=2", "detector.score_threshold=0.0"]
+    jcfg = load_config("tiny", overrides=ov)
+    cfg = apply_dotlist(ExperimentConfig.preset_config("tiny"), ov)
+    jparams = init_perception(jax.random.PRNGKey(0), jcfg)
+    as_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
+    tparams = P.from_jax(as_np(jparams), "cpu")
+    actions = JDL.make_action_plan(steps, envs, pattern="random", seed=5)
+    render, rows = DL._render_scan, []
+    for base in bases:
+        sims = [JSim(jcfg.sim, jcfg.sensors, seed=base + i)
+                for i in range(envs)]
+        scenes, state = JDL.states_from_sims(sims)
+        maps = jax.tree_util.tree_map(
+            lambda *xs: jax.numpy.stack(xs),
+            *[JV.create(jcfg.map, np.asarray(s.scene.lower)) for s in sims])
+        port = (P.scene_from_jax(as_np(scenes), "cpu"),
+                P.loop_state_from_jax(as_np(state), "cpu"),
+                P.map_state_from_jax(as_np(maps), "cpu"))
+        frames, st = [], state
+        for k in range(steps):
+            st = JDL.step_agents(scenes, st, jax.numpy.asarray(actions[k]),
+                                 jcfg.sim)
+            rgb, depth, _, _ = JDL._render_scan(
+                scenes, JDL.camera_poses(st), jcfg, True)
+            frames.append({"rgb": t(rgb), "depth": t(depth)})
+        with jax_kernel_path():
+            ref = np.asarray(JDL.rollout_fused(
+                jparams, scenes, state, maps, jax.numpy.asarray(actions),
+                jax.random.PRNGKey(2), jcfg)[2])
+        handed = iter(frames)
+        DL._render_scan = lambda sc, poses, c: next(handed)
+        try:
+            got = DL.rollout_fused(tparams, *port, actions, cfg)[2].numpy()
+        finally:
+            DL._render_scan = render
+        for i in range(envs):
+            if ref[:, i].any() or got[:, i].any():
+                rows.append(dict(
+                    seed=base + i, column=i, jax=ref[:, i].tolist(),
+                    port=got[:, i].tolist(),
+                    agree=bool(np.allclose(got[:, i], ref[:, i], rtol=1e-4,
+                                           atol=1e-5))))
+    return rows
+
+
+if __name__ == "__main__":
+    import sys
+
+    jax.config.update("jax_platforms", "cpu")
+    what = sys.argv[1] if len(sys.argv) > 1 else ""
+    if what == "render":
+        print(probe_render())
+    elif what == "rollout-scan":
+        for row in probe_rollout_scan():
+            print(row)
+    else:
+        sys.exit("usage: python tests/torch_parity.py render | rollout-scan")
