@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's perception path and fused exploration loop
-on one NVIDIA GPU.
+"""Run the PyTorch/CUDA port's perception path, fused exploration loop and
+caption-generation modes on one NVIDIA GPU.
 
 Phases, each of which must pass:
   1. build the hand-written Hopper kernels from the sources in the checkout;
@@ -10,18 +10,25 @@ Phases, each of which must pass:
      kernel must equal its plain version bit for bit (16 envs x 1280^2
      rays x 96 boxes, and adversarial inputs); LayerNorm is checked in
      both statistics modes at the ViT, decoder and sentence-encoder shapes;
+     the whole-block decode kernels at cache positions 0, 1 and 29 with
+     int8 and bf16 weights and K/V; the fused preprocess at the 64 crops
+     of a batch (equal bit for bit) and on true resizes;
   3. drive `perceive` at full width -- the serving configuration of
      bench.py: the large preset (ViT-L/14 at 224^2, 768-wide 12+12-layer
      decoder, 49,408-token vocabulary, post-LN MiniLM-class sentence
      encoder), the committed R50/FPN detector artifact, int8 weights and
      int8 cross K/V, 4 caption slots per frame, 1280^2 frames -- on frames
      rendered by the port's simulator (16 seeded 96-box scenes) with random
-     captioner weights from a seeded generator; count each kernel's
+     captioner weights from a seeded generator, decoding through the
+     whole-block kernels (the default route); count each kernel's
      launches in that run, check the outputs are finite and well shaped,
      and compare with the plain versions: the ViT embeddings, the sentence
      embeddings of the rows whose free-running tokens agree, and a
      teacher-forced decode (the plain path fed the kernel path's tokens:
-     per-step argmax and chosen-token log-probs);
+     per-step argmax and chosen-token log-probs); then the route of
+     separate calls (`decode_blocks=False`: LayerNorm, projections and the
+     decode attention kernels) on the same frames in turns with the
+     default route, with its launch counts;
   4. drive the exploration loop at full width: the render through the
      raycast kernel against the render through its plain version (equal
      depth, instances, classes and rgb); one window of
@@ -34,9 +41,14 @@ Phases, each of which must pass:
   5. run the tiny preset through the kernels on the card and through the
      plain versions on the CPU (the path the CPU tests hold to the JAX
      package) and compare;
-  6. profile one full-width perceive batch and one rollout_fused step:
-     device time by kernel, the ported kernels' share, the device's idle
-     share.
+  6. profile one full-width perceive batch on each decode route and one
+     rollout_fused step: device time by kernel, the ported kernels' share,
+     the device's idle share;
+  7. drive the other generation modes at full width: `generate_beam`
+     (16 crops x 4 beams), sampled `generate` (64 crops, temperature 0.7,
+     top-k 50, top-p 0.9, seeded generator) and `generate_speculative`
+     (16 crops, 4 drafts) beside greedy `generate` on the same crops:
+     shapes, finite scores, BOS first, PAD after EOS, lengths, launches.
 
 Float32 products and convolutions run without TF32 so the comparisons see
 the kernels' own error. Prints the card's name and power limit, frames/s
@@ -51,6 +63,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -87,6 +100,13 @@ MAX_LOGPROB_ULPS = 4.0
 MIN_IMG_COSINE = 0.9999
 # equal tokens go through the same sentence encoder (no ported kernel)
 MIN_EMB_COSINE = 0.9999
+# speculative decoding against greedy on the same crops: the first token
+# comes from the verify pass (plain multi-token attention) in one and from
+# the block kernels in the other, a teacher-forced comparison of one step
+MIN_SPEC_FIRST_TOKEN = 0.8
+BEAMS = 4
+# a kernel's name with its template arguments, out of a profiler key
+KERNEL_NAME = re.compile(r"\w+(<[^>]*>)?(?=[(])")
 
 
 def log(*a) -> None:
@@ -290,6 +310,149 @@ def log_rows(rows: dict) -> None:
                 f"library {lib}")
 
 
+def generation_kernel_checks(K, QZ, dev) -> dict:
+    """The whole-block decode kernels and the fused preprocess against
+    their plain versions at the decode shapes (ROWS rows, D=768, 12 heads
+    of 64, cache T=30, cross K=256) and at the ROWS crops of a batch.
+    `unfused_ms` is the same sublayer on the route of separate calls
+    (LayerNorm, projections, decode attention kernel), host cost
+    included: a yardstick, as no one PyTorch call computes a sublayer."""
+    from embodied_captioning_tpu_torch.models import common as TC
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    bf = torch.bfloat16
+
+    def rn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    rows = {}
+    b, d, h, t, nk = ROWS, 768, 12, DECODE_LEN, 256
+    dh = d // h
+    x = rn(b, d)
+    lg = 1.0 + rn(d, scale=0.1, dtype=torch.float32)
+    lb = rn(d, scale=0.1, dtype=torch.float32)
+    p_ln = {"g": lg, "b": lb}
+
+    def weights(names, int8):
+        """(flat kernel arguments, the params dict `mha` takes)."""
+        flat, p = [], {}
+        for n in names:
+            w = rn(d, d, scale=d ** -0.5, dtype=torch.float32)
+            bias = rn(d, scale=0.02, dtype=torch.float32)
+            if int8:
+                q = QZ.quantize_array(w)
+                flat += [q.q, q.scale.float(), bias]
+                p[n] = {"w": q, "b": bias}
+            else:
+                flat += [w.to(bf), torch.ones(d, device=dev), bias]
+                p[n] = {"w": w.to(bf), "b": bias}
+        return flat, p
+
+    # tolerance: bf16 outputs of |x + y| < 8 (an ulp is 1/32) and cache
+    # entries of |k|, |v| < 4 (1/64); the tensor cores sum in another order
+    # than the plain version's matmul, so a rounding flips here and there
+    errs = {}
+    for int8 in (True, False):
+        ws, p_attn = weights("qkvo", int8)
+        for pos in (0, 1, t - 1):
+            kc, vc = rn(b, h, dh, t), rn(b, t, h, dh)
+            kc2, vc2 = kc.clone(), vc.clone()
+            out, _, _ = K.decode_self_block(x, lg, lb, *ws, kc, vc, pos, h)
+            ref, _, _ = K.decode_self_block_plain(x, lg, lb, *ws, kc2, vc2,
+                                                  pos, h)
+            name = f"decode_self_block {'int8' if int8 else 'bf16'} pos={pos}"
+            errs[name] = check_close(name, out, ref, 1 / 16)
+            check_close("  cache k", kc, kc2, 1 / 32)
+            check_close("  cache v", vc, vc2, 1 / 32)
+        if int8:
+            kc, vc = rn(b, h, dh, t), rn(b, t, h, dh)
+            args = (x, lg, lb, *ws, kc, vc, t - 1, h)
+            x3 = x[:, None]
+            sb, sf = bound_ms(nbytes(x, lg, lb, *ws, kc, vc, x)
+                              + 2 * b * d * 2,
+                              4 * 2 * b * d * d + 4 * b * h * dh * t)
+            rows["decode_self_block"] = dict(
+                source=PORT_KERNELS + "decode_block.cu",
+                replaces=TPU_KERNELS + "decode_attention.py:267",
+                max_abs_err=max(v for k, v in errs.items() if "self" in k),
+                ms=time_ms(lambda: K.decode_self_block(*args), 100),
+                plain_ms=time_ms(lambda: K.decode_self_block_plain(*args),
+                                 20),
+                bound_ms=sb, bound_by=sf, library_ms=None,
+                unfused_ms=time_ms(lambda: x3 + TC.mha(
+                    p_attn, TC.layernorm(p_ln, x3), h,
+                    cache=TC.KVCache(kc, vc, t - 1))[0], 100))
+
+    for int8 in (True, False):
+        ws, p_x = weights("qo", int8)
+        for kv8 in (True, False):
+            if kv8:
+                qkv = QZ.quantize_kv(rn(b, h, dh, nk), rn(b, nk, h, dh))
+                ckv = qkv._replace(kt=qkv.kt.contiguous(),
+                                   v=qkv.v.permute(0, 2, 1, 3).contiguous(),
+                                   kt_scale=qkv.kt_scale.contiguous(),
+                                   v_scale=qkv.v_scale.contiguous())
+                kv = (ckv.kt, ckv.v, ckv.kt_scale, ckv.v_scale)
+            else:
+                ckv = (rn(b, h, dh, nk), rn(b, h, nk, dh))
+                kv = (*ckv, None, None)
+            name = (f"decode_cross_block {'int8' if int8 else 'bf16'} weights "
+                    f"{'int8' if kv8 else 'bf16'} K/V")
+            errs[name] = check_close(
+                name, K.decode_cross_block(x, lg, lb, *ws, *kv, heads=h),
+                K.decode_cross_block_plain(x, lg, lb, *ws, *kv, heads=h),
+                1 / 16)
+            if int8 and kv8:
+                args = (x, lg, lb, *ws, *kv)
+                x3 = x[:, None]
+                cb, cf = bound_ms(nbytes(x, lg, lb, *ws, *kv, x),
+                                  2 * 2 * b * d * d + 4 * b * h * dh * nk)
+                timed = dict(
+                    ms=time_ms(lambda: K.decode_cross_block(*args, heads=h),
+                               100),
+                    plain_ms=time_ms(lambda: K.decode_cross_block_plain(
+                        *args, heads=h), 20),
+                    bound_ms=cb, bound_by=cf, library_ms=None,
+                    unfused_ms=time_ms(lambda: x3 + TC.mha(
+                        p_x, TC.layernorm(p_ln, x3), h,
+                        kv_precomputed=ckv)[0], 100))
+    rows["decode_cross_block"] = dict(
+        source=PORT_KERNELS + "decode_block.cu",
+        replaces=TPU_KERNELS + "decode_attention.py:338",
+        max_abs_err=max(v for k, v in errs.items() if "cross" in k), **timed)
+
+    # fused preprocess: equal bit for bit (no fused multiply-add, IEEE
+    # divisions, the taps shared with the plain version)
+    def crops(n, size):
+        return torch.randint(0, 256, (n, size, size, 3), generator=g,
+                             device=dev, dtype=torch.uint8)
+
+    for n, size, out_size, patch in ((8, 320, 224, 14), (8, 150, 224, 14),
+                                     (3, 40, 64, 8)):
+        img = crops(n, size)
+        check_close(f"fused_preprocess [{n},{size},{size},3] -> {out_size}",
+                    K.fused_preprocess(img, out_size, patch),
+                    K.fused_preprocess_plain(img, out_size, patch), 0.0)
+    img = crops(ROWS, 224)
+    tokens = K.fused_preprocess(img, 224, 14)
+    err = check_close(f"fused_preprocess [{ROWS},224,224,3] -> 224", tokens,
+                      K.fused_preprocess_plain(img, 224, 14), 0.0)
+    pb, pf = bound_ms(nbytes(img, tokens), 12 * tokens.numel(),
+                      FP32_FLOP_PER_S)
+    rows["fused_preprocess"] = dict(
+        source=PORT_KERNELS + "preprocess.cu",
+        replaces=TPU_KERNELS + "preprocess.py:83",
+        max_abs_err=err,
+        ms=time_ms(lambda: K.fused_preprocess(img, 224, 14), 50),
+        plain_ms=time_ms(lambda: K.fused_preprocess_plain(img, 224, 14), 10),
+        bound_ms=pb, bound_by=pf, library_ms=None)
+    log_rows(rows)
+    for name in ("decode_self_block", "decode_cross_block"):
+        log(f"  {name}: the same sublayer as separate calls "
+            f"{rows[name]['unfused_ms'] * 1e3:.1f} us")
+    return rows
+
+
 def loop_kernel_checks(K, dev, scenes, poses, cfg) -> dict:
     """The exploration loop's kernels against their plain versions: the
     raycast at the render's shape (FRAMES envs x 1280^2 rays x 96 boxes,
@@ -442,12 +605,15 @@ class plain_kernels:
     def __init__(self, K):
         from embodied_captioning_tpu_torch.envs import sim
         from embodied_captioning_tpu_torch.models import common
+        from embodied_captioning_tpu_torch.ops import image
 
         # (module, attribute the module calls, kernel name)
         self.routes = [(common, n, n) for n in (
             "flash_attention", "decode_self_attention",
-            "decode_cross_attention", "decode_mlp")] + [
+            "decode_cross_attention", "decode_mlp", "decode_self_block",
+            "decode_cross_block")] + [
             (common, "layernorm_kernel", "layernorm"),
+            (image, "fused_preprocess", "fused_preprocess"),
             (sim, "raycast_minargmin", "raycast_minargmin")]
         self.K = K
 
@@ -572,6 +738,81 @@ def full_width_setup(dev) -> dict:
                 batches=batches)
 
 
+def decoder_sublayers(ccfg) -> tuple:
+    """(self-attention sublayers = MLPs, cross-attention sublayers) of one
+    decode step: 24 and 12 at the large preset."""
+    return (ccfg.text.layers + ccfg.text.cross_layers,
+            ccfg.text.cross_layers)
+
+
+def check_decode_counts(counts: dict, steps: int, batches: int,
+                        blocks: bool, ccfg) -> None:
+    """Launch counts of `batches` perceive batches with `steps` decode
+    steps in all: every self-attention and cross-attention sublayer of a
+    step through the block kernels or through the attention kernels, every
+    MLP through the decode-MLP kernel; one preprocess launch and one flash
+    launch per ViT layer per batch; at least the ViT's ln_pre and two norms
+    per ViT block per batch plus one LayerNorm per step."""
+    counts = dict(counts)
+    n_self, n_cross = decoder_sublayers(ccfg)
+    vit = ccfg.vision.layers
+    fused, unfused = (n_self * steps, n_cross * steps), (0, 0)
+    if not blocks:
+        fused, unfused = unfused, fused
+    expect = {"flash_attention": vit * batches,
+              "decode_self_block": fused[0], "decode_cross_block": fused[1],
+              "decode_self_attention": unfused[0],
+              "decode_cross_attention": unfused[1],
+              "decode_mlp": n_self * steps, "fused_preprocess": batches,
+              "raycast_minargmin": 0}
+    n_ln = counts.pop("layernorm")
+    if n_ln < (2 * vit + 1) * batches + steps:
+        raise AssertionError(f"{n_ln} LayerNorm launches in {batches} "
+                             f"batches and {steps} decode steps")
+    if (counts != expect or steps < batches
+            or steps > (DECODE_LEN - 1) * batches):
+        raise AssertionError(f"launch counts {counts} != expected {expect} "
+                             f"for {steps} decode steps")
+
+
+def decode_routes_in_turns(setup: dict) -> dict:
+    """One batch of `perceive` on each decode route in turns (block,
+    separate, separate, block) after a warm-up of the route of separate
+    calls, so that both are timed under one host; the launch counts of the
+    route of separate calls."""
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch.perception import perceive
+
+    cfg, params = setup["cfg"], setup["params"]
+    frames = setup["batches"][1]
+    perceive(params, frames, cfg, decode_blocks=False)
+    torch.cuda.synchronize()
+    ms = {True: [], False: []}
+    counts = {}
+    for blocks in (True, False, False, True):
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        perceive(params, frames, cfg, decode_blocks=blocks)
+        torch.cuda.synchronize()
+        ms[blocks].append((time.perf_counter() - t0) * 1e3)
+        counts[blocks] = dict(K.launches)
+    n_self = decoder_sublayers(cfg.captioner)[0]
+    for blocks in (True, False):
+        check_decode_counts(counts[blocks],
+                            counts[blocks]["decode_mlp"] // n_self, 1, blocks,
+                            cfg.captioner)
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    log(f"  decode routes in turns, one batch of {FRAMES} frames each: "
+        f"block kernels {ms[True][0]:.1f} and {ms[True][1]:.1f} ms "
+        f"({FRAMES / mean[True] * 1e3:.2f} frames/s), separate calls "
+        f"{ms[False][0]:.1f} and {ms[False][1]:.1f} ms "
+        f"({FRAMES / mean[False] * 1e3:.2f} frames/s)")
+    log(f"  launches per batch, block route: {counts[True]}")
+    log(f"  launches per batch, separate calls: {counts[False]}")
+    return dict(ms=mean, counts=counts[False], frames=frames)
+
+
 def perceive_full_width(setup: dict) -> dict:
     from embodied_captioning_tpu_torch import kernels as K
     from embodied_captioning_tpu_torch.perception import perceive
@@ -593,23 +834,8 @@ def perceive_full_width(setup: dict) -> dict:
     fps = e * BATCHES / dt
     log(f"  launches in the main-path run: {counts}")
 
-    steps = counts["decode_self_attention"] // 24
-    # LayerNorm: at least the ViT's ln_pre and 2 x 24 block norms per
-    # batch; the decoder and the sentence encoder add theirs
-    expect = {"flash_attention": 24 * BATCHES,
-              "decode_self_attention": 24 * steps,
-              "decode_cross_attention": 12 * steps,
-              "decode_mlp": 24 * steps,
-              "raycast_minargmin": 0}
-    n_ln = counts.pop("layernorm")
-    if n_ln < 49 * BATCHES + steps:
-        raise AssertionError(f"{n_ln} LayerNorm launches in {BATCHES} "
-                             f"batches and {steps} decode steps")
-    counts_all = dict(counts, layernorm=n_ln)
-    if (counts != expect or steps < BATCHES
-            or steps > (DECODE_LEN - 1) * BATCHES):
-        raise AssertionError(f"launch counts {counts} != expected {expect} "
-                             f"for {steps} decode steps")
+    steps = counts["decode_self_block"] // decoder_sublayers(cfg.captioner)[0]
+    check_decode_counts(counts, steps, BATCHES, True, cfg.captioner)
     n_det = cfg.detector.max_detections
     for r in results:
         d = r.detections
@@ -672,7 +898,7 @@ def perceive_full_width(setup: dict) -> dict:
                 or emb_cos <= MIN_EMB_COSINE)
     if bad:
         raise AssertionError("kernel path and plain path disagree")
-    return dict(fps=fps, seconds=dt, batches=BATCHES, counts=counts_all,
+    return dict(fps=fps, seconds=dt, batches=BATCHES, counts=counts,
                 steps=steps, valid_detections=n_valid, params=params,
                 cfg=cfg, frames=batches[1])
 
@@ -775,8 +1001,12 @@ def rollouts_full_width(setup: dict, smi: str) -> dict:
                              "is about 1e-7) by the last step")
     if not bool(moved.any()):
         raise AssertionError("no agent moved")
-    if counts["raycast_minargmin"] != steps or any(
-            v <= 0 for v in counts.values()):
+    # the loop decodes on the block route: every kernel but the two
+    # standalone decode attention kernels runs in it
+    idle = {"decode_self_attention", "decode_cross_attention"}
+    if (counts["raycast_minargmin"] != steps
+            or counts["fused_preprocess"] != steps
+            or any((v <= 0) != (k in idle) for k, v in counts.items())):
         raise AssertionError(f"rollout_fused launch counts {counts}")
 
     def one_step():
@@ -903,11 +1133,13 @@ def profile_run(what: str, fn, unprofiled_us: float, top: int = 15) -> None:
     if busy <= 0:
         raise AssertionError("the profiler saw no device time")
     rows.sort(key=lambda e: -e.self_device_time_total)
-    ours = sum(e.self_device_time_total for e in rows
-               if any(k in e.key for k in ("flash_fwd", "decode_self_kernel",
-                                           "decode_cross_kernel",
-                                           "mlp_kernel", "layernorm_kernel",
-                                           "raycast_kernel")))
+    ported = [e for e in rows
+              if any(k in e.key for k in ("flash_fwd", "decode_self_kernel",
+                                          "decode_cross_kernel",
+                                          "mlp_kernel", "layernorm_kernel",
+                                          "raycast_kernel", "proj_kernel",
+                                          "preprocess_kernel"))]
+    ours = sum(e.self_device_time_total for e in ported)
     log(f"  {what}: device busy {busy / 1e3:.1f} ms; wall "
         f"{unprofiled_us / 1e3:.1f} ms unprofiled, "
         f"{wall_us / 1e3:.1f} ms under the profiler; idle share "
@@ -917,6 +1149,149 @@ def profile_run(what: str, fn, unprofiled_us: float, top: int = 15) -> None:
     for e in rows[:top]:
         log(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  "
             f"{e.key[:90]}")
+    log("    ported kernels, device us per launch: " + "; ".join(
+        f"{KERNEL_NAME.search(e.key).group(0)} "
+        f"{e.self_device_time_total / e.count:.1f} x{e.count}"
+        for e in ported))
+
+
+# ---------------------------------------------------------------------------
+# phase 7: beam, sampled and speculative generation at full width
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def generation_modes(setup: dict, smi: str) -> None:
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch.models import captioner as CAP
+
+    cfg, cp = setup["cfg"].captioner, setup["params"].captioner
+    t = cfg.text
+    crops = center_crops(setup["batches"][1], cfg.vision.image_size)
+    few = crops[::SLOTS].contiguous()                 # one crop per frame
+    dev = crops.device
+
+    def timed(fn):
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(K.launches)
+
+    def check_tokens(name, tokens, rows):
+        if tuple(tokens.shape) != (rows, DECODE_LEN) or (
+                tokens.dtype != torch.int32):
+            raise AssertionError(f"{name}: tokens {tokens.shape} "
+                                 f"{tokens.dtype}")
+        if not bool((tokens[:, 0] == t.bos_id).all()):
+            raise AssertionError(f"{name}: BOS is not first")
+        if not bool(((tokens >= 0) & (tokens < t.vocab_size)).all()):
+            raise AssertionError(f"{name}: token ids out of range")
+        pad = tokens == t.pad_id
+        lengths = (~pad).sum(1)
+        after = torch.arange(DECODE_LEN, device=dev)[None] >= lengths[:, None]
+        if not torch.equal(pad, after):
+            raise AssertionError(f"{name}: a PAD inside a caption")
+        eos = tokens == t.eos_id
+        last = torch.arange(DECODE_LEN, device=dev)[None] == (lengths - 1
+                                                               )[:, None]
+        if bool((eos & ~last).any()):
+            raise AssertionError(f"{name}: tokens after EOS")
+        return lengths
+
+    n_self, n_cross = decoder_sublayers(cfg)
+    n_draft = t.layers + 1      # self blocks of a draft step (1 draft layer)
+
+    def blocks_ran(name, counts, min_steps):
+        n = counts["decode_self_block"]
+        if (n < n_self * min_steps or n % n_self
+                or counts["decode_cross_block"] * n_self != n * n_cross
+                or counts["decode_mlp"] != n
+                or counts["decode_self_attention"]
+                or counts["decode_cross_attention"]):
+            raise AssertionError(f"{name}: launch counts {counts}")
+
+    # warm-up of the shapes that phase 3 has not run (16 and 64 x 4 rows)
+    CAP.generate(cp, few, cfg, max_len=3)
+    CAP.generate_beam(cp, few, cfg, max_len=3, num_beams=BEAMS)
+
+    (g_tok, g_lp, g_len), dt_g, c_g = timed(lambda: CAP.generate(cp, few,
+                                                                 cfg))
+    check_tokens("greedy generate", g_tok, FRAMES)
+    blocks_ran("greedy generate", c_g, 1)
+    log(f"  greedy generate, {FRAMES} crops: {dt_g * 1e3:.1f} ms, "
+        f"{c_g['decode_mlp'] // n_self} steps, lengths "
+        f"{g_len.float().mean().item():.1f} mean")
+
+    (b_tok, b_score), dt_b, c_b = timed(lambda: CAP.generate_beam(
+        cp, few, cfg, num_beams=BEAMS))
+    b_len = check_tokens("generate_beam", b_tok, FRAMES)
+    blocks_ran("generate_beam", c_b, 1)
+    if tuple(b_score.shape) != (FRAMES,) or not bool(
+            torch.isfinite(b_score).all()) or bool((b_score > 0).any()):
+        raise AssertionError(f"generate_beam: scores {b_score}")
+    # the best of 4 beams against the greedy caption's own length-normalised
+    # score: printed, not gated (a beam search is not monotone in its width)
+    g_score = g_lp.sum(1) / g_len.float()
+    log(f"generate_beam: {FRAMES / dt_b:.2f} crops/s on {smi} ({FRAMES} crops "
+        f"x {BEAMS} beams in {dt_b * 1e3:.1f} ms, {c_b['decode_mlp'] // n_self} "
+        f"steps; score mean {b_score.mean().item():.4f} against greedy "
+        f"{g_score.mean().item():.4f}, at least greedy's on "
+        f"{(b_score >= g_score - 1e-3).float().mean().item():.3f} of the "
+        f"rows; lengths {b_len.float().mean().item():.1f} mean)")
+    log(f"  launches: {c_b}")
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    (s_tok, s_lp, s_len), dt_s, c_s = timed(lambda: CAP.generate(
+        cp, crops, cfg, top_k=50, top_p=0.9, temperature=0.7, generator=gen))
+    check_tokens("sampled generate", s_tok, ROWS)
+    blocks_ran("sampled generate", c_s, 1)
+    again = CAP.generate(cp, crops, cfg, top_k=50, top_p=0.9, temperature=0.7,
+                         generator=torch.Generator(device=dev).manual_seed(11))
+    if not torch.isfinite(s_lp).all() or not torch.equal(again[0], s_tok):
+        raise AssertionError("sampled generate: non-finite log-probs, or "
+                             "another draw from the same seed")
+    greedy64 = CAP.generate(cp, crops, cfg)
+    live = s_len > 1
+    log(f"sampled generate: {ROWS / dt_s:.2f} crops/s on {smi} ({ROWS} crops "
+        f"in {dt_s * 1e3:.1f} ms, {c_s['decode_mlp'] // n_self} steps, "
+        f"temperature 0.7, top-k 50, top-p 0.9; chosen log-prob mean "
+        f"{(s_lp.sum(1) / (s_len - 1).clamp(min=1))[live].mean().item():.3f} "
+        f"against greedy "
+        f"{(greedy64[1].sum(1) / (greedy64[2] - 1).clamp(min=1)).mean().item():.3f}"
+        f"; differs from greedy on "
+        f"{(s_tok != greedy64[0]).any(1).float().mean().item():.3f} of the "
+        f"rows)")
+    if bool((s_tok == greedy64[0]).all()):
+        raise AssertionError("sampled generate equals greedy decoding")
+
+    CAP.generate_speculative(cp, few, cfg, max_len=6, draft_len=4)  # warm-up
+    (p_tok, p_len), dt_p, c_p = timed(lambda: CAP.generate_speculative(
+        cp, few, cfg, draft_len=4))
+    check_tokens("generate_speculative", p_tok, FRAMES)
+    # the drafts run one self block per text layer and draft multimodal
+    # layer; a verify pass of 4 tokens runs no decode kernel
+    if (c_p["decode_self_block"] % n_draft
+            or c_p["decode_cross_block"] * n_draft != c_p["decode_self_block"]
+            or c_p["decode_self_block"] < n_draft * 4
+            or c_p["decode_mlp"] != c_p["decode_self_block"]
+            or c_p["decode_self_attention"] or c_p["decode_cross_attention"]):
+        raise AssertionError(f"generate_speculative: launch counts {c_p}")
+    macro = c_p["decode_self_block"] // (n_draft * 4)
+    same = (p_tok == g_tok)
+    prefix = same.int().cumprod(1).sum(1).float()
+    first = same[:, 1].float().mean().item()
+    log(f"generate_speculative: {FRAMES / dt_p:.2f} crops/s on {smi} "
+        f"({FRAMES} crops in {dt_p * 1e3:.1f} ms against greedy "
+        f"{dt_g * 1e3:.1f} ms; {macro} macro steps of 4 drafts + 1 verify "
+        f"pass for {int(p_len.max()) - 1} positions); against greedy on the "
+        f"same crops: rows equal {same.all(1).float().mean().item():.3f}, "
+        f"first token equal {first:.3f} (limit {MIN_SPEC_FIRST_TOKEN}), "
+        f"common prefix {prefix.mean().item():.1f} of {DECODE_LEN} tokens")
+    log(f"  launches: {c_p}")
+    if first < MIN_SPEC_FIRST_TOKEN:
+        raise AssertionError("generate_speculative and greedy part ways at "
+                             "the first token")
 
 
 def main() -> int:
@@ -947,6 +1322,7 @@ def main() -> int:
         log("[2] kernels vs plain versions at the main paths' shapes")
         setup = full_width_setup(dev)
         rows = kernel_checks(K, QZ, dev)
+        rows.update(generation_kernel_checks(K, QZ, dev))
         from embodied_captioning_tpu_torch.envs.device_loop import (
             camera_poses)
         rows.update(loop_kernel_checks(K, dev, setup["scenes"],
@@ -958,29 +1334,46 @@ def main() -> int:
             f"({FRAMES} frames x {BATCHES} batches in "
             f"{res['seconds']:.3f} s, {res['steps']} decode steps, "
             f"{res['valid_detections']} valid detections)")
+        routes = decode_routes_in_turns(setup)
         log("[4] the exploration loop at full width")
         render_kernel_vs_plain(setup)
         loop = rollouts_full_width(setup, smi)
         fuse_card_vs_cpu(setup)
         log("[5] tiny preset: card vs CPU")
         tiny_card_vs_cpu(dev)
-        log("[6] device time of one full-width perceive batch and of one "
-            "rollout_fused step")
+        log("[6] device time of one full-width perceive batch on each "
+            "decode route and of one rollout_fused step")
         from embodied_captioning_tpu_torch.perception import perceive
-        profile_run("one perceive batch",
-                    lambda: perceive(res["params"], res["frames"],
-                                     res["cfg"]),
-                    res["seconds"] / res["batches"] * 1e6)
+        for blocks, what in ((True, "block kernels"),
+                             (False, "separate calls")):
+            profile_run(f"one perceive batch, {what}",
+                        lambda: perceive(res["params"], routes["frames"],
+                                         res["cfg"], decode_blocks=blocks),
+                        routes["ms"][blocks] * 1e3)
         profile_run("one rollout_fused step", loop["one_step"],
                     sum(loop["per_step_ms"].values()) * 1e3)
+        log("[7] beam, sampled and speculative generation at full width")
+        generation_modes(setup, smi)
     except Exception:
         traceback.print_exc()
         return 1
-    # launches: over the timed rollout_fused windows (the loop runs every
-    # kernel); launches_perceive: over the timed perceive batches of phase 3
-    kernels = [dict(name=n, route="cuda", launches=loop["counts"][n],
-                    launches_perceive=res["counts"].get(n, 0), **r)
-               for n, r in rows.items()]
+    # launches: over the timed rollout_fused windows, which run every kernel
+    # but the two standalone decode attention kernels; theirs are from the
+    # perceive batch on the route of separate calls (phase 3).
+    # launches_perceive: over the timed perceive batches of phase 3
+    kernels = []
+    for n, r in rows.items():
+        in_loop = loop["counts"][n] > 0
+        kernels.append(dict(
+            name=n, route="cuda",
+            launches=loop["counts"][n] if in_loop else routes["counts"][n],
+            launches_from=("rollout_fused" if in_loop
+                           else "perceive(decode_blocks=False)"),
+            launches_perceive=res["counts"].get(n, 0), **r))
+    if any(k["launches"] <= 0 for k in kernels):
+        print(f"chip_smoke: a kernel was never launched: {kernels}",
+              file=sys.stderr)
+        return 1
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

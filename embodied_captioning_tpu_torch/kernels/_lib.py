@@ -31,8 +31,11 @@ launches: Dict[str, int] = {
     "decode_self_attention": 0,
     "decode_cross_attention": 0,
     "decode_mlp": 0,
+    "decode_self_block": 0,
+    "decode_cross_block": 0,
     "raycast_minargmin": 0,
     "layernorm": 0,
+    "fused_preprocess": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -46,8 +49,11 @@ _SIGNATURES = {
                                     _I, _P],
     "ecap_decode_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                         _I, _F, _I, _P],
+    "ecap_decode_self_block": [_P] * 20 + [_I] * 5 + [_F, _I, _P],
+    "ecap_decode_cross_block": [_P] * 16 + [_I] * 4 + [_F, _I, _I, _P],
     "ecap_raycast_minargmin": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ecap_layernorm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
+    "ecap_fused_preprocess": [_P] * 8 + [_I] * 5 + [_F] * 6 + [_P],
 }
 
 

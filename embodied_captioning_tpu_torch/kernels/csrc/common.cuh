@@ -15,6 +15,7 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 __device__ __forceinline__ float to_float(int8_t x) {
   return static_cast<float>(x);
 }
+__device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }

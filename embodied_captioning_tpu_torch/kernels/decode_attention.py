@@ -1,19 +1,21 @@
-"""Decode-step kernels: single-query self- and cross-attention and the
-fused decode MLP (csrc/decode_attention.cu, csrc/decode_mlp.cu), each with
-its plain PyTorch version.
+"""Decode-step kernels: single-query self- and cross-attention, the fused
+decode MLP, and the whole self-attention and cross-attention sublayers of a
+decoder block (csrc/decode_attention.cu, csrc/decode_mlp.cu,
+csrc/decode_block.cu), each with its plain PyTorch version.
 
-They replace the TPU kernels decode_self_attention, decode_cross_attention
-and decode_mlp of embodied_captioning_tpu/ops/pallas/decode_attention.py,
-and follow those kernels' numerics (f32 probabilities; GELU in f32 after
-the weight scale), which differ from the JAX package's XLA path. On a CUDA
-tensor a wrapper launches its kernel; on a CPU tensor it runs the plain
-version.
+They replace the TPU kernels decode_self_attention, decode_cross_attention,
+decode_mlp, decode_self_block and decode_cross_block of
+embodied_captioning_tpu/ops/pallas/decode_attention.py, and follow those
+kernels' numerics (f32 probabilities; GELU in f32 after the weight scale;
+an f32 query in the block kernels), which differ from the JAX package's XLA
+path. On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it
+runs the plain version.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -104,6 +106,26 @@ def decode_cross_attention(q: torch.Tensor, kt: torch.Tensor,
     return out
 
 
+def _ln_rows_bf16(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                  eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x as f32, one-pass LayerNorm of the bf16 rows with the relative
+    variance floor, rounded to bf16)."""
+    xf = x.float()
+    m1 = xf.mean(dim=1, keepdim=True)
+    var = torch.maximum((xf * xf).mean(dim=1, keepdim=True) - m1 * m1,
+                        m1 * m1 * 3e-7)
+    xn = (xf - m1) * torch.rsqrt(var + eps) * g.float() + b.float()
+    return xf, xn.to(torch.bfloat16)
+
+
+def _project(a: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+             bias: torch.Tensor) -> torch.Tensor:
+    """bf16 a @ (int8 or float w as bf16) accumulated in f32, then
+    `* scale + bias` in f32."""
+    y = torch.matmul(a.float(), w.to(torch.bfloat16).float())
+    return y * scale.float() + bias.float()
+
+
 def decode_mlp_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                      wfc: torch.Tensor, sfc: torch.Tensor, bfc: torch.Tensor,
                      wpj: torch.Tensor, spj: torch.Tensor, bpj: torch.Tensor,
@@ -111,17 +133,9 @@ def decode_mlp_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     """x [B,D] bf16 -> x + proj(gelu(fc(ln(x)))) in x's dtype. wfc [D,F],
     wpj [F,D] int8 or float with per-output-channel scales sfc [F], spj [D]
     applied after the dot; GELU (tanh) in f32."""
-    xf = x.float()
-    m1 = xf.mean(dim=1, keepdim=True)
-    var = torch.maximum((xf * xf).mean(dim=1, keepdim=True) - m1 * m1,
-                        m1 * m1 * 3e-7)
-    xn = (xf - m1) * torch.rsqrt(var + eps) * g.float() + b.float()
-    h = torch.matmul(xn.to(torch.bfloat16).float(),
-                     wfc.to(torch.bfloat16).float())
-    h = F.gelu(h * sfc.float() + bfc.float(), approximate="tanh")
-    y = torch.matmul(h.to(torch.bfloat16).float(),
-                     wpj.to(torch.bfloat16).float())
-    y = y * spj.float() + bpj.float()
+    xf, xn = _ln_rows_bf16(x, g, b, eps)
+    h = F.gelu(_project(xn, wfc, sfc, bfc), approximate="tanh")
+    y = _project(h.to(torch.bfloat16), wpj, spj, bpj)
     return (xf + y).to(x.dtype)
 
 
@@ -153,4 +167,154 @@ def decode_mlp(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
               spj.data_ptr(), bpj.data_ptr(), h.data_ptr(), out.data_ptr(),
               bsz, d, f, float(eps), int(wfc.dtype == torch.int8))
     _lib.launches["decode_mlp"] += 1
+    return out
+
+
+def decode_self_block_plain(x, g, b, wq, sq, bq, wk, sk, bk, wv, sv, bv,
+                            wo, so, bo, kc: torch.Tensor, vc: torch.Tensor,
+                            pos: int, heads: int, eps: float = 1e-5
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The cached self-attention sublayer for one token per row:
+    x + o(attn(q(ln(x)))) over cache positions < pos and the current
+    token, whose k and v (rounded to the cache dtype, the values attention
+    uses) are written into kc [B,H,Dh,T] and vc [B,T,H,Dh] at `pos` in
+    place. q stays f32. Returns (out [B,D] in x's dtype, kc, vc)."""
+    bsz, d = x.shape
+    dh, t = d // heads, kc.shape[-1]
+    xf, xn = _ln_rows_bf16(x, g, b, eps)
+    q = _project(xn, wq, sq, bq).reshape(bsz, heads, dh)
+    k_cur = _project(xn, wk, sk, bk).to(kc.dtype).reshape(bsz, heads, dh)
+    v_cur = _project(xn, wv, sv, bv).to(vc.dtype).reshape(bsz, heads, dh)
+    k3, v3 = k_cur.float(), v_cur.float()
+    s = torch.einsum("bhd,bhdt->bht", q, kc.float()) / math.sqrt(dh)
+    live = torch.arange(t, device=x.device) < pos
+    s = torch.where(live, s, NEG_INF)
+    s_cur = (q * k3).sum(dim=-1) / math.sqrt(dh)
+    m = torch.maximum(s.amax(dim=-1), s_cur)
+    p = torch.exp(s - m[..., None])
+    p_cur = torch.exp(s_cur - m)
+    denom = p.sum(dim=-1) + p_cur
+    out = (torch.einsum("bht,bthd->bhd", p, vc.float())
+           + p_cur[..., None] * v3) / denom[..., None]
+    y = _project(out.reshape(bsz, d).to(torch.bfloat16), wo, so, bo)
+    kc[:, :, :, pos] = k_cur
+    vc[:, pos] = v_cur
+    return (xf + y).to(x.dtype), kc, vc
+
+
+def _check_block_weights(x, g, b, weights, d) -> None:
+    """x, the LayerNorm parameters and the (weight, scale, bias) triples of
+    a block kernel: [D,D] weights of one dtype, f32 [D] vectors."""
+    f32 = (torch.float32,)
+    _lib.check(x, "x", (torch.bfloat16,))
+    _lib.check(g, "g", f32, (d,))
+    _lib.check(b, "b", f32, (d,))
+    if d % 32:
+        raise ValueError(f"the block kernels take widths that are multiples "
+                         f"of 32, got {d}")
+    wdtypes = (torch.int8, torch.bfloat16)
+    for i, (w, s, bias) in enumerate(weights):
+        _lib.check(w, f"weight {i}", wdtypes, (d, d))
+        wdtypes = (w.dtype,)
+        _lib.check(s, f"scale {i}", f32, (d,))
+        _lib.check(bias, f"bias {i}", f32, (d,))
+
+
+def decode_self_block(x, g, b, wq, sq, bq, wk, sk, bk, wv, sv, bv, wo, so,
+                      bo, kc: torch.Tensor, vc: torch.Tensor, pos: int,
+                      heads: int, eps: float = 1e-5
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x bf16 [B,D]; LN g, b f32 [D]; wq, wk, wv, wo [D,D] all int8 or all
+    bf16, with f32 [D] per-output-channel scales and biases; caches kc bf16
+    [B,H,Dh,T] and vc bf16 [B,T,H,Dh], read at positions < pos and written
+    at `pos` in place -> (out bf16 [B,D], kc, vc). Three launches (see
+    csrc/decode_block.cu), counted as one call."""
+    if _lib.dispatch_device(x) == "cpu":
+        return decode_self_block_plain(x, g, b, wq, sq, bq, wk, sk, bk, wv,
+                                       sv, bv, wo, so, bo, kc, vc, pos,
+                                       heads, eps)
+    bsz, d = x.shape
+    dh, t = d // heads, kc.shape[-1]
+    _check_block_weights(x, g, b, ((wq, sq, bq), (wk, sk, bk), (wv, sv, bv),
+                                   (wo, so, bo)), d)
+    _lib.check(kc, "kc", (torch.bfloat16,), (bsz, heads, dh, t), align=2)
+    _lib.check(vc, "vc", (torch.bfloat16,), (bsz, t, heads, dh), align=2)
+    if not 0 <= pos < t:
+        raise ValueError(f"pos {pos} outside the cache [0, {t})")
+    q = torch.empty(bsz, d, dtype=torch.float32, device=x.device)
+    attn = torch.empty_like(x)
+    out = torch.empty_like(x)
+    _lib.call("ecap_decode_self_block", x.data_ptr(), g.data_ptr(),
+              b.data_ptr(), wq.data_ptr(), sq.data_ptr(), bq.data_ptr(),
+              wk.data_ptr(), sk.data_ptr(), bk.data_ptr(), wv.data_ptr(),
+              sv.data_ptr(), bv.data_ptr(), wo.data_ptr(), so.data_ptr(),
+              bo.data_ptr(), kc.data_ptr(), vc.data_ptr(), q.data_ptr(),
+              attn.data_ptr(), out.data_ptr(), bsz, d, heads, t, int(pos),
+              float(eps), int(wq.dtype == torch.int8))
+    _lib.launches["decode_self_block"] += 1
+    return out, kc, vc
+
+
+def decode_cross_block_plain(x, g, b, wq, sq, bq, wo, so, bo,
+                             kt: torch.Tensor, v: torch.Tensor,
+                             kt_scale: Optional[torch.Tensor] = None,
+                             v_scale: Optional[torch.Tensor] = None,
+                             heads: int = 8, eps: float = 1e-5
+                             ) -> torch.Tensor:
+    """The cross-attention sublayer for one token per row:
+    x + o(attn(q(ln(x)))) over precomputed kt [B,H,Dh,K] and head-major v
+    [B,H,K,Dh] (int8 with scales, or float). q stays f32; kt_scale
+    multiplies the scores after 1/sqrt(Dh), v_scale the output before the
+    division by the denominator."""
+    bsz, d = x.shape
+    dh = d // heads
+    xf, xn = _ln_rows_bf16(x, g, b, eps)
+    q = _project(xn, wq, sq, bq).reshape(bsz, heads, dh)
+    s = torch.einsum("bhd,bhdk->bhk", q, kt.float()) / math.sqrt(dh)
+    if kt_scale is not None:
+        s = s * kt_scale.float()
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = torch.einsum("bhk,bhkd->bhd", p, v.float())
+    if v_scale is not None:
+        out = out * v_scale.float()
+    out = out / p.sum(dim=-1)[..., None]
+    y = _project(out.reshape(bsz, d).to(torch.bfloat16), wo, so, bo)
+    return (xf + y).to(x.dtype)
+
+
+def decode_cross_block(x, g, b, wq, sq, bq, wo, so, bo, kt: torch.Tensor,
+                       v: torch.Tensor,
+                       kt_scale: Optional[torch.Tensor] = None,
+                       v_scale: Optional[torch.Tensor] = None,
+                       heads: int = 8, eps: float = 1e-5) -> torch.Tensor:
+    """x bf16 [B,D]; LN g, b f32 [D]; wq, wo [D,D] both int8 or both bf16
+    with f32 [D] scales and biases; kt [B,H,Dh,K], v [B,H,K,Dh] both int8
+    (with f32 scales) or both bf16 -> bf16 [B,D]. Three launches (see
+    csrc/decode_block.cu), counted as one call."""
+    if _lib.dispatch_device(x) == "cpu":
+        return decode_cross_block_plain(x, g, b, wq, sq, bq, wo, so, bo, kt,
+                                        v, kt_scale, v_scale, heads, eps)
+    bsz, d = x.shape
+    dh, nk = d // heads, kt.shape[-1]
+    _check_block_weights(x, g, b, ((wq, sq, bq), (wo, so, bo)), d)
+    _lib.check(kt, "kt", (torch.int8, torch.bfloat16), (bsz, heads, dh, nk))
+    _lib.check(v, "v", (kt.dtype,), (bsz, heads, nk, dh))
+    ks_ptr = vs_ptr = None
+    if kt_scale is not None:
+        _lib.check(kt_scale, "kt_scale", (torch.float32,), (bsz, heads, nk))
+        ks_ptr = kt_scale.data_ptr()
+    if v_scale is not None:
+        _lib.check(v_scale, "v_scale", (torch.float32,), (bsz, heads, dh))
+        vs_ptr = v_scale.data_ptr()
+    q = torch.empty(bsz, d, dtype=torch.float32, device=x.device)
+    attn = torch.empty_like(x)
+    out = torch.empty_like(x)
+    _lib.call("ecap_decode_cross_block", x.data_ptr(), g.data_ptr(),
+              b.data_ptr(), wq.data_ptr(), sq.data_ptr(), bq.data_ptr(),
+              wo.data_ptr(), so.data_ptr(), bo.data_ptr(), kt.data_ptr(),
+              v.data_ptr(), ks_ptr, vs_ptr, q.data_ptr(), attn.data_ptr(),
+              out.data_ptr(), bsz, d, heads, nk, float(eps),
+              int(wq.dtype == torch.int8), int(kt.dtype == torch.int8))
+    _lib.launches["decode_cross_block"] += 1
     return out

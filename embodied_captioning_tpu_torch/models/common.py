@@ -10,11 +10,13 @@ Every LayerNorm runs through the LayerNorm kernel (`layernorm`).
 
 The attention paths:
   - uncached self-attention without a mask: the flash kernel;
-  - one-token cached self-attention: the decode self-attention kernel;
-  - one-token attention over precomputed cross K/V: the decode
-    cross-attention kernel;
-  - everything else (masked, or cross over a feature map): plain tensor
-    ops with bf16 scores and bf16 probabilities, as the JAX fallback path.
+  - one-token cached decoding in `block`: the whole self-attention and
+    cross-attention sublayers as the block kernels (`decode_blocks=True`,
+    the default), or, with `decode_blocks=False`, LayerNorm, projections
+    and the decode self-/cross-attention kernels as separate calls;
+  - everything else (masked, multi-token cached, or cross over a feature
+    map): plain tensor ops with bf16 scores and bf16 probabilities, as the
+    JAX fallback path.
 """
 
 from __future__ import annotations
@@ -26,8 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import (
-    decode_cross_attention, decode_mlp, decode_self_attention,
-    flash_attention,
+    decode_cross_attention, decode_cross_block, decode_mlp,
+    decode_self_attention, decode_self_block, flash_attention,
 )
 from ..kernels import layernorm as layernorm_kernel
 from .quantize import QuantizedArray, QuantizedKV, maybe_dequant, quantize_kv
@@ -88,9 +90,10 @@ def mlp(p: dict, x: torch.Tensor, compute_dtype=torch.bfloat16
 
 class KVCache(NamedTuple):
     """Per-layer decode cache: k [B, H, Dh, T_max] (time minor), v
-    [B, T_max, H, Dh]; `index` is the next write position. `mha` writes
-    the new key/value into k and v in place and returns the cache with
-    index + 1."""
+    [B, T_max, H, Dh]; `index` is the next write position. `mha` and
+    `block` write the new keys/values into k and v in place and return
+    the cache with the index advanced; positions >= index are never read,
+    so rewinding the index discards them."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -125,19 +128,27 @@ def precompute_kv(p: dict, kv_src: torch.Tensor, heads: int):
     return kt.contiguous(), v.permute(0, 2, 1, 3).contiguous()
 
 
-def _attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """q [B,Tq,H,Dh], k/v [B,Tk,H,Dh] bf16 -> [B,Tq,H*Dh] f32. bf16 scores,
-    float32 max/denominator, bf16 probabilities, normalisation after PV."""
+def _attention_plain(q: torch.Tensor, kt: torch.Tensor, v: torch.Tensor,
+                     mask: Optional[torch.Tensor],
+                     kt_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q [B,Tq,H,Dh] bf16, kt [B,H,Dh,Tk], v head-major [B,H,Tk,Dh] (bf16,
+    or int8 with kt_scale [B,H,Tk] and v_scale [B,H,Dh]) -> [B,Tq,H*Dh]
+    f32. bf16 scores, float32 max/denominator, bf16 probabilities,
+    normalisation after PV."""
     dh = q.shape[-1]
-    logits = matmul_f32(q.permute(0, 2, 1, 3), k.permute(0, 2, 3, 1))
+    logits = matmul_f32(q.permute(0, 2, 1, 3), kt.to(torch.bfloat16))
     logits = logits.to(torch.bfloat16).float() / math.sqrt(dh)
+    if kt_scale is not None:
+        logits = logits * kt_scale[:, :, None, :]
     if mask is not None:
         logits = torch.where(mask, logits, NEG_INF)
     m = logits.amax(dim=-1, keepdim=True)
     pexp = torch.exp(logits - m).to(torch.bfloat16)
     denom = pexp.float().sum(dim=-1)  # [B, H, Tq]
-    out = matmul_f32(pexp, v.permute(0, 2, 1, 3))  # [B, H, Tq, Dh]
+    out = matmul_f32(pexp, v.to(torch.bfloat16))  # [B, H, Tq, Dh]
+    if v_scale is not None:
+        out = out * v_scale[:, :, None, :]
     out = out / denom[..., None]
     b, h, tq, d = out.shape
     return out.permute(0, 2, 1, 3).reshape(b, tq, h * d)
@@ -151,25 +162,29 @@ def mha(p: dict, x: torch.Tensor, heads: int,
         kv_precomputed=None,
         ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Multi-head attention. x [B, Tq, D]; kv [B, Tk, Dkv] (cross source,
-    default x); mask broadcastable to [B, H, Tq, Tk] (True = attend);
-    cache: one-token cached decoding; kv_precomputed: (kt, v) or
-    QuantizedKV from `precompute_kv`. Returns (out [B, Tq, D], cache)."""
+    default x); mask broadcastable to [B, H, Tq, Tk] (True = attend; Tk is
+    the cache capacity for cached decoding); cache: cached self-attention,
+    the Tq new positions are written at cache.index and query i sees keys
+    at positions <= index + i; kv_precomputed: (kt, v) or QuantizedKV from
+    `precompute_kv`. Returns (out [B, Tq, D], cache)."""
     b, tq = x.shape[:2]
     if kv_precomputed is not None:
-        if cache is not None or mask is not None or tq != 1:
-            raise ValueError("precomputed cross K/V serve one-token "
-                             "unmasked decoding only")
+        if cache is not None:
+            raise ValueError("kv_precomputed cannot be combined with a KV "
+                             "cache")
         q = _split_heads(dense(p["q"], x, compute_dtype), heads)
         if isinstance(kv_precomputed, QuantizedKV):
-            out = decode_cross_attention(
-                q[:, 0].to(compute_dtype), kv_precomputed.kt,
-                kv_precomputed.v, kv_precomputed.kt_scale,
-                kv_precomputed.v_scale)
+            kt, v = kv_precomputed.kt, kv_precomputed.v
+            scales = (kv_precomputed.kt_scale, kv_precomputed.v_scale)
         else:
-            kt, v = kv_precomputed
-            out = decode_cross_attention(q[:, 0].to(compute_dtype), kt, v)
-        out = out.reshape(b, 1, -1).to(compute_dtype)
-        return dense(p["o"], out, compute_dtype), None
+            (kt, v), scales = kv_precomputed, (None, None)
+        if tq == 1 and mask is None:
+            out = decode_cross_attention(q[:, 0].to(compute_dtype), kt, v,
+                                         *scales)
+            out = out.reshape(b, 1, -1)
+        else:
+            out = _attention_plain(q.to(compute_dtype), kt, v, mask, *scales)
+        return dense(p["o"], out.to(compute_dtype), compute_dtype), None
 
     q = _split_heads(dense(p["q"], x, compute_dtype), heads)
     src = x if kv is None else kv
@@ -177,17 +192,27 @@ def mha(p: dict, x: torch.Tensor, heads: int,
     v = _split_heads(dense(p["v"], src, compute_dtype), heads)
 
     if cache is not None:
-        if kv is not None or mask is not None or tq != 1:
-            raise ValueError("the cache serves one-token self-attention "
-                             "without an explicit mask")
+        if kv is not None:
+            raise ValueError("the cache serves self-attention only")
         pos = cache.index
-        cache.k[:, :, :, pos] = k[:, 0].to(cache.k.dtype)
-        cache.v[:, pos] = v[:, 0].to(cache.v.dtype)
-        cache = KVCache(cache.k, cache.v, pos + 1)
-        out = decode_self_attention(q[:, 0].to(compute_dtype), cache.k,
-                                    cache.v, pos)
-        out = out.reshape(b, 1, -1).to(compute_dtype)
-        return dense(p["o"], out, compute_dtype), cache
+        cache.k[:, :, :, pos:pos + tq] = k.permute(0, 2, 3, 1).to(
+            cache.k.dtype)
+        cache.v[:, pos:pos + tq] = v.to(cache.v.dtype)
+        cache = KVCache(cache.k, cache.v, pos + tq)
+        if tq == 1 and mask is None:
+            out = decode_self_attention(q[:, 0].to(compute_dtype), cache.k,
+                                        cache.v, pos)
+            out = out.reshape(b, 1, -1)
+        else:
+            # causal within the newly written block too
+            key_pos = torch.arange(cache.k.shape[-1], device=x.device)
+            q_pos = pos + torch.arange(tq, device=x.device)
+            causal = key_pos[None, None, None, :] <= q_pos[None, None, :,
+                                                           None]
+            out = _attention_plain(
+                q.to(compute_dtype), cache.k, cache.v.permute(0, 2, 1, 3),
+                causal if mask is None else (mask & causal))
+        return dense(p["o"], out.to(compute_dtype), compute_dtype), cache
 
     if kv is None and mask is None:
         out = flash_attention(
@@ -197,30 +222,46 @@ def mha(p: dict, x: torch.Tensor, heads: int,
         out = out.transpose(1, 2).reshape(b, tq, -1)
         return dense(p["o"], out, compute_dtype), None
 
-    out = _attention_plain(q.to(compute_dtype), k.to(compute_dtype),
-                           v.to(compute_dtype), mask)
+    out = _attention_plain(q.to(compute_dtype),
+                           k.to(compute_dtype).permute(0, 2, 3, 1),
+                           v.to(compute_dtype).permute(0, 2, 1, 3), mask)
     return dense(p["o"], out.to(compute_dtype), compute_dtype), None
 
 
 def block(p: dict, x: torch.Tensor, heads: int,
           mask: Optional[torch.Tensor] = None,
           cache: Optional[KVCache] = None, compute_dtype=torch.bfloat16,
-          cross_kv=None,
+          cross_kv=None, decode_blocks: bool = True,
           ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Pre-LN transformer block with an optional cross-attention sublayer
-    over precomputed K/V. One-token cached decoding runs the MLP sublayer
-    (LN + fc + GELU + proj + residual) as the fused decode-MLP kernel."""
+    over precomputed K/V. One token per row on a bf16 stream is the decode
+    step: the MLP sublayer (LN + fc + GELU + proj + residual) runs as the
+    fused decode-MLP kernel when there is a cache, and with `decode_blocks`
+    the cached self-attention sublayer and the cross-attention sublayer
+    run as one block-kernel call each (widths that are multiples of 32);
+    without it they run as LayerNorm, projections and the decode attention
+    kernels."""
+    one_token = (x.shape[1] == 1 and compute_dtype == torch.bfloat16
+                 and x.dtype == torch.bfloat16)
+    fuse = decode_blocks and one_token and x.shape[-1] % 32 == 0
     if "attn" in p:
-        h, cache = mha(p["attn"], layernorm(p["ln1"], x), heads, mask=mask,
-                       cache=cache, compute_dtype=compute_dtype)
-        x = x + h
+        if fuse and cache is not None and mask is None:
+            x, cache = _decode_self_block(p["attn"], p["ln1"], x, cache,
+                                          heads)
+        else:
+            h, cache = mha(p["attn"], layernorm(p["ln1"], x), heads,
+                           mask=mask, cache=cache,
+                           compute_dtype=compute_dtype)
+            x = x + h
     if cross_kv is not None and "xattn" in p:
-        h, _ = mha(p["xattn"], layernorm(p["ln_x"], x), heads,
-                   compute_dtype=compute_dtype, kv_precomputed=cross_kv)
-        x = x + h
-    if (cache is not None and x.shape[1] == 1
-            and compute_dtype == torch.bfloat16
-            and x.dtype == torch.bfloat16):
+        if fuse:
+            x = _decode_cross_block(p["xattn"], p["ln_x"], x, cross_kv,
+                                    heads)
+        else:
+            h, _ = mha(p["xattn"], layernorm(p["ln_x"], x), heads,
+                       compute_dtype=compute_dtype, kv_precomputed=cross_kv)
+            x = x + h
+    if cache is not None and one_token:
         return _decode_mlp_block(p["mlp"], p["ln2"], x), cache
     return x + mlp(p["mlp"], layernorm(p["ln2"], x), compute_dtype), cache
 
@@ -240,6 +281,29 @@ def _decode_mlp_block(p_mlp: dict, p_ln: dict, x: torch.Tensor
     out = decode_mlp(x[:, 0].contiguous(), p_ln["g"], p_ln["b"],
                      wfc, sfc, p_mlp["fc"]["b"], wpj, spj,
                      p_mlp["proj"]["b"])
+    return out[:, None]
+
+
+def _decode_self_block(p_attn: dict, p_ln: dict, x: torch.Tensor,
+                       cache: KVCache, heads: int
+                       ) -> Tuple[torch.Tensor, KVCache]:
+    ws = [t for n in "qkvo"
+          for t in (*_kernel_weight(p_attn[n]["w"]), p_attn[n]["b"])]
+    out, k, v = decode_self_block(x[:, 0].contiguous(), p_ln["g"], p_ln["b"],
+                                  *ws, cache.k, cache.v, cache.index, heads)
+    return out[:, None], KVCache(k, v, cache.index + 1)
+
+
+def _decode_cross_block(p_xattn: dict, p_ln: dict, x: torch.Tensor,
+                        cross_kv, heads: int) -> torch.Tensor:
+    ws = [t for n in "qo"
+          for t in (*_kernel_weight(p_xattn[n]["w"]), p_xattn[n]["b"])]
+    if isinstance(cross_kv, QuantizedKV):
+        kv = (cross_kv.kt, cross_kv.v, cross_kv.kt_scale, cross_kv.v_scale)
+    else:
+        kv = cross_kv
+    out = decode_cross_block(x[:, 0].contiguous(), p_ln["g"], p_ln["b"], *ws,
+                             *kv, heads=heads)
     return out[:, None]
 
 

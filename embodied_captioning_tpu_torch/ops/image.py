@@ -12,8 +12,8 @@ from typing import Sequence, Tuple
 
 import torch
 
-CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
-CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+from ..kernels import fused_preprocess
+from ..kernels.preprocess import CLIP_MEAN, CLIP_STD
 
 
 def _interp_weights(src: torch.Tensor, in_n: int,
@@ -75,7 +75,12 @@ def patchify(img: torch.Tensor, patch: int) -> torch.Tensor:
 
 def preprocess_for_vit(img_u8: torch.Tensor, image_size: int, patch: int
                        ) -> torch.Tensor:
-    """uint8 [..., H, W, 3] -> normalised patch tokens for the ViT."""
+    """[..., H, W, 3] -> normalised patch tokens for the ViT. A uint8 batch
+    [N, H, W, 3] with `image_size` a multiple of `patch` goes through the
+    fused preprocess kernel; anything else through the separate ops."""
+    if (img_u8.dtype == torch.uint8 and img_u8.dim() == 4
+            and image_size % patch == 0):
+        return fused_preprocess(img_u8.contiguous(), image_size, patch)
     x = img_u8.float() / 255.0
     x = resize_bilinear(x, image_size, image_size)
     return patchify(normalize(x), patch)

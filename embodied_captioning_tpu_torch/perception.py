@@ -39,8 +39,12 @@ class FrameResult(NamedTuple):
 
 @torch.no_grad()
 def perceive(params: PerceptionParams, images_u8: torch.Tensor,
-             cfg: ExperimentConfig) -> FrameResult:
+             cfg: ExperimentConfig, decode_blocks: bool = True
+             ) -> FrameResult:
     """images [E, S, S, 3] uint8 -> FrameResult.
+
+    `decode_blocks` picks the captioner's decode route (see
+    `models.captioner.generate`).
 
     With `runtime.caption_slots_per_frame` = k in (0, N), only the k
     highest-scored detection slots of EACH frame are cropped, captioned and
@@ -80,7 +84,8 @@ def perceive(params: PerceptionParams, images_u8: torch.Tensor,
         row_valid = None
     tokens, logprobs, lengths = CAP.generate(
         params.captioner, flat, cfg.captioner,
-        max_len=cfg.captioner.max_caption_len, row_valid=row_valid)
+        max_len=cfg.captioner.max_caption_len, row_valid=row_valid,
+        decode_blocks=decode_blocks)
 
     # the sentence encoder masks id 0: map the captioner's pad id onto it
     se_len = cfg.sentence_encoder.max_len

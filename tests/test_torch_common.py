@@ -116,8 +116,10 @@ def test_precompute_kv_layouts(int8):
 
 @pytest.mark.parametrize("int8", [False, True])
 def test_block_decode_step(int8):
-    # one cached decode step through a multimodal block: self-attention
-    # kernel, cross-attention kernel over precomputed K/V, fused decode MLP
+    # one cached decode step through a multimodal block on the route of
+    # separate calls (decode_blocks=False; the JAX package without
+    # ECAP_PALLAS_BLOCKS): self-attention kernel, cross-attention kernel
+    # over precomputed K/V, fused decode MLP
     rng = np.random.default_rng(6)
     b, tmax, pos = 3, 8, 2
     p = _block_params(4, cross=True, int8=int8)
@@ -131,11 +133,93 @@ def test_block_decode_step(int8):
                            cross_kv=ckv)
     tp = from_jax(p, "cpu")
     out, oc = TC.block(tp, t(x), H, cache=TC.KVCache(t(k0), t(v0), pos),
-                       cross_kv=TC.precompute_kv(tp["xattn"], t(img), H))
+                       cross_kv=TC.precompute_kv(tp["xattn"], t(img), H),
+                       decode_blocks=False)
     assert out.dtype == torch.bfloat16 and oc.index == pos + 1
     np.testing.assert_allclose(np32(oc.k), np32(rc.k), atol=2 ** -6, rtol=0)
     # residual stream |x| < 8: two bf16 ulps there
     np.testing.assert_allclose(np32(out), np32(ref), atol=2 ** -4, rtol=0)
+
+
+@pytest.mark.parametrize("pos", [0, 2])
+@pytest.mark.parametrize("int8", [False, True])
+def test_block_decode_step_block_route(int8, pos, monkeypatch):
+    # the same step on the default route (decode_blocks=True) against the
+    # JAX block with ECAP_USE_PALLAS=1 and ECAP_PALLAS_BLOCKS=1: one
+    # self-block kernel, one cross-block kernel, the fused decode MLP.
+    # `block` is not jitted, so the variables are read on each call.
+    from embodied_captioning_tpu_torch import kernels as K
+
+    rng = np.random.default_rng(8)
+    b, tmax = 3, 8
+    p = _block_params(6, cross=True, int8=int8)
+    img = jnp.asarray(rng.standard_normal((b, 11, D)), jnp.bfloat16)
+    k0 = jnp.asarray(rng.standard_normal((b, H, D // H, tmax)), jnp.bfloat16)
+    v0 = jnp.asarray(rng.standard_normal((b, tmax, H, D // H)), jnp.bfloat16)
+    x = jnp.asarray(rng.standard_normal((b, 1, D)), jnp.bfloat16)
+    with jax_kernel_path(blocks=True):
+        ckv = JC.precompute_kv(p["xattn"], img, H)
+        ref, rc = JC.block(p, x, H, cache=JC.KVCache(k0, v0, jnp.int32(pos)),
+                           cross_kv=ckv)
+    tp = from_jax(p, "cpu")
+    called = []
+    for name in ("decode_self_block", "decode_cross_block", "decode_mlp",
+                 "decode_self_attention", "decode_cross_attention"):
+        fn = getattr(TC, name)
+        monkeypatch.setattr(TC, name, lambda *a, _f=fn, _n=name, **k: (
+            called.append(_n), _f(*a, **k))[1])
+    tcache = TC.KVCache(t(k0), t(v0), pos)
+    out, oc = TC.block(tp, t(x), H, cache=tcache,
+                       cross_kv=TC.precompute_kv(tp["xattn"], t(img), H))
+    assert called == ["decode_self_block", "decode_cross_block", "decode_mlp"]
+    assert out.dtype == torch.bfloat16 and oc.index == pos + 1
+    assert oc.k is tcache.k and oc.v is tcache.v       # written in place
+    # the cache: the current token's k, v (|k| < 4: one bf16 ulp) at `pos`
+    np.testing.assert_allclose(np32(oc.k), np32(rc.k), atol=2 ** -6, rtol=0)
+    np.testing.assert_allclose(np32(oc.v), np32(rc.v), atol=2 ** -6, rtol=0)
+    assert np.mean(np32(oc.k) == np32(rc.k)) > 0.99
+    # residual stream |x| < 8: two bf16 ulps there
+    np.testing.assert_allclose(np32(out), np32(ref), atol=2 ** -4, rtol=0)
+    # a masked or multi-token call does not take the block kernels
+    called.clear()
+    TC.block(tp, t(x).repeat(1, 2, 1), H,
+             cache=TC.KVCache(t(k0), t(v0), pos))
+    assert not called
+    assert K.launches["decode_self_block"] == 0
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_mha_cached_multi_token(int8):
+    # four new tokens against a part-filled cache: written at index ..
+    # index+3, query i sees keys <= index + i (plain ops in both packages);
+    # then the same over precomputed cross K/V (int8 K/V with int8 weights)
+    rng = np.random.default_rng(9)
+    b, tmax, pos, tq = 3, 12, 5, 4
+    p = _block_params(7, cross=True, int8=int8)
+    k0 = jnp.asarray(rng.standard_normal((b, H, D // H, tmax)), jnp.bfloat16)
+    v0 = jnp.asarray(rng.standard_normal((b, tmax, H, D // H)), jnp.bfloat16)
+    x = jnp.asarray(rng.standard_normal((b, tq, D)), jnp.bfloat16)
+    img = jnp.asarray(rng.standard_normal((b, 11, D)), jnp.bfloat16)
+    with jax_kernel_path():
+        ref, rc = JC.mha(p["attn"], x, H,
+                         cache=JC.KVCache(k0, v0, jnp.int32(pos)))
+        ckv = JC.precompute_kv(p["xattn"], img, H)
+        ref_x, _ = JC.mha(p["xattn"], x, H, kv_precomputed=ckv)
+    tp = from_jax(p, "cpu")
+    out, oc = TC.mha(tp["attn"], t(x), H, cache=TC.KVCache(t(k0), t(v0), pos))
+    assert oc.index == int(rc.index) == pos + tq
+    np.testing.assert_array_equal(np32(oc.k), np32(rc.k))
+    np.testing.assert_array_equal(np32(oc.v), np32(rc.v))
+    np.testing.assert_allclose(np32(out), np32(ref), atol=2 ** -6, rtol=0)
+    # causal inside the new block: the first query's output equals a
+    # one-token call at the same index
+    one, _ = TC.mha(tp["attn"], t(x)[:, :1], H,
+                    cache=TC.KVCache(t(k0), t(v0), pos))
+    np.testing.assert_allclose(np32(out[:, :1]), np32(one), atol=2 ** -6,
+                               rtol=0)
+    out_x, _ = TC.mha(tp["xattn"], t(x), H,
+                      kv_precomputed=TC.precompute_kv(tp["xattn"], t(img), H))
+    np.testing.assert_allclose(np32(out_x), np32(ref_x), atol=2 ** -6, rtol=0)
 
 
 def test_block_post_ln_with_mask():

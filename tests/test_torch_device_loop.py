@@ -1,6 +1,11 @@
 """The port's fused exploration loop (envs/device_loop.py) against the JAX
 package's `step_agents`, `camera_poses` and `rollout_fused` (the fused
-protocol: post-step frames, depth brought down to the mask raster)."""
+protocol: post-step frames, depth brought down to the mask raster), on
+both decode routes: the port's default (whole-block kernels) against the
+JAX loop with ECAP_USE_PALLAS=1 and ECAP_PALLAS_BLOCKS=1, and the route of
+separate calls (`decode_blocks=False`) against ECAP_USE_PALLAS=1 alone."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -110,21 +115,23 @@ def test_make_action_plan_equals_jax(pattern):
 # each with rewards from step 4, 3 and 2 on, and one whose first forward
 # move is blocked
 SEEDS, COLUMNS = (19, 30, 41, 10), (6, 5, 4, 9)
+# the same for the whole-block decode route, on which env seed 30 flips a
+# greedy token (`python tests/torch_parity.py rollout-scan-blocks`); env
+# seed 24 (rewards from step 2 on) takes its place
+BLOCK_SEEDS, BLOCK_COLUMNS = (19, 24, 41, 10), (6, 11, 4, 9)
 K = 4
 
 
-@pytest.fixture(scope="module")
-def jax_rollout(cfgs):
+def _jax_rollout(jcfg, seeds, columns, blocks):
     """The JAX rollout_fused on four envs, plus the frames it renders
     (the same step and render functions, outside the scan)."""
-    jcfg, _ = cfgs
-    sims = [JSim(jcfg.sim, jcfg.sensors, seed=s) for s in SEEDS]
+    sims = [JSim(jcfg.sim, jcfg.sensors, seed=s) for s in seeds]
     scenes, state = JDL.states_from_sims(sims)
     maps = jax.tree_util.tree_map(
         lambda *xs: jnp.stack(xs),
         *[JV.create(jcfg.map, np.asarray(s.scene.lower)) for s in sims])
     actions = np.ascontiguousarray(
-        JDL.make_action_plan(K, 12, pattern="random", seed=5)[:, COLUMNS])
+        JDL.make_action_plan(K, 12, pattern="random", seed=5)[:, columns])
     params = init_perception(jax.random.PRNGKey(0), jcfg)
     start = dict(scenes=_np(scenes), state=_np(state), maps=_np(maps),
                  params=_np(params), actions=actions)
@@ -135,13 +142,23 @@ def jax_rollout(cfgs):
                                             jcfg, True)
         frames.append({"rgb": torch.from_numpy(np.array(rgb)),
                        "depth": torch.from_numpy(np.array(depth))})
-    with jax_kernel_path():
+    with jax_kernel_path(blocks=blocks):
         st, maps, rewards, collided = JDL.rollout_fused(
             params, scenes, state, maps, jnp.asarray(actions),
             jax.random.PRNGKey(2), jcfg)
         out = dict(state=_np(st), maps=_np(maps), rewards=np.asarray(rewards),
                    collided=np.asarray(collided))
     return start, frames, out
+
+
+@pytest.fixture(scope="module")
+def jax_rollout(cfgs):
+    return _jax_rollout(cfgs[0], SEEDS, COLUMNS, blocks=False)
+
+
+@pytest.fixture(scope="module")
+def jax_rollout_blocks(cfgs):
+    return _jax_rollout(cfgs[0], BLOCK_SEEDS, BLOCK_COLUMNS, blocks=True)
 
 
 def _port_inputs(start):
@@ -151,24 +168,17 @@ def _port_inputs(start):
             P.map_state_from_jax(start["maps"], "cpu"))
 
 
-def test_rollout_fused_matches_jax_on_handed_frames(cfgs, jax_rollout,
-                                                    monkeypatch):
-    """The slice as a whole against the JAX `rollout_fused`: same float
-    weights (PRNGKey(0) through the bridge), scenes, agents, empty maps and
-    actions. The port's loop is handed the frames the JAX package renders:
-    its own rgb differs by one level on ~0.5% of the pixels, which can move
-    a box of the random-weight detector (see test_torch_sim.py for the
-    render, and the own-frames test below). Rewards within rtol 1e-4 /
-    atol 1e-5; collisions and poses equal; the object tables' flags,
-    classes and counts equal and their float fields close."""
-    _, cfg = cfgs
-    start, frames, ref = jax_rollout
+def _check_rollout_on_handed_frames(cfg, jax_result, monkeypatch, n_envs,
+                                    decode_blocks):
+    start, frames, ref = jax_result
     params, scenes, state, maps = _port_inputs(start)
     handed = iter(frames)
     monkeypatch.setattr(DL, "_render_scan", lambda sc, poses, c: next(handed))
+    monkeypatch.setattr(DL, "perceive", functools.partial(
+        DL.perceive, decode_blocks=decode_blocks))
     state, maps, rewards, collided = DL.rollout_fused(
         params, scenes, state, maps, start["actions"], cfg)
-    assert rewards.shape == (K, len(SEEDS)) and rewards.dtype == torch.float32
+    assert rewards.shape == (K, n_envs) and rewards.dtype == torch.float32
     assert (ref["rewards"][-1, :3] > 1e-4).all()      # not a vacuous check
     np.testing.assert_allclose(rewards.numpy(), ref["rewards"], rtol=1e-4,
                                atol=1e-5)
@@ -196,6 +206,32 @@ def test_rollout_fused_matches_jax_on_handed_frames(cfgs, jax_rollout,
     for f in ("count", "vox_obj"):
         off = np.mean(getattr(maps, f).numpy() != getattr(ref["maps"], f))
         assert off < 1e-3, (f, off)
+
+
+def test_rollout_fused_matches_jax_on_handed_frames(cfgs, jax_rollout,
+                                                    monkeypatch):
+    """The slice as a whole against the JAX `rollout_fused`: same float
+    weights (PRNGKey(0) through the bridge), scenes, agents, empty maps and
+    actions. The port's loop is handed the frames the JAX package renders:
+    its own rgb differs by one level on ~0.5% of the pixels, which can move
+    a box of the random-weight detector (see test_torch_sim.py for the
+    render, and the own-frames test below). Rewards within rtol 1e-4 /
+    atol 1e-5; collisions and poses equal; the object tables' flags,
+    classes and counts equal and their float fields close. Both packages
+    decode on the route of separate kernel calls (the port with
+    `decode_blocks=False`, the JAX package with ECAP_USE_PALLAS=1), on
+    which these env seeds were chosen."""
+    _check_rollout_on_handed_frames(cfgs[1], jax_rollout, monkeypatch,
+                                    len(SEEDS), decode_blocks=False)
+
+
+def test_rollout_fused_block_route_matches_jax_on_handed_frames(
+        cfgs, jax_rollout_blocks, monkeypatch):
+    """The same on the port's default route, the whole-block decode
+    kernels, against the JAX loop with ECAP_PALLAS_BLOCKS=1 as well; same
+    tolerances, env seed 24 in place of 30."""
+    _check_rollout_on_handed_frames(cfgs[1], jax_rollout_blocks, monkeypatch,
+                                    len(BLOCK_SEEDS), decode_blocks=True)
 
 
 def test_rollout_fused_on_own_frames(cfgs, jax_rollout):

@@ -32,9 +32,24 @@ def test_scan_covers_every_subpackage_and_the_smoke_script():
     for rel in ("envs/sim.py", "envs/device_loop.py", "mapping/voxel_map.py",
                 "mapping/consensus.py", "ops/geometry.py", "ops/cosine.py",
                 "kernels/raycast.py", "kernels/layernorm.py",
-                "sensor_data.py", "perception.py"):
+                "kernels/preprocess.py", "kernels/decode_attention.py",
+                "models/captioner.py", "sensor_data.py", "perception.py"):
         assert pkg + rel in scanned, rel
     assert "chip_smoke.py" in scanned
     # every directory of the package that holds Python files is scanned
     dirs = {p.parent for p in (REPO / pkg).rglob("*.py")}
     assert all(any(f.parent == d for f in FILES) for d in dirs)
+
+
+def test_every_kernel_has_a_signature_a_counter_and_a_source():
+    from embodied_captioning_tpu_torch.kernels import _lib
+
+    names = {"flash_attention", "decode_self_attention",
+             "decode_cross_attention", "decode_mlp", "decode_self_block",
+             "decode_cross_block", "raycast_minargmin", "layernorm",
+             "fused_preprocess"}
+    assert set(_lib.launches) == names
+    assert set(_lib._SIGNATURES) == {"ecap_" + n for n in names}
+    sources = "".join(p.read_text() for p in _lib.CSRC.glob("*.cu"))
+    for name in _lib._SIGNATURES:
+        assert f'extern "C" int {name}(' in sources, name

@@ -273,3 +273,159 @@ def test_loop_kernel_wrappers_take_the_plain_version_on_cpu_only():
         K.layernorm(x.to("meta"), g.to("meta"), b.to("meta"))
     with pytest.raises(ValueError, match="no kernel or plain version"):
         K.raycast_minargmin(box_min, box_max, valid, inv.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# whole-block decode kernels and the fused preprocess (caption generation)
+# ---------------------------------------------------------------------------
+
+def _proj_weights(rng, d, n, int8):
+    """n (weight, scale, bias) triples as the TPU block kernels take them:
+    [d, d] int8 with per-output-channel scales, or float with ones."""
+    out = []
+    for _ in range(n):
+        w = jnp.asarray(rng.standard_normal((d, d)) / math.sqrt(d),
+                        jnp.float32)
+        bias = jnp.asarray(0.05 * rng.standard_normal(d), jnp.float32)
+        if int8:
+            q = jqa(w)
+            out += [q.q, q.scale.astype(jnp.float32), bias]
+        else:
+            out += [w, jnp.ones(d, jnp.float32), bias]
+    return out
+
+
+@pytest.mark.parametrize("pos", [0, 5, 11])
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_self_block_plain(int8, pos):
+    # bf16 outputs: the residual stream |x + y| < 8 within one bf16 ulp
+    # there (1/32), the k/v of the current token (|k| < 4) within 1/64; the
+    # sums run in another order, so a rounding flips on a few elements
+    rng = np.random.default_rng(10)
+    b, d, h, tt = 5, 64, 4, 12
+    dh = d // h
+    x = _bf16(rng, b, d)
+    g = jnp.asarray(1 + 0.1 * rng.standard_normal(d), jnp.float32)
+    bb = jnp.asarray(0.05 * rng.standard_normal(d), jnp.float32)
+    ws = _proj_weights(rng, d, 4, int8)
+    kc = _bf16(rng, b, h, dh, tt)
+    vc = _bf16(rng, b, tt, h, dh)
+    ref, k_cur, v_cur = JDA.decode_self_block(
+        x, g, bb, *ws, kc, vc, jnp.int32(pos), heads=h, interpret=True)
+    tkc, tvc = t(kc), t(vc)
+    out, okc, ovc = K.decode_self_block(t(x), t(g), t(bb), *map(t, ws), tkc,
+                                        tvc, pos, h)
+    assert out.dtype == torch.bfloat16 and okc is tkc and ovc is tvc
+    np.testing.assert_allclose(np32(out), np32(ref), atol=1 / 32, rtol=0)
+    assert np.mean(np32(out) == np32(ref)) > 0.98
+    # the caches: the current token written at `pos`, the rest untouched
+    np.testing.assert_allclose(np32(okc[:, :, :, pos]),
+                               np32(k_cur).reshape(b, h, dh), atol=1 / 64,
+                               rtol=0)
+    np.testing.assert_allclose(np32(ovc[:, pos]),
+                               np32(v_cur).reshape(b, h, dh), atol=1 / 64,
+                               rtol=0)
+    keep = np.arange(tt) != pos
+    np.testing.assert_array_equal(np32(okc)[..., keep], np32(kc)[..., keep])
+    np.testing.assert_array_equal(np32(ovc)[:, keep], np32(vc)[:, keep])
+    if pos == 0:
+        # no live cache position: attention returns the current v exactly
+        wo, so, bo = (t(a) for a in ws[9:])
+        y = torch.matmul(ovc[:, 0].reshape(b, d).float(),
+                         wo.to(torch.bfloat16).float()) * so + bo
+        assert torch.equal(out, (t(x).float() + y).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_cross_block_plain(int8, kv_int8):
+    # two row blocks on the TPU side (block_b=4 of 8 rows); bf16 output
+    # within one ulp of |x + y| < 8
+    rng = np.random.default_rng(11)
+    b, d, h, nk = 8, 64, 4, 24
+    dh = d // h
+    x = _bf16(rng, b, d)
+    g = jnp.asarray(1 + 0.1 * rng.standard_normal(d), jnp.float32)
+    bb = jnp.asarray(0.05 * rng.standard_normal(d), jnp.float32)
+    ws = _proj_weights(rng, d, 2, int8)
+    kt = _bf16(rng, b, h, dh, nk)
+    v = _bf16(rng, b, nk, h, dh)
+    if kv_int8:
+        qk = jqkv(kt, v)
+        kv = (qk.kt, jnp.transpose(qk.v, (0, 2, 1, 3)), qk.kt_scale,
+              qk.v_scale)
+    else:
+        kv = (kt, jnp.transpose(v, (0, 2, 1, 3)), None, None)
+    ref = JDA.decode_cross_block(x, g, bb, *ws, *kv, heads=h, block_b=4,
+                                 interpret=True)
+    out = K.decode_cross_block(
+        t(x), t(g), t(bb), *map(t, ws),
+        *(None if a is None else t(a) for a in kv), heads=h)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(np32(out), np32(ref), atol=1 / 32, rtol=0)
+    assert np.mean(np32(out) == np32(ref)) > 0.98
+
+
+@pytest.mark.parametrize("in_size,out_size,patch",
+                         [(64, 64, 8), (40, 64, 8), (150, 224, 14),
+                          (320, 224, 14)],
+                         ids=["identity", "up40", "up150", "down320"])
+def test_fused_preprocess_plain(in_size, out_size, patch):
+    # against the TPU kernel, which folds the normalisation into one
+    # multiply-add (1e-4, the tolerance of the JAX package's own test), and
+    # against both packages' unfused preprocess_for_vit; at the identity
+    # size the port's two spellings are the same arithmetic
+    from embodied_captioning_tpu.ops.image import (
+        preprocess_for_vit as j_preprocess)
+    from embodied_captioning_tpu.ops.pallas.preprocess import (
+        fused_preprocess as j_fused)
+    from embodied_captioning_tpu_torch.ops import image as TI
+
+    rng = np.random.default_rng(12)
+    img = (rng.random((2, in_size, in_size, 3)) * 255).astype(np.uint8)
+    ref = np.stack([np.asarray(j_fused(jnp.asarray(im), out_size=out_size,
+                                       patch=patch, interpret=True))
+                    for im in img])
+    out = K.fused_preprocess(t(img), out_size, patch)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    np.testing.assert_allclose(np32(out), ref, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(
+        np32(out), np.asarray(j_preprocess(jnp.asarray(img), out_size,
+                                           patch)), atol=1e-4, rtol=1e-4)
+    assert torch.equal(TI.preprocess_for_vit(t(img), out_size, patch), out)
+    unfused = TI.patchify(TI.normalize(TI.resize_bilinear(
+        t(img).float() / 255.0, out_size, out_size)), patch)
+    if in_size == out_size:
+        assert torch.equal(out, unfused)
+    else:
+        np.testing.assert_allclose(np32(out), np32(unfused), atol=2e-6,
+                                   rtol=0)
+
+
+def test_generation_kernel_wrappers_take_the_plain_version_on_cpu_only():
+    before = dict(K.launches)
+    assert set(before) >= {"decode_self_block", "decode_cross_block",
+                           "fused_preprocess"}
+    img = torch.zeros(1, 16, 16, 3, dtype=torch.uint8)
+    assert torch.equal(K.fused_preprocess(img, 16, 8),
+                       K.fused_preprocess_plain(img, 16, 8))
+    with pytest.raises(ValueError, match="multiple of the patch"):
+        K.fused_preprocess(img, 20, 8)
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        K.fused_preprocess(img.to("meta"), 16, 8)
+    rng = np.random.default_rng(13)
+    d, h = 32, 2
+    x = t(_bf16(rng, 2, d))
+    g, bb = torch.ones(d), torch.zeros(d)
+    ws = [t(a) for a in _proj_weights(rng, d, 4, False)]
+    kc, vc = torch.zeros(2, h, d // h, 4).bfloat16(), torch.zeros(
+        2, 4, h, d // h).bfloat16()
+    K.decode_self_block(x, g, bb, *ws, kc, vc, 1, h)
+    K.decode_cross_block(x, g, bb, *ws[:6], kc, vc.permute(0, 2, 1, 3),
+                         heads=h)
+    assert K.launches == before  # no kernel launched on the CPU
+    meta = [a.to("meta") for a in (x, g, bb, *ws, kc, vc)]
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        K.decode_self_block(*meta, 1, h)
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        K.decode_cross_block(*meta[:9], meta[-2], meta[-1], heads=h)

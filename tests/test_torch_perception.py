@@ -1,5 +1,9 @@
-"""The port's `perceive` against the JAX package's, tiny preset, with the
-JAX kernel path on (ECAP_USE_PALLAS=1, Pallas in interpret mode)."""
+"""The port's `perceive` against the JAX package's, tiny preset. The port
+runs its default route (fused preprocess, whole-block decode kernels: their
+plain versions on the CPU); the JAX package runs with ECAP_USE_PALLAS=1 and
+ECAP_PALLAS_BLOCKS=1 (Pallas in interpret mode), its whole-block route. Its
+`encode_image` never takes its fused preprocess kernel, so the port's is
+held to the XLA spelling here."""
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +37,7 @@ def perceive_pair(request):
     params = JP.init_perception(jax.random.PRNGKey(0), jc)
     rng = np.random.default_rng(0)
     frames = (rng.random((3, 96, 96, 3)) * 255).astype(np.uint8)
-    with jax_kernel_path():
+    with jax_kernel_path(blocks=True):
         ref = JP.perceive(params, jnp.asarray(frames), jax.random.PRNGKey(1),
                           jc)
         ref = jax.tree_util.tree_map(np.asarray, ref)
@@ -76,6 +80,17 @@ def test_perceive_captions_and_embeddings(perceive_pair):
     cos = np.sum(je[live] * te[live], 1) / (
         np.linalg.norm(je[live], axis=1) * np.linalg.norm(te[live], axis=1))
     assert cos.min() > 0.999, cos
+
+
+def test_perceive_decode_routes_agree(perceive_pair):
+    # the route of separate calls (decode_blocks=False, which the JAX
+    # package takes without ECAP_PALLAS_BLOCKS) gives the same captions
+    _, out, tparams, tc, frames = perceive_pair
+    res = TP.perceive(tparams, torch.from_numpy(frames), tc,
+                      decode_blocks=False)
+    assert torch.equal(res.caption_tokens, out.caption_tokens)
+    np.testing.assert_allclose(np32(res.caption_logprobs),
+                               np32(out.caption_logprobs), atol=5e-2, rtol=0)
 
 
 def test_perceiver_process_and_captions(perceive_pair):

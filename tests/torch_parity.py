@@ -32,13 +32,18 @@ def t(x, dtype=None) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def jax_kernel_path():
+def jax_kernel_path(blocks: bool = False):
     """Run the JAX package with ECAP_USE_PALLAS=1 (its Pallas kernels in
-    interpret mode on the CPU). The flags are read at trace time, so the
-    jit caches are cleared on entry and exit."""
+    interpret mode on the CPU); with `blocks` also ECAP_PALLAS_BLOCKS=1,
+    the whole-block decode kernels, which is the configuration the port's
+    default decode route (`decode_blocks=True`) mirrors. The flags are
+    read at trace time, so the jit caches are cleared on entry and exit."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("ECAP_USE_PALLAS", "1")
-        mp.delenv("ECAP_PALLAS_BLOCKS", raising=False)
+        if blocks:
+            mp.setenv("ECAP_PALLAS_BLOCKS", "1")
+        else:
+            mp.delenv("ECAP_PALLAS_BLOCKS", raising=False)
         mp.delenv("ECAP_CROSS_V_HEADMAJOR", raising=False)
         jax.clear_caches()
         try:
@@ -50,7 +55,8 @@ def jax_kernel_path():
 
 # ---------------------------------------------------------------------------
 # probes: the measurements behind the tolerances of the loop-slice tests
-# (python tests/torch_parity.py render | rollout-scan); not collected
+# (python tests/torch_parity.py render | rollout-scan | rollout-scan-blocks
+# | beam); not collected
 # ---------------------------------------------------------------------------
 
 def probe_render(size: int = 128, seeds=(1, 2, 3, 7, 11),
@@ -82,11 +88,15 @@ def probe_render(size: int = 128, seeds=(1, 2, 3, 7, 11),
     return out
 
 
-def probe_rollout_scan(bases=(1, 13, 25, 37), envs: int = 12, steps: int = 4):
+def probe_rollout_scan(blocks: bool, bases=(1, 13, 25, 37), envs: int = 12,
+                       steps: int = 4):
     """Tiny `rollout_fused` over env seeds base..base+envs-1 with the
     random plan of seed 5: for every env with a non-zero reward, the JAX
     rewards, the port's on the JAX package's frames, and whether they agree
-    within rtol 1e-4 / atol 1e-5."""
+    within rtol 1e-4 / atol 1e-5. `blocks`: both packages on their
+    whole-block decode route, else both on the route of separate calls."""
+    import functools
+
     from embodied_captioning_tpu.config import load_config
     from embodied_captioning_tpu.envs import device_loop as JDL
     from embodied_captioning_tpu.envs.sim import RaycastSim as JSim
@@ -106,7 +116,7 @@ def probe_rollout_scan(bases=(1, 13, 25, 37), envs: int = 12, steps: int = 4):
     as_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
     tparams = P.from_jax(as_np(jparams), "cpu")
     actions = JDL.make_action_plan(steps, envs, pattern="random", seed=5)
-    render, rows = DL._render_scan, []
+    render, perceive, rows = DL._render_scan, DL.perceive, []
     for base in bases:
         sims = [JSim(jcfg.sim, jcfg.sensors, seed=base + i)
                 for i in range(envs)]
@@ -124,16 +134,17 @@ def probe_rollout_scan(bases=(1, 13, 25, 37), envs: int = 12, steps: int = 4):
             rgb, depth, _, _ = JDL._render_scan(
                 scenes, JDL.camera_poses(st), jcfg, True)
             frames.append({"rgb": t(rgb), "depth": t(depth)})
-        with jax_kernel_path():
+        with jax_kernel_path(blocks=blocks):
             ref = np.asarray(JDL.rollout_fused(
                 jparams, scenes, state, maps, jax.numpy.asarray(actions),
                 jax.random.PRNGKey(2), jcfg)[2])
         handed = iter(frames)
         DL._render_scan = lambda sc, poses, c: next(handed)
+        DL.perceive = functools.partial(perceive, decode_blocks=blocks)
         try:
             got = DL.rollout_fused(tparams, *port, actions, cfg)[2].numpy()
         finally:
-            DL._render_scan = render
+            DL._render_scan, DL.perceive = render, perceive
         for i in range(envs):
             if ref[:, i].any() or got[:, i].any():
                 rows.append(dict(
@@ -144,15 +155,55 @@ def probe_rollout_scan(bases=(1, 13, 25, 37), envs: int = 12, steps: int = 4):
     return rows
 
 
+def probe_beam(seeds=(0, 1, 2, 3), widths=(2, 3, 4), crops: int = 4):
+    """Tiny `generate_beam` on `crops` random 64^2 crops per seed: per
+    seed and beam width, on how many rows the best beam's tokens of the
+    port (block route) equal the JAX package's (block route), and on how
+    many the JAX package's XLA route equals its own block route."""
+    from embodied_captioning_tpu.config import CaptionerConfig as JCfg
+    from embodied_captioning_tpu.models import captioner as JCAP
+    from embodied_captioning_tpu_torch.config import CaptionerConfig as TCfg
+    from embodied_captioning_tpu_torch.models import captioner as TCAP
+    from embodied_captioning_tpu_torch.params import from_jax
+
+    jc, tc = JCfg.tiny(), TCfg.tiny()
+    params = JCAP.init_captioner(jax.random.PRNGKey(0), jc)
+    tparams = from_jax(params, "cpu")
+    rows = []
+    for seed in seeds:
+        imgs = (np.random.default_rng(seed).random((crops, 64, 64, 3)) * 255
+                ).astype(np.uint8)
+        for w in widths:
+            jax.clear_caches()
+            xla = np.asarray(JCAP.generate_beam(params, jax.numpy.asarray(imgs),
+                                                jc, num_beams=w)[0])
+            with jax_kernel_path(blocks=True):
+                ref = np.asarray(JCAP.generate_beam(
+                    params, jax.numpy.asarray(imgs), jc, num_beams=w)[0])
+            got = TCAP.generate_beam(tparams, t(imgs), tc, num_beams=w)[0]
+            rows.append(dict(
+                seed=seed, beams=w, rows=crops,
+                port_equals_jax=int((got.numpy() == ref).all(1).sum()),
+                jax_xla_equals_jax_blocks=int((xla == ref).all(1).sum())))
+    return rows
+
+
 if __name__ == "__main__":
     import sys
+    from pathlib import Path
 
+    # run as a script, sys.path starts at tests/: add the repository root
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     jax.config.update("jax_platforms", "cpu")
     what = sys.argv[1] if len(sys.argv) > 1 else ""
     if what == "render":
         print(probe_render())
-    elif what == "rollout-scan":
-        for row in probe_rollout_scan():
+    elif what in ("rollout-scan", "rollout-scan-blocks"):
+        for row in probe_rollout_scan(blocks=what.endswith("blocks")):
+            print(row)
+    elif what == "beam":
+        for row in probe_beam():
             print(row)
     else:
-        sys.exit("usage: python tests/torch_parity.py render | rollout-scan")
+        sys.exit("usage: python tests/torch_parity.py render | rollout-scan "
+                 "| rollout-scan-blocks | beam")
