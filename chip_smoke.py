@@ -6,7 +6,12 @@ Phases, each of which must pass:
   1. build the hand-written Hopper kernels from the sources in the checkout;
   2. hold every kernel against its plain PyTorch version on the card at
      the shapes the main paths give it: max error, kernel / plain / library
-     time, and the least time the card could take (bound). The raycast
+     time, the kernel's device time per call (torch.profiler over its
+     timing loop), and the least time the card could take (bound). Flash
+     attention at head dims 32, 64, 128 and T = 1, 16, 65, 257 (and 640
+     at D = 128, the streaming kernel), causal and with valid_len < T; the
+     decode MLP at 1, 16, 17 and 64 rows with int8 and bf16 weights, each
+     run twice for equal bits. The raycast
      kernel must equal its plain version bit for bit (16 envs x 1280^2
      rays x 96 boxes, and adversarial inputs); LayerNorm is checked in
      both statistics modes at the ViT, decoder and sentence-encoder shapes;
@@ -105,6 +110,11 @@ MIN_EMB_COSINE = 0.9999
 # the block kernels in the other, a teacher-forced comparison of one step
 MIN_SPEC_FIRST_TOKEN = 0.8
 BEAMS = 4
+# the port's kernels, as the profiler names them
+PORTED_KERNELS = ("flash_head", "flash_stream", "decode_self_kernel",
+                  "decode_cross_kernel", "mlp_ln_kernel", "mlp_gemm_kernel",
+                  "layernorm_kernel", "raycast_kernel", "proj_kernel",
+                  "preprocess_kernel")
 # a kernel's name with its template arguments, out of a profiler key
 KERNEL_NAME = re.compile(r"\w+(<[^>]*>)?(?=[(])")
 
@@ -125,6 +135,32 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_us(fn, iters: int = 10) -> float:
+    """Device time per call of `fn` (all its kernels) from a short
+    torch.profiler run of its timing loop: the kernel's own time, without
+    the host's cost of enqueueing it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA")
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return busy / iters
+
+
+def kernel_ms(fn, iters: int = 20, warmup: int = 3) -> dict:
+    """A kernel wrapper's time per call in a timing loop (host cost
+    included) and its device time per call."""
+    return dict(ms=time_ms(fn, iters, warmup), device_us=device_us(fn))
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOP_PER_S):
@@ -166,7 +202,23 @@ def kernel_checks(K, QZ, dev) -> dict:
 
     # flash attention ------------------------------------------------------
     # tolerance: bf16 outputs of |o| < 2 whose f32 sums run in another
-    # order (a flipped rounding of p or o is 1-2 bf16 ulps)
+    # order (a flipped rounding of p or o is 1-2 bf16 ulps). Edges: every
+    # head dim at T = 1, 16, 65, 257 (one key and one query past a tile),
+    # causal and valid_len < T; T = 640 at D = 128 goes through the
+    # streaming kernel, whose K/V do not fit one block
+    for d in (32, 64, 128):
+        for tt in (1, 16, 65, 257) + ((640,) if d == 128 else ()):
+            for causal, vl in ((False, None), (True, None),
+                               (False, max(1, tt - 5)), (True, max(1, tt - 5))):
+                if tt == 1 and vl is not None:
+                    continue
+                qs, ks, vs = rn(2, 4, tt, d), rn(2, 4, tt, d), rn(2, 4, tt, d)
+                n = vl or tt
+                check_close(f"flash_attention [2,4,{tt},{d}] causal={causal} "
+                            f"valid_len={vl}",
+                            K.flash_attention(qs, ks, vs, causal, vl)[:, :, :n],
+                            K.flash_attention_plain(qs, ks, vs, causal,
+                                                    vl)[:, :, :n], 2e-2)
     b, h, t, d = ROWS, 16, 257, 64
     q, k, v = rn(b, h, t, d), rn(b, h, t, d), rn(b, h, t, d)
     err = check_close(f"flash_attention [{b},{h},{t},{d}]",
@@ -186,7 +238,7 @@ def kernel_checks(K, QZ, dev) -> dict:
         source=PORT_KERNELS + "flash_attention.cu",
         replaces=TPU_KERNELS + "flash_attention.py:147",
         max_abs_err=err,
-        ms=time_ms(lambda: K.flash_attention(q, k, v)),
+        **kernel_ms(lambda: K.flash_attention(q, k, v)),
         plain_ms=time_ms(lambda: K.flash_attention_plain(q, k, v), 5, 1),
         bound_ms=fb, bound_by=ff,
         library_ms=time_ms(lambda: torch.nn.functional.
@@ -203,7 +255,7 @@ def kernel_checks(K, QZ, dev) -> dict:
     rows["flash_attention"]["cases"] = [dict(
         shape=[b, h, t6, d], replaces=TPU_KERNELS + "flash_attention.py:166",
         max_abs_err=err6,
-        ms=time_ms(lambda: K.flash_attention(q6, k6, v6), 5, 1),
+        **kernel_ms(lambda: K.flash_attention(q6, k6, v6), 5, 1),
         plain_ms=time_ms(lambda: K.flash_attention_plain(q6, k6, v6), 3, 1),
         bound_ms=fb6, bound_by=ff6,
         library_ms=time_ms(lambda: torch.nn.functional.
@@ -227,7 +279,7 @@ def kernel_checks(K, QZ, dev) -> dict:
         source=PORT_KERNELS + "decode_attention.cu",
         replaces=TPU_KERNELS + "decode_attention.py:82",
         max_abs_err=err,
-        ms=time_ms(lambda: K.decode_self_attention(q, kc, vc, t - 1), 100),
+        **kernel_ms(lambda: K.decode_self_attention(q, kc, vc, t - 1), 100),
         plain_ms=time_ms(lambda: K.decode_self_attention_plain(
             q, kc, vc, t - 1), 100),
         bound_ms=sb, bound_by=sf,
@@ -254,28 +306,56 @@ def kernel_checks(K, QZ, dev) -> dict:
         source=PORT_KERNELS + "decode_attention.cu",
         replaces=TPU_KERNELS + "decode_attention.py:137",
         max_abs_err=err,
-        ms=time_ms(lambda: K.decode_cross_attention(q, kt8, v8, ks, vs), 100),
+        **kernel_ms(lambda: K.decode_cross_attention(q, kt8, v8, ks, vs),
+                    100),
         plain_ms=time_ms(lambda: K.decode_cross_attention_plain(
             q, kt8, v8, ks, vs), 100),
         bound_ms=cb, bound_by=cf,
         library_ms=None)  # no PyTorch call takes int8 K/V with scales
 
-    # decode MLP, int8 weights (tolerance: bf16 output of |x + y| < 8) ------
+    # decode MLP (tolerance: bf16 output of |x + y| < 8): int8 and bf16
+    # weights at every row count the decode paths use (64: perceive and
+    # 16 crops x 4 beams; 16: speculative; 1-8: tiny) and one past a
+    # multiple of 16; two runs on the same inputs give the same bits (the
+    # split-K reduction sums in a fixed order)
     dm, f = 768, 3072
-    x = rn(b, dm)
     lg, lb = 1.0 + rn(dm, scale=0.1, dtype=torch.float32), rn(
         dm, scale=0.1, dtype=torch.float32)
     wfc = QZ.quantize_array(rn(dm, f, scale=dm ** -0.5, dtype=torch.float32))
     wpj = QZ.quantize_array(rn(f, dm, scale=f ** -0.5, dtype=torch.float32))
     bfc, bpj = rn(f, scale=0.02, dtype=torch.float32), rn(
         dm, scale=0.02, dtype=torch.float32)
-    margs = (x, lg, lb, wfc.q, wfc.scale, bfc, wpj.q, wpj.scale, bpj)
-    err = check_close("decode_mlp int8", K.decode_mlp(*margs),
-                      K.decode_mlp_plain(*margs), 5e-2)
-    fargs = (x, lg, lb, wfc.dequantize(), torch.ones_like(wfc.scale), bfc,
-             wpj.dequantize(), torch.ones_like(wpj.scale), bpj)
-    check_close("decode_mlp bf16", K.decode_mlp(*fargs),
-                K.decode_mlp_plain(*fargs), 5e-2)
+    w8 = (wfc.q, wfc.scale, bfc, wpj.q, wpj.scale, bpj)
+    w16 = (wfc.dequantize(), torch.ones_like(wfc.scale), bfc,
+           wpj.dequantize(), torch.ones_like(wpj.scale), bpj)
+    for n in (1, 16, 17, b):
+        xr = rn(n, dm)
+        for kind, ws in (("int8", w8), ("bf16", w16)):
+            args = (xr, lg, lb, *ws)
+            got = K.decode_mlp(*args)
+            e = check_close(f"decode_mlp {kind} [{n},{dm}]", got,
+                            K.decode_mlp_plain(*args), 5e-2)
+            if not torch.equal(got, K.decode_mlp(*args)):
+                raise AssertionError(f"decode_mlp {kind} [{n},{dm}]: two runs "
+                                     f"on the same inputs differ")
+            if n == b and kind == "int8":
+                err, x = e, xr
+    # the tiny preset's width (D=64, F=256: one-step contraction slices)
+    xt = rn(4, 64)
+    lgt = 1.0 + rn(64, scale=0.1, dtype=torch.float32)
+    lbt = rn(64, scale=0.1, dtype=torch.float32)
+    wft = QZ.quantize_array(rn(64, 256, scale=0.125, dtype=torch.float32))
+    wpt = QZ.quantize_array(rn(256, 64, scale=0.0625, dtype=torch.float32))
+    targs = (xt, lgt, lbt, wft.q, wft.scale, rn(256, scale=0.02,
+                                                 dtype=torch.float32),
+             wpt.q, wpt.scale, rn(64, scale=0.02, dtype=torch.float32))
+    got = K.decode_mlp(*targs)
+    check_close("decode_mlp int8 [4,64] -> 256", got,
+                K.decode_mlp_plain(*targs), 5e-2)
+    if not torch.equal(got, K.decode_mlp(*targs)):
+        raise AssertionError("decode_mlp [4,64]: two runs differ")
+    log(f"  decode_mlp: two runs give equal bits at every shape above")
+    margs = (x, lg, lb, *w8)
     mb, mf = bound_ms(nbytes(x, lg, lb, wfc.q, wfc.scale, bfc, wpj.q,
                              wpj.scale, bpj, x), 4 * b * dm * f)
     w1, w2 = wfc.dequantize(), wpj.dequantize()
@@ -289,7 +369,7 @@ def kernel_checks(K, QZ, dev) -> dict:
         source=PORT_KERNELS + "decode_mlp.cu",
         replaces=TPU_KERNELS + "decode_attention.py:186",
         max_abs_err=err,
-        ms=time_ms(lambda: K.decode_mlp(*margs), 100),
+        **kernel_ms(lambda: K.decode_mlp(*margs), 100),
         plain_ms=time_ms(lambda: K.decode_mlp_plain(*margs), 100),
         bound_ms=mb, bound_by=mf,
         library_ms=time_ms(two_matmuls, 100))
@@ -304,7 +384,8 @@ def log_rows(rows: dict) -> None:
                    else f"{c['library_ms'] * 1e3:.1f} us")
             what = f"{name} {c['case']}" if "case" in c else (
                 f"{name} {c['shape']}" if "shape" in c else name)
-            log(f"  {what}: {c['ms'] * 1e3:.1f} us kernel, "
+            log(f"  {what}: {c['ms'] * 1e3:.1f} us kernel "
+                f"({c['device_us']:.1f} us on the device), "
                 f"{c['plain_ms'] * 1e3:.1f} us plain, bound "
                 f"{c['bound_ms'] * 1e3:.2f} us ({c['bound_by']}), "
                 f"library {lib}")
@@ -375,7 +456,7 @@ def generation_kernel_checks(K, QZ, dev) -> dict:
                 source=PORT_KERNELS + "decode_block.cu",
                 replaces=TPU_KERNELS + "decode_attention.py:267",
                 max_abs_err=max(v for k, v in errs.items() if "self" in k),
-                ms=time_ms(lambda: K.decode_self_block(*args), 100),
+                **kernel_ms(lambda: K.decode_self_block(*args), 100),
                 plain_ms=time_ms(lambda: K.decode_self_block_plain(*args),
                                  20),
                 bound_ms=sb, bound_by=sf, library_ms=None,
@@ -408,8 +489,8 @@ def generation_kernel_checks(K, QZ, dev) -> dict:
                 cb, cf = bound_ms(nbytes(x, lg, lb, *ws, *kv, x),
                                   2 * 2 * b * d * d + 4 * b * h * dh * nk)
                 timed = dict(
-                    ms=time_ms(lambda: K.decode_cross_block(*args, heads=h),
-                               100),
+                    **kernel_ms(lambda: K.decode_cross_block(*args, heads=h),
+                                100),
                     plain_ms=time_ms(lambda: K.decode_cross_block_plain(
                         *args, heads=h), 20),
                     bound_ms=cb, bound_by=cf, library_ms=None,
@@ -443,7 +524,7 @@ def generation_kernel_checks(K, QZ, dev) -> dict:
         source=PORT_KERNELS + "preprocess.cu",
         replaces=TPU_KERNELS + "preprocess.py:83",
         max_abs_err=err,
-        ms=time_ms(lambda: K.fused_preprocess(img, 224, 14), 50),
+        **kernel_ms(lambda: K.fused_preprocess(img, 224, 14), 50),
         plain_ms=time_ms(lambda: K.fused_preprocess_plain(img, 224, 14), 10),
         bound_ms=pb, bound_by=pf, library_ms=None)
     log_rows(rows)
@@ -517,8 +598,8 @@ def loop_kernel_checks(K, dev, scenes, poses, cfg) -> dict:
         source=PORT_KERNELS + "raycast.cu",
         replaces=TPU_KERNELS + "raycast.py:106",
         max_abs_err=0.0,
-        ms=time_ms(lambda: K.raycast_minargmin(a_min, a_max, scenes.valid,
-                                               inv)),
+        **kernel_ms(lambda: K.raycast_minargmin(a_min, a_max, scenes.valid,
+                                                inv)),
         plain_ms=time_ms(lambda: K.raycast_minargmin_plain(
             a_min, a_max, scenes.valid, inv), 2, 1),
         bound_ms=rb, bound_by=rf,
@@ -558,7 +639,7 @@ def loop_kernel_checks(K, dev, scenes, poses, cfg) -> dict:
                 replaces=TPU_KERNELS + ("layernorm.py:50" if len(shape) == 2
                                         else "layernorm.py:85"),
                 max_abs_err=err,
-                ms=time_ms(lambda: K.layernorm(x, lg, lb), 100),
+                **kernel_ms(lambda: K.layernorm(x, lg, lb), 100),
                 plain_ms=time_ms(lambda: K.layernorm_plain(x, lg, lb), 20),
                 bound_ms=lnb, bound_by=lnf,
                 library_ms=time_ms(lambda: torch.nn.functional.layer_norm(
@@ -1134,11 +1215,7 @@ def profile_run(what: str, fn, unprofiled_us: float, top: int = 15) -> None:
         raise AssertionError("the profiler saw no device time")
     rows.sort(key=lambda e: -e.self_device_time_total)
     ported = [e for e in rows
-              if any(k in e.key for k in ("flash_fwd", "decode_self_kernel",
-                                          "decode_cross_kernel",
-                                          "mlp_kernel", "layernorm_kernel",
-                                          "raycast_kernel", "proj_kernel",
-                                          "preprocess_kernel"))]
+              if any(k in e.key for k in PORTED_KERNELS)]
     ours = sum(e.self_device_time_total for e in ported)
     log(f"  {what}: device busy {busy / 1e3:.1f} ms; wall "
         f"{unprofiled_us / 1e3:.1f} ms unprofiled, "
@@ -1153,6 +1230,12 @@ def profile_run(what: str, fn, unprofiled_us: float, top: int = 15) -> None:
         f"{KERNEL_NAME.search(e.key).group(0)} "
         f"{e.self_device_time_total / e.count:.1f} x{e.count}"
         for e in ported))
+    # the decode MLP's three launches run once per call each
+    mlp = [e for e in ported if "mlp_" in e.key]
+    calls = sum(e.count for e in mlp if "mlp_ln_kernel" in e.key)
+    if calls:
+        log(f"    decode_mlp: {sum(e.self_device_time_total for e in mlp) / calls:.1f}"
+            f" us on the device per call ({calls} calls)")
 
 
 # ---------------------------------------------------------------------------

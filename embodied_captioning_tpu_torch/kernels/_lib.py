@@ -47,8 +47,7 @@ _SIGNATURES = {
     "ecap_decode_self_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ecap_decode_cross_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _P],
-    "ecap_decode_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                        _I, _F, _I, _P],
+    "ecap_decode_mlp": [_P] * 12 + [_I, _I, _I, _F, _I, _I, _I, _P],
     "ecap_decode_self_block": [_P] * 20 + [_I] * 5 + [_F, _I, _P],
     "ecap_decode_cross_block": [_P] * 16 + [_I] * 4 + [_F, _I, _I, _P],
     "ecap_raycast_minargmin": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -123,7 +122,9 @@ def library() -> ctypes.CDLL:
 
 def call(name: str, *args) -> None:
     """Launch `name` on the current stream; raise if CUDA refused it."""
-    stream = torch.cuda.current_stream().cuda_stream
+    # the stream's handle without building a torch.cuda.Stream, which costs
+    # every launch several microseconds of host time
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
     err = getattr(library(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} failed: CUDA error {err}")

@@ -1,0 +1,74 @@
+// Tensor-core and asynchronous-copy building blocks for the port's kernels
+// (sm_80+ PTX that Hopper runs: mma.sync, ldmatrix, cp.async).
+//
+// Fragment layouts of mma.sync.m16n8k16 with bf16 inputs and f32
+// accumulators, for lane = 4 * g + t (g = lane / 4, t = lane % 4):
+//   A (16 x 16, row-major), 4 registers of two bf16 each:
+//     a0 = A[g][2t..2t+1], a1 = A[g+8][2t..2t+1],
+//     a2 = A[g][2t+8..2t+9], a3 = A[g+8][2t+8..2t+9]
+//   B (16 x 8, k-major per column), 2 registers:
+//     b0 = B[2t..2t+1][g], b1 = B[2t+8..2t+9][g]
+//   C (16 x 8, f32): c0, c1 = C[g][2t..2t+1], c2, c3 = C[g+8][2t..2t+1]
+// The element with the lower k (or column) sits in the lower 16 bits.
+#pragma once
+
+#include "common.cuh"
+
+namespace ecap {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared without passing through registers; when
+// `full` is false nothing is read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix
+// i, register i receives matrix i (row g, columns 2t, 2t+1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+// The same, each matrix transposed: register i receives matrix i's rows
+// 2t, 2t+1 of column g.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a * b on the tensor cores (bf16 inputs, f32 accumulation)
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats -> two bf16 (round to nearest even), `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+}  // namespace ecap

@@ -139,13 +139,49 @@ def decode_mlp_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     return (xf + y).to(x.dtype)
 
 
+MLP_COLS = 32          # output columns per block of the two products
+MLP_MAX_SPLITS = 8     # blocks of one column tile: a portable cluster
+MLP_MAX_SLICE = 512    # contraction per block
+MLP_MAX_WIDTH = 1024   # the LayerNorm launch holds a row in registers
+SM_COUNT = 132         # H100 SXM
+
+
+def _splits(k: int, n: int) -> int:
+    """Splits of a K-long contraction for N output columns: the fewest (a
+    power of two, slices a multiple of 16 and at most MLP_MAX_SLICE long)
+    that give at least one block per SM."""
+    splits = 1
+    while (2 * splits <= MLP_MAX_SPLITS and k % (32 * splits) == 0
+           and (n // MLP_COLS * splits < SM_COUNT
+                or k // splits > MLP_MAX_SLICE)):
+        splits *= 2
+    if k // splits > MLP_MAX_SLICE:
+        raise ValueError(f"decode_mlp: a contraction of {k} does not split "
+                         f"into slices of at most {MLP_MAX_SLICE}")
+    return splits
+
+
+def mlp_plan(rows: int, d: int, f: int) -> Tuple[int, int]:
+    """(splits of the fc product's D-long contraction, splits of the proj
+    product's F-long contraction) for `decode_mlp` at [rows, d] -> f -> d:
+    each product's blocks are (columns / 32) x splits x ceil(rows / 64)."""
+    if rows < 1:
+        raise ValueError(f"decode_mlp needs at least one row, got {rows}")
+    if d % MLP_COLS or f % MLP_COLS or not 0 < d <= MLP_MAX_WIDTH or f <= 0:
+        raise ValueError(f"decode_mlp takes widths D and F that are "
+                         f"multiples of {MLP_COLS}, D up to "
+                         f"{MLP_MAX_WIDTH}; got D={d}, F={f}")
+    return _splits(d, f), _splits(f, d)
+
+
 def decode_mlp(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                wfc: torch.Tensor, sfc: torch.Tensor, bfc: torch.Tensor,
                wpj: torch.Tensor, spj: torch.Tensor, bpj: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """x bf16 [B,D]; LN g, b f32 [D]; wfc [D,F] and wpj [F,D] both int8 or
-    both bf16; scales and biases f32 -> bf16 [B,D]. Two launches (see
-    csrc/decode_mlp.cu), counted as one call."""
+    both bf16; scales and biases f32 -> bf16 [B,D]. Three launches (see
+    csrc/decode_mlp.cu), counted as one call; D and F as `mlp_plan`
+    takes them."""
     if _lib.dispatch_device(x) == "cpu":
         return decode_mlp_plain(x, g, b, wfc, sfc, bfc, wpj, spj, bpj, eps)
     bsz, d = x.shape
@@ -160,12 +196,15 @@ def decode_mlp(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     _lib.check(bfc, "bfc", f32, (f,))
     _lib.check(spj, "spj", f32, (d,))
     _lib.check(bpj, "bpj", f32, (d,))
-    h = torch.empty(bsz, f, dtype=torch.bfloat16, device=x.device)
+    s_fc, s_pj = mlp_plan(bsz, d, f)
+    # h [B, F], then the LayerNorm output [B, D]
+    scratch = torch.empty(bsz, f + d, dtype=torch.bfloat16, device=x.device)
     out = torch.empty_like(x)
     _lib.call("ecap_decode_mlp", x.data_ptr(), g.data_ptr(), b.data_ptr(),
               wfc.data_ptr(), sfc.data_ptr(), bfc.data_ptr(), wpj.data_ptr(),
-              spj.data_ptr(), bpj.data_ptr(), h.data_ptr(), out.data_ptr(),
-              bsz, d, f, float(eps), int(wfc.dtype == torch.int8))
+              spj.data_ptr(), bpj.data_ptr(), scratch.data_ptr(),
+              scratch.data_ptr() + 2 * bsz * f, out.data_ptr(), bsz, d, f,
+              float(eps), int(wfc.dtype == torch.int8), s_fc, s_pj)
     _lib.launches["decode_mlp"] += 1
     return out
 

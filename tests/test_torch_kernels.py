@@ -429,3 +429,43 @@ def test_generation_kernel_wrappers_take_the_plain_version_on_cpu_only():
         K.decode_self_block(*meta, 1, h)
     with pytest.raises(ValueError, match="no kernel or plain version"):
         K.decode_cross_block(*meta[:9], meta[-2], meta[-1], heads=h)
+
+
+# ---------------------------------------------------------------------------
+# the decode MLP's launch plan (host-side logic of the split-K kernel)
+# ---------------------------------------------------------------------------
+
+# (D, F) of the presets' decoders: tiny, base, large
+_MLP_WIDTHS = [(64, 256), (512, 2048), (768, 3072)]
+
+
+@pytest.mark.parametrize("rows", [1, 2, 8, 16, 17, 64, 128])
+@pytest.mark.parametrize("d,f", _MLP_WIDTHS)
+def test_mlp_plan_covers_the_decode_shapes(rows, d, f):
+    from embodied_captioning_tpu_torch.kernels.decode_attention import (
+        MLP_COLS, MLP_MAX_SLICE, MLP_MAX_SPLITS, SM_COUNT, mlp_plan)
+
+    s_fc, s_pj = mlp_plan(rows, d, f)
+    for k, n, s in ((d, f, s_fc), (f, d, s_pj)):
+        # a power of two up to the portable cluster size, slices that the
+        # m16n8k16 steps cover and that fit shared memory
+        assert 1 <= s <= MLP_MAX_SPLITS and s & (s - 1) == 0
+        assert k % (16 * s) == 0 and k // s <= MLP_MAX_SLICE
+        # the fewest splits that give every SM a block, where k allows it
+        blocks = n // MLP_COLS * s
+        assert blocks >= SM_COUNT or s == MLP_MAX_SPLITS or k % (32 * s)
+        assert s == 1 or n // MLP_COLS * (s // 2) < SM_COUNT
+    if (d, f) == (768, 3072):
+        # the serving shape: 192 blocks in each product
+        assert (s_fc, s_pj) == (2, 8)
+
+
+@pytest.mark.parametrize("rows,d,f", [(0, 768, 3072), (4, 48, 192),
+                                      (4, 768, 3000), (4, 768, 8192),
+                                      (4, 2048, 8192)])
+def test_mlp_plan_raises_on_unsupported_shapes(rows, d, f):
+    from embodied_captioning_tpu_torch.kernels.decode_attention import (
+        mlp_plan)
+
+    with pytest.raises(ValueError):
+        mlp_plan(rows, d, f)
