@@ -14,10 +14,13 @@ Phases, each of which must pass:
      run twice for equal bits. The raycast
      kernel must equal its plain version bit for bit (16 envs x 1280^2
      rays x 96 boxes, and adversarial inputs); LayerNorm is checked in
-     both statistics modes at the ViT, decoder and sentence-encoder shapes;
-     the whole-block decode kernels at cache positions 0, 1 and 29 with
-     int8 and bf16 weights and K/V; the fused preprocess at the 64 crops
-     of a batch (equal bit for bit) and on true resizes;
+     both statistics modes at the ViT, decoder and sentence-encoder shapes,
+     with the host time of one wrapper call at the last two split into its
+     pieces beside F.layer_norm's; the whole-block decode kernels at cache positions 0, 1
+     and 29 with int8 and bf16 weights and K/V, the self block also at 1
+     and 17 rows and at the tiny preset's width, each run twice for equal
+     bits, with its device time per launch; the fused preprocess at the 64
+     crops of a batch (equal bit for bit) and on true resizes;
   3. drive `perceive` at full width -- the serving configuration of
      bench.py: the large preset (ViT-L/14 at 224^2, 768-wide 12+12-layer
      decoder, 49,408-token vocabulary, post-LN MiniLM-class sentence
@@ -48,7 +51,9 @@ Phases, each of which must pass:
      package) and compare;
   6. profile one full-width perceive batch on each decode route and one
      rollout_fused step: device time by kernel, the ported kernels' share,
-     the device's idle share;
+     the device's idle share (device time is the union of the kernels'
+     intervals: a launch that starts early under programmatic dependent
+     launch waits inside its own interval);
   7. drive the other generation modes at full width: `generate_beam`
      (16 crops x 4 beams), sampled `generate` (64 crops, temperature 0.7,
      top-k 50, top-p 0.9, seeded generator) and `generate_speculative`
@@ -113,10 +118,21 @@ BEAMS = 4
 # the port's kernels, as the profiler names them
 PORTED_KERNELS = ("flash_head", "flash_stream", "decode_self_kernel",
                   "decode_cross_kernel", "mlp_ln_kernel", "mlp_gemm_kernel",
+                  "self_qkv_kernel", "self_attn_kernel", "self_out_kernel",
                   "layernorm_kernel", "raycast_kernel", "proj_kernel",
                   "preprocess_kernel")
+# the self block's three launches (decode_block.cu)
+SELF_BLOCK_KERNELS = ("self_qkv_kernel", "self_attn_kernel",
+                      "self_out_kernel")
 # a kernel's name with its template arguments, out of a profiler key
 KERNEL_NAME = re.compile(r"\w+(<[^>]*>)?(?=[(])")
+
+
+def kernel_name(key: str) -> str:
+    """A kernel's name with its template arguments, out of a profiler key
+    (the key itself where it names no kernel)."""
+    m = KERNEL_NAME.search(key)
+    return m.group(0) if m else key
 
 
 def log(*a) -> None:
@@ -137,24 +153,56 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_us(fn, iters: int = 10) -> float:
-    """Device time per call of `fn` (all its kernels) from a short
-    torch.profiler run of its timing loop: the kernel's own time, without
-    the host's cost of enqueueing it."""
+def busy_us(events) -> float:
+    """Device busy time of profiler events: the union of their intervals.
+    A kernel started early by programmatic dependent launch waits inside
+    its interval for the one before it, so summing durations would count
+    that wait twice."""
+    busy, end = 0.0, -math.inf
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in events):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy
+
+
+def device_events(prof) -> list:
+    return [e for e in prof.events() if e.device_type.name == "CUDA"]
+
+
+def device_profile(fn, iters: int = 10) -> tuple:
+    """(device busy time per call of `fn`, {kernel: device time per call})
+    from a short torch.profiler run of its timing loop: the kernels' own
+    time, without the host's cost of enqueueing them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA")
-    if busy <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return busy / iters
+    # a trace now and then comes back without its device events; the
+    # loop is profiled again then, three times at most
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        busy = busy_us(device_events(prof))
+        if busy > 0:
+            break
+    else:
+        raise AssertionError("the profiler saw no device time in three "
+                             "traces")
+    by_kernel = {kernel_name(e.key): e.self_device_time_total / iters
+                 for e in prof.key_averages()
+                 if e.device_type.name == "CUDA"
+                 and e.self_device_time_total > 0}
+    return busy / iters, by_kernel
+
+
+def device_us(fn, iters: int = 10) -> float:
+    """Device busy time per call of `fn` (see device_profile)."""
+    return device_profile(fn, iters)[0]
 
 
 def kernel_ms(fn, iters: int = 20, warmup: int = 3) -> dict:
@@ -414,37 +462,51 @@ def generation_kernel_checks(K, QZ, dev) -> dict:
     lb = rn(d, scale=0.1, dtype=torch.float32)
     p_ln = {"g": lg, "b": lb}
 
-    def weights(names, int8):
+    def weights(names, int8, width=d):
         """(flat kernel arguments, the params dict `mha` takes)."""
         flat, p = [], {}
         for n in names:
-            w = rn(d, d, scale=d ** -0.5, dtype=torch.float32)
-            bias = rn(d, scale=0.02, dtype=torch.float32)
+            w = rn(width, width, scale=width ** -0.5, dtype=torch.float32)
+            bias = rn(width, scale=0.02, dtype=torch.float32)
             if int8:
                 q = QZ.quantize_array(w)
                 flat += [q.q, q.scale.float(), bias]
                 p[n] = {"w": q, "b": bias}
             else:
-                flat += [w.to(bf), torch.ones(d, device=dev), bias]
+                flat += [w.to(bf), torch.ones(width, device=dev), bias]
                 p[n] = {"w": w.to(bf), "b": bias}
         return flat, p
 
     # tolerance: bf16 outputs of |x + y| < 8 (an ulp is 1/32) and cache
     # entries of |k|, |v| < 4 (1/64); the tensor cores sum in another order
     # than the plain version's matmul, so a rounding flips here and there
+    def self_case(name, xx, g_ln, b_ln, ws, heads, cache_len, pos):
+        """The self block against its twin on copies of the same seeded
+        caches, then a second run, which must give the same bits (its
+        split-K and attention sums run in a fixed order)."""
+        n, width = xx.shape
+        kc = rn(n, heads, width // heads, cache_len)
+        vc = rn(n, cache_len, heads, width // heads)
+        kc2, vc2, kc3, vc3 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        args = (xx, g_ln, b_ln, *ws)
+        out, _, _ = K.decode_self_block(*args, kc, vc, pos, heads)
+        ref, _, _ = K.decode_self_block_plain(*args, kc2, vc2, pos, heads)
+        err = check_close(name, out, ref, 1 / 16)
+        check_close("  cache k", kc, kc2, 1 / 32)
+        check_close("  cache v", vc, vc2, 1 / 32)
+        again, _, _ = K.decode_self_block(*args, kc3, vc3, pos, heads)
+        if not (torch.equal(out, again) and torch.equal(kc, kc3)
+                and torch.equal(vc, vc3)):
+            raise AssertionError(f"{name}: two runs on the same inputs "
+                                 f"differ")
+        return err
+
     errs = {}
     for int8 in (True, False):
         ws, p_attn = weights("qkvo", int8)
         for pos in (0, 1, t - 1):
-            kc, vc = rn(b, h, dh, t), rn(b, t, h, dh)
-            kc2, vc2 = kc.clone(), vc.clone()
-            out, _, _ = K.decode_self_block(x, lg, lb, *ws, kc, vc, pos, h)
-            ref, _, _ = K.decode_self_block_plain(x, lg, lb, *ws, kc2, vc2,
-                                                  pos, h)
             name = f"decode_self_block {'int8' if int8 else 'bf16'} pos={pos}"
-            errs[name] = check_close(name, out, ref, 1 / 16)
-            check_close("  cache k", kc, kc2, 1 / 32)
-            check_close("  cache v", vc, vc2, 1 / 32)
+            errs[name] = self_case(name, x, lg, lb, ws, h, t, pos)
         if int8:
             kc, vc = rn(b, h, dh, t), rn(b, t, h, dh)
             args = (x, lg, lb, *ws, kc, vc, t - 1, h)
@@ -452,10 +514,30 @@ def generation_kernel_checks(K, QZ, dev) -> dict:
             sb, sf = bound_ms(nbytes(x, lg, lb, *ws, kc, vc, x)
                               + 2 * b * d * 2,
                               4 * 2 * b * d * d + 4 * b * h * dh * t)
+            # a single crop, one past a row tile of 16 (speculative decoding
+            # runs 16 rows, beam search 64) and the tiny preset's width
+            for n, width, heads, tt in ((1, d, h, t), (17, d, h, t),
+                                        (4, 64, 2, 12)):
+                g_n = 1.0 + rn(width, scale=0.1, dtype=torch.float32)
+                b_n = rn(width, scale=0.1, dtype=torch.float32)
+                xn = rn(n, width)
+                for w8 in (True, False):
+                    wn, _ = weights("qkvo", w8, width)
+                    for pos in (0, 1, tt - 1):
+                        name = (f"decode_self_block "
+                                f"{'int8' if w8 else 'bf16'} [{n},{width}] "
+                                f"pos={pos}")
+                        errs[name] = self_case(name, xn, g_n, b_n, wn, heads,
+                                               tt, pos)
+            log("  decode_self_block: two runs give equal bits at every "
+                "shape above")
+            self_busy, self_launches = device_profile(
+                lambda: K.decode_self_block(*args), 20)
             rows["decode_self_block"] = dict(
                 source=PORT_KERNELS + "decode_block.cu",
                 replaces=TPU_KERNELS + "decode_attention.py:267",
                 max_abs_err=max(v for k, v in errs.items() if "self" in k),
+                device_us_by_launch=self_launches,
                 **kernel_ms(lambda: K.decode_self_block(*args), 100),
                 plain_ms=time_ms(lambda: K.decode_self_block_plain(*args),
                                  20),
@@ -531,6 +613,11 @@ def generation_kernel_checks(K, QZ, dev) -> dict:
     for name in ("decode_self_block", "decode_cross_block"):
         log(f"  {name}: the same sublayer as separate calls "
             f"{rows[name]['unfused_ms'] * 1e3:.1f} us")
+    log(f"  decode_self_block [{b},{d}] int8, cache {t}: {self_busy:.1f} us "
+        f"on the device per call; launch durations "
+        + ", ".join(f"{k} {v:.1f} us" for k, v in self_launches.items())
+        + " (the second and third launches start early under programmatic "
+        "dependent launch and wait inside their durations)")
     return rows
 
 
@@ -608,7 +695,7 @@ def loop_kernel_checks(K, dev, scenes, poses, cfg) -> dict:
 
     # layernorm ---------------------------------------------------------------
     g = torch.Generator(device=dev).manual_seed(2)
-    cases = []
+    cases, split_inputs = [], {}
     for case, shape, dtype, main_two_pass in (
             ("vit", (ROWS, 257, 1024), torch.bfloat16, False),
             ("decoder", (ROWS, 768), torch.bfloat16, False),
@@ -631,6 +718,7 @@ def loop_kernel_checks(K, dev, scenes, poses, cfg) -> dict:
                               want, tol)
             if two_pass != main_two_pass:
                 continue
+            split_inputs[f"{case} {mode}"] = (x, lg, lb)
             wg, wb = lg.to(dtype), lb.to(dtype)
             lnb, lnf = bound_ms(2 * nbytes(x) + nbytes(lg, lb),
                                 8 * x.numel(), FP32_FLOP_PER_S)
@@ -644,12 +732,68 @@ def loop_kernel_checks(K, dev, scenes, poses, cfg) -> dict:
                 bound_ms=lnb, bound_by=lnf,
                 library_ms=time_ms(lambda: torch.nn.functional.layer_norm(
                     x, (d,), wg, wb, 1e-5), 100)))
+    for c in cases[1:]:
+        c["host_split_us"] = split = layernorm_host_split(
+            K, *split_inputs[c["case"]])
+        log(f"  layernorm host time per wrapper call, {c['case']} "
+            f"{c['shape']} (us, each piece timed alone on the host's "
+            f"clock): " + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
     # the row is the ViT case (most of the LayerNorm device time); the
     # decoder and sentence-encoder cases ride along
     rows["layernorm"] = dict(source=PORT_KERNELS + "layernorm.cu", **cases[0],
                              cases=cases[1:])
     log_rows(rows)
     return rows
+
+
+def layernorm_host_split(K, x, g, b, n: int = 2000) -> dict:
+    """Host time of one LayerNorm wrapper call on x in its default mode,
+    split into its pieces, each timed alone in a loop on the host's clock
+    (us per call), beside the whole wrapper and one F.layer_norm call. The
+    ctypes entry with 0 rows returns before launching: its time is ctypes'
+    argument marshalling alone."""
+    import torch.nn.functional as F
+
+    from embodied_captioning_tpu_torch.kernels import _lib
+
+    d = x.shape[-1]
+    out = torch.empty_like(x)
+    kinds, f32 = (torch.bfloat16, torch.float32), (torch.float32,)
+    entry = _lib._entries["ecap_layernorm"]
+    stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+    ptrs = (x.data_ptr(), g.data_ptr(), b.data_ptr(), out.data_ptr())
+    bf16 = int(x.dtype == torch.bfloat16)
+    flags = (1 - bf16, bf16, bf16)  # two-pass for f32, in and out dtype
+    wg, wb = g.to(x.dtype), b.to(x.dtype)
+
+    def host_us(fn) -> float:
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(n):
+            fn()
+        dt = time.perf_counter_ns() - t0
+        torch.cuda.synchronize()
+        return dt / n / 1e3
+
+    return {
+        "device query and dispatch": host_us(lambda: _lib.dispatch_device(x)),
+        "checks": host_us(lambda: (
+            _lib.check(x, "x", kinds, align=x.element_size()),
+            _lib.check_param(g, "g", f32, (d,), align=4),
+            _lib.check_param(b, "b", f32, (d,), align=4))),
+        "output allocation": host_us(lambda: torch.empty_like(x)),
+        "stream query": host_us(lambda: torch._C._cuda_getCurrentRawStream(
+            torch._C._cuda_getDevice())),
+        "ctypes marshalling": host_us(
+            lambda: entry(*ptrs, 0, d, 1e-5, *flags, stream)),
+        "ctypes call with the launch": host_us(
+            lambda: entry(*ptrs, x.numel() // d, d, 1e-5, *flags, stream)),
+        "whole wrapper": host_us(lambda: K.layernorm(x, g, b)),
+        "F.layer_norm": host_us(
+            lambda: F.layer_norm(x, (d,), wg, wb, 1e-5)),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -1202,21 +1346,27 @@ def profile_run(what: str, fn, unprofiled_us: float, top: int = 15) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    for _ in range(3):  # again if the trace lost its device events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = device_events(prof)
+        busy = busy_us(events)
+        if busy > 0:
+            break
+    else:
+        raise AssertionError("the profiler saw no device time in three "
+                             "traces")
     rows = [e for e in prof.key_averages()
             if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in rows)
-    if busy <= 0:
-        raise AssertionError("the profiler saw no device time")
     rows.sort(key=lambda e: -e.self_device_time_total)
     ported = [e for e in rows
               if any(k in e.key for k in PORTED_KERNELS)]
-    ours = sum(e.self_device_time_total for e in ported)
+    ours = busy_us([e for e in events
+                    if any(k in e.name for k in PORTED_KERNELS)])
     log(f"  {what}: device busy {busy / 1e3:.1f} ms; wall "
         f"{unprofiled_us / 1e3:.1f} ms unprofiled, "
         f"{wall_us / 1e3:.1f} ms under the profiler; idle share "
@@ -1227,15 +1377,21 @@ def profile_run(what: str, fn, unprofiled_us: float, top: int = 15) -> None:
         log(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  "
             f"{e.key[:90]}")
     log("    ported kernels, device us per launch: " + "; ".join(
-        f"{KERNEL_NAME.search(e.key).group(0)} "
-        f"{e.self_device_time_total / e.count:.1f} x{e.count}"
-        for e in ported))
-    # the decode MLP's three launches run once per call each
-    mlp = [e for e in ported if "mlp_" in e.key]
-    calls = sum(e.count for e in mlp if "mlp_ln_kernel" in e.key)
-    if calls:
-        log(f"    decode_mlp: {sum(e.self_device_time_total for e in mlp) / calls:.1f}"
-            f" us on the device per call ({calls} calls)")
+        f"{kernel_name(e.key)} {e.self_device_time_total / e.count:.1f} "
+        f"x{e.count}" for e in ported))
+    # the decode MLP's and the self block's three launches run once per
+    # call each; a launch started early by programmatic dependent launch
+    # counts from its start, so a call's time is the union of its launches
+    for name, first, parts in (
+            ("decode_mlp", "mlp_ln_kernel", ("mlp_ln_kernel",
+                                             "mlp_gemm_kernel")),
+            ("decode_self_block", SELF_BLOCK_KERNELS[0], SELF_BLOCK_KERNELS)):
+        calls = sum(e.count for e in ported if first in e.key)
+        if calls:
+            span = busy_us([e for e in events
+                            if any(k in e.name for k in parts)])
+            log(f"    {name}: {span / calls:.1f} us on the device per call "
+                f"({calls} calls)")
 
 
 # ---------------------------------------------------------------------------

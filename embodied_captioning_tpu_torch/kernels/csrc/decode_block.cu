@@ -23,32 +23,312 @@
 // (64 rows, D=768, 12 heads of 64) the self sublayer moves 2.4 MB of int8
 // weights and 5.9 MB of caches (T=30), ~2.5 us; the cross sublayer 1.2 MB of
 // weights and 25.2 MB of int8 K/V (K=256), ~7.9 us. 4 x 2*64*768*768 =
-// 0.3 GFLOP is far below the compute roof.
+// 0.3 GFLOP is far below the compute roof. Each sublayer has two grid-wide
+// dependencies (attention needs whole q, k and v rows of a head, the out
+// projection every head of a row), so each is three launches, and each
+// launch has to spread its work over the whole card.
 //
-// Design: three launches per call, because attention needs the whole q, k
-// and v rows of a head, and the out projection every head of a row: two
-// grid-wide dependencies.
-//   1. proj_kernel<ln>: LayerNorm and the q (and k, v) projections. A block
-//      owns 64 rows x 32 output columns of one projection (grid.z picks the
-//      projection), recomputes the rows' LayerNorm statistics, and walks
-//      the contraction in chunks of 128: activations are normalised and
-//      weights converted to bf16 as they are staged in shared memory with
-//      16-byte loads, and 8 warps multiply 16x16x16 tiles on the tensor
-//      cores (mma.sync through nvcuda::wmma, f32 accumulators). The
-//      epilogue writes q as f32 to a scratch buffer, and k and v straight
-//      into the caches at `pos` -- the strided store that the TPU compiler
-//      refuses and the TPU caller does outside its kernel.
+// The self sublayer:
+//   1. self_qkv_kernel: the q/k/v products as one split-K product of
+//      splitk.cuh over 3D columns (8-warp blocks of 64 columns: 3D/64
+//      column tiles x S splits, 144 blocks at D=768, S=4), the LayerNorm
+//      fused in (each cluster adds its blocks' partial row sums; x is read
+//      once). Epilogue: q as f32 into a
+//      scratch buffer, k and v rounded to bf16 straight into the caches at
+//      `pos` -- k at a stride of T elements, the store that the TPU
+//      compiler refuses and the TPU caller does outside its kernel.
+//   2. self_attn_kernel: a block of 4 warps per (row, head). All its loads
+//      go out at once, as 16-byte cp.async copies into shared memory: q,
+//      the head's [Dh, T] kc block (contiguous) and the vc rows at
+//      positions <= pos -- one memory latency, where a serial walk over
+//      the cache pays one per step. Then warp w takes a quarter of Dh of
+//      the QK^T and lane j key j (along T, kc's minor axis), the block adds
+//      the quarters in order and takes the f32 softmax, and thread (g, d)
+//      sums keys g, g+G, ... of output dim d (contiguous in vc), the G
+//      groups added in order. The current token is position `pos` of the
+//      cache by now, one more key of the same softmax.
+//   3. self_out_kernel: the out product (split-K, S=8 at D=768: 192
+//      blocks), scale, bias and the residual.
+//   Launches 2 and 3 use programmatic dependent launch: each is scheduled
+//   while the previous one finishes, launch 3 streams its weights in
+//   before it waits, and neither reads anything the previous launch
+//   writes (q, the caches, the attention output) before its
+//   grid_dependency_wait. `self_block_plan` in kernels/decode_attention.py
+//   picks both splits.
+//
+// The cross sublayer:
+//   1. proj_kernel<ln>: LayerNorm and the q projection. A block owns 64
+//      rows x 32 output columns, recomputes the rows' LayerNorm statistics,
+//      and walks the contraction in chunks of 128: activations are
+//      normalised and weights converted to bf16 as they are staged in
+//      shared memory with 16-byte loads, and 8 warps multiply 16x16x16
+//      tiles on the tensor cores (nvcuda::wmma, f32 accumulators); q goes
+//      to an f32 scratch buffer.
 //   2. the single-query attention kernel of attention.cuh with an f32 query
-//      and a bf16 output: the current token is position `pos` of the cache
-//      by now, so it is one more key of the same softmax.
+//      and a bf16 output.
 //   3. proj_kernel<no ln>: the out projection, scale, bias and residual.
 #include <mma.h>
 
 #include "attention.cuh"
+#include "splitk.cuh"
 
 namespace {
 
 using namespace nvcuda;
+namespace split_k = ecap::splitk;
+
+// warps per block of the q/k/v product (64 output columns: each column
+// tile normalises its slices of all rows, so fewer, wider tiles do less
+// of that) and of the out product (32 columns: enough tiles to fill the
+// card)
+constexpr int kQkvWarps = 8;
+constexpr int kOutWarps = 4;
+constexpr size_t kMaxSmem = 232448;  // a block's shared memory on sm_90
+
+// ---------------------------------------------------------------------------
+// the self sublayer
+// ---------------------------------------------------------------------------
+
+struct Job {
+  const void* w;       // [D, D] int8 or bf16
+  const float* scale;  // [D]
+  const float* bias;   // [D]
+};
+struct Jobs {
+  Job j[3];
+};
+
+// x [rows, d] bf16 -> q [rows, d] f32, and the current k and v into
+// kc [B, H, Dh, T] and vc [B, T, H, Dh] at `pos`. Column tile n of the 3d
+// outputs belongs to q, k or v by n / (d / 64).
+template <typename W>
+__global__ void __launch_bounds__(split_k::threads<kQkvWarps>())
+self_qkv_kernel(const __nv_bfloat16* __restrict__ x,
+                const float* __restrict__ ln_g, const float* __restrict__ ln_b,
+                Jobs jobs, float* __restrict__ q_out,
+                __nv_bfloat16* __restrict__ kc, __nv_bfloat16* __restrict__ vc,
+                int rows, int d, int heads, int t, int pos, float eps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kCols = split_k::cols<kQkvWarps>();
+  const int tiles = d / kCols;
+  const int which = blockIdx.x / tiles;  // 0 q, 1 k, 2 v
+  const int n0 = (blockIdx.x % tiles) * kCols;
+  const Job job = which == 0 ? jobs.j[0] : (which == 1 ? jobs.j[1] : jobs.j[2]);
+  const int dh = d / heads;
+  split_k::tile<W, kQkvWarps, true>(
+      smem_raw, x, static_cast<const W*>(job.w), d, n0, rows, d, ln_g, ln_b,
+      eps, [&](int r, int c4, const float* y) {
+        const int col = n0 + c4;
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          v[i] = __fadd_rn(__fmul_rn(y[i], job.scale[col + i]),
+                           job.bias[col + i]);
+        if (which == 0) {
+          *reinterpret_cast<float4*>(q_out + static_cast<size_t>(r) * d +
+                                     col) = make_float4(v[0], v[1], v[2], v[3]);
+        } else if (which == 1) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int hh = (col + i) / dh, dd = (col + i) % dh;
+            kc[((static_cast<size_t>(r) * heads + hh) * dh + dd) * t + pos] =
+                __float2bfloat16_rn(v[i]);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            vc[(static_cast<size_t>(r) * t + pos) * d + col + i] =
+                __float2bfloat16_rn(v[i]);
+        }
+      });
+}
+
+constexpr int kSelfAttnThreads = 128;           // one block per (row, head)
+constexpr int kKeyParts = kSelfAttnThreads / 32;  // warps: q.k split over Dh
+
+// shared memory of self_attn_kernel: q, the head's kc block, the live vc
+// rows, the partial and final scores, a reduction scratch
+inline size_t self_attn_smem(int dh, int t) {
+  return sizeof(float) * (dh + (kKeyParts + 1) * t + kSelfAttnThreads) +
+         sizeof(__nv_bfloat16) * 2 * static_cast<size_t>(dh) * t;
+}
+
+// q [B, H, Dh] f32; kc [B, H, Dh, T] and vc [B, T, H, Dh] bf16, live at
+// positions <= pos; out [B, H, Dh] bf16. One block per (row, head); Dh a
+// multiple of 8 and kc, vc 16-byte aligned.
+__global__ void __launch_bounds__(kSelfAttnThreads)
+self_attn_kernel(const float* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ kc,
+                 const __nv_bfloat16* __restrict__ vc,
+                 __nv_bfloat16* __restrict__ out, int h, int dh, int t,
+                 int pos) {
+  // each part a multiple of 16 bytes long (Dh % 8 == 0), in this order
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // dh x t
+  __nv_bfloat16* vs = ks + dh * t;         // t x dh, rows <= pos used
+  float* qs = reinterpret_cast<float*>(vs + dh * t);  // dh
+  float* part = qs + dh;                   // kKeyParts x t
+  float* p = part + kKeyParts * t;         // t
+  float* red = p + t;                      // kSelfAttnThreads
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bh = blockIdx.x, b = bh / h, hh = bh % h;
+  const int live = pos + 1;
+  ecap::grid_dependency_wait();
+  // every load of the block in flight at once: q, the [Dh, T] kc block
+  // (contiguous) and the live vc rows
+  const int qv = dh / 4, kv = dh * t / 8, vv = dh / 8;
+  for (int c = tid; c < qv + kv + live * vv; c += kSelfAttnThreads) {
+    if (c < qv) {
+      ecap::cp_async16(qs + 4 * c, q + static_cast<size_t>(bh) * dh + 4 * c,
+                       true);
+    } else if (c < qv + kv) {
+      const int e = 8 * (c - qv);
+      ecap::cp_async16(ks + e, kc + static_cast<size_t>(bh) * dh * t + e,
+                       true);
+    } else {
+      const int j = (c - qv - kv) / vv, e = 8 * ((c - qv - kv) % vv);
+      ecap::cp_async16(
+          vs + j * dh + e,
+          vc + ((static_cast<size_t>(b) * t + j) * h + hh) * dh + e, true);
+    }
+  }
+  ecap::cp_async_commit();
+  ecap::cp_async_wait<0>();
+  __syncthreads();
+  // warp w: dims [w * dc, (w + 1) * dc) of q.k for keys lane, lane + 32,
+  // ...; the partial sums are added in warp order below
+  const int dc = (dh + kKeyParts - 1) / kKeyParts;
+  const int d0 = warp * dc, d1 = min(dh, d0 + dc);
+  for (int j = lane; j < live; j += 32) {
+    float acc = 0.f;
+    for (int dd = d0; dd < d1; ++dd)
+      acc = fmaf(qs[dd], ecap::to_float(ks[dd * t + j]), acc);
+    part[warp * t + j] = acc;
+  }
+  __syncthreads();
+  const float rs = sqrtf(static_cast<float>(dh));
+  float lmax = ecap::kNegInf;
+  for (int j = tid; j < live; j += kSelfAttnThreads) {
+    float acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < kKeyParts; ++w) acc += part[w * t + j];
+    const float s = acc / rs;
+    p[j] = s;
+    lmax = fmaxf(lmax, s);
+  }
+  const float m = ecap::block_max(lmax, red);
+  float lsum = 0.f;
+  for (int j = tid; j < live; j += kSelfAttnThreads) {
+    const float e = expf(p[j] - m);
+    p[j] = e;
+    lsum += e;
+  }
+  const float denom = ecap::block_sum(lsum, red);
+  __syncthreads();
+  // PV: thread (group g, dim dd) sums keys g, g + G, ...; the G partial
+  // sums are added in group order
+  const int groups = max(1, kSelfAttnThreads / dh);
+  for (int base = 0; base < dh; base += kSelfAttnThreads) {
+    const int gi = tid / dh, dd = base + tid % dh;
+    float acc = 0.f;
+    if (gi < groups && dd < dh)
+      for (int j = gi; j < live; j += groups)
+        acc = fmaf(p[j], ecap::to_float(vs[j * dh + dd]), acc);
+    red[tid] = acc;
+    __syncthreads();
+    if (tid < dh && base + tid < dh) {
+      float sum = 0.f;
+      for (int gg = 0; gg < groups; ++gg) sum += red[gg * dh + tid];
+      out[static_cast<size_t>(bh) * dh + base + tid] =
+          __float2bfloat16_rn(sum / denom);
+    }
+    __syncthreads();
+  }
+}
+
+// out = x + (attn wo * so + bo), all [rows, d]
+template <typename W>
+__global__ void __launch_bounds__(split_k::threads<kOutWarps>())
+self_out_kernel(const __nv_bfloat16* __restrict__ attn,
+                const W* __restrict__ wo, const float* __restrict__ so,
+                const float* __restrict__ bo,
+                const __nv_bfloat16* __restrict__ x,
+                __nv_bfloat16* __restrict__ out, int rows, int d) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n0 = blockIdx.x * split_k::cols<kOutWarps>();
+  split_k::tile<W, kOutWarps, false>(
+      smem_raw, attn, wo, d, n0, rows, d, nullptr, nullptr, 0.f,
+      [&](int r, int c4, const float* y) {
+        split_k::store_residual(x, out, so, bo, d, r, n0 + c4, y);
+      });
+}
+
+struct SelfArgs {
+  const __nv_bfloat16* x;
+  const float* g;
+  const float* b;
+  Jobs qkv;
+  Job o;
+  __nv_bfloat16* kc;
+  __nv_bfloat16* vc;
+  float* q;              // scratch [rows, d] f32
+  __nv_bfloat16* attn;   // scratch [rows, d] bf16
+  __nv_bfloat16* out;    // [rows, d] bf16
+  int rows, d, heads, t, pos;
+  float eps;
+  cudaStream_t s;
+};
+
+template <typename W>
+cudaError_t self_block(const SelfArgs& a, int s_qkv, int s_out) {
+  cudaError_t err = split_k::launch<self_qkv_kernel<W>, kQkvWarps>(
+      3 * a.d, s_qkv, a.rows,
+      split_k::smem_bytes<W, kQkvWarps>(a.d / s_qkv, true),
+      split_k::smem_bytes<W, kQkvWarps>(split_k::kMaxSlice, true), false,
+      a.s, a.x, a.g, a.b, a.qkv, a.q, a.kc, a.vc, a.rows, a.d, a.heads, a.t,
+      a.pos, a.eps);
+  if (err != cudaSuccess) return err;
+
+  const int dh = a.d / a.heads;
+  const size_t attn_smem = self_attn_smem(dh, a.t);
+  err = ecap::attn_set_smem(self_attn_kernel, attn_smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.rows * a.heads);
+  cfg.blockDim = dim3(kSelfAttnThreads);
+  cfg.dynamicSmemBytes = attn_smem;
+  cfg.stream = a.s;
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, self_attn_kernel,
+                           static_cast<const float*>(a.q),
+                           static_cast<const __nv_bfloat16*>(a.kc),
+                           static_cast<const __nv_bfloat16*>(a.vc), a.attn,
+                           a.heads, dh, a.t, a.pos);
+  if (err != cudaSuccess) return err;
+
+  return split_k::launch<self_out_kernel<W>, kOutWarps>(
+      a.d, s_out, a.rows,
+      split_k::smem_bytes<W, kOutWarps>(a.d / s_out, false),
+      split_k::smem_bytes<W, kOutWarps>(split_k::kMaxSlice, false), true, a.s,
+      static_cast<const __nv_bfloat16*>(a.attn), static_cast<const W*>(a.o.w),
+      a.o.scale, a.o.bias, a.x, a.out, a.rows, a.d);
+}
+
+Job make_job(const void* w, const void* scale, const void* bias) {
+  Job j;
+  j.w = w;
+  j.scale = static_cast<const float*>(scale);
+  j.bias = static_cast<const float*>(bias);
+  return j;
+}
+
+// ---------------------------------------------------------------------------
+// the cross sublayer
+// ---------------------------------------------------------------------------
 
 constexpr int kMB = 64;        // rows per block
 constexpr int kNB = 32;        // output columns per block
@@ -57,18 +337,6 @@ constexpr int kThreads = 256;  // 8 warps: 4 row tiles x 2 column tiles
 constexpr int kLdA = kKC + 8;  // bf16 elements; rows stay 16-byte aligned
 constexpr int kLdB = kNB + 8;
 constexpr int kLdC = kNB + 4;  // f32 elements
-
-enum Kind { kQ = 0, kKCache = 1, kVCache = 2, kResid = 3 };
-
-struct Job {
-  const void* w;       // [D, D] int8 or bf16
-  const float* scale;  // [D]
-  const float* bias;   // [D]
-  int kind;
-};
-struct Jobs {
-  Job j[3];
-};
 
 // 16 weights of one row -> bf16 in shared memory.
 __device__ __forceinline__ void stage_weights(const int8_t* src,
@@ -88,16 +356,16 @@ __device__ __forceinline__ void stage_weights(const __nv_bfloat16* src,
   reinterpret_cast<uint4*>(dst)[1] = reinterpret_cast<const uint4*>(src)[1];
 }
 
-// a [rows, d] bf16 (x when kLN, else the attention output); every weight
-// [d, d]; d % 32 == 0.
+// kLN: q_out = ln(a) w * scale + bias (f32), a = x; otherwise
+// out = resid + (a w * scale + bias) as bf16, a = the attention output.
+// a [rows, d] bf16; w [d, d]; d % 32 == 0.
 template <typename W, bool kLN>
 __global__ void __launch_bounds__(kThreads)
 proj_kernel(const __nv_bfloat16* __restrict__ a,
             const float* __restrict__ ln_g, const float* __restrict__ ln_b,
-            Jobs jobs, const __nv_bfloat16* __restrict__ resid,
-            float* __restrict__ q_out, __nv_bfloat16* __restrict__ kc,
-            __nv_bfloat16* __restrict__ vc, __nv_bfloat16* __restrict__ out,
-            int rows, int d, int heads, int t, int pos, float eps) {
+            Job job, const __nv_bfloat16* __restrict__ resid,
+            float* __restrict__ q_out, __nv_bfloat16* __restrict__ out,
+            int rows, int d, float eps) {
   __shared__ __align__(32) __nv_bfloat16 as[kMB * kLdA];
   __shared__ __align__(32) __nv_bfloat16 bs[kKC * kLdB];
   __shared__ __align__(32) float cs[kMB * kLdC];
@@ -105,10 +373,7 @@ proj_kernel(const __nv_bfloat16* __restrict__ a,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n0 = blockIdx.x * kNB;
   const int r0 = blockIdx.y * kMB;
-  const Job job = blockIdx.z == 0 ? jobs.j[0]
-                                  : (blockIdx.z == 1 ? jobs.j[1] : jobs.j[2]);
   const W* __restrict__ w = static_cast<const W*>(job.w);
-
   if (kLN) {
     for (int rl = warp; rl < kMB; rl += kThreads / 32) {
       const int r = r0 + rl;
@@ -187,7 +452,6 @@ proj_kernel(const __nv_bfloat16* __restrict__ a,
   wmma::store_matrix_sync(cs + wr * 16 * kLdC + wc * 16, acc, kLdC,
                           wmma::mem_row_major);
   __syncthreads();
-  const int dh = d / heads;
   for (int e = threadIdx.x; e < kMB * kNB; e += kThreads) {
     const int rl = e / kNB, c = e % kNB;
     const int r = r0 + rl, col = n0 + c;
@@ -195,90 +459,32 @@ proj_kernel(const __nv_bfloat16* __restrict__ a,
     const float y = __fadd_rn(__fmul_rn(cs[rl * kLdC + c], job.scale[col]),
                               job.bias[col]);
     const size_t o = static_cast<size_t>(r) * d + col;
-    if (job.kind == kQ) {
+    if (kLN)
       q_out[o] = y;
-    } else if (job.kind == kKCache) {
-      // kc [B, H, Dh, T]
-      const int hh = col / dh, dd = col % dh;
-      kc[((static_cast<size_t>(r) * heads + hh) * dh + dd) * t + pos] =
-          __float2bfloat16_rn(y);
-    } else if (job.kind == kVCache) {
-      // vc [B, T, H, Dh]
-      vc[(static_cast<size_t>(r) * t + pos) * d + col] = __float2bfloat16_rn(y);
-    } else {
+    else
       out[o] = __float2bfloat16_rn(__fadd_rn(ecap::to_float(resid[o]), y));
-    }
   }
 }
 
-struct Common {
-  const __nv_bfloat16* x;
-  const float* g;
-  const float* b;
-  float* q;              // scratch [rows, d] f32
-  __nv_bfloat16* attn;   // scratch [rows, d] bf16
-  __nv_bfloat16* out;    // [rows, d] bf16
-  int rows, d, heads;
-  float eps;
-  cudaStream_t s;
-};
-
-template <typename W>
-cudaError_t project_in(const Common& c, const Jobs& jobs, int njobs,
-                       __nv_bfloat16* kc, __nv_bfloat16* vc, int t, int pos) {
-  const dim3 grid(c.d / kNB, (c.rows + kMB - 1) / kMB, njobs);
-  proj_kernel<W, true><<<grid, kThreads, 0, c.s>>>(
-      c.x, c.g, c.b, jobs, nullptr, c.q, kc, vc, nullptr, c.rows, c.d,
-      c.heads, t, pos, c.eps);
-  return cudaGetLastError();
-}
-
-template <typename W>
-cudaError_t project_out(const Common& c, const Job& o) {
-  Jobs jobs;
-  jobs.j[0] = jobs.j[1] = jobs.j[2] = o;
-  const dim3 grid(c.d / kNB, (c.rows + kMB - 1) / kMB, 1);
-  proj_kernel<W, false><<<grid, kThreads, 0, c.s>>>(
-      c.attn, nullptr, nullptr, jobs, c.x, nullptr, nullptr, nullptr, c.out,
-      c.rows, c.d, c.heads, 0, 0, c.eps);
-  return cudaGetLastError();
-}
-
-template <typename W>
-cudaError_t self_block(const Common& c, const Jobs& qkv, const Job& o,
-                       __nv_bfloat16* kc, __nv_bfloat16* vc, int t, int pos) {
-  cudaError_t err = project_in<W>(c, qkv, 3, kc, vc, t, pos);
-  if (err != cudaSuccess) return err;
-  err = ecap::launch_decode_self(static_cast<const float*>(c.q),
-                                 static_cast<const __nv_bfloat16*>(kc),
-                                 static_cast<const __nv_bfloat16*>(vc), c.attn,
-                                 c.rows, c.heads, c.d / c.heads, t, pos, c.s);
-  if (err != cudaSuccess) return err;
-  return project_out<W>(c, o);
-}
-
 template <typename W, typename KV>
-cudaError_t cross_block(const Common& c, const Job& q, const Job& o,
+cudaError_t cross_block(const __nv_bfloat16* x, const float* g,
+                        const float* b, const Job& jq, const Job& jo,
                         const void* kt, const void* v, const float* ks,
-                        const float* vs, int nk) {
-  Jobs jobs;
-  jobs.j[0] = jobs.j[1] = jobs.j[2] = q;
-  cudaError_t err = project_in<W>(c, jobs, 1, nullptr, nullptr, 0, 0);
+                        const float* vs, float* q, __nv_bfloat16* attn,
+                        __nv_bfloat16* out, int rows, int d, int heads, int nk,
+                        float eps, cudaStream_t s) {
+  const dim3 grid(d / kNB, (rows + kMB - 1) / kMB);
+  proj_kernel<W, true><<<grid, kThreads, 0, s>>>(x, g, b, jq, nullptr, q,
+                                                 nullptr, rows, d, eps);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = ecap::launch_decode_cross<KV>(static_cast<const float*>(c.q), kt, v,
-                                      ks, vs, c.attn, c.rows, c.heads,
-                                      c.d / c.heads, nk, c.s);
+  err = ecap::launch_decode_cross<KV>(static_cast<const float*>(q), kt, v, ks,
+                                      vs, attn, rows, heads, d / heads, nk, s);
   if (err != cudaSuccess) return err;
-  return project_out<W>(c, o);
-}
-
-Job make_job(const void* w, const void* scale, const void* bias, int kind) {
-  Job j;
-  j.w = w;
-  j.scale = static_cast<const float*>(scale);
-  j.bias = static_cast<const float*>(bias);
-  j.kind = kind;
-  return j;
+  proj_kernel<W, false><<<grid, kThreads, 0, s>>>(attn, nullptr, nullptr, jo,
+                                                  x, nullptr, out, rows, d,
+                                                  eps);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -286,59 +492,81 @@ Job make_job(const void* w, const void* scale, const void* bias, int kind) {
 // x [B,D] bf16; LN g,b [D] f32; wq,wk,wv,wo [D,D] (int8 if `int8`, else
 // bf16) with f32 [D] scales and biases; kc [B,H,Dh,T], vc [B,T,H,Dh] bf16,
 // read at positions < pos and written at pos; q: scratch [B,D] f32; attn:
-// scratch [B,D] bf16; out [B,D] bf16. D % 32 == 0.
+// scratch [B,D] bf16; out [B,D] bf16. s_qkv and s_out split the two
+// products' D-long contractions. Takes D a multiple of 32 and of H, splits
+// as `self_block_plan` gives them (at most 8, slices of a multiple of 16
+// and at most 512), 0 <= pos < T; returns cudaErrorInvalidValue otherwise.
 extern "C" int ecap_decode_self_block(
     const void* x, const void* g, const void* b, const void* wq,
     const void* sq, const void* bq, const void* wk, const void* sk,
     const void* bk, const void* wv, const void* sv, const void* bv,
     const void* wo, const void* so, const void* bo, void* kc, void* vc,
     void* q, void* attn, void* out, int rows, int d, int heads, int t, int pos,
-    float eps, int int8, void* stream) {
-  Common c{static_cast<const __nv_bfloat16*>(x),
-           static_cast<const float*>(g),
-           static_cast<const float*>(b),
-           static_cast<float*>(q),
-           static_cast<__nv_bfloat16*>(attn),
-           static_cast<__nv_bfloat16*>(out),
-           rows, d, heads, eps, static_cast<cudaStream_t>(stream)};
-  Jobs qkv;
-  qkv.j[0] = make_job(wq, sq, bq, kQ);
-  qkv.j[1] = make_job(wk, sk, bk, kKCache);
-  qkv.j[2] = make_job(wv, sv, bv, kVCache);
-  const Job o = make_job(wo, so, bo, kResid);
-  __nv_bfloat16* kcb = static_cast<__nv_bfloat16*>(kc);
-  __nv_bfloat16* vcb = static_cast<__nv_bfloat16*>(vc);
-  if (int8) return self_block<int8_t>(c, qkv, o, kcb, vcb, t, pos);
-  return self_block<__nv_bfloat16>(c, qkv, o, kcb, vcb, t, pos);
+    float eps, int int8, int s_qkv, int s_out, void* stream) {
+  if (rows < 1 || heads < 1 || d % split_k::cols<kQkvWarps>() || d % heads ||
+      (d / heads) % 8 || self_attn_smem(d / heads, t) > kMaxSmem ||
+      reinterpret_cast<uintptr_t>(kc) % 16 ||
+      reinterpret_cast<uintptr_t>(vc) % 16 || pos < 0 ||
+      pos >= t || !split_k::valid_split(d, s_qkv) ||
+      !split_k::valid_split(d, s_out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  SelfArgs a;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.g = static_cast<const float*>(g);
+  a.b = static_cast<const float*>(b);
+  a.qkv.j[0] = make_job(wq, sq, bq);
+  a.qkv.j[1] = make_job(wk, sk, bk);
+  a.qkv.j[2] = make_job(wv, sv, bv);
+  a.o = make_job(wo, so, bo);
+  a.kc = static_cast<__nv_bfloat16*>(kc);
+  a.vc = static_cast<__nv_bfloat16*>(vc);
+  a.q = static_cast<float*>(q);
+  a.attn = static_cast<__nv_bfloat16*>(attn);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.rows = rows;
+  a.d = d;
+  a.heads = heads;
+  a.t = t;
+  a.pos = pos;
+  a.eps = eps;
+  a.s = static_cast<cudaStream_t>(stream);
+  if (int8) return self_block<int8_t>(a, s_qkv, s_out);
+  return self_block<__nv_bfloat16>(a, s_qkv, s_out);
 }
 
 // As above for the cross-attention sublayer: kt [B,H,Dh,K], v [B,H,K,Dh]
 // (int8 if `kv_int8`, else bf16); kt_scale [B,H,K], v_scale [B,H,Dh] f32 or
-// null (= 1).
+// null (= 1). D % 32 == 0.
 extern "C" int ecap_decode_cross_block(
     const void* x, const void* g, const void* b, const void* wq,
     const void* sq, const void* bq, const void* wo, const void* so,
     const void* bo, const void* kt, const void* v, const void* kt_scale,
     const void* v_scale, void* q, void* attn, void* out, int rows, int d,
     int heads, int nk, float eps, int int8, int kv_int8, void* stream) {
-  Common c{static_cast<const __nv_bfloat16*>(x),
-           static_cast<const float*>(g),
-           static_cast<const float*>(b),
-           static_cast<float*>(q),
-           static_cast<__nv_bfloat16*>(attn),
-           static_cast<__nv_bfloat16*>(out),
-           rows, d, heads, eps, static_cast<cudaStream_t>(stream)};
-  const Job jq = make_job(wq, sq, bq, kQ);
-  const Job jo = make_job(wo, so, bo, kResid);
-  const float* ks = static_cast<const float*>(kt_scale);
-  const float* vs = static_cast<const float*>(v_scale);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* gf = static_cast<const float*>(g);
+  const auto* bf = static_cast<const float*>(b);
+  const Job jq = make_job(wq, sq, bq);
+  const Job jo = make_job(wo, so, bo);
+  const auto* ks = static_cast<const float*>(kt_scale);
+  const auto* vs = static_cast<const float*>(v_scale);
+  auto* qf = static_cast<float*>(q);
+  auto* ab = static_cast<__nv_bfloat16*>(attn);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (int8) {
     if (kv_int8)
-      return cross_block<int8_t, int8_t>(c, jq, jo, kt, v, ks, vs, nk);
-    return cross_block<int8_t, __nv_bfloat16>(c, jq, jo, kt, v, ks, vs, nk);
+      return cross_block<int8_t, int8_t>(xb, gf, bf, jq, jo, kt, v, ks, vs, qf,
+                                         ab, ob, rows, d, heads, nk, eps, s);
+    return cross_block<int8_t, __nv_bfloat16>(xb, gf, bf, jq, jo, kt, v, ks,
+                                              vs, qf, ab, ob, rows, d, heads,
+                                              nk, eps, s);
   }
   if (kv_int8)
-    return cross_block<__nv_bfloat16, int8_t>(c, jq, jo, kt, v, ks, vs, nk);
-  return cross_block<__nv_bfloat16, __nv_bfloat16>(c, jq, jo, kt, v, ks, vs,
-                                                   nk);
+    return cross_block<__nv_bfloat16, int8_t>(xb, gf, bf, jq, jo, kt, v, ks,
+                                              vs, qf, ab, ob, rows, d, heads,
+                                              nk, eps, s);
+  return cross_block<__nv_bfloat16, __nv_bfloat16>(xb, gf, bf, jq, jo, kt, v,
+                                                   ks, vs, qf, ab, ob, rows, d,
+                                                   heads, nk, eps, s);
 }

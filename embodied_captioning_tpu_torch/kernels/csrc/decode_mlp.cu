@@ -25,49 +25,22 @@
 //     every column tile would normalise its slice of all rows again.)
 //  2. mlp_gemm_kernel<fc>: h = gelu(xn wfc * sfc + bfc), h [B, F] bf16.
 //  3. mlp_gemm_kernel<proj>: out = x + h wpj * spj + bpj.
-// The product kernel, split along the contraction (split-K): grid (N/32
-// column tiles, S splits of the K-long contraction, row tiles of 64), 4
-// warps. A block puts its [64, K/S] slice of the activations and its
-// [K/S, 32] weight slice in flight at once with 16-byte cp.async copies,
-// then each warp multiplies all 64 rows by its 8 columns on the tensor
-// cores (mma.sync m16n8k16; A through ldmatrix, int8 weights converted to
-// bf16 on the way into the B fragments, each B fragment built once per
-// block). The S blocks of a column tile form one thread-block cluster:
-// each leaves its unscaled f32 partial tile in its own shared memory, and
-// after a cluster barrier block s sums rows s, s+S, ... of all S partial
-// tiles in rank order through distributed shared memory -- the same bits
-// on every run, no atomics, no round trip through device memory -- and
-// applies the epilogue. S = 2 for fc and 8 for proj at the serving shape:
-// 192 blocks each. `mlp_plan` in kernels/decode_attention.py picks S.
-// Rows beyond B are zero-filled in shared memory and never stored.
-#include <cooperative_groups.h>
-
-#include <algorithm>
-
-#include "mma.cuh"
+// The two products are the split-K kernel of splitk.cuh (S blocks of a
+// column tile in one cluster, partial sums added in rank order through
+// distributed shared memory): S = 2 for fc and 8 for proj at the serving
+// shape, 192 blocks each. `mlp_plan` in kernels/decode_attention.py picks S.
+#include "splitk.cuh"
 
 namespace {
 
-namespace cg = cooperative_groups;
-
-constexpr int kThreads = 128;  // 4 warps, 8 output columns each
-constexpr int kRows = 64;      // rows per block
-constexpr int kCols = 32;      // output columns per block
-constexpr int kMaxSplits = 8;  // the portable cluster size
-constexpr int kMaxSlice = 512;  // contraction per block
-constexpr int kMaxD = 1024;     // mlp_ln_kernel holds a row in registers
+constexpr int kWarps = 4;  // per block of the products: 32 output columns
+constexpr int kCols = ecap::splitk::cols<kWarps>();
+constexpr int kThreads = ecap::splitk::threads<kWarps>();
+constexpr int kMaxD = 1024;  // mlp_ln_kernel holds a row in registers
 
 __device__ __forceinline__ float gelu_tanh(float y) {
   const float inner = 0.7978845608028654f * (y + 0.044715f * (y * y * y));
   return y * (0.5f * (1.f + tanhf(inner)));
-}
-
-// W[k][n], W[k+1][n] of a [k][kCols] weight tile in shared memory as one
-// bf16 pair (half of a B fragment)
-template <typename W>
-__device__ __forceinline__ uint32_t wpair(const W* w, int k, int n) {
-  return ecap::pack_bf16(ecap::to_float(w[k * kCols + n]),
-                         ecap::to_float(w[(k + 1) * kCols + n]));
 }
 
 // x [B, D] -> xn [B, D] bf16, one warp per row
@@ -132,120 +105,24 @@ mlp_gemm_kernel(const __nv_bfloat16* __restrict__ a,
                 const __nv_bfloat16* __restrict__ resid,
                 __nv_bfloat16* __restrict__ out, int rows, int kdim, int n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int splits = gridDim.y, slice = kdim / splits;
-  const int lda = slice + 8;  // padded: ldmatrix rows in 8 bank groups
-  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  W* ws = reinterpret_cast<W*>(as + kRows * lda);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tq = lane & 3;
-  const int n0 = blockIdx.x * kCols, split = blockIdx.y;
-  const int r0 = blockIdx.z * kRows, k0 = split * slice;
-  const int live = min(kRows, rows - r0);
-
-  const int avec = slice / 8;
-  for (int c = tid; c < kRows * avec; c += kThreads) {
-    const int r = c / avec, col = (c % avec) * 8;
-    const bool ok = r < live;
-    ecap::cp_async16(
-        as + r * lda + col,
-        a + static_cast<size_t>(r0 + (ok ? r : 0)) * kdim + k0 + col, ok);
-  }
-  constexpr int EPC = 16 / sizeof(W);  // elements per 16-byte copy
-  constexpr int CH = kCols / EPC;      // copies per weight row
-  for (int c = tid; c < slice * CH; c += kThreads) {
-    const int kr = c / CH, part = (c % CH) * EPC;
-    ecap::cp_async16(ws + kr * kCols + part,
-                     w + static_cast<size_t>(k0 + kr) * n + n0 + part, true);
-  }
-  ecap::cp_async_commit();
-  ecap::cp_async_wait<0>();
-  __syncthreads();
-
-  // warp w: columns 8w .. 8w + 7 of the live m-tiles
-  float acc[kRows / 16][4] = {};
-  const int col = 8 * warp + g;
-#pragma unroll 4
-  for (int kk = 0; kk < slice; kk += 16) {
-    const uint32_t b0 = wpair(ws, kk + 2 * tq, col);
-    const uint32_t b1 = wpair(ws, kk + 2 * tq + 8, col);
+  const int n0 = blockIdx.x * kCols;
+  ecap::splitk::tile<W, kWarps, false>(
+      smem_raw, a, w, n, n0, rows, kdim, nullptr, nullptr, 0.f,
+      [&](int r, int c4, const float* y) {
+        const int oc = n0 + c4;
+        if (kFc) {
+          float z[4];
 #pragma unroll
-    for (int mi = 0; mi < kRows / 16; ++mi) {
-      if (16 * mi >= live) continue;
-      uint32_t af[4];
-      ecap::ldmatrix_x4(af, as + (16 * mi + (lane & 15)) * lda + kk +
-                                (lane >> 4) * 8);
-      ecap::mma_bf16(acc[mi], af, b0, b1);
-    }
-  }
-
-  // this block's unscaled partial tile [64, kCols] f32, over the staging
-  // area once every warp is done with it
-  __syncthreads();
-  float* part = reinterpret_cast<float*>(smem_raw);
-#pragma unroll
-  for (int mi = 0; mi < kRows / 16; ++mi)
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<float2*>(part + (16 * mi + g + 8 * r) * kCols +
-                                 8 * warp + 2 * tq) =
-          make_float2(acc[mi][2 * r], acc[mi][2 * r + 1]);
-  cluster.sync();
-
-  // block s of the cluster finishes rows s, s + S, ...: the S partials
-  // summed in rank order
-  constexpr int Q = kCols / 4;  // float4 columns per row
-  const float* parts[kMaxSplits];
-#pragma unroll
-  for (int s = 0; s < kMaxSplits; ++s)
-    parts[s] = s < splits ? cluster.map_shared_rank(part, s) : part;
-  for (int e = tid;; e += kThreads) {
-    const int rl = split + (e / Q) * splits;
-    if (rl >= live) break;
-    const int c4 = (e % Q) * 4;
-    float4 p[kMaxSplits];
-#pragma unroll
-    for (int s = 0; s < kMaxSplits; ++s)
-      if (s < splits)
-        p[s] = *reinterpret_cast<const float4*>(parts[s] + rl * kCols + c4);
-    float y[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int s = 0; s < kMaxSplits; ++s)
-      if (s < splits) {
-        y[0] += p[s].x;
-        y[1] += p[s].y;
-        y[2] += p[s].z;
-        y[3] += p[s].w;
-      }
-    const int oc = n0 + c4;
-    const size_t o = static_cast<size_t>(r0 + rl) * n + oc;
-    float z[4];
-    if (kFc) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        z[i] = gelu_tanh(__fadd_rn(__fmul_rn(y[i], scale[oc + i]), bias[oc + i]));
-    } else {
-      const uint2 xr = *reinterpret_cast<const uint2*>(resid + o);
-      const __nv_bfloat16* xv = reinterpret_cast<const __nv_bfloat16*>(&xr);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        z[i] = __fadd_rn(
-            ecap::to_float(xv[i]),
-            __fadd_rn(__fmul_rn(y[i], scale[oc + i]), bias[oc + i]));
-    }
-    *reinterpret_cast<uint2*>(out + o) =
-        make_uint2(ecap::pack_bf16(z[0], z[1]), ecap::pack_bf16(z[2], z[3]));
-  }
-  // the partial tiles stay until every block of the cluster has read them
-  cluster.sync();
-}
-
-// the staging area, which later holds the f32 partial tile
-template <typename W>
-int gemm_smem(int slice) {
-  return std::max(
-      kRows * (slice + 8) * 2 + slice * kCols * static_cast<int>(sizeof(W)),
-      kRows * kCols * 4);
+          for (int i = 0; i < 4; ++i)
+            z[i] = gelu_tanh(
+                __fadd_rn(__fmul_rn(y[i], scale[oc + i]), bias[oc + i]));
+          *reinterpret_cast<uint2*>(out + static_cast<size_t>(r) * n + oc) =
+              make_uint2(ecap::pack_bf16(z[0], z[1]),
+                         ecap::pack_bf16(z[2], z[3]));
+        } else {
+          ecap::splitk::store_residual(resid, out, scale, bias, n, r, oc, y);
+        }
+      });
 }
 
 template <typename W, bool kFc>
@@ -253,24 +130,11 @@ cudaError_t gemm(const __nv_bfloat16* a, const W* w, const float* scale,
                  const float* bias, const __nv_bfloat16* resid,
                  __nv_bfloat16* out, int rows, int kdim, int n, int splits,
                  cudaStream_t s) {
-  static const cudaError_t configured = cudaFuncSetAttribute(
-      mlp_gemm_kernel<W, kFc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      gemm_smem<W>(kMaxSlice));
-  if (configured != cudaSuccess) return configured;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n / kCols, splits, (rows + kRows - 1) / kRows);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = gemm_smem<W>(kdim / splits);
-  cfg.stream = s;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = 1;
-  attr.val.clusterDim.y = splits;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, mlp_gemm_kernel<W, kFc>, a, w, scale, bias,
-                            resid, out, rows, kdim, n);
+  using namespace ecap::splitk;
+  return launch<mlp_gemm_kernel<W, kFc>, kWarps>(
+      n, splits, rows, smem_bytes<W, kWarps>(kdim / splits, false),
+      smem_bytes<W, kWarps>(kMaxSlice, false), false, s, a, w, scale, bias,
+      resid, out, rows, kdim, n);
 }
 
 template <typename W>
@@ -289,11 +153,6 @@ cudaError_t run(const __nv_bfloat16* x, const float* g, const float* bln,
   return gemm<W, false>(h, wpj, spj, bpj, x, out, b, f, d, s_pj, s);
 }
 
-bool valid_split(int kdim, int splits) {
-  return splits >= 1 && splits <= kMaxSplits && kdim % (16 * splits) == 0 &&
-         kdim / splits <= kMaxSlice;
-}
-
 }  // namespace
 
 // x [B,D] bf16; LN g,b [D] f32; wfc [D,F], wpj [F,D] (int8 if `int8`, else
@@ -309,6 +168,7 @@ extern "C" int ecap_decode_mlp(const void* x, const void* g, const void* bln,
                                void* xn, void* out, int b, int d, int f,
                                float eps, int int8, int s_fc, int s_pj,
                                void* stream) {
+  using ecap::splitk::valid_split;
   if (b < 1 || d % kCols || f % kCols || d > kMaxD || !valid_split(d, s_fc) ||
       !valid_split(f, s_pj))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -1,5 +1,6 @@
 // Tensor-core and asynchronous-copy building blocks for the port's kernels
-// (sm_80+ PTX that Hopper runs: mma.sync, ldmatrix, cp.async).
+// (sm_80+ PTX that Hopper runs: mma.sync, ldmatrix, cp.async; sm_90's
+// griddepcontrol).
 //
 // Fragment layouts of mma.sync.m16n8k16 with bf16 inputs and f32
 // accumulators, for lane = 4 * g + t (g = lane / 4, t = lane % 4):
@@ -63,6 +64,13 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Programmatic dependent launch: wait until the launches this grid depends
+// on have completed and their stores are visible to it. A no-op for a
+// launch that did not ask for programmatic stream serialization.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // two floats -> two bf16 (round to nearest even), `lo` in the low half

@@ -139,25 +139,28 @@ def decode_mlp_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     return (xf + y).to(x.dtype)
 
 
-MLP_COLS = 32          # output columns per block of the two products
+# the split-K products of the decode MLP and the self block
+# (csrc/splitk.cuh)
+MLP_COLS = 32          # output columns per block
 MLP_MAX_SPLITS = 8     # blocks of one column tile: a portable cluster
 MLP_MAX_SLICE = 512    # contraction per block
-MLP_MAX_WIDTH = 1024   # the LayerNorm launch holds a row in registers
+MLP_MAX_WIDTH = 1024   # the MLP's LayerNorm launch holds a row in registers
+QKV_COLS = 64          # output columns per block of the self block's q/k/v
 SM_COUNT = 132         # H100 SXM
 
 
-def _splits(k: int, n: int) -> int:
-    """Splits of a K-long contraction for N output columns: the fewest (a
-    power of two, slices a multiple of 16 and at most MLP_MAX_SLICE long)
-    that give at least one block per SM."""
+def _splits(k: int, n: int, cols: int = MLP_COLS) -> int:
+    """Splits of a K-long contraction for N output columns in blocks of
+    `cols`: the fewest (a power of two, slices a multiple of 16 and at most
+    MLP_MAX_SLICE long) that give at least one block per SM."""
     splits = 1
     while (2 * splits <= MLP_MAX_SPLITS and k % (32 * splits) == 0
-           and (n // MLP_COLS * splits < SM_COUNT
+           and (n // cols * splits < SM_COUNT
                 or k // splits > MLP_MAX_SLICE)):
         splits *= 2
     if k // splits > MLP_MAX_SLICE:
-        raise ValueError(f"decode_mlp: a contraction of {k} does not split "
-                         f"into slices of at most {MLP_MAX_SLICE}")
+        raise ValueError(f"a contraction of {k} does not split into "
+                         f"slices of at most {MLP_MAX_SLICE}")
     return splits
 
 
@@ -207,6 +210,23 @@ def decode_mlp(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
               float(eps), int(wfc.dtype == torch.int8), s_fc, s_pj)
     _lib.launches["decode_mlp"] += 1
     return out
+
+
+def self_block_plan(rows: int, d: int, heads: int) -> Tuple[int, int]:
+    """(splits of the q/k/v product's D-long contraction, splits of the out
+    product's) for `decode_self_block` at [rows, d] with `heads` heads: the
+    q/k/v product's blocks are (3 d / 64) x splits x ceil(rows / 64), the
+    out product's (d / 32) x splits x ceil(rows / 64). A q/k/v cluster
+    spans the whole contraction, so it also holds the LayerNorm's rows."""
+    if rows < 1:
+        raise ValueError(f"decode_self_block needs at least one row, got "
+                         f"{rows}")
+    if d <= 0 or d % QKV_COLS or heads < 1 or d % heads or d // heads % 8:
+        raise ValueError(f"decode_self_block takes a width that is a "
+                         f"multiple of {QKV_COLS} and of the head count, "
+                         f"with heads a multiple of 8 wide; got D={d}, "
+                         f"{heads} heads")
+    return _splits(d, 3 * d, QKV_COLS), _splits(d, d)
 
 
 def decode_self_block_plain(x, g, b, wq, sq, bq, wk, sk, bk, wv, sv, bv,
@@ -268,7 +288,8 @@ def decode_self_block(x, g, b, wq, sq, bq, wk, sk, bk, wv, sv, bv, wo, so,
     bf16, with f32 [D] per-output-channel scales and biases; caches kc bf16
     [B,H,Dh,T] and vc bf16 [B,T,H,Dh], read at positions < pos and written
     at `pos` in place -> (out bf16 [B,D], kc, vc). Three launches (see
-    csrc/decode_block.cu), counted as one call."""
+    csrc/decode_block.cu), counted as one call; D and H as
+    `self_block_plan` takes them."""
     if _lib.dispatch_device(x) == "cpu":
         return decode_self_block_plain(x, g, b, wq, sq, bq, wk, sk, bk, wv,
                                        sv, bv, wo, so, bo, kc, vc, pos,
@@ -277,10 +298,11 @@ def decode_self_block(x, g, b, wq, sq, bq, wk, sk, bk, wv, sv, bv, wo, so,
     dh, t = d // heads, kc.shape[-1]
     _check_block_weights(x, g, b, ((wq, sq, bq), (wk, sk, bk), (wv, sv, bv),
                                    (wo, so, bo)), d)
-    _lib.check(kc, "kc", (torch.bfloat16,), (bsz, heads, dh, t), align=2)
-    _lib.check(vc, "vc", (torch.bfloat16,), (bsz, t, heads, dh), align=2)
+    _lib.check(kc, "kc", (torch.bfloat16,), (bsz, heads, dh, t))
+    _lib.check(vc, "vc", (torch.bfloat16,), (bsz, t, heads, dh))
     if not 0 <= pos < t:
         raise ValueError(f"pos {pos} outside the cache [0, {t})")
+    s_qkv, s_out = self_block_plan(bsz, d, heads)
     q = torch.empty(bsz, d, dtype=torch.float32, device=x.device)
     attn = torch.empty_like(x)
     out = torch.empty_like(x)
@@ -290,7 +312,7 @@ def decode_self_block(x, g, b, wq, sq, bq, wk, sk, bk, wv, sv, bv, wo, so,
               sv.data_ptr(), bv.data_ptr(), wo.data_ptr(), so.data_ptr(),
               bo.data_ptr(), kc.data_ptr(), vc.data_ptr(), q.data_ptr(),
               attn.data_ptr(), out.data_ptr(), bsz, d, heads, t, int(pos),
-              float(eps), int(wq.dtype == torch.int8))
+              float(eps), int(wq.dtype == torch.int8), s_qkv, s_out)
     _lib.launches["decode_self_block"] += 1
     return out, kc, vc
 

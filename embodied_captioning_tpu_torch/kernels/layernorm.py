@@ -17,6 +17,9 @@ import torch
 
 from . import _lib
 
+_KINDS = (torch.bfloat16, torch.float32)
+_F32 = (torch.float32,)
+
 
 def layernorm_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                     eps: float = 1e-5, out_dtype=None,
@@ -50,16 +53,17 @@ def layernorm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     out_dtype = out_dtype or x.dtype
     if two_pass is None:
         two_pass = x.dtype != torch.bfloat16
-    kinds = (torch.bfloat16, torch.float32)
-    if out_dtype not in kinds:
-        raise TypeError(f"out_dtype {out_dtype}, expected one of {kinds}")
+    if out_dtype not in _KINDS:
+        raise TypeError(f"out_dtype {out_dtype}, expected one of {_KINDS}")
     d = x.shape[-1]
     x = x.contiguous()
     # the kernel loads element by element: natural alignment is enough
-    _lib.check(x, "x", kinds, align=x.element_size())
-    _lib.check(g, "g", (torch.float32,), (d,), align=4)
-    _lib.check(b, "b", (torch.float32,), (d,), align=4)
-    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    _lib.check(x, "x", _KINDS, align=x.element_size())
+    # g and b are a model's parameters, the same tensors on every call
+    _lib.check_param(g, "g", _F32, (d,), align=4)
+    _lib.check_param(b, "b", _F32, (d,), align=4)
+    out = (torch.empty_like(x) if out_dtype == x.dtype
+           else torch.empty(x.shape, dtype=out_dtype, device=x.device))
     rows = x.numel() // d if d else 0
     _lib.call("ecap_layernorm", x.data_ptr(), g.data_ptr(), b.data_ptr(),
               out.data_ptr(), rows, d, float(eps), int(bool(two_pass)),

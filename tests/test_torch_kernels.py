@@ -469,3 +469,111 @@ def test_mlp_plan_raises_on_unsupported_shapes(rows, d, f):
 
     with pytest.raises(ValueError):
         mlp_plan(rows, d, f)
+
+
+# ---------------------------------------------------------------------------
+# the self block's launch plan (host-side logic of its split-K products)
+# ---------------------------------------------------------------------------
+
+# (D, heads) of the presets' decoders: tiny, base, large
+_BLOCK_WIDTHS = [(64, 2), (512, 8), (768, 12)]
+
+
+@pytest.mark.parametrize("rows", [1, 16, 17, 64])
+@pytest.mark.parametrize("d,heads", _BLOCK_WIDTHS)
+def test_self_block_plan_covers_the_decode_shapes(rows, d, heads):
+    from embodied_captioning_tpu_torch.kernels.decode_attention import (
+        MLP_COLS, MLP_MAX_SLICE, MLP_MAX_SPLITS, QKV_COLS, SM_COUNT,
+        self_block_plan)
+
+    s_qkv, s_out = self_block_plan(rows, d, heads)
+    # both products contract over D: q/k/v has 3D output columns in tiles
+    # of 64, out D in tiles of 32
+    for n, cols, s in ((3 * d, QKV_COLS, s_qkv), (d, MLP_COLS, s_out)):
+        assert 1 <= s <= MLP_MAX_SPLITS and s & (s - 1) == 0
+        assert d % (16 * s) == 0 and d // s <= MLP_MAX_SLICE
+        assert n % cols == 0
+        # the fewest splits that give every SM a block, where D allows it
+        assert n // cols * s >= SM_COUNT or s == MLP_MAX_SPLITS or (
+            d % (32 * s))
+        assert s == 1 or n // cols * (s // 2) < SM_COUNT
+    if (d, heads) == (768, 12):
+        # the serving shape: 144 q/k/v blocks, 192 out blocks
+        assert (s_qkv, s_out) == (4, 8)
+
+
+@pytest.mark.parametrize("rows,d,heads", [(0, 768, 12), (4, 48, 2),
+                                          (4, 96, 2), (4, 768, 5),
+                                          (4, 768, 0), (4, 8192, 8)])
+def test_self_block_plan_raises_on_unsupported_shapes(rows, d, heads):
+    from embodied_captioning_tpu_torch.kernels.decode_attention import (
+        self_block_plan)
+
+    with pytest.raises(ValueError):
+        self_block_plan(rows, d, heads)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers' launch path: what it refuses, as far as it is Python
+# ---------------------------------------------------------------------------
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on the card: it takes a wrapper's
+    kernel branch, whose checks are Python, up to the launch."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _on_card(x):
+    return torch.Tensor._make_subclass(_OnCard, x)
+
+
+def _layernorm_refusals():
+    x = torch.randn(4, 32).bfloat16()
+    g, b = torch.ones(32), torch.zeros(32)
+    c = _on_card
+    return {
+        "x float16": ((c(x.half()), c(g), c(b)),
+                      {"out_dtype": torch.bfloat16}, TypeError),
+        "g float64": ((c(x), c(g.double()), c(b)), {}, TypeError),
+        "g too short": ((c(x), c(torch.ones(31)), c(b)), {}, ValueError),
+        "b strided": ((c(x), c(g), c(torch.zeros(32, 2)[:, 0])), {},
+                      ValueError),
+        "g on the CPU": ((c(x), g, c(b)), {}, ValueError),
+        "out float16": ((c(x), c(g), c(b)), {"out_dtype": torch.float16},
+                        TypeError),
+    }
+
+
+@pytest.mark.parametrize("case", list(_layernorm_refusals()))
+def test_layernorm_kernel_branch_refuses_what_it_refused(case):
+    args, kwargs, exc = _layernorm_refusals()[case]
+    before = dict(K.launches)
+    for _ in range(2):  # refused again: a failed check is not remembered
+        with pytest.raises(exc):
+            K.layernorm(*args, **kwargs)
+    assert K.launches == before
+
+
+def test_check_param_checks_each_tensor_once_and_again_after_a_change():
+    from embodied_captioning_tpu_torch.kernels import _lib
+
+    f32 = (torch.float32,)
+    g = _on_card(torch.ones(32))
+    _lib.check_param(g, "g", f32, (32,), align=4)
+    key = id(g)
+    assert _lib._valid_params[key][0]() is g
+    # another check of the same tensor runs in full, and refuses
+    with pytest.raises(ValueError, match="shape"):
+        _lib.check_param(g, "g", f32, (16,), align=4)
+    _lib.check_param(g, "g", f32, (32,), align=4)
+    # a new storage is checked again
+    g.set_(torch.ones(31))
+    with pytest.raises(ValueError, match="shape"):
+        _lib.check_param(g, "g", f32, (32,), align=4)
+    _lib.check_param(g, "g", f32, (31,), align=4)
+    # the record goes with the tensor
+    del g
+    assert key not in _lib._valid_params
