@@ -11,16 +11,22 @@ Phases, each of which must pass:
      attention at head dims 32, 64, 128 and T = 1, 16, 65, 257 (and 640
      at D = 128, the streaming kernel), causal and with valid_len < T; the
      decode MLP at 1, 16, 17 and 64 rows with int8 and bf16 weights, each
-     run twice for equal bits. The raycast
+     run twice for equal bits; the decode cross-attention kernel with int8
+     and bf16 K/V at the serving shape, the tiny preset's heads and 11
+     keys (copied element by element). The raycast
      kernel must equal its plain version bit for bit (16 envs x 1280^2
-     rays x 96 boxes, and adversarial inputs); LayerNorm is checked in
-     both statistics modes at the ViT, decoder and sentence-encoder shapes,
-     with the host time of one wrapper call at the last two split into its
-     pieces beside F.layer_norm's; the whole-block decode kernels at cache positions 0, 1
-     and 29 with int8 and bf16 weights and K/V, the self block also at 1
-     and 17 rows and at the tiny preset's width, each run twice for equal
-     bits, with its device time per launch; the fused preprocess at the 64
-     crops of a batch (equal bit for bit) and on true resizes;
+     rays x 96 boxes, and adversarial inputs), and its box loop's
+     instructions are counted in the built library (cuobjdump -sass);
+     LayerNorm is checked in both statistics modes at the ViT, decoder and
+     sentence-encoder shapes, with the host time of one wrapper call at the
+     last two split into its pieces beside F.layer_norm's; the self block at
+     cache positions 0, 1 and 29 and the cross block, both with int8 and
+     bf16 weights and (cross) K/V, at 1, 17 and 64 rows and at the tiny
+     preset's width, each run twice for equal bits, with their device time
+     per launch; `common.block` at two widths where the route takes only
+     some fused kernels (96 wide with 2 heads, 64 with 16), on the card
+     against the CPU; the fused preprocess at the 64 crops of a batch
+     (equal bit for bit) and on true resizes;
   3. drive `perceive` at full width -- the serving configuration of
      bench.py: the large preset (ViT-L/14 at 224^2, 768-wide 12+12-layer
      decoder, 49,408-token vocabulary, post-LN MiniLM-class sentence
@@ -85,6 +91,11 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+# float32 operations that are no fused multiply-add (multiplies, min/max,
+# compares, selects): 67 TFLOP/s counts an FMA as two operations, and each
+# of these takes a lane for at least one clock, so at most half that rate
+# (min/max may issue slower still, which would only raise a bound)
+FP32_OP_PER_S = FP32_FLOP_PER_S / 2
 REPO = Path(__file__).resolve().parent
 TPU_KERNELS = "embodied_captioning_tpu/ops/pallas/"
 PORT_KERNELS = "embodied_captioning_tpu_torch/kernels/csrc/"
@@ -95,9 +106,13 @@ BATCHES = 2                    # timed perceive batches
 DECODE_LEN = 30                # large preset's max caption tokens
 LOOP_STEPS = 2                 # K: env steps per rollout window
 LOOP_WINDOWS = 2               # timed rollout_fused windows after a warm-up
-# FP32 operations of the slab test per ray and box: 6 multiplies, 10 min/max,
-# 3 compares, the clamp, and 4 selects/compares of the running minimum
-RAYCAST_OPS = 24
+# FP32 operations of the slab test per ray and box, none of them a fused
+# multiply-add, so counted at FP32_OP_PER_S: the built box loop's FP32
+# instructions per box where cuobjdump reads them (raycast_loop_sass),
+# else this count of them in the sm_90a build (6 FMUL, 11 FMNMX, 4 FSETP,
+# 1 FSEL)
+RAYCAST_OPS = 22
+RAYCAST_FP32_OPCODES = ("FMUL", "FMNMX", "FSETP", "FSEL", "FADD", "FFMA")
 # Kernel path vs plain path (see perceive_full_width). Readings on an H100
 # at 64 rows, frame seeds 100 and 101: argmax agreement 0.9720 and 0.9709
 # of 1856 steps; log-prob max 2.001 and 2.029 ulps; ViT cosine min
@@ -117,13 +132,18 @@ MIN_SPEC_FIRST_TOKEN = 0.8
 BEAMS = 4
 # the port's kernels, as the profiler names them
 PORTED_KERNELS = ("flash_head", "flash_stream", "decode_self_kernel",
-                  "decode_cross_kernel", "mlp_ln_kernel", "mlp_gemm_kernel",
-                  "self_qkv_kernel", "self_attn_kernel", "self_out_kernel",
-                  "layernorm_kernel", "raycast_kernel", "proj_kernel",
+                  "cross_attn_kernel", "cross_attn_tiled_kernel",
+                  "mlp_ln_kernel", "mlp_gemm_kernel",
+                  "self_qkv_kernel", "self_attn_kernel", "block_out_kernel",
+                  "cross_q_kernel", "layernorm_kernel", "raycast_kernel",
                   "preprocess_kernel")
-# the self block's three launches (decode_block.cu)
+# the self block's and the cross block's three launches (decode_block.cu);
+# both end in block_out_kernel, which belongs to the block whose first
+# launch came last before it
 SELF_BLOCK_KERNELS = ("self_qkv_kernel", "self_attn_kernel",
-                      "self_out_kernel")
+                      "block_out_kernel")
+CROSS_BLOCK_KERNELS = ("cross_q_kernel", "cross_attn_kernel",
+                       "block_out_kernel")
 # a kernel's name with its template arguments, out of a profiler key
 KERNEL_NAME = re.compile(r"\w+(<[^>]*>)?(?=[(])")
 
@@ -218,6 +238,19 @@ def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOP_PER_S):
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def to_device(x, dev):
+    """Tensors, dicts, lists and named tuples of them, on `dev`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, dict):
+        return {k: to_device(v, dev) for k, v in x.items()}
+    if isinstance(x, list):
+        return [to_device(v, dev) for v in x]
+    if x is None:
+        return None
+    return type(x)(*(to_device(v, dev) for v in x))
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -349,6 +382,25 @@ def kernel_checks(K, QZ, dev) -> dict:
     check_close("decode_cross_attention bf16",
                 K.decode_cross_attention(q, ktb, vb),
                 K.decode_cross_attention_plain(q, ktb, vb), 1e-3)
+    # the tiny preset's heads (2 of 32 over 16 keys); then the shapes of
+    # the tiled kernel: 11 keys (one tile, copied element by element into
+    # rows padded to 12), heads 8 wide, and K/V beyond one block's shared
+    # memory, which go through in tiles of keys with an online softmax:
+    # 4096 keys (tiles of 16-byte rows), 1001 (rows copied element by
+    # element) and heads 4096 wide (one group of PV threads, tiles of 8
+    # keys at bf16)
+    for n, hh, dd, kk in ((4, 2, 32, 16), (3, 2, 32, 11), (3, 4, 64, 11),
+                          (3, 2, 8, 11), (2, 3, 64, 4096),
+                          (2, 3, 64, 1001), (1, 2, 4096, 37)):
+        qx = rn(n, hh, dd)
+        sx = QZ.quantize_kv(rn(n, hh, dd, kk), rn(n, kk, hh, dd))
+        args8 = (sx.kt.contiguous(), sx.v.permute(0, 2, 1, 3).contiguous(),
+                 sx.kt_scale.contiguous(), sx.v_scale.contiguous())
+        args16 = (rn(n, hh, dd, kk), rn(n, hh, kk, dd))
+        for kind, ax in (("int8", args8), ("bf16", args16)):
+            check_close(f"decode_cross_attention {kind} [{n},{hh},{dd}] x "
+                        f"{kk} keys", K.decode_cross_attention(qx, *ax),
+                        K.decode_cross_attention_plain(qx, *ax), 1e-3)
     cb, cf = bound_ms(nbytes(q, kt8, v8, ks, vs, out), 4 * b * h * dh * nk)
     rows["decode_cross_attention"] = dict(
         source=PORT_KERNELS + "decode_attention.cu",
@@ -442,7 +494,8 @@ def log_rows(rows: dict) -> None:
 def generation_kernel_checks(K, QZ, dev) -> dict:
     """The whole-block decode kernels and the fused preprocess against
     their plain versions at the decode shapes (ROWS rows, D=768, 12 heads
-    of 64, cache T=30, cross K=256) and at the ROWS crops of a batch.
+    of 64, cache T=30, cross K=256; also 1 and 17 rows and the tiny
+    preset's width) and at the ROWS crops of a batch.
     `unfused_ms` is the same sublayer on the route of separate calls
     (LayerNorm, projections, decode attention kernel), host cost
     included: a yardstick, as no one PyTorch call computes a sublayer."""
@@ -546,43 +599,78 @@ def generation_kernel_checks(K, QZ, dev) -> dict:
                     p_attn, TC.layernorm(p_ln, x3), h,
                     cache=TC.KVCache(kc, vc, t - 1))[0], 100))
 
+    def cross_kv(n, heads, width, keys, kv8):
+        """(the kernel's kt, v, kt_scale, v_scale, the K/V `mha` takes)."""
+        dd = width // heads
+        if kv8:
+            qkv = QZ.quantize_kv(rn(n, heads, dd, keys),
+                                 rn(n, keys, heads, dd))
+            ckv = qkv._replace(kt=qkv.kt.contiguous(),
+                               v=qkv.v.permute(0, 2, 1, 3).contiguous(),
+                               kt_scale=qkv.kt_scale.contiguous(),
+                               v_scale=qkv.v_scale.contiguous())
+            return (ckv.kt, ckv.v, ckv.kt_scale, ckv.v_scale), ckv
+        ckv = (rn(n, heads, dd, keys), rn(n, heads, keys, dd))
+        return (*ckv, None, None), ckv
+
+    def cross_case(name, xx, g_ln, b_ln, ws, heads, kv):
+        """The cross block against its twin, then a second run, which must
+        give the same bits."""
+        args = (xx, g_ln, b_ln, *ws, *kv)
+        out = K.decode_cross_block(*args, heads=heads)
+        err = check_close(name, out,
+                          K.decode_cross_block_plain(*args, heads=heads),
+                          1 / 16)
+        if not torch.equal(out, K.decode_cross_block(*args, heads=heads)):
+            raise AssertionError(f"{name}: two runs on the same inputs "
+                                 f"differ")
+        return err
+
     for int8 in (True, False):
         ws, p_x = weights("qo", int8)
         for kv8 in (True, False):
-            if kv8:
-                qkv = QZ.quantize_kv(rn(b, h, dh, nk), rn(b, nk, h, dh))
-                ckv = qkv._replace(kt=qkv.kt.contiguous(),
-                                   v=qkv.v.permute(0, 2, 1, 3).contiguous(),
-                                   kt_scale=qkv.kt_scale.contiguous(),
-                                   v_scale=qkv.v_scale.contiguous())
-                kv = (ckv.kt, ckv.v, ckv.kt_scale, ckv.v_scale)
-            else:
-                ckv = (rn(b, h, dh, nk), rn(b, h, nk, dh))
-                kv = (*ckv, None, None)
+            kv, ckv = cross_kv(b, h, d, nk, kv8)
             name = (f"decode_cross_block {'int8' if int8 else 'bf16'} weights "
                     f"{'int8' if kv8 else 'bf16'} K/V")
-            errs[name] = check_close(
-                name, K.decode_cross_block(x, lg, lb, *ws, *kv, heads=h),
-                K.decode_cross_block_plain(x, lg, lb, *ws, *kv, heads=h),
-                1 / 16)
+            errs[name] = cross_case(name, x, lg, lb, ws, h, kv)
             if int8 and kv8:
-                args = (x, lg, lb, *ws, *kv)
+                cargs = (x, lg, lb, *ws, *kv)
                 x3 = x[:, None]
                 cb, cf = bound_ms(nbytes(x, lg, lb, *ws, *kv, x),
                                   2 * 2 * b * d * d + 4 * b * h * dh * nk)
                 timed = dict(
-                    **kernel_ms(lambda: K.decode_cross_block(*args, heads=h),
+                    **kernel_ms(lambda: K.decode_cross_block(*cargs, heads=h),
                                 100),
                     plain_ms=time_ms(lambda: K.decode_cross_block_plain(
-                        *args, heads=h), 20),
+                        *cargs, heads=h), 20),
                     bound_ms=cb, bound_by=cf, library_ms=None,
                     unfused_ms=time_ms(lambda: x3 + TC.mha(
                         p_x, TC.layernorm(p_ln, x3), h,
                         kv_precomputed=ckv)[0], 100))
+    # a single crop, one past a row tile of 16, the tiny preset's width
+    # (2 heads of 32 over 16 keys) and cross K/V too long for one block's
+    # shared memory (tiles of keys), every weight and K/V type
+    for n, width, heads, keys in ((1, d, h, nk), (17, d, h, nk),
+                                  (4, 64, 2, 16), (4, d, h, 2048)):
+        g_n = 1.0 + rn(width, scale=0.1, dtype=torch.float32)
+        b_n = rn(width, scale=0.1, dtype=torch.float32)
+        xn = rn(n, width)
+        for w8 in (True, False):
+            wn, _ = weights("qo", w8, width)
+            for kv8 in (True, False):
+                kv, _ = cross_kv(n, heads, width, keys, kv8)
+                name = (f"decode_cross_block {'int8' if w8 else 'bf16'} "
+                        f"weights {'int8' if kv8 else 'bf16'} K/V "
+                        f"[{n},{width}]")
+                errs[name] = cross_case(name, xn, g_n, b_n, wn, heads, kv)
+    log("  decode_cross_block: two runs give equal bits at every shape above")
+    cross_busy, cross_launches = device_profile(
+        lambda: K.decode_cross_block(*cargs, heads=h), 20)
     rows["decode_cross_block"] = dict(
         source=PORT_KERNELS + "decode_block.cu",
         replaces=TPU_KERNELS + "decode_attention.py:338",
-        max_abs_err=max(v for k, v in errs.items() if "cross" in k), **timed)
+        max_abs_err=max(v for k, v in errs.items() if "cross" in k),
+        device_us_by_launch=cross_launches, **timed)
 
     # fused preprocess: equal bit for bit (no fused multiply-add, IEEE
     # divisions, the taps shared with the plain version)
@@ -613,12 +701,107 @@ def generation_kernel_checks(K, QZ, dev) -> dict:
     for name in ("decode_self_block", "decode_cross_block"):
         log(f"  {name}: the same sublayer as separate calls "
             f"{rows[name]['unfused_ms'] * 1e3:.1f} us")
-    log(f"  decode_self_block [{b},{d}] int8, cache {t}: {self_busy:.1f} us "
-        f"on the device per call; launch durations "
-        + ", ".join(f"{k} {v:.1f} us" for k, v in self_launches.items())
-        + " (the second and third launches start early under programmatic "
-        "dependent launch and wait inside their durations)")
+    for name, busy, launches in (
+            (f"decode_self_block [{b},{d}] int8, cache {t}", self_busy,
+             self_launches),
+            (f"decode_cross_block [{b},{d}] int8, {nk} int8 keys",
+             cross_busy, cross_launches)):
+        log(f"  {name}: {busy:.1f} us on the device per call; launch "
+            f"durations " + ", ".join(f"{k} {v:.1f} us"
+                                      for k, v in launches.items())
+            + " (the second and third launches start early under "
+            "programmatic dependent launch and wait inside their durations)")
     return rows
+
+
+def route_checks(K, dev) -> None:
+    """`common.block`, one decode step of ROWS rows, on the card at widths
+    where not every sublayer takes its fused kernel (`decode_route`): 96
+    wide with 2 heads of 48 (the self block's q/k/v product takes widths a
+    multiple of 64: that sublayer runs as separate calls, the cross block
+    and the MLP fuse) and 64 wide with 16 heads of 4 (both attention
+    sublayers run as separate calls, the cross attention as plain ops).
+    Each must launch the kernels its route names and match the same step
+    on the CPU, where every wrapper runs its plain version (tolerance: bf16
+    outputs of |x + y| < 8, cache entries of |k|, |v| < 4)."""
+    from embodied_captioning_tpu_torch.models import common as TC
+    from embodied_captioning_tpu_torch.models.quantize import quantize_params
+
+    for d, heads, want in (
+            (96, 2, {"layernorm": 1, "decode_self_attention": 1,
+                     "decode_cross_block": 1, "decode_mlp": 1}),
+            (64, 16, {"layernorm": 2, "decode_self_attention": 1,
+                      "decode_mlp": 1})):
+        g = torch.Generator().manual_seed(d + heads)
+        p = quantize_params(TC.block_init(g, d, 4.0, "cpu", cross_dim=d),
+                            min_size=0)
+        dh = d // heads
+        x = torch.randn(ROWS, 1, d, generator=g).bfloat16()
+        kc = torch.randn(ROWS, heads, dh, DECODE_LEN, generator=g).bfloat16()
+        vc = torch.randn(ROWS, DECODE_LEN, heads, dh, generator=g).bfloat16()
+        img = torch.randn(ROWS, 256, d, generator=g).bfloat16()
+        ckv = TC.precompute_kv(p["xattn"], img, heads)
+        pos = 5
+        ref, rc = TC.block(p, x, heads, cache=TC.KVCache(kc.clone(),
+                                                         vc.clone(), pos),
+                           cross_kv=ckv)
+        K.reset_launches()
+        out, oc = TC.block(to_device(p, dev), x.to(dev), heads,
+                           cache=TC.KVCache(kc.to(dev), vc.to(dev), pos),
+                           cross_kv=to_device(ckv, dev))
+        torch.cuda.synchronize()
+        got = {k: v for k, v in K.launches.items() if v}
+        name = f"common.block [{ROWS},1,{d}], {heads} heads of {dh}"
+        if got != want:
+            raise AssertionError(f"{name}: launches {got}, route names "
+                                 f"{want}")
+        check_close(f"{name} on the card vs the CPU", out.cpu(), ref, 1 / 16)
+        check_close("  cache k", oc.k.cpu(), rc.k, 1 / 32)
+        check_close("  cache v", oc.v.cpu(), rc.v, 1 / 32)
+        log(f"  {name}: launches {got}")
+
+
+# one SASS instruction: its address, a predicate, its opcode and a branch
+# target
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9_]*)[^;]*?(0x[0-9a-f]+)?\s*;")
+
+
+def raycast_loop_sass(lib: Path) -> dict:
+    """Instructions of raycast_kernel's box loop in the built library, by
+    opcode (cuobjdump -sass): the body between the loop's backward branch
+    and its target that holds the most FMNMX, and the boxes it handles
+    (6 FMUL per box). Empty where the toolkit has no cuobjdump."""
+    import os
+    import shutil
+
+    exe = shutil.which("cuobjdump") or str(Path(os.environ.get(
+        "CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    if not Path(exe).exists():
+        return {}
+    sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    start = sass.index("raycast_kernel")
+    end = sass.find("Function :", start)
+    ins = []
+    for line in sass[start:end if end > 0 else None].splitlines():
+        m = SASS_LINE.search(line)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(3),
+                        int(m.group(4), 16) if m.group(3) == "BRA"
+                        and m.group(4) else None))
+    best = {}
+    for addr, op, target in ins:
+        if target is None or target >= addr:
+            continue
+        body = [o for a, o, _ in ins if target <= a <= addr]
+        counts = {o: body.count(o) for o in sorted(set(body))}
+        if counts.get("FMNMX", 0) > best.get("FMNMX", 0):
+            best = counts
+    if not best:
+        return {}
+    return dict(instructions=sum(best.values()),
+                boxes=best.get("FMUL", 0) // 6, by_opcode=best)
 
 
 def loop_kernel_checks(K, dev, scenes, poses, cfg) -> dict:
@@ -679,8 +862,18 @@ def loop_kernel_checks(K, dev, scenes, poses, cfg) -> dict:
     equal(f"raycast_minargmin [{e},{sn.height},{sn.width}] x {nb} boxes",
           got, K.raycast_minargmin_plain(a_min, a_max, scenes.valid, inv))
     rays = e * sn.height * sn.width
+    sass = raycast_loop_sass(K.build())
+    ops = RAYCAST_OPS
+    if sass:
+        fp32 = sum(v for k, v in sass["by_opcode"].items()
+                   if k in RAYCAST_FP32_OPCODES)
+        ops = fp32 / sass["boxes"]
+        log(f"  raycast_minargmin box loop (cuobjdump -sass): "
+            f"{sass['instructions']} instructions for {sass['boxes']} boxes, "
+            f"{fp32} of them FP32 ({ops:g} a box, the bound's count): "
+            f"{sass['by_opcode']}")
     rb, rf = bound_ms(nbytes(a_min, a_max, inv, *got) + e * nb,
-                      RAYCAST_OPS * rays * nb, FP32_FLOP_PER_S)
+                      ops * rays * nb, FP32_OP_PER_S)
     rows["raycast_minargmin"] = dict(
         source=PORT_KERNELS + "raycast.cu",
         replaces=TPU_KERNELS + "raycast.py:106",
@@ -690,7 +883,8 @@ def loop_kernel_checks(K, dev, scenes, poses, cfg) -> dict:
         plain_ms=time_ms(lambda: K.raycast_minargmin_plain(
             a_min, a_max, scenes.valid, inv), 2, 1),
         bound_ms=rb, bound_by=rf,
-        library_ms=None)  # no one PyTorch call computes it
+        library_ms=None,  # no one PyTorch call computes it
+        loop_sass=sass, bound_ops_per_box=ops)
     del inv, got
 
     # layernorm ---------------------------------------------------------------
@@ -1309,21 +1503,9 @@ def tiny_card_vs_cpu(dev) -> None:
                  "detector": {"score_threshold": 0.0}})
     g = torch.Generator().manual_seed(3)
     p_cpu = quantize_params(init_perception(g, cfg, "cpu"))
-
-    def to_dev(x):
-        if isinstance(x, torch.Tensor):
-            return x.to(dev)
-        if isinstance(x, dict):
-            return {k: to_dev(v) for k, v in x.items()}
-        if isinstance(x, list):
-            return [to_dev(v) for v in x]
-        if x is None:
-            return None
-        return type(x)(*(to_dev(v) for v in x))
-
     frames = synthetic_frames(2, 96, 7, "cpu")
     r_cpu = perceive(p_cpu, frames, cfg)
-    r_gpu = perceive(to_dev(p_cpu), frames.to(dev), cfg)
+    r_gpu = perceive(to_device(p_cpu, dev), frames.to(dev), cfg)
     cap = r_cpu.caption_lengths.reshape(-1) > 0
     tok = (r_cpu.caption_tokens.reshape(-1, 12)[cap]
            == r_gpu.caption_tokens.cpu().reshape(-1, 12)[cap]).all(1)
@@ -1379,19 +1561,41 @@ def profile_run(what: str, fn, unprofiled_us: float, top: int = 15) -> None:
     log("    ported kernels, device us per launch: " + "; ".join(
         f"{kernel_name(e.key)} {e.self_device_time_total / e.count:.1f} "
         f"x{e.count}" for e in ported))
-    # the decode MLP's and the self block's three launches run once per
+    # the decode MLP's and the two blocks' three launches run once per
     # call each; a launch started early by programmatic dependent launch
     # counts from its start, so a call's time is the union of its launches
+    calls = block_calls(events)
     for name, first, parts in (
             ("decode_mlp", "mlp_ln_kernel", ("mlp_ln_kernel",
                                              "mlp_gemm_kernel")),
-            ("decode_self_block", SELF_BLOCK_KERNELS[0], SELF_BLOCK_KERNELS)):
-        calls = sum(e.count for e in ported if first in e.key)
-        if calls:
-            span = busy_us([e for e in events
-                            if any(k in e.name for k in parts)])
-            log(f"    {name}: {span / calls:.1f} us on the device per call "
-                f"({calls} calls)")
+            ("decode_self_block", SELF_BLOCK_KERNELS[0], SELF_BLOCK_KERNELS),
+            ("decode_cross_block", CROSS_BLOCK_KERNELS[0],
+             CROSS_BLOCK_KERNELS)):
+        n = sum(e.count for e in ported if first in e.key)
+        if n:
+            span = busy_us(calls.get(first) or [
+                e for e in events if any(k in e.name for k in parts)])
+            log(f"    {name}: {span / n:.1f} us on the device per call "
+                f"({n} calls)")
+
+
+def block_calls(events) -> dict:
+    """{first launch of a block: the block's launches}: each of the two
+    blocks' launches, the shared out product given to the block whose
+    first launch started last before it."""
+    firsts = (SELF_BLOCK_KERNELS[0], CROSS_BLOCK_KERNELS[0])
+    calls, owner = {}, None
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        first = next((k for k in firsts if k in e.name), None)
+        if first is not None:
+            owner = first
+        parts = (SELF_BLOCK_KERNELS if owner == firsts[0]
+                 else CROSS_BLOCK_KERNELS)
+        if owner is not None and any(k in e.name for k in parts[1:]):
+            first = owner
+        if first is not None:
+            calls.setdefault(first, []).append(e)
+    return calls
 
 
 # ---------------------------------------------------------------------------
@@ -1562,6 +1766,7 @@ def main() -> int:
         setup = full_width_setup(dev)
         rows = kernel_checks(K, QZ, dev)
         rows.update(generation_kernel_checks(K, QZ, dev))
+        route_checks(K, dev)
         from embodied_captioning_tpu_torch.envs.device_loop import (
             camera_poses)
         rows.update(loop_kernel_checks(K, dev, setup["scenes"],

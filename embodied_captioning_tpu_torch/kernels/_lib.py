@@ -52,7 +52,7 @@ _SIGNATURES = {
                                     _I, _P],
     "ecap_decode_mlp": [_P] * 12 + [_I, _I, _I, _F, _I, _I, _I, _P],
     "ecap_decode_self_block": [_P] * 20 + [_I] * 5 + [_F, _I, _I, _I, _P],
-    "ecap_decode_cross_block": [_P] * 16 + [_I] * 4 + [_F, _I, _I, _P],
+    "ecap_decode_cross_block": [_P] * 16 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
     "ecap_raycast_minargmin": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ecap_layernorm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
     "ecap_fused_preprocess": [_P] * 8 + [_I] * 5 + [_F] * 6 + [_P],

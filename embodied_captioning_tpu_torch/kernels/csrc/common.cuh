@@ -8,6 +8,7 @@
 namespace ecap {
 
 constexpr float kNegInf = -1e30f;  // the JAX kernels' masking value
+constexpr size_t kMaxSmem = 232448;  // a block's shared memory on sm_90
 
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);

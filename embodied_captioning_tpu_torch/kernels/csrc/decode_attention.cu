@@ -13,7 +13,10 @@
 //
 // The device code (one block per (batch row, head); see attention.cuh) is
 // shared with the whole-block decode kernels; here the query is bf16 and
-// the output f32.
+// the output f32. The cross-attention kernel takes Dh a multiple of 8 up to
+// 4096 and any number of keys (`cross_attention_fits` in
+// kernels/decode_attention.py); the entry returns cudaErrorInvalidValue
+// for anything else.
 #include "attention.cuh"
 
 extern "C" int ecap_decode_self_attention(const void* q, const void* kt,
@@ -32,14 +35,16 @@ extern "C" int ecap_decode_cross_attention(const void* q, const void* kt,
                                            const void* v_scale, void* out,
                                            int b, int h, int dh, int nk,
                                            int int8, void* stream) {
+  if (b < 1 || h < 1 || !ecap::cross_attn_fits(dh, nk, int8 ? 1 : 2))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(q);
   const float* ks = static_cast<const float*>(kt_scale);
   const float* vs = static_cast<const float*>(v_scale);
   float* o = static_cast<float*>(out);
   if (int8)
-    return ecap::launch_decode_cross<int8_t>(qb, kt, v, ks, vs, o, b, h, dh,
-                                             nk, s);
-  return ecap::launch_decode_cross<__nv_bfloat16>(qb, kt, v, ks, vs, o, b, h,
-                                                  dh, nk, s);
+    return ecap::launch_cross_attn<int8_t>(qb, kt, v, ks, vs, o, b, h, dh, nk,
+                                           false, s);
+  return ecap::launch_cross_attn<__nv_bfloat16>(qb, kt, v, ks, vs, o, b, h,
+                                                dh, nk, false, s);
 }

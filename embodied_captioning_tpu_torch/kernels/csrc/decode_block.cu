@@ -47,7 +47,7 @@
 //      sums keys g, g+G, ... of output dim d (contiguous in vc), the G
 //      groups added in order. The current token is position `pos` of the
 //      cache by now, one more key of the same softmax.
-//   3. self_out_kernel: the out product (split-K, S=8 at D=768: 192
+//   3. block_out_kernel: the out product (split-K, S=8 at D=768: 192
 //      blocks), scale, bias and the residual.
 //   Launches 2 and 3 use programmatic dependent launch: each is scheduled
 //   while the previous one finishes, launch 3 streams its weights in
@@ -56,25 +56,27 @@
 //   grid_dependency_wait. `self_block_plan` in kernels/decode_attention.py
 //   picks both splits.
 //
-// The cross sublayer:
-//   1. proj_kernel<ln>: LayerNorm and the q projection. A block owns 64
-//      rows x 32 output columns, recomputes the rows' LayerNorm statistics,
-//      and walks the contraction in chunks of 128: activations are
-//      normalised and weights converted to bf16 as they are staged in
-//      shared memory with 16-byte loads, and 8 warps multiply 16x16x16
-//      tiles on the tensor cores (nvcuda::wmma, f32 accumulators); q goes
-//      to an f32 scratch buffer.
-//   2. the single-query attention kernel of attention.cuh with an f32 query
-//      and a bf16 output.
-//   3. proj_kernel<no ln>: the out projection, scale, bias and residual.
-#include <mma.h>
-
+// The cross sublayer, on the same machinery:
+//   1. cross_q_kernel: LayerNorm and the q product as one split-K product
+//      of splitk.cuh (4-warp blocks of 32 columns: D/32 column tiles x S
+//      splits, 192 blocks at D=768, S=8), the LayerNorm fused in as in
+//      self_qkv_kernel; q as f32 into a scratch buffer.
+//   2. cross_attn_kernel of attention.cuh (f32 q, bf16 out): one block per
+//      (row, head) copies the head's K/V and scales into shared memory
+//      before its grid_dependency_wait (they are inputs of the step), then
+//      waits for q; K/V too long for one block's shared memory go through
+//      in tiles of keys.
+//   3. block_out_kernel, as in the self sublayer.
+//   Launches 2 and 3 use programmatic dependent launch. Letting launch 1's
+//   blocks start launch 2 at once (griddepcontrol.launch_dependents), so
+//   that its K/V copies overlap the q product, measured no faster and is
+//   not in. `cross_block_plan` in kernels/decode_attention.py picks both
+//   splits.
 #include "attention.cuh"
 #include "splitk.cuh"
 
 namespace {
 
-using namespace nvcuda;
 namespace split_k = ecap::splitk;
 
 // warps per block of the q/k/v product (64 output columns: each column
@@ -83,7 +85,6 @@ namespace split_k = ecap::splitk;
 // card)
 constexpr int kQkvWarps = 8;
 constexpr int kOutWarps = 4;
-constexpr size_t kMaxSmem = 232448;  // a block's shared memory on sm_90
 
 // ---------------------------------------------------------------------------
 // the self sublayer
@@ -246,14 +247,15 @@ self_attn_kernel(const float* __restrict__ q,
   }
 }
 
-// out = x + (attn wo * so + bo), all [rows, d]
+// out = x + (attn wo * so + bo), all [rows, d]: the out product of both
+// sublayers (a profile tells them apart by the launch before)
 template <typename W>
 __global__ void __launch_bounds__(split_k::threads<kOutWarps>())
-self_out_kernel(const __nv_bfloat16* __restrict__ attn,
-                const W* __restrict__ wo, const float* __restrict__ so,
-                const float* __restrict__ bo,
-                const __nv_bfloat16* __restrict__ x,
-                __nv_bfloat16* __restrict__ out, int rows, int d) {
+block_out_kernel(const __nv_bfloat16* __restrict__ attn,
+                 const W* __restrict__ wo, const float* __restrict__ so,
+                 const float* __restrict__ bo,
+                 const __nv_bfloat16* __restrict__ x,
+                 __nv_bfloat16* __restrict__ out, int rows, int d) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n0 = blockIdx.x * split_k::cols<kOutWarps>();
   split_k::tile<W, kOutWarps, false>(
@@ -310,7 +312,7 @@ cudaError_t self_block(const SelfArgs& a, int s_qkv, int s_out) {
                            a.heads, dh, a.t, a.pos);
   if (err != cudaSuccess) return err;
 
-  return split_k::launch<self_out_kernel<W>, kOutWarps>(
+  return split_k::launch<block_out_kernel<W>, kOutWarps>(
       a.d, s_out, a.rows,
       split_k::smem_bytes<W, kOutWarps>(a.d / s_out, false),
       split_k::smem_bytes<W, kOutWarps>(split_k::kMaxSlice, false), true, a.s,
@@ -330,161 +332,63 @@ Job make_job(const void* w, const void* scale, const void* bias) {
 // the cross sublayer
 // ---------------------------------------------------------------------------
 
-constexpr int kMB = 64;        // rows per block
-constexpr int kNB = 32;        // output columns per block
-constexpr int kKC = 128;       // contraction chunk
-constexpr int kThreads = 256;  // 8 warps: 4 row tiles x 2 column tiles
-constexpr int kLdA = kKC + 8;  // bf16 elements; rows stay 16-byte aligned
-constexpr int kLdB = kNB + 8;
-constexpr int kLdC = kNB + 4;  // f32 elements
-
-// 16 weights of one row -> bf16 in shared memory.
-__device__ __forceinline__ void stage_weights(const int8_t* src,
-                                              __nv_bfloat16* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-  __align__(16) __nv_bfloat16 tmp[16];
+// x [rows, d] bf16 -> q = ln(x) wq * sq + bq, f32 [rows, d]
+template <typename W>
+__global__ void __launch_bounds__(split_k::threads<kOutWarps>())
+cross_q_kernel(const __nv_bfloat16* __restrict__ x,
+               const float* __restrict__ ln_g, const float* __restrict__ ln_b,
+               Job job, float* __restrict__ q_out, int rows, int d,
+               float eps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n0 = blockIdx.x * split_k::cols<kOutWarps>();
+  split_k::tile<W, kOutWarps, true>(
+      smem_raw, x, static_cast<const W*>(job.w), d, n0, rows, d, ln_g, ln_b,
+      eps, [&](int r, int c4, const float* y) {
+        const int col = n0 + c4;
+        float v[4];
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
-    tmp[i] = __float2bfloat16_rn(static_cast<float>(b[i]));
-  reinterpret_cast<uint4*>(dst)[0] = reinterpret_cast<const uint4*>(tmp)[0];
-  reinterpret_cast<uint4*>(dst)[1] = reinterpret_cast<const uint4*>(tmp)[1];
-}
-__device__ __forceinline__ void stage_weights(const __nv_bfloat16* src,
-                                              __nv_bfloat16* dst) {
-  reinterpret_cast<uint4*>(dst)[0] = reinterpret_cast<const uint4*>(src)[0];
-  reinterpret_cast<uint4*>(dst)[1] = reinterpret_cast<const uint4*>(src)[1];
+        for (int i = 0; i < 4; ++i)
+          v[i] = __fadd_rn(__fmul_rn(y[i], job.scale[col + i]),
+                           job.bias[col + i]);
+        *reinterpret_cast<float4*>(q_out + static_cast<size_t>(r) * d + col) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      });
 }
 
-// kLN: q_out = ln(a) w * scale + bias (f32), a = x; otherwise
-// out = resid + (a w * scale + bias) as bf16, a = the attention output.
-// a [rows, d] bf16; w [d, d]; d % 32 == 0.
-template <typename W, bool kLN>
-__global__ void __launch_bounds__(kThreads)
-proj_kernel(const __nv_bfloat16* __restrict__ a,
-            const float* __restrict__ ln_g, const float* __restrict__ ln_b,
-            Job job, const __nv_bfloat16* __restrict__ resid,
-            float* __restrict__ q_out, __nv_bfloat16* __restrict__ out,
-            int rows, int d, float eps) {
-  __shared__ __align__(32) __nv_bfloat16 as[kMB * kLdA];
-  __shared__ __align__(32) __nv_bfloat16 bs[kKC * kLdB];
-  __shared__ __align__(32) float cs[kMB * kLdC];
-  __shared__ float mean[kMB], rstd[kMB];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n0 = blockIdx.x * kNB;
-  const int r0 = blockIdx.y * kMB;
-  const W* __restrict__ w = static_cast<const W*>(job.w);
-  if (kLN) {
-    for (int rl = warp; rl < kMB; rl += kThreads / 32) {
-      const int r = r0 + rl;
-      float s1 = 0.f, s2 = 0.f;
-      if (r < rows) {
-        for (int c = lane; c < d; c += 32) {
-          const float xv = ecap::to_float(a[static_cast<size_t>(r) * d + c]);
-          s1 += xv;
-          s2 += xv * xv;
-        }
-      }
-      s1 = ecap::warp_sum(s1);
-      s2 = ecap::warp_sum(s2);
-      if (lane == 0) {
-        const float m1 = s1 / d;
-        const float var = fmaxf(s2 / d - m1 * m1, m1 * m1 * 3e-7f);
-        mean[rl] = m1;
-        rstd[rl] = 1.f / sqrtf(var + eps);
-      }
-    }
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  wmma::fill_fragment(acc, 0.f);
-  const int wr = warp & 3, wc = warp >> 2;
-
-  for (int k0 = 0; k0 < d; k0 += kKC) {
-    __syncthreads();
-    // activations: kMB x kKC in vectors of 8
-    for (int v = threadIdx.x; v < kMB * kKC / 8; v += kThreads) {
-      const int rl = v / (kKC / 8), kk = (v % (kKC / 8)) * 8;
-      const int r = r0 + rl, k = k0 + kk;
-      __align__(16) __nv_bfloat16 vals[8];
-      if (r < rows && k < d) {
-        *reinterpret_cast<uint4*>(vals) = *reinterpret_cast<const uint4*>(
-            a + static_cast<size_t>(r) * d + k);
-        if (kLN) {
-          const float m1 = mean[rl], rs = rstd[rl];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const float xn = __fadd_rn(
-                __fmul_rn(__fmul_rn(__fsub_rn(ecap::to_float(vals[i]), m1), rs),
-                          ln_g[k + i]),
-                ln_b[k + i]);
-            vals[i] = __float2bfloat16_rn(xn);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) vals[i] = __float2bfloat16_rn(0.f);
-      }
-      *reinterpret_cast<uint4*>(as + rl * kLdA + kk) =
-          *reinterpret_cast<const uint4*>(vals);
-    }
-    // weights: kKC x kNB in vectors of 16
-    for (int v = threadIdx.x; v < kKC * kNB / 16; v += kThreads) {
-      const int kk = v / (kNB / 16), c = (v % (kNB / 16)) * 16;
-      const int k = k0 + kk;
-      if (k < d)
-        stage_weights(w + static_cast<size_t>(k) * d + n0 + c,
-                      bs + kk * kLdB + c);
-    }
-    __syncthreads();
-    const int kmax = min(kKC, d - k0);
-    for (int kk = 0; kk < kmax; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, as + wr * 16 * kLdA + kk, kLdA);
-      wmma::load_matrix_sync(fb, bs + kk * kLdB + wc * 16, kLdB);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-  }
-
-  wmma::store_matrix_sync(cs + wr * 16 * kLdC + wc * 16, acc, kLdC,
-                          wmma::mem_row_major);
-  __syncthreads();
-  for (int e = threadIdx.x; e < kMB * kNB; e += kThreads) {
-    const int rl = e / kNB, c = e % kNB;
-    const int r = r0 + rl, col = n0 + c;
-    if (r >= rows) continue;
-    const float y = __fadd_rn(__fmul_rn(cs[rl * kLdC + c], job.scale[col]),
-                              job.bias[col]);
-    const size_t o = static_cast<size_t>(r) * d + col;
-    if (kLN)
-      q_out[o] = y;
-    else
-      out[o] = __float2bfloat16_rn(__fadd_rn(ecap::to_float(resid[o]), y));
-  }
-}
+struct CrossArgs {
+  const __nv_bfloat16* x;
+  const float* g;
+  const float* b;
+  Job q, o;
+  const void* kt;        // [B, H, Dh, K]
+  const void* v;         // [B, H, K, Dh]
+  const float* ks;       // [B, H, K] or null
+  const float* vs;       // [B, H, Dh] or null
+  float* qbuf;           // scratch [rows, d] f32
+  __nv_bfloat16* attn;   // scratch [rows, d] bf16
+  __nv_bfloat16* out;    // [rows, d] bf16
+  int rows, d, heads, nk;
+  float eps;
+  cudaStream_t s;
+};
 
 template <typename W, typename KV>
-cudaError_t cross_block(const __nv_bfloat16* x, const float* g,
-                        const float* b, const Job& jq, const Job& jo,
-                        const void* kt, const void* v, const float* ks,
-                        const float* vs, float* q, __nv_bfloat16* attn,
-                        __nv_bfloat16* out, int rows, int d, int heads, int nk,
-                        float eps, cudaStream_t s) {
-  const dim3 grid(d / kNB, (rows + kMB - 1) / kMB);
-  proj_kernel<W, true><<<grid, kThreads, 0, s>>>(x, g, b, jq, nullptr, q,
-                                                 nullptr, rows, d, eps);
-  cudaError_t err = cudaGetLastError();
+cudaError_t cross_block(const CrossArgs& a, int s_q, int s_out) {
+  cudaError_t err = split_k::launch<cross_q_kernel<W>, kOutWarps>(
+      a.d, s_q, a.rows, split_k::smem_bytes<W, kOutWarps>(a.d / s_q, true),
+      split_k::smem_bytes<W, kOutWarps>(split_k::kMaxSlice, true), false, a.s,
+      a.x, a.g, a.b, a.q, a.qbuf, a.rows, a.d, a.eps);
   if (err != cudaSuccess) return err;
-  err = ecap::launch_decode_cross<KV>(static_cast<const float*>(q), kt, v, ks,
-                                      vs, attn, rows, heads, d / heads, nk, s);
+  err = ecap::launch_cross_attn<KV>(static_cast<const float*>(a.qbuf), a.kt,
+                                    a.v, a.ks, a.vs, a.attn, a.rows, a.heads,
+                                    a.d / a.heads, a.nk, true, a.s);
   if (err != cudaSuccess) return err;
-  proj_kernel<W, false><<<grid, kThreads, 0, s>>>(attn, nullptr, nullptr, jo,
-                                                  x, nullptr, out, rows, d,
-                                                  eps);
-  return cudaGetLastError();
+  return split_k::launch<block_out_kernel<W>, kOutWarps>(
+      a.d, s_out, a.rows,
+      split_k::smem_bytes<W, kOutWarps>(a.d / s_out, false),
+      split_k::smem_bytes<W, kOutWarps>(split_k::kMaxSlice, false), true, a.s,
+      static_cast<const __nv_bfloat16*>(a.attn), static_cast<const W*>(a.o.w),
+      a.o.scale, a.o.bias, a.x, a.out, a.rows, a.d);
 }
 
 }  // namespace
@@ -504,7 +408,7 @@ extern "C" int ecap_decode_self_block(
     void* q, void* attn, void* out, int rows, int d, int heads, int t, int pos,
     float eps, int int8, int s_qkv, int s_out, void* stream) {
   if (rows < 1 || heads < 1 || d % split_k::cols<kQkvWarps>() || d % heads ||
-      (d / heads) % 8 || self_attn_smem(d / heads, t) > kMaxSmem ||
+      (d / heads) % 8 || self_attn_smem(d / heads, t) > ecap::kMaxSmem ||
       reinterpret_cast<uintptr_t>(kc) % 16 ||
       reinterpret_cast<uintptr_t>(vc) % 16 || pos < 0 ||
       pos >= t || !split_k::valid_split(d, s_qkv) ||
@@ -534,39 +438,47 @@ extern "C" int ecap_decode_self_block(
   return self_block<__nv_bfloat16>(a, s_qkv, s_out);
 }
 
-// As above for the cross-attention sublayer: kt [B,H,Dh,K], v [B,H,K,Dh]
-// (int8 if `kv_int8`, else bf16); kt_scale [B,H,K], v_scale [B,H,Dh] f32 or
-// null (= 1). D % 32 == 0.
+// As above for the cross-attention sublayer: wq, wo [D,D]; kt [B,H,Dh,K],
+// v [B,H,K,Dh] (int8 if `kv_int8`, else bf16); kt_scale [B,H,K], v_scale
+// [B,H,Dh] f32 or null (= 1); q: scratch [B,D] f32; attn: scratch [B,D]
+// bf16; out [B,D] bf16. s_q and s_out split the two products' D-long
+// contractions. Takes D a multiple of 32 and of H, heads as
+// cross_attn_fits (attention.cuh) takes them (a multiple of 8 wide, any
+// number of keys) and splits as `cross_block_plan` gives them; returns
+// cudaErrorInvalidValue otherwise.
 extern "C" int ecap_decode_cross_block(
     const void* x, const void* g, const void* b, const void* wq,
     const void* sq, const void* bq, const void* wo, const void* so,
     const void* bo, const void* kt, const void* v, const void* kt_scale,
     const void* v_scale, void* q, void* attn, void* out, int rows, int d,
-    int heads, int nk, float eps, int int8, int kv_int8, void* stream) {
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* gf = static_cast<const float*>(g);
-  const auto* bf = static_cast<const float*>(b);
-  const Job jq = make_job(wq, sq, bq);
-  const Job jo = make_job(wo, so, bo);
-  const auto* ks = static_cast<const float*>(kt_scale);
-  const auto* vs = static_cast<const float*>(v_scale);
-  auto* qf = static_cast<float*>(q);
-  auto* ab = static_cast<__nv_bfloat16*>(attn);
-  auto* ob = static_cast<__nv_bfloat16*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int8) {
-    if (kv_int8)
-      return cross_block<int8_t, int8_t>(xb, gf, bf, jq, jo, kt, v, ks, vs, qf,
-                                         ab, ob, rows, d, heads, nk, eps, s);
-    return cross_block<int8_t, __nv_bfloat16>(xb, gf, bf, jq, jo, kt, v, ks,
-                                              vs, qf, ab, ob, rows, d, heads,
-                                              nk, eps, s);
-  }
-  if (kv_int8)
-    return cross_block<__nv_bfloat16, int8_t>(xb, gf, bf, jq, jo, kt, v, ks,
-                                              vs, qf, ab, ob, rows, d, heads,
-                                              nk, eps, s);
-  return cross_block<__nv_bfloat16, __nv_bfloat16>(xb, gf, bf, jq, jo, kt, v,
-                                                   ks, vs, qf, ab, ob, rows, d,
-                                                   heads, nk, eps, s);
+    int heads, int nk, float eps, int int8, int kv_int8, int s_q, int s_out,
+    void* stream) {
+  if (rows < 1 || heads < 1 || d % split_k::cols<kOutWarps>() || d % heads ||
+      !ecap::cross_attn_fits(d / heads, nk, kv_int8 ? 1 : 2) ||
+      !split_k::valid_split(d, s_q) || !split_k::valid_split(d, s_out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CrossArgs a;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.g = static_cast<const float*>(g);
+  a.b = static_cast<const float*>(b);
+  a.q = make_job(wq, sq, bq);
+  a.o = make_job(wo, so, bo);
+  a.kt = kt;
+  a.v = v;
+  a.ks = static_cast<const float*>(kt_scale);
+  a.vs = static_cast<const float*>(v_scale);
+  a.qbuf = static_cast<float*>(q);
+  a.attn = static_cast<__nv_bfloat16*>(attn);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.rows = rows;
+  a.d = d;
+  a.heads = heads;
+  a.nk = nk;
+  a.eps = eps;
+  a.s = static_cast<cudaStream_t>(stream);
+  if (int8)
+    return kv_int8 ? cross_block<int8_t, int8_t>(a, s_q, s_out)
+                   : cross_block<int8_t, __nv_bfloat16>(a, s_q, s_out);
+  return kv_int8 ? cross_block<__nv_bfloat16, int8_t>(a, s_q, s_out)
+                 : cross_block<__nv_bfloat16, __nv_bfloat16>(a, s_q, s_out);
 }

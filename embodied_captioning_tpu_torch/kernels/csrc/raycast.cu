@@ -5,12 +5,19 @@
 //   raycast_minargmin (_raycast_kernel), vmapped over envs by the render.
 //
 // Bound on an H100 SXM: per ray the function reads 12 bytes of reciprocal
-// direction and writes 8 (t_best f32, best i32), and does about 24 FP32
-// operations per box (6 multiplies, 10 min/max, compares and selects).
-// With 96 boxes that is ~115 operations per byte: above the card's FP32
-// balance (67 TFLOP/s outside the tensor cores over 3.35 TB/s = 20), so
+// direction and writes 8 (t_best f32, best i32). Per box, as compiled
+// (sm_90a), the loop does 22 FP32 operations (6 FMUL, 11 FMNMX, 4 FSETP,
+// 1 FSEL: 88 of the 125 instructions that take 4 boxes) and 9 others.
+// None of them is a fused multiply-add, and each takes a lane for at least
+// one clock, so the card does at most 67 / 2 = 33.5 T of them a second
+// (its 67 TFLOP/s counts an FMA as two; min/max may issue at a lower rate
+// still, which would only raise the bound): at 16 envs x 1280^2 rays x 96
+// boxes at least 1.65 ms. With 96 boxes that is ~105 operations per byte,
+// above the card's balance for them (33.5 T/s over 3.35 TB/s = 10), so
 // the box loop bounds it, not the memory. There is no matrix product in
-// it, so the tensor cores do not apply.
+// it, so the tensor cores do not apply. chip_smoke.py counts the loop's
+// instructions in the built library (cuobjdump -sass) and takes its bound
+// from that count.
 //
 // Design: one thread per ray, one grid row per env. A block first stages
 // the env's seven box tables (min xyz, max xyz, valid) in shared memory;

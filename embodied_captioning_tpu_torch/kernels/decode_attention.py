@@ -77,17 +77,35 @@ def decode_cross_attention_plain(q: torch.Tensor, kt: torch.Tensor,
     return out / p.sum(dim=-1)[..., None]
 
 
+# the widest heads the cross-attention launch takes (csrc/attention.cuh:
+# kCrossMaxDh); it takes any number of keys, in tiles past what one
+# block's shared memory holds
+CROSS_MAX_DH = 4096
+
+
+def cross_attention_fits(dh: int) -> bool:
+    """Whether the cross-attention kernel takes heads `dh` wide: a
+    multiple of 8, as the JAX package's dispatcher asks, up to
+    CROSS_MAX_DH."""
+    return 8 <= dh <= CROSS_MAX_DH and dh % 8 == 0
+
+
 def decode_cross_attention(q: torch.Tensor, kt: torch.Tensor,
                            v: torch.Tensor,
                            kt_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """q bf16 [B,H,Dh]; kt [B,H,Dh,K], v [B,H,K,Dh] both int8 (with f32
-    scales) or both bf16 -> f32 [B,H,Dh]."""
+    scales) or both bf16 -> f32 [B,H,Dh]; Dh as `cross_attention_fits`
+    takes it, K >= 1."""
     if _lib.dispatch_device(q) == "cpu":
         return decode_cross_attention_plain(q, kt, v, kt_scale, v_scale)
     b, h, dh = q.shape
     nk = kt.shape[-1]
+    if not cross_attention_fits(dh) or nk < 1:
+        raise ValueError(f"decode_cross_attention takes heads a multiple of "
+                         f"8 wide up to {CROSS_MAX_DH} and at least one "
+                         f"key; got Dh={dh}, {nk} keys")
     _lib.check(q, "q", (torch.bfloat16,))
     _lib.check(kt, "kt", (torch.int8, torch.bfloat16), (b, h, dh, nk))
     _lib.check(v, "v", (kt.dtype,), (b, h, nk, dh))
@@ -177,6 +195,20 @@ def mlp_plan(rows: int, d: int, f: int) -> Tuple[int, int]:
     return _splits(d, f), _splits(f, d)
 
 
+def _takes(plan, *shape) -> bool:
+    """Whether `plan` takes the shape (does not raise)."""
+    try:
+        plan(*shape)
+    except ValueError:
+        return False
+    return True
+
+
+def mlp_fits(rows: int, d: int, f: int) -> bool:
+    """Whether `decode_mlp` takes [rows, d] -> f -> d."""
+    return _takes(mlp_plan, rows, d, f)
+
+
 def decode_mlp(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                wfc: torch.Tensor, sfc: torch.Tensor, bfc: torch.Tensor,
                wpj: torch.Tensor, spj: torch.Tensor, bpj: torch.Tensor,
@@ -227,6 +259,11 @@ def self_block_plan(rows: int, d: int, heads: int) -> Tuple[int, int]:
                          f"with heads a multiple of 8 wide; got D={d}, "
                          f"{heads} heads")
     return _splits(d, 3 * d, QKV_COLS), _splits(d, d)
+
+
+def self_block_fits(rows: int, d: int, heads: int) -> bool:
+    """Whether `decode_self_block` takes [rows, d] with `heads` heads."""
+    return _takes(self_block_plan, rows, d, heads)
 
 
 def decode_self_block_plain(x, g, b, wq, sq, bq, wk, sk, bk, wv, sv, bv,
@@ -344,6 +381,30 @@ def decode_cross_block_plain(x, g, b, wq, sq, bq, wo, so, bo,
     return (xf + y).to(x.dtype)
 
 
+def cross_block_plan(rows: int, d: int, heads: int) -> Tuple[int, int]:
+    """(splits of the q product's D-long contraction, splits of the out
+    product's) for `decode_cross_block` at [rows, d] with `heads` heads:
+    each product's blocks are (d / 32) x splits x ceil(rows / 64); a q
+    cluster spans the whole contraction, so it also holds the LayerNorm's
+    rows. The attention launch takes heads as `cross_attention_fits`
+    does, over any number of keys."""
+    if rows < 1:
+        raise ValueError(f"decode_cross_block needs at least one row, got "
+                         f"{rows}")
+    if (d <= 0 or d % MLP_COLS or heads < 1 or d % heads
+            or not cross_attention_fits(d // heads)):
+        raise ValueError(f"decode_cross_block takes a width that is a "
+                         f"multiple of {MLP_COLS} and of the head count, "
+                         f"with heads a multiple of 8 wide; got D={d}, "
+                         f"{heads} heads")
+    return _splits(d, d), _splits(d, d)
+
+
+def cross_block_fits(rows: int, d: int, heads: int) -> bool:
+    """Whether `decode_cross_block` takes [rows, d] with `heads` heads."""
+    return _takes(cross_block_plan, rows, d, heads)
+
+
 def decode_cross_block(x, g, b, wq, sq, bq, wo, so, bo, kt: torch.Tensor,
                        v: torch.Tensor,
                        kt_scale: Optional[torch.Tensor] = None,
@@ -352,7 +413,8 @@ def decode_cross_block(x, g, b, wq, sq, bq, wo, so, bo, kt: torch.Tensor,
     """x bf16 [B,D]; LN g, b f32 [D]; wq, wo [D,D] both int8 or both bf16
     with f32 [D] scales and biases; kt [B,H,Dh,K], v [B,H,K,Dh] both int8
     (with f32 scales) or both bf16 -> bf16 [B,D]. Three launches (see
-    csrc/decode_block.cu), counted as one call."""
+    csrc/decode_block.cu), counted as one call; D and H as
+    `cross_block_plan` takes them, K >= 1."""
     if _lib.dispatch_device(x) == "cpu":
         return decode_cross_block_plain(x, g, b, wq, sq, bq, wo, so, bo, kt,
                                         v, kt_scale, v_scale, heads, eps)
@@ -368,6 +430,9 @@ def decode_cross_block(x, g, b, wq, sq, bq, wo, so, bo, kt: torch.Tensor,
     if v_scale is not None:
         _lib.check(v_scale, "v_scale", (torch.float32,), (bsz, heads, dh))
         vs_ptr = v_scale.data_ptr()
+    s_q, s_out = cross_block_plan(bsz, d, heads)
+    if nk < 1:
+        raise ValueError("decode_cross_block needs at least one cross key")
     q = torch.empty(bsz, d, dtype=torch.float32, device=x.device)
     attn = torch.empty_like(x)
     out = torch.empty_like(x)
@@ -376,6 +441,7 @@ def decode_cross_block(x, g, b, wq, sq, bq, wo, so, bo, kt: torch.Tensor,
               wo.data_ptr(), so.data_ptr(), bo.data_ptr(), kt.data_ptr(),
               v.data_ptr(), ks_ptr, vs_ptr, q.data_ptr(), attn.data_ptr(),
               out.data_ptr(), bsz, d, heads, nk, float(eps),
-              int(wq.dtype == torch.int8), int(kt.dtype == torch.int8))
+              int(wq.dtype == torch.int8), int(kt.dtype == torch.int8), s_q,
+              s_out)
     _lib.launches["decode_cross_block"] += 1
     return out

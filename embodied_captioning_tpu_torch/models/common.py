@@ -13,10 +13,13 @@ The attention paths:
   - one-token cached decoding in `block`: the whole self-attention and
     cross-attention sublayers as the block kernels (`decode_blocks=True`,
     the default), or, with `decode_blocks=False`, LayerNorm, projections
-    and the decode self-/cross-attention kernels as separate calls;
-  - everything else (masked, multi-token cached, or cross over a feature
-    map): plain tensor ops with bf16 scores and bf16 probabilities, as the
-    JAX fallback path.
+    and the decode self-/cross-attention kernels as separate calls. Each
+    sublayer takes its kernel only at a shape the kernel takes
+    (`decode_route`), and the route of separate calls elsewhere, as the
+    JAX package's dispatchers fall back to XLA;
+  - everything else (masked, multi-token cached, cross over a feature
+    map, or heads the cross-attention kernel does not take): plain tensor
+    ops with bf16 scores and bf16 probabilities, as the JAX fallback path.
 """
 
 from __future__ import annotations
@@ -32,6 +35,9 @@ from ..kernels import (
     decode_self_attention, decode_self_block, flash_attention,
 )
 from ..kernels import layernorm as layernorm_kernel
+from ..kernels.decode_attention import (
+    cross_attention_fits, cross_block_fits, mlp_fits, self_block_fits,
+)
 from .quantize import QuantizedArray, QuantizedKV, maybe_dequant, quantize_kv
 
 BERT_LN_EPS = 1e-12  # HF BertConfig.layer_norm_eps
@@ -178,7 +184,7 @@ def mha(p: dict, x: torch.Tensor, heads: int,
             scales = (kv_precomputed.kt_scale, kv_precomputed.v_scale)
         else:
             (kt, v), scales = kv_precomputed, (None, None)
-        if tq == 1 and mask is None:
+        if tq == 1 and mask is None and cross_attention_fits(q.shape[-1]):
             out = decode_cross_attention(q[:, 0].to(compute_dtype), kt, v,
                                          *scales)
             out = out.reshape(b, 1, -1)
@@ -228,6 +234,31 @@ def mha(p: dict, x: torch.Tensor, heads: int,
     return dense(p["o"], out.to(compute_dtype), compute_dtype), None
 
 
+class DecodeRoute(NamedTuple):
+    """Which sublayers of a one-token decode step run as fused kernels."""
+
+    self_block: bool   # decode_self_block
+    cross_block: bool  # decode_cross_block
+    mlp: bool          # decode_mlp
+
+
+def decode_route(rows: int, d: int, heads: int, f: int,
+                 decode_blocks: bool) -> DecodeRoute:
+    """The fused kernels a one-token decode step of `rows` rows takes, per
+    sublayer, at width d with `heads` heads and MLP width f: each kernel
+    where its plan takes the shape (the block kernels only with
+    `decode_blocks`), as the JAX package's `maybe_decode_*` dispatchers
+    return None at shapes their kernels do not take."""
+    return DecodeRoute(
+        self_block=decode_blocks and self_block_fits(rows, d, heads),
+        cross_block=decode_blocks and cross_block_fits(rows, d, heads),
+        mlp=mlp_fits(rows, d, f))
+
+
+def _out_width(w) -> int:
+    return (w.q if isinstance(w, QuantizedArray) else w).shape[-1]
+
+
 def block(p: dict, x: torch.Tensor, heads: int,
           mask: Optional[torch.Tensor] = None,
           cache: Optional[KVCache] = None, compute_dtype=torch.bfloat16,
@@ -238,14 +269,18 @@ def block(p: dict, x: torch.Tensor, heads: int,
     step: the MLP sublayer (LN + fc + GELU + proj + residual) runs as the
     fused decode-MLP kernel when there is a cache, and with `decode_blocks`
     the cached self-attention sublayer and the cross-attention sublayer
-    run as one block-kernel call each (widths that are multiples of 32);
-    without it they run as LayerNorm, projections and the decode attention
-    kernels."""
+    run as one block-kernel call each; without it they run as LayerNorm,
+    projections and the decode attention kernels. A sublayer whose kernel
+    does not take the shape runs as those separate calls
+    (`decode_route`)."""
     one_token = (x.shape[1] == 1 and compute_dtype == torch.bfloat16
                  and x.dtype == torch.bfloat16)
-    fuse = decode_blocks and one_token and x.shape[-1] % 32 == 0
+    route = DecodeRoute(False, False, False)
+    if one_token:
+        route = decode_route(x.shape[0], x.shape[-1], heads,
+                             _out_width(p["mlp"]["fc"]["w"]), decode_blocks)
     if "attn" in p:
-        if fuse and cache is not None and mask is None:
+        if route.self_block and cache is not None and mask is None:
             x, cache = _decode_self_block(p["attn"], p["ln1"], x, cache,
                                           heads)
         else:
@@ -254,14 +289,14 @@ def block(p: dict, x: torch.Tensor, heads: int,
                            compute_dtype=compute_dtype)
             x = x + h
     if cross_kv is not None and "xattn" in p:
-        if fuse:
+        if route.cross_block:
             x = _decode_cross_block(p["xattn"], p["ln_x"], x, cross_kv,
                                     heads)
         else:
             h, _ = mha(p["xattn"], layernorm(p["ln_x"], x), heads,
                        compute_dtype=compute_dtype, kv_precomputed=cross_kv)
             x = x + h
-    if cache is not None and one_token:
+    if cache is not None and route.mlp:
         return _decode_mlp_block(p["mlp"], p["ln2"], x), cache
     return x + mlp(p["mlp"], layernorm(p["ln2"], x), compute_dtype), cache
 

@@ -16,9 +16,10 @@ from torch_parity import jax_kernel_path, np32, t
 D, H = 64, 2
 
 
-def _block_params(seed: int, cross: bool, int8: bool):
-    p = JC.block_init(jax.random.PRNGKey(seed), D, H, 4.0,
-                      cross_dim=D if cross else None)
+def _block_params(seed: int, cross: bool, int8: bool, d: int = D,
+                  heads: int = H):
+    p = JC.block_init(jax.random.PRNGKey(seed), d, heads, 4.0,
+                      cross_dim=d if cross else None)
     return jqp(p, min_size=0) if int8 else p
 
 
@@ -141,25 +142,43 @@ def test_block_decode_step(int8):
     np.testing.assert_allclose(np32(out), np32(ref), atol=2 ** -4, rtol=0)
 
 
-@pytest.mark.parametrize("pos", [0, 2])
-@pytest.mark.parametrize("int8", [False, True])
-def test_block_decode_step_block_route(int8, pos, monkeypatch):
+# (width, heads): the tiny preset's, where every sublayer fuses; a width
+# the self block does not take (not a multiple of 64), whose cross block
+# and MLP still fuse; heads 4 wide, which neither block kernel nor the
+# cross-attention kernel takes (the JAX dispatchers refuse them too)
+_ROUTE_SHAPES = {
+    (64, 2): ["decode_self_block", "decode_cross_block", "decode_mlp"],
+    (96, 2): ["decode_self_attention", "decode_cross_block", "decode_mlp"],
+    (64, 16): ["decode_self_attention", "decode_mlp"],
+}
+
+
+@pytest.mark.parametrize("d,heads,int8,pos", [
+    pytest.param(d, heads, int8, pos, id=("" if (d, heads) == (D, H) else
+                                          f"{d}x{heads}-") + f"{int8}-{pos}")
+    for d, heads in _ROUTE_SHAPES for int8 in (False, True) for pos in (0, 2)])
+def test_block_decode_step_block_route(d, heads, int8, pos, monkeypatch):
     # the same step on the default route (decode_blocks=True) against the
     # JAX block with ECAP_USE_PALLAS=1 and ECAP_PALLAS_BLOCKS=1: one
-    # self-block kernel, one cross-block kernel, the fused decode MLP.
-    # `block` is not jitted, so the variables are read on each call.
+    # self-block kernel, one cross-block kernel, the fused decode MLP, each
+    # where its kernel takes the shape (`decode_route`), the route of
+    # separate calls elsewhere. `block` is not jitted, so the variables are
+    # read on each call.
     from embodied_captioning_tpu_torch import kernels as K
 
     rng = np.random.default_rng(8)
     b, tmax = 3, 8
-    p = _block_params(6, cross=True, int8=int8)
-    img = jnp.asarray(rng.standard_normal((b, 11, D)), jnp.bfloat16)
-    k0 = jnp.asarray(rng.standard_normal((b, H, D // H, tmax)), jnp.bfloat16)
-    v0 = jnp.asarray(rng.standard_normal((b, tmax, H, D // H)), jnp.bfloat16)
-    x = jnp.asarray(rng.standard_normal((b, 1, D)), jnp.bfloat16)
+    p = _block_params(6, cross=True, int8=int8, d=d, heads=heads)
+    img = jnp.asarray(rng.standard_normal((b, 11, d)), jnp.bfloat16)
+    k0 = jnp.asarray(rng.standard_normal((b, heads, d // heads, tmax)),
+                     jnp.bfloat16)
+    v0 = jnp.asarray(rng.standard_normal((b, tmax, heads, d // heads)),
+                     jnp.bfloat16)
+    x = jnp.asarray(rng.standard_normal((b, 1, d)), jnp.bfloat16)
     with jax_kernel_path(blocks=True):
-        ckv = JC.precompute_kv(p["xattn"], img, H)
-        ref, rc = JC.block(p, x, H, cache=JC.KVCache(k0, v0, jnp.int32(pos)),
+        ckv = JC.precompute_kv(p["xattn"], img, heads)
+        ref, rc = JC.block(p, x, heads,
+                           cache=JC.KVCache(k0, v0, jnp.int32(pos)),
                            cross_kv=ckv)
     tp = from_jax(p, "cpu")
     called = []
@@ -169,20 +188,25 @@ def test_block_decode_step_block_route(int8, pos, monkeypatch):
         monkeypatch.setattr(TC, name, lambda *a, _f=fn, _n=name, **k: (
             called.append(_n), _f(*a, **k))[1])
     tcache = TC.KVCache(t(k0), t(v0), pos)
-    out, oc = TC.block(tp, t(x), H, cache=tcache,
-                       cross_kv=TC.precompute_kv(tp["xattn"], t(img), H))
-    assert called == ["decode_self_block", "decode_cross_block", "decode_mlp"]
+    out, oc = TC.block(tp, t(x), heads, cache=tcache,
+                       cross_kv=TC.precompute_kv(tp["xattn"], t(img), heads))
+    assert called == _ROUTE_SHAPES[d, heads]
     assert out.dtype == torch.bfloat16 and oc.index == pos + 1
     assert oc.k is tcache.k and oc.v is tcache.v       # written in place
     # the cache: the current token's k, v (|k| < 4: one bf16 ulp) at `pos`
     np.testing.assert_allclose(np32(oc.k), np32(rc.k), atol=2 ** -6, rtol=0)
     np.testing.assert_allclose(np32(oc.v), np32(rc.v), atol=2 ** -6, rtol=0)
-    assert np.mean(np32(oc.k) == np32(rc.k)) > 0.99
+    if "decode_self_block" in called:
+        # the same arithmetic as the JAX self block; at 96 wide the JAX
+        # package fuses the sublayer and the port does not (its q/k/v
+        # product takes widths a multiple of 64), so int8 weights are
+        # scaled before the product there and a k rounds differently
+        assert np.mean(np32(oc.k) == np32(rc.k)) > 0.99
     # residual stream |x| < 8: two bf16 ulps there
     np.testing.assert_allclose(np32(out), np32(ref), atol=2 ** -4, rtol=0)
     # a masked or multi-token call does not take the block kernels
     called.clear()
-    TC.block(tp, t(x).repeat(1, 2, 1), H,
+    TC.block(tp, t(x).repeat(1, 2, 1), heads,
              cache=TC.KVCache(t(k0), t(v0), pos))
     assert not called
     assert K.launches["decode_self_block"] == 0

@@ -514,6 +514,47 @@ def test_self_block_plan_raises_on_unsupported_shapes(rows, d, heads):
 
 
 # ---------------------------------------------------------------------------
+# the cross block's launch plan (host-side logic of its split-K products)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows", [1, 16, 17, 64])
+@pytest.mark.parametrize("d,heads", _BLOCK_WIDTHS)
+def test_cross_block_plan_covers_the_decode_shapes(rows, d, heads):
+    from embodied_captioning_tpu_torch.kernels.decode_attention import (
+        MLP_COLS, MLP_MAX_SLICE, MLP_MAX_SPLITS, SM_COUNT, cross_block_plan)
+
+    s_q, s_out = cross_block_plan(rows, d, heads)
+    # both products contract over D into D output columns in tiles of 32
+    for s in (s_q, s_out):
+        assert 1 <= s <= MLP_MAX_SPLITS and s & (s - 1) == 0
+        assert d % (16 * s) == 0 and d // s <= MLP_MAX_SLICE
+        # the fewest splits that give every SM a block, where D allows it
+        assert d // MLP_COLS * s >= SM_COUNT or s == MLP_MAX_SPLITS or (
+            d % (32 * s))
+        assert s == 1 or d // MLP_COLS * (s // 2) < SM_COUNT
+    if (d, heads) == (768, 12):
+        # the serving shape: 192 blocks in each product
+        assert (s_q, s_out) == (8, 8)
+
+
+@pytest.mark.parametrize("rows,d,heads", [
+    (0, 768, 12),     # no rows
+    (4, 48, 2),       # not a multiple of 32
+    (4, 40, 5),       # heads 8 wide, not a multiple of 32
+    (4, 64, 16),      # heads 4 wide
+    (4, 768, 128),    # heads 6 wide
+    (4, 768, 5),      # heads do not divide D
+    (4, 768, 0),      # no heads
+    (4, 8192, 8)])    # heads 1024 wide, slices beyond 512
+def test_cross_block_plan_raises_on_unsupported_shapes(rows, d, heads):
+    from embodied_captioning_tpu_torch.kernels.decode_attention import (
+        cross_block_plan)
+
+    with pytest.raises(ValueError):
+        cross_block_plan(rows, d, heads)
+
+
+# ---------------------------------------------------------------------------
 # the wrappers' launch path: what it refuses, as far as it is Python
 # ---------------------------------------------------------------------------
 
@@ -545,6 +586,26 @@ def _layernorm_refusals():
         "out float16": ((c(x), c(g), c(b)), {"out_dtype": torch.float16},
                         TypeError),
     }
+
+
+def test_cross_kernels_refuse_heads_they_do_not_take_before_launching():
+    # heads 4 wide: the kernel branch raises before any launch (the route
+    # in `block` never sends them there)
+    c = _on_card
+    q = c(torch.zeros(2, 16, 4).bfloat16())
+    kt, v = c(torch.zeros(2, 16, 4, 8).bfloat16()), c(
+        torch.zeros(2, 16, 8, 4).bfloat16())
+    before = dict(K.launches)
+    with pytest.raises(ValueError, match="decode_cross_attention takes"):
+        K.decode_cross_attention(q, kt, v)
+    x, g, b = c(torch.zeros(2, 64).bfloat16()), c(torch.ones(64)), c(
+        torch.zeros(64))
+    w, s_, bias = c(torch.zeros(64, 64).bfloat16()), c(torch.ones(64)), c(
+        torch.zeros(64))
+    with pytest.raises(ValueError, match="decode_cross_block takes"):
+        K.decode_cross_block(x, g, b, w, s_, bias, w, s_, bias, kt, v,
+                             heads=16)
+    assert K.launches == before
 
 
 @pytest.mark.parametrize("case", list(_layernorm_refusals()))

@@ -1,0 +1,118 @@
+"""Which fused kernels a one-token decode step takes (`decode_route`),
+sublayer by sublayer: each kernel where its plan takes the shape, the
+route of separate calls elsewhere, as the JAX package's `maybe_decode_*`
+dispatchers fall back to XLA where their kernels refuse a shape."""
+
+import pytest
+import torch
+
+from embodied_captioning_tpu_torch.kernels import decode_attention as DA
+from embodied_captioning_tpu_torch.models import common as TC
+
+# (D, heads, MLP width) of the presets' decoders: tiny, base, large
+_PRESETS = [(64, 2, 256), (512, 8, 2048), (768, 12, 3072)]
+
+
+@pytest.mark.parametrize("rows", [1, 16, 17, 64])
+@pytest.mark.parametrize("d,heads,f", _PRESETS)
+def test_every_sublayer_fuses_at_the_presets(d, heads, f, rows):
+    assert DA.mlp_fits(rows, d, f)
+    assert DA.self_block_fits(rows, d, heads)
+    assert DA.cross_block_fits(rows, d, heads)
+    assert DA.cross_attention_fits(d // heads)
+    assert TC.decode_route(rows, d, heads, f, True) == (
+        TC.DecodeRoute(self_block=True, cross_block=True, mlp=True))
+    # the route of separate calls keeps the fused MLP
+    assert TC.decode_route(rows, d, heads, f, False) == (
+        TC.DecodeRoute(self_block=False, cross_block=False, mlp=True))
+
+
+def test_a_width_the_self_block_refuses_falls_back_alone():
+    # 96 wide, 2 heads of 48: the q/k/v product takes widths a multiple of
+    # 64; the cross block (tiles of 32 columns) and the MLP take it
+    assert not DA.self_block_fits(3, 96, 2)
+    with pytest.raises(ValueError):
+        DA.self_block_plan(3, 96, 2)
+    assert DA.cross_block_plan(3, 96, 2) == (2, 2)
+    assert TC.decode_route(3, 96, 2, 384, True) == TC.DecodeRoute(
+        self_block=False, cross_block=True, mlp=True)
+
+
+def test_heads_four_wide_fall_back_in_both_blocks():
+    # 64 wide, 16 heads of 4: the attention launches take heads a multiple
+    # of 8 wide (the JAX dispatchers refuse them too); the MLP fuses
+    assert not DA.self_block_fits(3, 64, 16)
+    assert not DA.cross_block_fits(3, 64, 16)
+    assert not DA.cross_attention_fits(4)
+    assert TC.decode_route(3, 64, 16, 256, True) == TC.DecodeRoute(
+        self_block=False, cross_block=False, mlp=True)
+
+
+def test_an_mlp_wider_than_its_layernorm_launch_falls_back():
+    # D = 1056: a multiple of 32, but the MLP's LayerNorm launch holds a
+    # row of at most 1024 in registers
+    assert not DA.mlp_fits(4, 1056, 4224)
+    with pytest.raises(ValueError):
+        DA.mlp_plan(4, 1056, 4224)
+    assert not TC.decode_route(4, 1056, 8, 4224, True).mlp
+
+
+@pytest.mark.parametrize("dh", [8, 32, 48, 64, 128, 256, 512, 1024, 4096])
+def test_cross_attention_takes_heads_the_reference_takes(dh):
+    # the JAX dispatcher gates the cross attention on a head width that is
+    # a multiple of 8 and nothing else: no limit on the cross keys
+    assert DA.cross_attention_fits(dh)
+    assert not DA.cross_attention_fits(dh + 4)
+    # four heads: past dh 1024 the q product's slices of 4 dh / 8 are
+    # longer than 512
+    assert DA.cross_block_fits(4, 4 * dh, 4) == (dh <= 1024)
+
+
+def test_cross_attention_refuses_heads_beyond_its_widest():
+    assert not DA.cross_attention_fits(DA.CROSS_MAX_DH + 8)
+    assert not DA.cross_attention_fits(0)
+
+
+def _one_token_block(d, heads, int8):
+    """A multimodal block, a one-token step's input, a cache and cross
+    K/V at width d with `heads` heads, from a seeded generator."""
+    from embodied_captioning_tpu_torch.models.quantize import (
+        quantize_params)
+
+    g = torch.Generator().manual_seed(d + heads)
+    p = TC.block_init(g, d, 4.0, "cpu", cross_dim=d)
+    if int8:
+        p = quantize_params(p, min_size=0)
+    dh = d // heads
+    x = torch.randn(3, 1, d, generator=g).bfloat16()
+    cache = TC.KVCache(torch.randn(3, heads, dh, 8, generator=g).bfloat16(),
+                       torch.randn(3, 8, heads, dh, generator=g).bfloat16(),
+                       2)
+    img = torch.randn(3, 12, d, generator=g).bfloat16()
+    return p, x, cache, TC.precompute_kv(p["xattn"], img, heads)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("decode_blocks", [True, False])
+@pytest.mark.parametrize("d,heads", [(64, 2), (96, 2), (64, 16)])
+def test_block_calls_the_kernels_its_route_names(d, heads, decode_blocks,
+                                                 int8, monkeypatch):
+    p, x, cache, ckv = _one_token_block(d, heads, int8)
+    route = TC.decode_route(3, d, heads, 4 * d, decode_blocks)
+    called = []
+    for name in ("decode_self_block", "decode_cross_block", "decode_mlp",
+                 "decode_self_attention", "decode_cross_attention"):
+        fn = getattr(TC, name)
+        monkeypatch.setattr(TC, name, lambda *a, _f=fn, _n=name, **k: (
+            called.append(_n), _f(*a, **k))[1])
+    out, _ = TC.block(p, x, heads, cache=cache, cross_kv=ckv,
+                      decode_blocks=decode_blocks)
+    want = ["decode_self_block" if route.self_block
+            else "decode_self_attention"]
+    if route.cross_block:
+        want.append("decode_cross_block")
+    elif DA.cross_attention_fits(d // heads):
+        want.append("decode_cross_attention")
+    want.append("decode_mlp")
+    assert called == want
+    assert out.shape == x.shape and torch.isfinite(out.float()).all()
