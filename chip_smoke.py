@@ -4,29 +4,35 @@ caption-generation modes on one NVIDIA GPU.
 
 Phases, each of which must pass:
   1. build the hand-written Hopper kernels from the sources in the checkout;
-  2. hold every kernel against its plain PyTorch version on the card at
-     the shapes the main paths give it: max error, kernel / plain / library
-     time, the kernel's device time per call (torch.profiler over its
-     timing loop), and the least time the card could take (bound). Flash
-     attention at head dims 32, 64, 128 and T = 1, 16, 65, 257 (and 640
-     at D = 128, the streaming kernel), causal and with valid_len < T; the
-     decode MLP at 1, 16, 17 and 64 rows with int8 and bf16 weights, each
-     run twice for equal bits; the decode cross-attention kernel with int8
-     and bf16 K/V at the serving shape, the tiny preset's heads and 11
-     keys (copied element by element). The raycast
-     kernel must equal its plain version bit for bit (16 envs x 1280^2
-     rays x 96 boxes, and adversarial inputs), and its box loop's
+  2. hold every kernel against its plain PyTorch version on the card at the
+     shapes the main paths give it: max error, kernel / plain / library
+     time, the kernel's and the library call's device time per call
+     (torch.profiler over its timing loop), and the least time the card
+     could take (bound). Flash attention at head dims 32, 64, 128 and T =
+     1, 16, 65, 257 (and 640 at D = 128, the streaming kernel), causal and
+     with valid_len < T; the decode MLP at 1, 16, 17 and 64 rows with int8
+     and bf16 weights, each run twice for equal bits; the decode
+     cross-attention kernel with int8 and bf16 K/V at the serving shape,
+     the tiny preset's heads and 11 keys (copied element by element). The
+     raycast kernel must equal its plain version bit for bit (16 envs x
+     1280^2 rays x 96 boxes, and adversarial inputs), and its box loop's
      instructions are counted in the built library (cuobjdump -sass);
      LayerNorm is checked in both statistics modes at the ViT, decoder and
-     sentence-encoder shapes, with the host time of one wrapper call at the
-     last two split into its pieces beside F.layer_norm's; the self block at
-     cache positions 0, 1 and 29 and the cross block, both with int8 and
-     bf16 weights and (cross) K/V, at 1, 17 and 64 rows and at the tiny
-     preset's width, each run twice for equal bits, with their device time
-     per launch; `common.block` at two widths where the route takes only
-     some fused kernels (96 wide with 2 heads, 64 with 16), on the card
-     against the CPU; the fused preprocess at the 64 crops of a batch
-     (equal bit for bit) and on true resizes;
+     sentence-encoder shapes (timed beside a copy of the same bytes), with
+     the output in the other type, and on its scalar path ([37, 100], a
+     base 2 bytes past 16-byte alignment, [8, 4096]), each run twice for
+     equal bits, with the host time of one wrapper call at the decoder and
+     sentence-encoder shapes split into its pieces beside F.layer_norm's;
+     the self block at cache positions 0, 1 and 29 and the cross block,
+     both with int8 and bf16 weights and (cross) K/V, at 1, 17 and 64 rows
+     and at the tiny preset's width, each run twice for equal bits, with
+     their device time per launch; `common.block` where the route takes
+     only some fused kernels (96 wide with 2 heads, 64 with 16, and 768
+     with 12 at a cache of 1024 positions, too long for the self block) and
+     at 768 with the preset's cache, on the card against the CPU; the fused
+     preprocess at the 64 crops of a batch (equal bit for bit) and on true
+     resizes (from sources of 150, 333 and 1280 pixels, patch 16 and 7),
+     with its instructions counted in the built library (cuobjdump -sass);
   3. drive `perceive` at full width -- the serving configuration of
      bench.py: the large preset (ViT-L/14 at 224^2, 768-wide 12+12-layer
      decoder, 49,408-token vocabulary, post-LN MiniLM-class sentence
@@ -59,7 +65,8 @@ Phases, each of which must pass:
      rollout_fused step: device time by kernel, the ported kernels' share,
      the device's idle share (device time is the union of the kernels'
      intervals: a launch that starts early under programmatic dependent
-     launch waits inside its own interval);
+     launch waits inside its own interval); LayerNorm launches and device
+     time of a perceive batch by parameter and input shape;
   7. drive the other generation modes at full width: `generate_beam`
      (16 crops x 4 beams), sampled `generate` (64 crops, temperature 0.7,
      top-k 50, top-p 0.9, seeded generator) and `generate_speculative`
@@ -73,6 +80,9 @@ lines, one JSON line of kernel results, and last
 phase fails or no CUDA device is present.
 
 Usage: python3 chip_smoke.py
+       python3 chip_smoke.py --sass LIB   (instructions of the preprocess
+                                           kernel in a built kernel
+                                           library, by cuobjdump)
 """
 
 from __future__ import annotations
@@ -135,8 +145,8 @@ PORTED_KERNELS = ("flash_head", "flash_stream", "decode_self_kernel",
                   "cross_attn_kernel", "cross_attn_tiled_kernel",
                   "mlp_ln_kernel", "mlp_gemm_kernel",
                   "self_qkv_kernel", "self_attn_kernel", "block_out_kernel",
-                  "cross_q_kernel", "layernorm_kernel", "raycast_kernel",
-                  "preprocess_kernel")
+                  "cross_q_kernel", "layernorm_kernel", "layernorm_vec_kernel",
+                  "raycast_kernel", "preprocess_kernel")
 # the self block's and the cross block's three launches (decode_block.cu);
 # both end in block_out_kernel, which belongs to the block whose first
 # launch came last before it
@@ -231,6 +241,16 @@ def kernel_ms(fn, iters: int = 20, warmup: int = 3) -> dict:
     return dict(ms=time_ms(fn, iters, warmup), device_us=device_us(fn))
 
 
+def library(fn, iters: int = 20) -> dict:
+    """The yardstick of one PyTorch call computing a kernel's function:
+    its timing-loop time (host cost included) and its device time per
+    call, the latter to set beside the kernel's own device time."""
+    return dict(library_ms=time_ms(fn, iters), library_device_us=device_us(fn))
+
+
+NO_LIBRARY = dict(library_ms=None, library_device_us=None)
+
+
 def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOP_PER_S):
     tb, tf = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
@@ -322,8 +342,8 @@ def kernel_checks(K, QZ, dev) -> dict:
         **kernel_ms(lambda: K.flash_attention(q, k, v)),
         plain_ms=time_ms(lambda: K.flash_attention_plain(q, k, v), 5, 1),
         bound_ms=fb, bound_by=ff,
-        library_ms=time_ms(lambda: torch.nn.functional.
-                           scaled_dot_product_attention(qt, kt_, vt)))
+        **library(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt_, vt)))
 
     # the same kernel at T = 640, where the TPU package switches to its
     # blocked kernel (not reached at ViT-L, T = 257): timed for the record
@@ -339,8 +359,8 @@ def kernel_checks(K, QZ, dev) -> dict:
         **kernel_ms(lambda: K.flash_attention(q6, k6, v6), 5, 1),
         plain_ms=time_ms(lambda: K.flash_attention_plain(q6, k6, v6), 3, 1),
         bound_ms=fb6, bound_by=ff6,
-        library_ms=time_ms(lambda: torch.nn.functional.
-                           scaled_dot_product_attention(q6, k6, v6)))]
+        **library(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q6, k6, v6)))]
     del q6, k6, v6
 
     # decode self-attention (f32 out; tolerance covers summation order) ----
@@ -364,9 +384,8 @@ def kernel_checks(K, QZ, dev) -> dict:
         plain_ms=time_ms(lambda: K.decode_self_attention_plain(
             q, kc, vc, t - 1), 100),
         bound_ms=sb, bound_by=sf,
-        library_ms=time_ms(lambda: torch.nn.functional.
-                           scaled_dot_product_attention(q[:, :, None], k_l,
-                                                        v_l), 100))
+        **library(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], k_l, v_l), 100))
 
     # decode cross-attention over int8 K/V ---------------------------------
     nk = 256
@@ -411,7 +430,7 @@ def kernel_checks(K, QZ, dev) -> dict:
         plain_ms=time_ms(lambda: K.decode_cross_attention_plain(
             q, kt8, v8, ks, vs), 100),
         bound_ms=cb, bound_by=cf,
-        library_ms=None)  # no PyTorch call takes int8 K/V with scales
+        **NO_LIBRARY)  # no PyTorch call takes int8 K/V with scales
 
     # decode MLP (tolerance: bf16 output of |x + y| < 8): int8 and bf16
     # weights at every row count the decode paths use (64: perceive and
@@ -472,7 +491,7 @@ def kernel_checks(K, QZ, dev) -> dict:
         **kernel_ms(lambda: K.decode_mlp(*margs), 100),
         plain_ms=time_ms(lambda: K.decode_mlp_plain(*margs), 100),
         bound_ms=mb, bound_by=mf,
-        library_ms=time_ms(two_matmuls, 100))
+        **library(two_matmuls, 100))
     log_rows(rows)
     return rows
 
@@ -481,14 +500,18 @@ def log_rows(rows: dict) -> None:
     for name, r in rows.items():
         for c in [r] + r.get("cases", []):
             lib = ("n/a" if c["library_ms"] is None
-                   else f"{c['library_ms'] * 1e3:.1f} us")
+                   else f"{c['library_ms'] * 1e3:.1f} us "
+                   f"({c['library_device_us']:.1f} us on the device)")
             what = f"{name} {c['case']}" if "case" in c else (
                 f"{name} {c['shape']}" if "shape" in c else name)
+            copy = (f", a copy of the same bytes "
+                    f"{c['copy_device_us']:.1f} us on the device"
+                    if "copy_device_us" in c else "")
             log(f"  {what}: {c['ms'] * 1e3:.1f} us kernel "
                 f"({c['device_us']:.1f} us on the device), "
                 f"{c['plain_ms'] * 1e3:.1f} us plain, bound "
                 f"{c['bound_ms'] * 1e3:.2f} us ({c['bound_by']}), "
-                f"library {lib}")
+                f"library {lib}{copy}")
 
 
 def generation_kernel_checks(K, QZ, dev) -> dict:
@@ -594,7 +617,7 @@ def generation_kernel_checks(K, QZ, dev) -> dict:
                 **kernel_ms(lambda: K.decode_self_block(*args), 100),
                 plain_ms=time_ms(lambda: K.decode_self_block_plain(*args),
                                  20),
-                bound_ms=sb, bound_by=sf, library_ms=None,
+                bound_ms=sb, bound_by=sf, **NO_LIBRARY,
                 unfused_ms=time_ms(lambda: x3 + TC.mha(
                     p_attn, TC.layernorm(p_ln, x3), h,
                     cache=TC.KVCache(kc, vc, t - 1))[0], 100))
@@ -643,7 +666,7 @@ def generation_kernel_checks(K, QZ, dev) -> dict:
                                 100),
                     plain_ms=time_ms(lambda: K.decode_cross_block_plain(
                         *cargs, heads=h), 20),
-                    bound_ms=cb, bound_by=cf, library_ms=None,
+                    bound_ms=cb, bound_by=cf, **NO_LIBRARY,
                     unfused_ms=time_ms(lambda: x3 + TC.mha(
                         p_x, TC.layernorm(p_ln, x3), h,
                         kv_precomputed=ckv)[0], 100))
@@ -678,8 +701,13 @@ def generation_kernel_checks(K, QZ, dev) -> dict:
         return torch.randint(0, 256, (n, size, size, 3), generator=g,
                              device=dev, dtype=torch.uint8)
 
+    # true resizes up and down, sources whose rows are not a multiple of 4
+    # pixels (150, 333: staged byte by byte), patch 16, and an odd patch
+    # (the run-time patch instance, stored float by float); a frame-sized
+    # downsize is timed below
     for n, size, out_size, patch in ((8, 320, 224, 14), (8, 150, 224, 14),
-                                     (3, 40, 64, 8)):
+                                     (3, 40, 64, 8), (4, 224, 224, 16),
+                                     (4, 333, 224, 14), (3, 50, 63, 7)):
         img = crops(n, size)
         check_close(f"fused_preprocess [{n},{size},{size},3] -> {out_size}",
                     K.fused_preprocess(img, out_size, patch),
@@ -690,13 +718,36 @@ def generation_kernel_checks(K, QZ, dev) -> dict:
                       K.fused_preprocess_plain(img, 224, 14), 0.0)
     pb, pf = bound_ms(nbytes(img, tokens), 12 * tokens.numel(),
                       FP32_FLOP_PER_S)
+    sass = preprocess_sass(K.build())
+    log_preprocess_sass(sass)
     rows["fused_preprocess"] = dict(
         source=PORT_KERNELS + "preprocess.cu",
         replaces=TPU_KERNELS + "preprocess.py:83",
         max_abs_err=err,
         **kernel_ms(lambda: K.fused_preprocess(img, 224, 14), 50),
         plain_ms=time_ms(lambda: K.fused_preprocess_plain(img, 224, 14), 10),
-        bound_ms=pb, bound_by=pf, library_ms=None)
+        bound_ms=pb, bound_by=pf, **NO_LIBRARY,
+        sass=sass.get("preprocess_kernel<14>"))
+    # a frame-sized downsize, 16 crops of 1280^2 (read from device memory);
+    # its bound counts the source pixels the taps touch, not whole frames
+    from embodied_captioning_tpu_torch.kernels.preprocess import source_taps
+
+    frames = crops(FRAMES, 1280)
+    big = K.fused_preprocess(frames, 224, 14)
+    t0, t1, _ = source_taps(224, 1280, dev)
+    touched = torch.unique(torch.cat([t0, t1])).numel()
+    fb, ff = bound_ms(FRAMES * touched * touched * 3 + nbytes(big),
+                      12 * big.numel(), FP32_FLOP_PER_S)
+    rows["fused_preprocess"]["cases"] = [dict(
+        case=f"[{FRAMES},1280,1280,3] -> 224",
+        replaces=TPU_KERNELS + "preprocess.py:83",
+        max_abs_err=check_close(
+            f"fused_preprocess [{FRAMES},1280,1280,3] -> 224", big,
+            K.fused_preprocess_plain(frames, 224, 14), 0.0),
+        **kernel_ms(lambda: K.fused_preprocess(frames, 224, 14), 50),
+        plain_ms=time_ms(lambda: K.fused_preprocess_plain(frames, 224, 14),
+                         10),
+        bound_ms=fb, bound_by=ff, **NO_LIBRARY)]
     log_rows(rows)
     for name in ("decode_self_block", "decode_cross_block"):
         log(f"  {name}: the same sublayer as separate calls "
@@ -715,33 +766,43 @@ def generation_kernel_checks(K, QZ, dev) -> dict:
 
 
 def route_checks(K, dev) -> None:
-    """`common.block`, one decode step of ROWS rows, on the card at widths
+    """`common.block`, one decode step of ROWS rows, on the card at shapes
     where not every sublayer takes its fused kernel (`decode_route`): 96
     wide with 2 heads of 48 (the self block's q/k/v product takes widths a
     multiple of 64: that sublayer runs as separate calls, the cross block
-    and the MLP fuse) and 64 wide with 16 heads of 4 (both attention
-    sublayers run as separate calls, the cross attention as plain ops).
-    Each must launch the kernels its route names and match the same step
-    on the CPU, where every wrapper runs its plain version (tolerance: bf16
-    outputs of |x + y| < 8, cache entries of |k|, |v| < 4)."""
+    and the MLP fuse), 64 wide with 16 heads of 4 (both attention
+    sublayers run as separate calls, the cross attention as plain ops), and
+    the large preset's width, 768 with 12 heads of 64, at a self-attention
+    cache of 1024 positions (more than the self block's shared memory
+    holds: that sublayer runs as separate calls, `decode_self_attention`
+    among them) beside the same step at the preset's cache of DECODE_LEN
+    (every sublayer fused). Each must launch the kernels its route names
+    and match the same step on the CPU, where every wrapper runs its plain
+    version (tolerance: bf16 outputs of |x + y| < 8, cache entries of |k|,
+    |v| < 4)."""
     from embodied_captioning_tpu_torch.models import common as TC
     from embodied_captioning_tpu_torch.models.quantize import quantize_params
 
-    for d, heads, want in (
-            (96, 2, {"layernorm": 1, "decode_self_attention": 1,
-                     "decode_cross_block": 1, "decode_mlp": 1}),
-            (64, 16, {"layernorm": 2, "decode_self_attention": 1,
-                      "decode_mlp": 1})):
+    separate = {"layernorm": 1, "decode_self_attention": 1,
+                "decode_cross_block": 1, "decode_mlp": 1}
+    for d, heads, cache_len, want in (
+            (96, 2, DECODE_LEN, separate),
+            (64, 16, DECODE_LEN, {"layernorm": 2, "decode_self_attention": 1,
+                                  "decode_mlp": 1}),
+            (768, 12, 1024, separate),
+            (768, 12, DECODE_LEN, {"decode_self_block": 1,
+                                   "decode_cross_block": 1,
+                                   "decode_mlp": 1})):
         g = torch.Generator().manual_seed(d + heads)
         p = quantize_params(TC.block_init(g, d, 4.0, "cpu", cross_dim=d),
                             min_size=0)
         dh = d // heads
         x = torch.randn(ROWS, 1, d, generator=g).bfloat16()
-        kc = torch.randn(ROWS, heads, dh, DECODE_LEN, generator=g).bfloat16()
-        vc = torch.randn(ROWS, DECODE_LEN, heads, dh, generator=g).bfloat16()
+        kc = torch.randn(ROWS, heads, dh, cache_len, generator=g).bfloat16()
+        vc = torch.randn(ROWS, cache_len, heads, dh, generator=g).bfloat16()
         img = torch.randn(ROWS, 256, d, generator=g).bfloat16()
         ckv = TC.precompute_kv(p["xattn"], img, heads)
-        pos = 5
+        pos = cache_len - 5
         ref, rc = TC.block(p, x, heads, cache=TC.KVCache(kc.clone(),
                                                          vc.clone(), pos),
                            cross_kv=ckv)
@@ -751,7 +812,8 @@ def route_checks(K, dev) -> None:
                            cross_kv=to_device(ckv, dev))
         torch.cuda.synchronize()
         got = {k: v for k, v in K.launches.items() if v}
-        name = f"common.block [{ROWS},1,{d}], {heads} heads of {dh}"
+        name = (f"common.block [{ROWS},1,{d}], {heads} heads of {dh}, cache "
+                f"{cache_len}")
         if got != want:
             raise AssertionError(f"{name}: launches {got}, route names "
                                  f"{want}")
@@ -765,43 +827,112 @@ def route_checks(K, dev) -> None:
 # target
 SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
                        r"([A-Z][A-Z0-9_]*)[^;]*?(0x[0-9a-f]+)?\s*;")
+SASS_CONTROL = ("BRA", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "NOP", "BAR")
 
 
-def raycast_loop_sass(lib: Path) -> dict:
-    """Instructions of raycast_kernel's box loop in the built library, by
-    opcode (cuobjdump -sass): the body between the loop's backward branch
-    and its target that holds the most FMNMX, and the boxes it handles
-    (6 FMUL per box). Empty where the toolkit has no cuobjdump."""
+def sass_text(lib: Path) -> str:
+    """cuobjdump -sass of a built library; empty where the toolkit has no
+    cuobjdump."""
     import os
     import shutil
 
     exe = shutil.which("cuobjdump") or str(Path(os.environ.get(
         "CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
     if not Path(exe).exists():
-        return {}
-    sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+        return ""
+    return subprocess.run([exe, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    start = sass.index("raycast_kernel")
-    end = sass.find("Function :", start)
-    ins = []
-    for line in sass[start:end if end > 0 else None].splitlines():
-        m = SASS_LINE.search(line)
-        if m:
-            ins.append((int(m.group(1), 16), m.group(3),
-                        int(m.group(4), 16) if m.group(3) == "BRA"
-                        and m.group(4) else None))
-    best = {}
-    for addr, op, target in ins:
-        if target is None or target >= addr:
+
+
+def sass_functions(text: str, name: str) -> dict:
+    """{mangled name: [(address, opcode, backward-branch target or None)]}
+    of each function whose name holds `name`."""
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        head, _, body = part.partition("\n")
+        if name not in head:
             continue
-        body = [o for a, o, _ in ins if target <= a <= addr]
-        counts = {o: body.count(o) for o in sorted(set(body))}
-        if counts.get("FMNMX", 0) > best.get("FMNMX", 0):
-            best = counts
-    if not best:
+        ins = []
+        for line in body.splitlines():
+            m = SASS_LINE.search(line)
+            if m:
+                ins.append((int(m.group(1), 16), m.group(3),
+                            int(m.group(4), 16) if m.group(3) == "BRA"
+                            and m.group(4) else None))
+        out[head.strip()] = ins
+    return out
+
+
+def loop_bodies(ins) -> list:
+    """The opcode counts of each loop: the instructions between a backward
+    branch and its target."""
+    bodies = []
+    for addr, _, target in ins:
+        if target is not None and target < addr:
+            body = [o for a, o, _ in ins if target <= a <= addr]
+            bodies.append({o: body.count(o) for o in sorted(set(body))})
+    return bodies
+
+
+def by_kind(counts: dict) -> dict:
+    """Instruction counts split into FP32 arithmetic, memory, control and
+    integer (everything else: address and index arithmetic, moves,
+    byte permutes)."""
+    kinds = {"fp32": 0, "memory": 0, "control": 0, "integer": 0}
+    for op, n in counts.items():
+        kind = ("fp32" if op[0] == "F" or op == "MUFU" else
+                "memory" if op[:2] in ("LD", "ST") else
+                "control" if op in SASS_CONTROL else "integer")
+        kinds[kind] += n
+    return kinds
+
+
+def log_preprocess_sass(sass: dict) -> None:
+    for fn, r in sass.items():
+        loop = r.get("pixel_loop")
+        log(f"  {fn} (cuobjdump -sass): {r['instructions']} instructions, "
+            f"{r['by_kind']}" + (
+                f"; its loop over output pixels (3 floats each) "
+                f"{loop['instructions']}, {loop['by_kind']}: "
+                f"{loop['by_opcode']}" if loop else
+                f"; no loop: {r['by_opcode']}"))
+
+
+def raycast_loop_sass(lib: Path) -> dict:
+    """Instructions of raycast_kernel's box loop in the built library, by
+    opcode (cuobjdump -sass): the loop body that holds the most FMNMX, and
+    the boxes it handles (6 FMUL per box). Empty where the toolkit has no
+    cuobjdump."""
+    funcs = sass_functions(sass_text(lib), "raycast_kernel")
+    bodies = [b for ins in funcs.values() for b in loop_bodies(ins)]
+    best = max(bodies, key=lambda b: b.get("FMNMX", 0), default={})
+    if not best.get("FMNMX"):
         return {}
     return dict(instructions=sum(best.values()),
                 boxes=best.get("FMUL", 0) // 6, by_opcode=best)
+
+
+def preprocess_sass(lib: Path) -> dict:
+    """Instructions of each preprocess_kernel instance in a built library
+    (cuobjdump -sass), by kind, and of the loop that computes one output
+    pixel (the shortest loop with the two IEEE divisions of each of its
+    three channels: six FCHK), where there is one. Empty where the toolkit
+    has no cuobjdump."""
+    out = {}
+    for fn, ins in sass_functions(sass_text(lib), "preprocess_kernel").items():
+        ops = [o for _, o, _ in ins]
+        counts = {o: ops.count(o) for o in sorted(set(ops))}
+        r = dict(instructions=len(ins), by_kind=by_kind(counts),
+                 by_opcode=counts)
+        loops = [b for b in loop_bodies(ins) if b.get("FCHK", 0) >= 6]
+        if loops:
+            pixel = min(loops, key=lambda b: sum(b.values()))
+            r["pixel_loop"] = dict(instructions=sum(pixel.values()),
+                                   by_kind=by_kind(pixel), by_opcode=pixel)
+        m = re.search(r"preprocess_kernelILi(\d+)E", fn)
+        out[f"preprocess_kernel<{m.group(1)}>" if m
+            else "preprocess_kernel"] = r
+    return out
 
 
 def loop_kernel_checks(K, dev, scenes, poses, cfg) -> dict:
@@ -883,37 +1014,51 @@ def loop_kernel_checks(K, dev, scenes, poses, cfg) -> dict:
         plain_ms=time_ms(lambda: K.raycast_minargmin_plain(
             a_min, a_max, scenes.valid, inv), 2, 1),
         bound_ms=rb, bound_by=rf,
-        library_ms=None,  # no one PyTorch call computes it
+        **NO_LIBRARY,  # no one PyTorch call computes it
         loop_sass=sass, bound_ops_per_box=ops)
     del inv, got
 
     # layernorm ---------------------------------------------------------------
+    # tolerance: bf16 output: one bf16 ulp of the largest |y|; f32 output:
+    # 1e-5 (sums in another order, rsqrt within 2 ulps). Each check runs
+    # twice on the same inputs, which must give the same bits
     g = torch.Generator(device=dev).manual_seed(2)
+
+    def ln_inputs(shape, dtype):
+        d = shape[-1]
+        return ((torch.randn(*shape, generator=g, device=dev) * 1.5 + 0.3
+                 ).to(dtype),
+                1.0 + 0.1 * torch.randn(d, generator=g, device=dev),
+                0.1 * torch.randn(d, generator=g, device=dev))
+
+    def ln_case(name, x, lg, lb, two_pass=None, out_dtype=None):
+        want = K.layernorm_plain(x, lg, lb, 1e-5, out_dtype, two_pass)
+        tol = (2.0 ** (math.floor(math.log2(
+            want.float().abs().max().item())) - 7)
+               if want.dtype == torch.bfloat16 else 1e-5)
+        got = K.layernorm(x, lg, lb, 1e-5, out_dtype, two_pass)
+        err = check_close(f"layernorm {name}", got, want, tol)
+        if not torch.equal(got, K.layernorm(x, lg, lb, 1e-5, out_dtype,
+                                            two_pass)):
+            raise AssertionError(f"layernorm {name}: two runs on the same "
+                                 f"inputs differ")
+        return err
+
     cases, split_inputs = [], {}
     for case, shape, dtype, main_two_pass in (
             ("vit", (ROWS, 257, 1024), torch.bfloat16, False),
             ("decoder", (ROWS, 768), torch.bfloat16, False),
             ("sentence_encoder", (ROWS, 64, 384), torch.float32, True)):
         d = shape[-1]
-        x = (torch.randn(*shape, generator=g, device=dev) * 1.5 + 0.3
-             ).to(dtype)
-        lg = 1.0 + 0.1 * torch.randn(d, generator=g, device=dev)
-        lb = 0.1 * torch.randn(d, generator=g, device=dev)
+        x, lg, lb = ln_inputs(shape, dtype)
         for two_pass in (main_two_pass, not main_two_pass):
-            want = K.layernorm_plain(x, lg, lb, 1e-5, None, two_pass)
-            # bf16 output: one bf16 ulp of the largest |y|; f32 output:
-            # 1e-5 (sums in another order, rsqrt within 2 ulps)
-            tol = (2.0 ** (math.floor(math.log2(
-                want.float().abs().max().item())) - 7)
-                   if dtype == torch.bfloat16 else 1e-5)
             mode = "two-pass" if two_pass else "one-pass"
-            err = check_close(f"layernorm {case} {list(shape)} {mode}",
-                              K.layernorm(x, lg, lb, 1e-5, None, two_pass),
-                              want, tol)
+            err = ln_case(f"{case} {list(shape)} {mode}", x, lg, lb, two_pass)
             if two_pass != main_two_pass:
                 continue
             split_inputs[f"{case} {mode}"] = (x, lg, lb)
             wg, wb = lg.to(dtype), lb.to(dtype)
+            y = torch.empty_like(x)
             lnb, lnf = bound_ms(2 * nbytes(x) + nbytes(lg, lb),
                                 8 * x.numel(), FP32_FLOP_PER_S)
             cases.append(dict(
@@ -924,8 +1069,29 @@ def loop_kernel_checks(K, dev, scenes, poses, cfg) -> dict:
                 **kernel_ms(lambda: K.layernorm(x, lg, lb), 100),
                 plain_ms=time_ms(lambda: K.layernorm_plain(x, lg, lb), 20),
                 bound_ms=lnb, bound_by=lnf,
-                library_ms=time_ms(lambda: torch.nn.functional.layer_norm(
-                    x, (d,), wg, wb, 1e-5), 100)))
+                **library(lambda: torch.nn.functional.layer_norm(
+                    x, (d,), wg, wb, 1e-5), 100),
+                # copying the same bytes: what the card's memory gives a
+                # pass that reads x once and writes y once
+                copy_device_us=device_us(lambda: y.copy_(x))))
+    # the vector path with the output in the other type; the scalar path:
+    # rows that are not a multiple of 16 bytes, a base 2 bytes past 16-byte
+    # alignment, rows wider than the vector path holds in registers
+    bf = torch.bfloat16
+    ln_case(f"[{ROWS},768] bf16 -> f32", *ln_inputs((ROWS, 768), bf),
+            out_dtype=torch.float32)
+    ln_case(f"[{ROWS},64,384] f32 -> bf16",
+            *ln_inputs((ROWS, 64, 384), torch.float32), out_dtype=bf)
+    ln_case("[37,100] bf16", *ln_inputs((37, 100), bf))
+    ln_case("[37,100] f32", *ln_inputs((37, 100), torch.float32))
+    buf = ln_inputs((16 * 768 + 8,), bf)[0]
+    x = buf[1:1 + 16 * 768].view(16, 768)
+    if x.data_ptr() % 16 != 2:
+        raise AssertionError("the misaligned LayerNorm input is aligned")
+    ln_case("[16,768] bf16 at 2 bytes past 16-byte alignment", x,
+            *ln_inputs((1, 768), bf)[1:])
+    ln_case("[8,4096] bf16", *ln_inputs((8, 4096), bf))
+    log("  layernorm: two runs give equal bits at every shape above")
     for c in cases[1:]:
         c["host_split_us"] = split = layernorm_host_split(
             K, *split_inputs[c["case"]])
@@ -1598,6 +1764,74 @@ def block_calls(events) -> dict:
     return calls
 
 
+def parameter_names(tree, path: str = "") -> dict:
+    """{id(tensor): its dotted path} over dicts, lists and named tuples of
+    tensors, list indices folded to `*`."""
+    if isinstance(tree, torch.Tensor):
+        return {id(tree): path}
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif hasattr(tree, "_fields"):
+        items = ((k, getattr(tree, k)) for k in tree._fields)
+    elif isinstance(tree, (list, tuple)):
+        items = (("*", v) for v in tree)
+    else:
+        return {}
+    out = {}
+    for k, v in items:
+        out.update(parameter_names(v, f"{path}.{k}" if path else str(k)))
+    return out
+
+
+def layernorm_split(K, params, fn) -> dict:
+    """LayerNorm launches and device time over one call of `fn`, by the
+    LayerNorm's parameters and input shape: each wrapper call is labelled
+    by the name of its g in `params`, and the LayerNorm kernels of a
+    profiler trace, in the order they started, are matched to the calls in
+    the order they were made (one stream)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from embodied_captioning_tpu_torch.models import common
+
+    names = parameter_names(params)
+    labels = []
+
+    def labelled(x, g, b, *a, **k):
+        name = names.get(id(g), "?").removesuffix(".g")
+        labels.append(f"{name} {list(x.shape)} {str(x.dtype)[6:]}")
+        return K.layernorm(x, g, b, *a, **k)
+
+    torch.cuda.synchronize()
+    common.layernorm_kernel = labelled
+    try:
+        for _ in range(3):  # again if the trace lost its device events
+            labels.clear()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            ln = sorted((e for e in device_events(prof)
+                         if "layernorm" in e.name),
+                        key=lambda e: e.time_range.start)
+            if ln:
+                break
+    finally:
+        common.layernorm_kernel = K.layernorm
+    if len(ln) != len(labels):
+        raise AssertionError(f"{len(ln)} LayerNorm kernels in the trace for "
+                             f"{len(labels)} wrapper calls")
+    split: dict = {}
+    for label, e in zip(labels, ln):
+        r = split.setdefault(label, {"launches": 0, "device_us": 0.0})
+        r["launches"] += 1
+        r["device_us"] += e.time_range.end - e.time_range.start
+    for label, r in sorted(split.items(), key=lambda kv: -kv[1]["device_us"]):
+        log(f"    layernorm {label}: {r['launches']} launches, "
+            f"{r['device_us']:.1f} us on the device "
+            f"({r['device_us'] / r['launches']:.2f} us each)")
+    return split
+
+
 # ---------------------------------------------------------------------------
 # phase 7: beam, sampled and speculative generation at full width
 # ---------------------------------------------------------------------------
@@ -1738,6 +1972,12 @@ def generation_modes(setup: dict, smi: str) -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--sass"] and len(sys.argv) == 3:
+        # the preprocess kernel's instructions in another build of the
+        # kernels (an earlier commit's, to compare with): no card needed
+        sass = preprocess_sass(Path(sys.argv[2]))
+        log_preprocess_sass(sass)
+        return 0 if sass else 1
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1794,6 +2034,11 @@ def main() -> int:
                         lambda: perceive(res["params"], routes["frames"],
                                          res["cfg"], decode_blocks=blocks),
                         routes["ms"][blocks] * 1e3)
+        log("  LayerNorm of one perceive batch on the block route, by its "
+            "parameters and input shape:")
+        rows["layernorm"]["perceive_split"] = layernorm_split(
+            K, res["params"], lambda: perceive(res["params"], routes["frames"],
+                                               res["cfg"]))
         profile_run("one rollout_fused step", loop["one_step"],
                     sum(loop["per_step_ms"].values()) * 1e3)
         log("[7] beam, sampled and speculative generation at full width")

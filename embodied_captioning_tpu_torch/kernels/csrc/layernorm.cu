@@ -13,17 +13,30 @@
 // Bound on an H100 SXM (3.35 TB/s): memory. Each row is read once and
 // written once, with ~8 operations per element in between.
 //
-// Design: one warp per row, eight rows per block. A lane walks the row
-// with stride 32, so a warp's loads are contiguous; the statistics are
-// warp-shuffle sums in float32. The row is read again for the second
-// statistic (two-pass mode) and for the normalisation; those reads hit
-// the L1/L2 caches, since a row is a few KB. The normalisation rounds
-// after every operation (no fused multiply-add), as the plain version.
+// Design (vector path): one warp per row. Each lane loads its share of the
+// row as 16-byte vectors (8 bf16 or 4 f32), all issued before any
+// arithmetic, and keeps them in registers for the statistics (one-pass or
+// two-pass) and the normalisation, so device memory is read once and
+// written once, with 16-byte stores. The row width in vectors per lane is
+// a template argument (rows of up to 1024 elements: 4 vectors per lane of
+// bf16, 8 of f32). Warps walk the rows with a grid stride, the grid sized
+// to what the SMs hold at once; each warp loads g and b once and keeps
+// them in registers (at most 32 floats each per lane), and loads its next
+// row while it normalises the current one. At few rows a block is one or
+// two warps, so the rows spread over the SMs. Rows whose byte length is
+// not a multiple of 16, pointers that are not 16-byte aligned, and wider
+// rows take the scalar path: one warp per row, eight rows per block, lanes
+// walking the row with stride 32.
+// Both paths take f32 statistics in a fixed order (no atomics: two runs
+// give the same bits) and round the normalisation after every operation
+// (no fused multiply-add), as the plain version does.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kScalarWarps = 8;
+constexpr int kMaxRow = 1024;  // elements of the widest vector-path row
+constexpr int kVecThreads = 256;  // the most warps a vector block holds
 
 __device__ __forceinline__ float load(const float* p, size_t i) { return p[i]; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) {
@@ -34,13 +47,24 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, size_t i, float v) {
   p[i] = __float2bfloat16_rn(v);
 }
 
+__device__ __forceinline__ float normalise(float v, float mean, float r,
+                                           float g, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, mean), r), g), b);
+}
+
+__device__ __forceinline__ float variance_one_pass(float s2, float mean,
+                                                   float inv_d) {
+  const float mm = __fmul_rn(mean, mean);
+  return fmaxf(__fsub_rn(s2 * inv_d, mm), __fmul_rn(mm, 3e-7f));
+}
+
 template <typename Tin, typename Tout>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kScalarWarps * 32)
 layernorm_kernel(const Tin* __restrict__ x, const float* __restrict__ g,
                  const float* __restrict__ b, Tout* __restrict__ out, int rows,
                  int d, float eps, int two_pass) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int row = blockIdx.x * kScalarWarps + (threadIdx.x >> 5);
   if (row >= rows) return;  // whole warps leave together
   const size_t base = static_cast<size_t>(row) * d;
   const float inv_d = 1.f / static_cast<float>(d);
@@ -60,26 +84,233 @@ layernorm_kernel(const Tin* __restrict__ x, const float* __restrict__ g,
     }
     var = ecap::warp_sum(sq) * inv_d;
   } else {
-    const float mm = __fmul_rn(mean, mean);
-    var = fmaxf(__fsub_rn(ecap::warp_sum(s2) * inv_d, mm),
-                __fmul_rn(mm, 3e-7f));
+    var = variance_one_pass(ecap::warp_sum(s2), mean, inv_d);
   }
   const float r = rsqrtf(var + eps);
-  for (int i = lane; i < d; i += 32) {
-    const float c = load(x, base + i) - mean;
-    const float y = __fadd_rn(__fmul_rn(__fmul_rn(c, r), g[i]), b[i]);
-    store(out, base + i, y);
+  for (int i = lane; i < d; i += 32)
+    store(out, base + i, normalise(load(x, base + i), mean, r, g[i], b[i]));
+}
+
+// ---- the vector path ------------------------------------------------------
+
+// Elements of one 16-byte vector of T.
+template <typename T>
+__host__ __device__ constexpr int elems() {
+  return 16 / static_cast<int>(sizeof(T));
+}
+
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+
+// Store n = 4 or 8 floats at p as Tout: 16 bytes (8 bf16, 4 f32), 8 bytes
+// (4 bf16) or 32 (8 f32).
+template <int N>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* y) {
+  uint32_t w[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(y[2 * i], y[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  if constexpr (N == 8)
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  else
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+}
+template <int N>
+__device__ __forceinline__ void store_vec(float* p, const float* y) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i)
+    reinterpret_cast<float4*>(p)[i] =
+        make_float4(y[4 * i], y[4 * i + 1], y[4 * i + 2], y[4 * i + 3]);
+}
+
+template <int N>
+__device__ __forceinline__ void load_floats(const float* p, float* f) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    const float4 t = reinterpret_cast<const float4*>(p)[i];
+    f[4 * i] = t.x;
+    f[4 * i + 1] = t.y;
+    f[4 * i + 2] = t.z;
+    f[4 * i + 3] = t.w;
   }
 }
 
+// Row r's vectors l, l + 32, ... (those below nvec) into u.
+template <int V, typename T>
+__device__ __forceinline__ void load_row(uint4 (&u)[V], const T* x, int r,
+                                         int d, int lane, int nvec) {
+  const uint4* src = reinterpret_cast<const uint4*>(
+      x + static_cast<size_t>(r) * d);
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+    if (lane + 32 * i < nvec) u[i] = src[lane + 32 * i];
+}
+
+// V vectors per lane: lane l holds vectors l, l + 32, ..., of the row's
+// d / E (those below it), and the g and b they meet.
+template <typename Tin, typename Tout, int V>
+__global__ void __launch_bounds__(kVecThreads)
+layernorm_vec_kernel(const Tin* __restrict__ x, const float* __restrict__ g,
+                     const float* __restrict__ b, Tout* __restrict__ out,
+                     int rows, int d, float eps, int two_pass) {
+  constexpr int E = elems<Tin>();
+  const int lane = threadIdx.x & 31;
+  const int nvec = d / E;
+  const int warps = gridDim.x * (blockDim.x >> 5);
+  int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= rows) return;  // whole warps leave together
+  const float inv_d = 1.f / static_cast<float>(d);
+
+  float gr[V][E], br[V][E];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int c = lane + 32 * i;
+    if (c < nvec) {
+      load_floats<E>(g + c * E, gr[i]);
+      load_floats<E>(b + c * E, br[i]);
+    }
+  }
+
+  uint4 cur[V];
+  load_row(cur, x, row, d, lane, nvec);
+  while (row < rows) {
+    const int next = row + warps;
+    uint4 nxt[V];
+    if (next < rows) load_row(nxt, x, next, d, lane, nvec);
+
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      if (lane + 32 * i < nvec) {
+        float f[E];
+        unpack(cur[i], f);
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          s1 += f[e];
+          s2 += f[e] * f[e];
+        }
+      }
+    }
+    const float mean = ecap::warp_sum(s1) * inv_d;
+    float var;
+    if (two_pass) {
+      float sq = 0.f;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        if (lane + 32 * i < nvec) {
+          float f[E];
+          unpack(cur[i], f);
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            const float c = f[e] - mean;
+            sq += c * c;
+          }
+        }
+      }
+      var = ecap::warp_sum(sq) * inv_d;
+    } else {
+      var = variance_one_pass(ecap::warp_sum(s2), mean, inv_d);
+    }
+    const float r = rsqrtf(var + eps);
+
+    Tout* dst = out + static_cast<size_t>(row) * d;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int c = lane + 32 * i;
+      if (c < nvec) {
+        float f[E], y[E];
+        unpack(cur[i], f);
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          y[e] = normalise(f[e], mean, r, gr[i][e], br[i][e]);
+        store_vec<E>(dst + c * E, y);
+      }
+    }
+    row = next;
+    if (row < rows) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) cur[i] = nxt[i];
+    }
+  }
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+template <typename Tin, typename Tout, int V>
+int launch_vec(const Tin* x, const float* g, const float* b, Tout* out,
+               int rows, int d, float eps, int two_pass, cudaStream_t stream) {
+  auto kernel = layernorm_vec_kernel<Tin, Tout, V>;
+  const int sms = sm_count();
+  // a warp per block below 2 rows per SM, two below 8, else eight
+  const int warps = rows >= 8 * sms ? 8 : (rows >= 2 * sms ? 2 : 1);
+  static int resident[9] = {};  // blocks an SM holds, by warps per block
+  if (resident[warps] == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident[warps], kernel,
+                                                  warps * 32, 0);
+    if (resident[warps] < 1) resident[warps] = 1;
+  }
+  const int wanted = (rows + warps - 1) / warps;
+  const int blocks = wanted < sms * resident[warps] ? wanted
+                                                    : sms * resident[warps];
+  kernel<<<blocks, warps * 32, 0, stream>>>(x, g, b, out, rows, d, eps,
+                                            two_pass);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 template <typename Tin, typename Tout>
-int launch(const void* x, const void* g, const void* b, void* out, int rows,
-           int d, float eps, int two_pass, cudaStream_t stream) {
-  const int blocks = (rows + kWarps - 1) / kWarps;
-  layernorm_kernel<Tin, Tout><<<blocks, kWarps * 32, 0, stream>>>(
-      static_cast<const Tin*>(x), static_cast<const float*>(g),
-      static_cast<const float*>(b), static_cast<Tout*>(out), rows, d, eps,
-      two_pass);
+int launch(const void* xv, const void* gv, const void* bv, void* outv,
+           int rows, int d, float eps, int two_pass, cudaStream_t stream) {
+  const Tin* x = static_cast<const Tin*>(xv);
+  const float* g = static_cast<const float*>(gv);
+  const float* b = static_cast<const float*>(bv);
+  Tout* out = static_cast<Tout*>(outv);
+  constexpr int E = elems<Tin>();
+  const int v = (d / E + 31) / 32;
+  if (d % E == 0 && d <= kMaxRow && aligned16(x) && aligned16(g) &&
+      aligned16(b) && aligned16(out)) {
+#define ECAP_LN_VEC(V)                                                     \
+  case V:                                                                  \
+    if constexpr (V * E * 32 <= kMaxRow)                                   \
+      return launch_vec<Tin, Tout, V>(x, g, b, out, rows, d, eps, two_pass, \
+                                      stream);                             \
+    break;
+    switch (v) {
+      ECAP_LN_VEC(1) ECAP_LN_VEC(2) ECAP_LN_VEC(3) ECAP_LN_VEC(4)
+      ECAP_LN_VEC(5) ECAP_LN_VEC(6) ECAP_LN_VEC(7) ECAP_LN_VEC(8)
+      default: break;
+    }
+#undef ECAP_LN_VEC
+  }
+  const int blocks = (rows + kScalarWarps - 1) / kScalarWarps;
+  layernorm_kernel<Tin, Tout><<<blocks, kScalarWarps * 32, 0, stream>>>(
+      x, g, b, out, rows, d, eps, two_pass);
   return cudaGetLastError();
 }
 

@@ -244,12 +244,28 @@ def decode_mlp(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     return out
 
 
-def self_block_plan(rows: int, d: int, heads: int) -> Tuple[int, int]:
+MAX_SMEM = 232448       # a block's shared memory on sm_90 (common.cuh)
+SELF_ATTN_THREADS = 128  # self_attn_kernel's block: four warps split Dh
+
+
+def self_attn_smem(dh: int, t: int) -> int:
+    """Shared memory of the self block's attention launch at heads dh wide
+    and a cache of t positions: q, the head's whole K and V cache blocks,
+    the partial and final scores, a reduction scratch. Mirrors
+    `self_attn_smem` in csrc/decode_block.cu."""
+    return (4 * (dh + (SELF_ATTN_THREADS // 32 + 1) * t + SELF_ATTN_THREADS)
+            + 2 * 2 * dh * t)
+
+
+def self_block_plan(rows: int, d: int, heads: int, t: int
+                    ) -> Tuple[int, int]:
     """(splits of the q/k/v product's D-long contraction, splits of the out
-    product's) for `decode_self_block` at [rows, d] with `heads` heads: the
-    q/k/v product's blocks are (3 d / 64) x splits x ceil(rows / 64), the
-    out product's (d / 32) x splits x ceil(rows / 64). A q/k/v cluster
-    spans the whole contraction, so it also holds the LayerNorm's rows."""
+    product's) for `decode_self_block` at [rows, d] with `heads` heads and
+    a cache of t positions: the q/k/v product's blocks are (3 d / 64) x
+    splits x ceil(rows / 64), the out product's (d / 32) x splits x
+    ceil(rows / 64). A q/k/v cluster spans the whole contraction, so it
+    also holds the LayerNorm's rows. The attention launch holds a head's
+    whole cache in shared memory, so a cache longer than that refuses."""
     if rows < 1:
         raise ValueError(f"decode_self_block needs at least one row, got "
                          f"{rows}")
@@ -258,12 +274,18 @@ def self_block_plan(rows: int, d: int, heads: int) -> Tuple[int, int]:
                          f"multiple of {QKV_COLS} and of the head count, "
                          f"with heads a multiple of 8 wide; got D={d}, "
                          f"{heads} heads")
+    if self_attn_smem(d // heads, t) > MAX_SMEM:
+        raise ValueError(f"decode_self_block holds a head's cache in shared "
+                         f"memory: {t} positions of heads {d // heads} wide "
+                         f"need {self_attn_smem(d // heads, t)} bytes, more "
+                         f"than {MAX_SMEM}")
     return _splits(d, 3 * d, QKV_COLS), _splits(d, d)
 
 
-def self_block_fits(rows: int, d: int, heads: int) -> bool:
-    """Whether `decode_self_block` takes [rows, d] with `heads` heads."""
-    return _takes(self_block_plan, rows, d, heads)
+def self_block_fits(rows: int, d: int, heads: int, t: int) -> bool:
+    """Whether `decode_self_block` takes [rows, d] with `heads` heads and a
+    cache of t positions."""
+    return _takes(self_block_plan, rows, d, heads, t)
 
 
 def decode_self_block_plain(x, g, b, wq, sq, bq, wk, sk, bk, wv, sv, bv,
@@ -325,7 +347,7 @@ def decode_self_block(x, g, b, wq, sq, bq, wk, sk, bk, wv, sv, bv, wo, so,
     bf16, with f32 [D] per-output-channel scales and biases; caches kc bf16
     [B,H,Dh,T] and vc bf16 [B,T,H,Dh], read at positions < pos and written
     at `pos` in place -> (out bf16 [B,D], kc, vc). Three launches (see
-    csrc/decode_block.cu), counted as one call; D and H as
+    csrc/decode_block.cu), counted as one call; D, H and T as
     `self_block_plan` takes them."""
     if _lib.dispatch_device(x) == "cpu":
         return decode_self_block_plain(x, g, b, wq, sq, bq, wk, sk, bk, wv,
@@ -339,7 +361,7 @@ def decode_self_block(x, g, b, wq, sq, bq, wk, sk, bk, wv, sv, bv, wo, so,
     _lib.check(vc, "vc", (torch.bfloat16,), (bsz, t, heads, dh))
     if not 0 <= pos < t:
         raise ValueError(f"pos {pos} outside the cache [0, {t})")
-    s_qkv, s_out = self_block_plan(bsz, d, heads)
+    s_qkv, s_out = self_block_plan(bsz, d, heads, t)
     q = torch.empty(bsz, d, dtype=torch.float32, device=x.device)
     attn = torch.empty_like(x)
     out = torch.empty_like(x)

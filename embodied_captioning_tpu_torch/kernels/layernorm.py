@@ -57,7 +57,9 @@ def layernorm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
         raise TypeError(f"out_dtype {out_dtype}, expected one of {_KINDS}")
     d = x.shape[-1]
     x = x.contiguous()
-    # the kernel loads element by element: natural alignment is enough
+    # the kernel loads 16-byte vectors where x, g, b and out are 16-byte
+    # aligned and a row is a multiple of 16 bytes, elements otherwise:
+    # natural alignment is enough
     _lib.check(x, "x", _KINDS, align=x.element_size())
     # g and b are a model's parameters, the same tensors on every call
     _lib.check_param(g, "g", _F32, (d,), align=4)

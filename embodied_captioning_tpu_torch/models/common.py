@@ -242,15 +242,17 @@ class DecodeRoute(NamedTuple):
     mlp: bool          # decode_mlp
 
 
-def decode_route(rows: int, d: int, heads: int, f: int,
+def decode_route(rows: int, d: int, heads: int, f: int, t: int,
                  decode_blocks: bool) -> DecodeRoute:
     """The fused kernels a one-token decode step of `rows` rows takes, per
-    sublayer, at width d with `heads` heads and MLP width f: each kernel
-    where its plan takes the shape (the block kernels only with
-    `decode_blocks`), as the JAX package's `maybe_decode_*` dispatchers
-    return None at shapes their kernels do not take."""
+    sublayer, at width d with `heads` heads, MLP width f and a self-attention
+    cache of t positions: each kernel where its plan takes the shape (the
+    block kernels only with `decode_blocks`), as the JAX package's
+    `maybe_decode_*` dispatchers return None at shapes their kernels do not
+    take. A cache too long for the self block's shared memory runs that
+    sublayer as separate calls (`decode_self_attention` takes it)."""
     return DecodeRoute(
-        self_block=decode_blocks and self_block_fits(rows, d, heads),
+        self_block=decode_blocks and self_block_fits(rows, d, heads, t),
         cross_block=decode_blocks and cross_block_fits(rows, d, heads),
         mlp=mlp_fits(rows, d, f))
 
@@ -278,7 +280,9 @@ def block(p: dict, x: torch.Tensor, heads: int,
     route = DecodeRoute(False, False, False)
     if one_token:
         route = decode_route(x.shape[0], x.shape[-1], heads,
-                             _out_width(p["mlp"]["fc"]["w"]), decode_blocks)
+                             _out_width(p["mlp"]["fc"]["w"]),
+                             0 if cache is None else cache.k.shape[-1],
+                             decode_blocks)
     if "attn" in p:
         if route.self_block and cache is not None and mask is None:
             x, cache = _decode_self_block(p["attn"], p["ln1"], x, cache,

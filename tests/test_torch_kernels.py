@@ -368,8 +368,9 @@ def test_decode_cross_block_plain(int8, kv_int8):
 
 @pytest.mark.parametrize("in_size,out_size,patch",
                          [(64, 64, 8), (40, 64, 8), (150, 224, 14),
-                          (320, 224, 14)],
-                         ids=["identity", "up40", "up150", "down320"])
+                          (320, 224, 14), (224, 224, 16), (640, 224, 14)],
+                         ids=["identity", "up40", "up150", "down320",
+                              "identity224-patch16", "down640"])
 def test_fused_preprocess_plain(in_size, out_size, patch):
     # against the TPU kernel, which folds the normalisation into one
     # multiply-add (1e-4, the tolerance of the JAX package's own test), and
@@ -486,7 +487,7 @@ def test_self_block_plan_covers_the_decode_shapes(rows, d, heads):
         MLP_COLS, MLP_MAX_SLICE, MLP_MAX_SPLITS, QKV_COLS, SM_COUNT,
         self_block_plan)
 
-    s_qkv, s_out = self_block_plan(rows, d, heads)
+    s_qkv, s_out = self_block_plan(rows, d, heads, 30)
     # both products contract over D: q/k/v has 3D output columns in tiles
     # of 64, out D in tiles of 32
     for n, cols, s in ((3 * d, QKV_COLS, s_qkv), (d, MLP_COLS, s_out)):
@@ -510,7 +511,7 @@ def test_self_block_plan_raises_on_unsupported_shapes(rows, d, heads):
         self_block_plan)
 
     with pytest.raises(ValueError):
-        self_block_plan(rows, d, heads)
+        self_block_plan(rows, d, heads, 30)
 
 
 # ---------------------------------------------------------------------------
