@@ -12,8 +12,14 @@ Phases, each of which must pass:
      1, 16, 65, 257 (and 640 at D = 128, the streaming kernel), causal and
      with valid_len < T; the decode MLP at 1, 16, 17 and 64 rows with int8
      and bf16 weights, each run twice for equal bits; the decode
+     self-attention at a cache of 30 (positions 29 and 14) and of 1024
+     (position 1023: the tiled kernel), each run twice for equal bits,
+     timed beside its bound over the live keys and the bound over all T,
+     the tiled kernel's bits against the whole-head kernel's; the decode
      cross-attention kernel with int8 and bf16 K/V at the serving shape,
-     the tiny preset's heads and 11 keys (copied element by element). The
+     the tiny preset's heads and 11 keys (copied element by element); the
+     self-attention, the cross-attention and the ViT LayerNorm also timed
+     with their inputs cold in L2 (copies read in turn). The
      raycast kernel must equal its plain version bit for bit (16 envs x
      1280^2 rays x 96 boxes, and adversarial inputs), and its box loop's
      instructions are counted in the built library (cuobjdump -sass);
@@ -83,10 +89,15 @@ Usage: python3 chip_smoke.py
        python3 chip_smoke.py --sass LIB   (instructions of the preprocess
                                            kernel in a built kernel
                                            library, by cuobjdump)
+       python3 chip_smoke.py --self-attention ROOT
+                                          (phase 2's decode_self_attention
+                                           cases through the kernels of
+                                           the checkout at ROOT)
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import re
@@ -99,6 +110,7 @@ from pathlib import Path
 import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
+L2_BYTES = 50 * 2 ** 20        # H100 SXM L2 cache
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 # float32 operations that are no fused multiply-add (multiplies, min/max,
@@ -141,7 +153,7 @@ MIN_EMB_COSINE = 0.9999
 MIN_SPEC_FIRST_TOKEN = 0.8
 BEAMS = 4
 # the port's kernels, as the profiler names them
-PORTED_KERNELS = ("flash_head", "flash_stream", "decode_self_kernel",
+PORTED_KERNELS = ("flash_head", "flash_stream", "self_attn_tiled_kernel",
                   "cross_attn_kernel", "cross_attn_tiled_kernel",
                   "mlp_ln_kernel", "mlp_gemm_kernel",
                   "self_qkv_kernel", "self_attn_kernel", "block_out_kernel",
@@ -251,6 +263,24 @@ def library(fn, iters: int = 20) -> dict:
 NO_LIBRARY = dict(library_ms=None, library_device_us=None)
 
 
+def cold_l2(fn, inputs: tuple, iters: int = 20) -> dict:
+    """A kernel wrapper's timing-loop time and device time per call with
+    its inputs cold in L2, as a caller finds them that reads other data
+    between calls: fn(*inputs) runs on copies of the tensors `inputs` in
+    turn, so many that together they are over twice the L2's size, so each
+    call reads a copy last read that many bytes ago."""
+    n = max(2, math.ceil(2 * L2_BYTES / nbytes(*inputs)))
+    copies = [inputs] + [tuple(x.clone() for x in inputs)
+                         for _ in range(n - 1)]
+    turn = itertools.cycle(copies)
+
+    def call():
+        return fn(*next(turn))
+
+    return dict(cold_ms=time_ms(call, iters), cold_device_us=device_us(call),
+                cold_copies=n)
+
+
 def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOP_PER_S):
     tb, tf = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
@@ -288,6 +318,91 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+# decode_self_attention's cases at ROWS rows and 12 heads of 64: (case,
+# cache positions, position). a: the last step of a caption, as the
+# earlier rows timed it; b: the decode loop's average position; c: a cache
+# too long for the self block, the route check's (tiled kernel)
+SELF_ATTENTION_CASES = (("a", DECODE_LEN, DECODE_LEN - 1),
+                        ("b", DECODE_LEN, 14), ("c", 1024, 1023))
+
+
+def self_attention_cases(K, dev) -> list:
+    """decode_self_attention at SELF_ATTENTION_CASES and at edge shapes
+    against its plain version (f32 out; tolerance 1e-3 covers summation
+    order), run twice for equal bits; the cases timed warm and with their
+    inputs cold in L2, beside the bound over the live keys (q, the K/V of
+    positions 0..pos, the output), the bound over all T positions (as
+    earlier rows counted it), the plain version and SDPA over the same
+    live keys."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, h, dh = ROWS, 12, 64
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    cases = []
+    for case, t, pos in SELF_ATTENTION_CASES:
+        q, kc, vc = rn(b, h, dh), rn(b, h, dh, t), rn(b, t, h, dh)
+        name = (f"decode_self_attention case {case} [{b},{h},{dh}] T={t} "
+                f"pos={pos}")
+        got = K.decode_self_attention(q, kc, vc, pos)
+        err = check_close(name, got, K.decode_self_attention_plain(
+            q, kc, vc, pos), 1e-3)
+        if not torch.equal(got, K.decode_self_attention(q, kc, vc, pos)):
+            raise AssertionError(f"{name}: two runs on the same inputs "
+                                 f"differ")
+        live = pos + 1
+        out = torch.empty(b, h, dh, device=dev)
+        lb, lf = bound_ms(nbytes(q, out) + 2 * 2 * b * h * dh * live,
+                          4 * b * h * dh * live)
+        ab = bound_ms(nbytes(q, kc, vc, out), 4 * b * h * dh * t)[0]
+        k_l = kc.transpose(-1, -2)[:, :, :live]
+        v_l = vc.permute(0, 2, 1, 3)[:, :, :live]
+        iters = 100 if t <= DECODE_LEN else 20
+        cases.append(dict(
+            case=case, shape=[b, h, dh], cache=t, pos=pos, max_abs_err=err,
+            **kernel_ms(lambda: K.decode_self_attention(q, kc, vc, pos),
+                        iters),
+            **cold_l2(lambda *a: K.decode_self_attention(*a, pos),
+                      (q, kc, vc), iters),
+            plain_ms=time_ms(lambda: K.decode_self_attention_plain(
+                q, kc, vc, pos), iters),
+            bound_ms=lb, bound_by=lf, bound_all_t_ms=ab,
+            **library(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], k_l, v_l), iters)))
+        del q, kc, vc, k_l, v_l
+    # edges: caches not a multiple of 8 long (the tiled kernel's K rows at
+    # every granule offset), heads 8 wide (16 PV groups), 48 wide (tiles
+    # of 128 keys), 256 and 512 wide (tiles of 24 and 8 keys, 2 and 4 PV
+    # chunks), early positions of a long cache
+    for n, hh, dd, tt, pos in ((3, 2, 8, 30, 17), (2, 3, 64, 1001, 1000),
+                               (2, 3, 64, 1001, 517), (2, 2, 48, 2000, 1999),
+                               (1, 2, 256, 901, 450), (1, 2, 512, 200, 199),
+                               (2, 3, 64, 4096, 40)):
+        q, kc, vc = rn(n, hh, dd), rn(n, hh, dd, tt), rn(n, tt, hh, dd)
+        name = f"decode_self_attention [{n},{hh},{dd}] T={tt} pos={pos}"
+        got = K.decode_self_attention(q, kc, vc, pos)
+        check_close(name, got, K.decode_self_attention_plain(
+            q, kc, vc, pos), 1e-3)
+        if not torch.equal(got, K.decode_self_attention(q, kc, vc, pos)):
+            raise AssertionError(f"{name}: two runs on the same inputs "
+                                 f"differ")
+    log(f"  decode_self_attention: two runs give equal bits at every case")
+    # the tiled kernel (a cache of 840) sums in the whole-head kernel's
+    # order (a cache of 839 holding the same live keys): the same bits
+    kc, vc = rn(4, h, dh, 840), rn(4, 840, h, dh)
+    q = rn(4, h, dh)
+    tiled = K.decode_self_attention(q, kc, vc, 700)
+    whole = K.decode_self_attention(q, kc[..., :839].contiguous(),
+                                    vc[:, :839].contiguous(), 700)
+    if not torch.equal(tiled, whole):
+        raise AssertionError("decode_self_attention: the tiled kernel "
+                             "differs from the whole-head kernel")
+    log("  decode_self_attention: the tiled kernel at a cache of 840 gives "
+        "the whole-head kernel's bits at 839")
+    return cases
+
 
 def kernel_checks(K, QZ, dev) -> dict:
     """Kernel vs plain at the main path's shapes: FRAMES x SLOTS = ROWS
@@ -363,29 +478,14 @@ def kernel_checks(K, QZ, dev) -> dict:
             q6, k6, v6)))]
     del q6, k6, v6
 
-    # decode self-attention (f32 out; tolerance covers summation order) ----
-    b, h, dh, t = ROWS, 12, 64, DECODE_LEN
-    q = rn(b, h, dh)
-    kc, vc = rn(b, h, dh, t), rn(b, t, h, dh)
-    check_close("decode_self_attention pos=14",
-                K.decode_self_attention(q, kc, vc, 14),
-                K.decode_self_attention_plain(q, kc, vc, 14), 1e-3)
-    err = check_close("decode_self_attention pos=29",
-                      K.decode_self_attention(q, kc, vc, t - 1),
-                      K.decode_self_attention_plain(q, kc, vc, t - 1), 1e-3)
-    out = torch.empty(b, h, dh, device=dev)
-    sb, sf = bound_ms(nbytes(q, kc, vc, out), 4 * b * h * dh * t)
-    k_l, v_l = kc.transpose(-1, -2), vc.permute(0, 2, 1, 3)
+    # decode self-attention: cases a-c (self_attention_cases) ---------------
+    cases = self_attention_cases(K, dev)
     rows["decode_self_attention"] = dict(
-        source=PORT_KERNELS + "decode_attention.cu",
+        source=PORT_KERNELS + "attention.cuh",
         replaces=TPU_KERNELS + "decode_attention.py:82",
-        max_abs_err=err,
-        **kernel_ms(lambda: K.decode_self_attention(q, kc, vc, t - 1), 100),
-        plain_ms=time_ms(lambda: K.decode_self_attention_plain(
-            q, kc, vc, t - 1), 100),
-        bound_ms=sb, bound_by=sf,
-        **library(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q[:, :, None], k_l, v_l), 100))
+        **cases[0], cases=cases[1:])
+    b, h, dh = ROWS, 12, 64
+    out = torch.empty(b, h, dh, device=dev)
 
     # decode cross-attention over int8 K/V ---------------------------------
     nk = 256
@@ -430,6 +530,7 @@ def kernel_checks(K, QZ, dev) -> dict:
         plain_ms=time_ms(lambda: K.decode_cross_attention_plain(
             q, kt8, v8, ks, vs), 100),
         bound_ms=cb, bound_by=cf,
+        **cold_l2(K.decode_cross_attention, (q, kt8, v8, ks, vs), 100),
         **NO_LIBRARY)  # no PyTorch call takes int8 K/V with scales
 
     # decode MLP (tolerance: bf16 output of |x + y| < 8): int8 and bf16
@@ -507,10 +608,15 @@ def log_rows(rows: dict) -> None:
             copy = (f", a copy of the same bytes "
                     f"{c['copy_device_us']:.1f} us on the device"
                     if "copy_device_us" in c else "")
+            cold = (f", inputs cold in L2 {c['cold_ms'] * 1e3:.1f} us "
+                    f"({c['cold_device_us']:.1f} us on the device; "
+                    f"{c['cold_copies']} copies)" if "cold_ms" in c else "")
+            all_t = (f", over all T {c['bound_all_t_ms'] * 1e3:.2f} us"
+                     if "bound_all_t_ms" in c else "")
             log(f"  {what}: {c['ms'] * 1e3:.1f} us kernel "
-                f"({c['device_us']:.1f} us on the device), "
+                f"({c['device_us']:.1f} us on the device){cold}, "
                 f"{c['plain_ms'] * 1e3:.1f} us plain, bound "
-                f"{c['bound_ms'] * 1e3:.2f} us ({c['bound_by']}), "
+                f"{c['bound_ms'] * 1e3:.2f} us ({c['bound_by']}){all_t}, "
                 f"library {lib}{copy}")
 
 
@@ -771,12 +877,13 @@ def route_checks(K, dev) -> None:
     wide with 2 heads of 48 (the self block's q/k/v product takes widths a
     multiple of 64: that sublayer runs as separate calls, the cross block
     and the MLP fuse), 64 wide with 16 heads of 4 (both attention
-    sublayers run as separate calls, the cross attention as plain ops), and
+    sublayers run as separate calls with the attention itself as plain
+    ops, as the reference does for heads not a multiple of 8 wide), and
     the large preset's width, 768 with 12 heads of 64, at a self-attention
     cache of 1024 positions (more than the self block's shared memory
-    holds: that sublayer runs as separate calls, `decode_self_attention`
-    among them) beside the same step at the preset's cache of DECODE_LEN
-    (every sublayer fused). Each must launch the kernels its route names
+    holds: that sublayer runs as separate calls, `decode_self_attention`'s
+    tiled kernel among them) beside the same step at the preset's cache of
+    DECODE_LEN (every sublayer fused). Each must launch the kernels its route names
     and match the same step on the CPU, where every wrapper runs its plain
     version (tolerance: bf16 outputs of |x + y| < 8, cache entries of |k|,
     |v| < 4)."""
@@ -787,8 +894,7 @@ def route_checks(K, dev) -> None:
                 "decode_cross_block": 1, "decode_mlp": 1}
     for d, heads, cache_len, want in (
             (96, 2, DECODE_LEN, separate),
-            (64, 16, DECODE_LEN, {"layernorm": 2, "decode_self_attention": 1,
-                                  "decode_mlp": 1}),
+            (64, 16, DECODE_LEN, {"layernorm": 2, "decode_mlp": 1}),
             (768, 12, 1024, separate),
             (768, 12, DECODE_LEN, {"decode_self_block": 1,
                                    "decode_cross_block": 1,
@@ -1073,7 +1179,11 @@ def loop_kernel_checks(K, dev, scenes, poses, cfg) -> dict:
                     x, (d,), wg, wb, 1e-5), 100),
                 # copying the same bytes: what the card's memory gives a
                 # pass that reads x once and writes y once
-                copy_device_us=device_us(lambda: y.copy_(x))))
+                copy_device_us=device_us(lambda: y.copy_(x)),
+                # the ViT's x (33.7 MB) sits partly in L2 in the timing
+                # loop, not in the batch
+                **(cold_l2(lambda xx: K.layernorm(xx, lg, lb), (x,), 100)
+                   if case == "vit" else {})))
     # the vector path with the output in the other type; the scalar path:
     # rows that are not a multiple of 16 bytes, a base 2 bytes past 16-byte
     # alignment, rows wider than the vector path holds in registers
@@ -1971,6 +2081,37 @@ def generation_modes(setup: dict, smi: str) -> None:
                              "the first token")
 
 
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def self_attention_only(root: Path) -> int:
+    """decode_self_attention's cases (phase 2's) through the kernels of the
+    checkout at `root`, built from its sources: an earlier commit's, to
+    time beside this one's in one call. Prints one JSON line of the
+    cases."""
+    sys.path.insert(0, str(root.resolve()))
+    from embodied_captioning_tpu_torch import kernels as K
+
+    log(card_name())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        K.build()
+        log(f"decode_self_attention of {root} ({Path(K.__file__).parent})")
+        cases = self_attention_cases(K, torch.device("cuda"))
+        log_rows({"decode_self_attention": dict(**cases[0],
+                                                cases=cases[1:])})
+    except Exception:
+        traceback.print_exc()
+        return 1
+    print(json.dumps({"self_attention_cases": cases, "root": str(root)}))
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sass"] and len(sys.argv) == 3:
         # the preprocess kernel's instructions in another build of the
@@ -1981,6 +2122,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--self-attention"] and len(sys.argv) == 3:
+        return self_attention_only(Path(sys.argv[2]))
     try:
         from embodied_captioning_tpu_torch import kernels as K
         from embodied_captioning_tpu_torch.models import quantize as QZ
@@ -1988,10 +2131,7 @@ def main() -> int:
         print(f"chip_smoke: the port package is missing ({exc})",
               file=sys.stderr)
         return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card_name()
     log(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

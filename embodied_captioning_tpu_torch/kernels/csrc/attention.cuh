@@ -1,15 +1,34 @@
 // Single-query decode attention, shared by the standalone attention kernels
 // (decode_attention.cu: bf16 query, f32 output) and the whole-block decode
-// kernels (decode_block.cu: f32 query, bf16 output).
+// kernels (decode_block.cu: f32 query, bf16 output): the self-attention
+// over the KV cache and the cross-attention over precomputed K/V, each one
+// design for both callers.
 //
-// Self-attention (decode_self_kernel): one block per (batch row, head). The
-// block stages q in shared memory, gives each thread a key (the q.k
-// reduction runs over Dh with the key index as the fastest-moving address,
-// so a warp's loads of the time-minor kt layout are contiguous), masks,
-// takes the f32 softmax with block reductions (probabilities stay f32, as
-// in the TPU kernels), then splits the PV sum over Dh lanes x groups of
-// keys and reduces the groups in shared memory. K and V are read once,
-// straight from device memory.
+// Self-attention (self_attn_kernel, self_attn_tiled_kernel): one block of
+// 4 warps per (row, head), computing over the live keys only, positions
+// 0..pos -- a masked key's exp(-1e30 - m) is +0 in f32, so leaving it out
+// changes no sum and no max. At the serving decode shape (64 rows, 12
+// heads of 64, a cache of 30) a head's K and V are 7.5 KB: self_attn_kernel
+// puts every load of the block in flight at once, as 16-byte cp.async
+// copies into shared memory -- q, the head's [Dh, T] kc block (contiguous
+// and 16-byte aligned when Dh % 8 == 0; a row of it is not when T % 8 !=
+// 0) and the live vc rows -- one memory latency, where a serial walk over
+// the cache pays one per step. Then warp w takes a quarter of Dh of QK^T and
+// lane j key j (along T, kc's minor axis), the block adds the quarters in
+// warp order and takes the f32 softmax (exact max, exp, sum), and thread
+// (g, d) sums keys g, g + G, ... of output dim d (contiguous in vc), the
+// G groups added in group order. Where a head's cache does not fit one
+// block's shared memory (over 839 positions at Dh 64), self_attn_tiled_kernel
+// streams the live keys only, in tiles of 12 KB (96 keys at Dh 64) through
+// two buffers, the next tile in flight while this one is used: pass 1 the
+// K tiles, their scores kept in shared memory (4 bytes a key: some 50,000
+// positions at Dh 64), then the softmax over all of them, pass 2 the V
+// tiles. At a cache of 1024 six blocks share an SM, so the 768 blocks of
+// 64 rows x 12 heads run in one wave; smaller tiles or a deeper ring
+// measured slower (PERF.md). Each byte is read once, the max is taken
+// before any exp, the output normalised at the end, and every sum runs in
+// the order of the whole-head kernel, so the two give the same bits. No
+// sum depends on the schedule: two runs give the same bits.
 //
 // Cross-attention (cross_attn_kernel), which the serving decode loop runs
 // 12 times per step: at 64 rows, 12 heads of 64 and 256 int8 keys it reads
@@ -43,108 +62,410 @@
 
 namespace ecap {
 
-constexpr int kAttnThreads = 256;
+__host__ __device__ constexpr size_t align16(size_t n) {
+  return (n + 15) & ~static_cast<size_t>(15);
+}
 
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// out[d] = sum_j p[j] * V(j, d) / denom, with V(j, d) read at
-// v[j * vstride + d]. `red` holds kAttnThreads floats.
-template <typename T, typename TO>
-__device__ void pv_sum(const float* p, const T* __restrict__ v, int n,
-                       int vstride, int dh, float denom, float* red,
-                       TO* __restrict__ out) {
-  const int groups = max(1, kAttnThreads / dh);
-  for (int base = 0; base < dh; base += kAttnThreads) {
-    const int idx = threadIdx.x;
-    const int g = idx / dh;
-    const int d = base + idx % dh;
-    float acc = 0.f;
-    if (g < groups && d < dh) {
-      for (int j = g; j < n; j += groups)
-        acc = fmaf(p[j], to_float(v[static_cast<size_t>(j) * vstride + d]),
-                   acc);
-    }
-    __syncthreads();
-    red[idx] = acc;
-    __syncthreads();
-    if (idx < dh && base + idx < dh) {
-      float s = 0.f;
-      for (int gg = 0; gg < groups; ++gg) s += red[gg * dh + idx];
-      store_out(out + base + idx, s / denom);
+// ---------------------------------------------------------------------------
+// self-attention over the KV cache
+// ---------------------------------------------------------------------------
+
+constexpr int kSelfThreads = 128;                 // one block per (row, head)
+constexpr int kSelfKeyParts = kSelfThreads / 32;  // warps: q.k split over Dh
+constexpr int kSelfTileBytes = 12288;  // a K or V tile of the tiled kernel
+constexpr int kSelfStages = 2;         // its ring of tile buffers
+constexpr int kSelfMaxChunks = 4;      // tiled PV: Dh / 128 dims a thread
+constexpr int kSelfTiledMaxDh = kSelfThreads * kSelfMaxChunks;
+
+// Shared memory of self_attn_kernel: the head's kc block [Dh, T], room
+// for T vc rows (the live ones filled), q (room for f32), the partial and
+// final scores, a reduction scratch; each part a multiple of 16 bytes long
+// (Dh % 8 == 0) up to the scores
+__host__ __device__ inline size_t self_attn_smem(int dh, int t) {
+  return sizeof(float) * (dh + (kSelfKeyParts + 1) * static_cast<size_t>(t) +
+                          kSelfThreads) +
+         sizeof(__nv_bfloat16) * 2 * static_cast<size_t>(dh) * t;
+}
+
+// the whole-head kernel takes the cache
+__host__ __device__ inline bool self_attn_whole(int dh, int t) {
+  return self_attn_smem(dh, t) <= kMaxSmem;
+}
+
+// keys per tile of self_attn_tiled_kernel: kSelfTileBytes of K or V, a
+// multiple of 8 from 8 to 128
+__host__ __device__ inline int self_tile_keys(int dh) {
+  const int tk = kSelfTileBytes / (2 * dh) / 8 * 8;
+  return tk < 8 ? 8 : (tk > 128 ? 128 : tk);
+}
+
+// Shared memory of self_attn_tiled_kernel over n live keys, byte offsets
+// of its parts: kSelfStages tile buffers, each a K tile (Dh rows of tk + 8
+// keys: the 16-byte granules that hold tk keys at any offset) or a V tile
+// (tk rows of Dh); q (room for f32); the partial scores of a tile; a
+// reduction scratch; the scores of all n keys.
+struct SelfTiledSmem {
+  int tk, ldk;
+  size_t buf, qs, part, red, p, total;
+};
+__host__ __device__ inline SelfTiledSmem self_tiled_smem(int dh, int n) {
+  SelfTiledSmem s;
+  s.tk = self_tile_keys(dh);
+  s.ldk = s.tk + 8;
+  s.buf = align16(sizeof(__nv_bfloat16) * static_cast<size_t>(dh) * s.ldk);
+  s.qs = kSelfStages * s.buf;
+  s.part = s.qs + align16(sizeof(float) * dh);
+  s.red = s.part + sizeof(float) * kSelfKeyParts * s.tk;
+  s.p = s.red + sizeof(float) * kSelfThreads;
+  s.total = s.p + sizeof(float) * static_cast<size_t>(n);
+  return s;
+}
+
+// The shapes the self-attention takes: Dh a multiple of 8 (16-byte
+// copies of q, K and V rows), a cache of t positions whose head fits the
+// whole-head kernel, or the tiled one (Dh up to kSelfTiledMaxDh, the
+// scores of t keys in shared memory). `self_attention_fits` in
+// kernels/decode_attention.py mirrors it.
+__host__ __device__ inline bool self_attn_fits(int dh, int t) {
+  return dh >= 8 && dh % 8 == 0 && t >= 1 &&
+         (self_attn_whole(dh, t) ||
+          (dh <= kSelfTiledMaxDh &&
+           self_tiled_smem(dh, t).total <= kMaxSmem));
+}
+
+// q as TQ into shared memory: 16-byte copies
+template <typename TQ>
+__device__ __forceinline__ void stage_q(TQ* qs, const TQ* q, int dh) {
+  constexpr int per = 16 / sizeof(TQ);
+  for (int c = threadIdx.x; c < dh / per; c += kSelfThreads)
+    cp_async16(qs + c * per, q + c * per, true);
+}
+
+// f(r, c) for the cells r * cols + c of a rows x cols grid that this
+// thread takes, threadIdx.x + 128 i, with one division up front
+template <typename F>
+__device__ __forceinline__ void for_cells(int rows, int cols, F f) {
+  const int step_r = kSelfThreads / cols, step_c = kSelfThreads % cols;
+  int r = threadIdx.x / cols, c = threadIdx.x - r * cols;
+  while (r < rows) {
+    f(r, c);
+    r += step_r;
+    c += step_c;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
     }
   }
 }
 
-// q [B,H,Dh]; kt [B,H,Dh,T] bf16; v [B,T,H,Dh] bf16; out [B,H,Dh]. Keys at
-// positions > pos are masked.
-template <typename TQ, typename TO>
-__global__ void __launch_bounds__(kAttnThreads)
-decode_self_kernel(const TQ* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ kt,
-                   const __nv_bfloat16* __restrict__ v, TO* __restrict__ out,
-                   int h, int dh, int t, int pos) {
-  extern __shared__ float sm[];
-  float* qs = sm;            // dh
-  float* p = qs + dh;        // t
-  float* red = p + t;        // kAttnThreads
-  const int bh = blockIdx.x;
-  const int b = bh / h, hh = bh % h;
-  for (int d = threadIdx.x; d < dh; d += kAttnThreads)
-    qs[d] = to_float(q[static_cast<size_t>(bh) * dh + d]);
-  __syncthreads();
-  const __nv_bfloat16* kp = kt + static_cast<size_t>(bh) * dh * t;
-  const float rs = sqrtf(static_cast<float>(dh));
-  float lmax = kNegInf;
-  for (int j = threadIdx.x; j < t; j += kAttnThreads) {
+// Partial q.k of warp w over dims [w * dc, (w + 1) * dc) for keys lane,
+// lane + 32, ... < n, with key j's dim d at ks[d * ldk + j], into
+// part[w * ldp + j]
+template <typename TQ>
+__device__ __forceinline__ void self_scores_part(const TQ* qs,
+                                                 const __nv_bfloat16* ks,
+                                                 int ldk, int dh, int n,
+                                                 float* part, int ldp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int dc = (dh + kSelfKeyParts - 1) / kSelfKeyParts;
+  const int d0 = warp * dc, d1 = min(dh, d0 + dc);
+  for (int j = lane; j < n; j += 32) {
     float acc = 0.f;
-    for (int d = 0; d < dh; ++d)
-      acc = fmaf(qs[d], to_float(kp[static_cast<size_t>(d) * t + j]), acc);
-    const float s = j <= pos ? acc / rs : kNegInf;
-    p[j] = s;
-    lmax = fmaxf(lmax, s);
+    for (int dd = d0; dd < d1; ++dd)
+      acc = fmaf(to_float(qs[dd]), to_float(ks[dd * ldk + j]), acc);
+    part[warp * ldp + j] = acc;
   }
+}
+
+// The same for the n <= 128 keys of a tile, key j's dim d at
+// ks[d * ldk + koff(d) + j]: lane's keys lane + 32 i in registers, each
+// summed over the dims in the same order
+template <typename TQ, typename KOff>
+__device__ __forceinline__ void self_tile_scores_part(
+    const TQ* qs, const __nv_bfloat16* ks, int ldk, KOff koff, int dh, int n,
+    float* part, int ldp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int dc = (dh + kSelfKeyParts - 1) / kSelfKeyParts;
+  const int d0 = warp * dc, d1 = min(dh, d0 + dc);
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int dd = d0; dd < d1; ++dd) {
+    const float qd = to_float(qs[dd]);
+    const __nv_bfloat16* row = ks + dd * ldk + koff(dd) + lane;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (lane + 32 * i < n) acc[i] = fmaf(qd, to_float(row[32 * i]), acc[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (lane + 32 * i < n) part[warp * ldp + lane + 32 * i] = acc[i];
+}
+
+// the scores of keys j < n: the warps' partial sums added in warp order,
+// divided by sqrt(Dh), into p[j]
+__device__ __forceinline__ void self_scores(const float* part, int ldp,
+                                            int n, float rs, float* p) {
+  for (int j = threadIdx.x; j < n; j += kSelfThreads) {
+    float acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSelfKeyParts; ++w) acc += part[w * ldp + j];
+    p[j] = acc / rs;
+  }
+}
+
+// p[j] = exp(p[j] - max) over the n scores; returns their sum
+__device__ __forceinline__ float self_softmax(float* p, int n, float* red) {
+  float lmax = kNegInf;
+  for (int j = threadIdx.x; j < n; j += kSelfThreads)
+    lmax = fmaxf(lmax, p[j]);
   const float m = block_max(lmax, red);
   float lsum = 0.f;
-  for (int j = threadIdx.x; j < t; j += kAttnThreads) {
+  for (int j = threadIdx.x; j < n; j += kSelfThreads) {
     const float e = expf(p[j] - m);
     p[j] = e;
     lsum += e;
   }
   const float denom = block_sum(lsum, red);
   __syncthreads();
-  // V(j, d) = v[((b * T + j) * H + hh) * Dh + d]
-  pv_sum(p, v + (static_cast<size_t>(b) * t * h + hh) * dh, t, h * dh, dh,
-         denom, red, out + static_cast<size_t>(bh) * dh);
+  return denom;
 }
 
-inline size_t attn_smem_bytes(int dh, int n) {
-  return sizeof(float) * (static_cast<size_t>(dh) + n + kAttnThreads);
+// PV's threads: thread (g, d) of G = max(1, 128 / Dh) groups sums keys g,
+// g + G, ... of output dim d, in chunks of 128 dims past Dh 128
+struct SelfPv {
+  int groups, g, d;  // d: the dim in the first chunk
+  __device__ SelfPv(int dh)
+      : groups(max(1, kSelfThreads / dh)),
+        g(threadIdx.x / dh),
+        d(threadIdx.x % dh) {}
+  __device__ bool takes(int base, int dh) const {
+    return g < groups && base + d < dh;
+  }
+};
+
+// the G group sums of chunk `base` (in red[g * Dh + d]) added in group
+// order, divided by the denominator, stored
+template <typename TO>
+__device__ __forceinline__ void self_pv_out(const float* red, int dh,
+                                            int base, int groups,
+                                            float denom, TO* out) {
+  const int tid = threadIdx.x;
+  if (tid < dh && base + tid < dh) {
+    float sum = 0.f;
+    for (int gg = 0; gg < groups; ++gg) sum += red[gg * dh + tid];
+    store_out(out + base + tid, sum / denom);
+  }
 }
 
-// Opt in to more than 48 KB of dynamic shared memory where a long key axis
-// needs it.
-template <typename K>
-cudaError_t attn_set_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-// Launch helpers, shared by both translation units.
+// q [B, H, Dh] (f32 or bf16); kc [B, H, Dh, T] and vc [B, T, H, Dh] bf16,
+// live at positions <= pos; out [B, H, Dh] (bf16 or f32). One block per
+// (row, head); the shape as self_attn_whole takes it, q, kc, vc 16-byte
+// aligned.
 template <typename TQ, typename TO>
-cudaError_t launch_decode_self(const TQ* q, const __nv_bfloat16* kt,
-                               const __nv_bfloat16* v, TO* out, int b, int h,
-                               int dh, int t, int pos, cudaStream_t s) {
-  const size_t bytes = attn_smem_bytes(dh, t);
-  cudaError_t err = attn_set_smem(decode_self_kernel<TQ, TO>, bytes);
+__global__ void __launch_bounds__(kSelfThreads)
+self_attn_kernel(const TQ* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ kc,
+                 const __nv_bfloat16* __restrict__ vc, TO* __restrict__ out,
+                 int h, int dh, int t, int pos) {
+  // each part a multiple of 16 bytes long (Dh % 8 == 0), in this order
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // dh x t
+  __nv_bfloat16* vs = ks + dh * t;         // t x dh, rows <= pos used
+  TQ* qs = reinterpret_cast<TQ*>(vs + dh * t);                       // dh
+  float* part = reinterpret_cast<float*>(vs + dh * t) + dh;  // parts x t
+  float* p = part + kSelfKeyParts * t;     // t
+  float* red = p + t;                      // kSelfThreads
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x, b = bh / h, hh = bh % h;
+  const int live = pos + 1;
+  // q, the caches and this launch's output follow the launch before in
+  // the self block
+  grid_dependency_wait();
+  // every load of the block in flight at once: q, the whole [Dh, T] kc
+  // block (contiguous: copying only the 16-byte granules that hold live
+  // columns measured slower, PERF.md) and the live vc rows
+  stage_q(qs, q + static_cast<size_t>(bh) * dh, dh);
+  const __nv_bfloat16* kh = kc + static_cast<size_t>(bh) * dh * t;
+  for (int e = 8 * tid; e < dh * t; e += 8 * kSelfThreads)
+    cp_async16(ks + e, kh + e, true);
+  for_cells(live, dh / 8, [&](int j, int c) {
+    cp_async16(vs + j * dh + 8 * c,
+               vc + ((static_cast<size_t>(b) * t + j) * h + hh) * dh + 8 * c,
+               true);
+  });
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  self_scores_part(qs, ks, t, dh, live, part, t);
+  __syncthreads();
+  self_scores(part, t, live, sqrtf(static_cast<float>(dh)), p);
+  __syncthreads();
+  const float denom = self_softmax(p, live, red);
+  // PV: thread (g, d) sums keys g, g + G, ... of dim d
+  const SelfPv pv(dh);
+  for (int base = 0; base < dh; base += kSelfThreads) {
+    float acc = 0.f;
+    if (pv.takes(base, dh))
+      for (int j = pv.g; j < live; j += pv.groups)
+        acc = fmaf(p[j], to_float(vs[j * dh + base + pv.d]), acc);
+    red[tid] = acc;
+    __syncthreads();
+    self_pv_out(red, dh, base, pv.groups, denom,
+                out + static_cast<size_t>(bh) * dh);
+    __syncthreads();
+  }
+}
+
+// As self_attn_kernel, for caches too long for it (Dh up to
+// kSelfTiledMaxDh): the live keys in tiles of tk (self_tiled_smem), the K
+// tiles and then the V tiles through a ring of kSelfStages buffers, the
+// next tiles' copies in flight while this one is used. A K tile is the
+// 16-byte granules of each kc row that hold its keys: the granule holding
+// row d's key j0 first, so key j sits at offset (d * T + j0) % 8 + j - j0
+// of the row. The scores, the softmax and the PV sums are the whole-head
+// kernel's, in its order.
+template <typename TQ, typename TO>
+__global__ void __launch_bounds__(kSelfThreads)
+self_attn_tiled_kernel(const TQ* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ kc,
+                       const __nv_bfloat16* __restrict__ vc,
+                       TO* __restrict__ out, int h, int dh, int t, int pos) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int live = pos + 1;
+  const SelfTiledSmem L = self_tiled_smem(dh, live);
+  TQ* qs = reinterpret_cast<TQ*>(smem_raw + L.qs);
+  float* part = reinterpret_cast<float*>(smem_raw + L.part);
+  float* red = reinterpret_cast<float*>(smem_raw + L.red);
+  float* p = reinterpret_cast<float*>(smem_raw + L.p);
+  const int tid = threadIdx.x, tk = L.tk, ldk = L.ldk;
+  const int bh = blockIdx.x, b = bh / h, hh = bh % h;
+  const int nt = (live + tk - 1) / tk;  // tiles of K, then as many of V
+  const __nv_bfloat16* kh = kc + static_cast<size_t>(bh) * dh * t;
+  const auto buf = [&](int i) {
+    return reinterpret_cast<__nv_bfloat16*>(smem_raw +
+                                            (i % kSelfStages) * L.buf);
+  };
+  // the copies of tile i into buffer i % kSelfStages
+  const auto issue = [&](int i) {
+    if (i >= 2 * nt) return;
+    __nv_bfloat16* dst = buf(i);
+    const int j0 = (i % nt) * tk, j1 = min(j0 + tk, live);
+    if (i < nt) {
+      // granule gi of row d from the one holding key j0
+      for_cells(dh, ldk / 8, [&](int d, int gi) {
+        const int e = ((d * t + j0) & ~7) + 8 * gi;
+        if (e < d * t + j1) cp_async16(dst + d * ldk + 8 * gi, kh + e, true);
+      });
+    } else {
+      for_cells(j1 - j0, dh / 8, [&](int r, int c) {
+        cp_async16(dst + r * dh + 8 * c,
+                   vc + ((static_cast<size_t>(b) * t + j0 + r) * h + hh) *
+                            dh + 8 * c,
+                   true);
+      });
+    }
+  };
+  grid_dependency_wait();
+  stage_q(qs, q + static_cast<size_t>(bh) * dh, dh);
+#pragma unroll
+  for (int i = 0; i < kSelfStages; ++i) {
+    issue(i);
+    cp_async_commit();
+  }
+  const float rs = sqrtf(static_cast<float>(dh));
+  const SelfPv pv(dh);
+  float acc[kSelfMaxChunks] = {};
+  float denom = 0.f;
+  for (int i = 0; i < 2 * nt; ++i) {
+    cp_async_wait<kSelfStages - 1>();  // tile i (later ones in flight)
+    __syncthreads();
+    const __nv_bfloat16* tile = buf(i);
+    const int j0 = (i % nt) * tk, n = min(tk, live - j0);
+    if (i < nt) {
+      self_tile_scores_part(qs, tile, ldk,
+                            [&](int d) { return (d * t + j0) & 7; }, dh, n,
+                            part, tk);
+      __syncthreads();
+      self_scores(part, tk, n, rs, p + j0);
+    } else {
+      // PV: this thread's keys of the tile, in order
+      const int g0 = j0 + (pv.g - j0 % pv.groups + pv.groups) % pv.groups;
+#pragma unroll
+      for (int ch = 0; ch < kSelfMaxChunks; ++ch) {
+        const int base = ch * kSelfThreads;
+        if (base < dh && pv.takes(base, dh))
+          for (int j = g0; j < j0 + n; j += pv.groups)
+            acc[ch] = fmaf(p[j], to_float(tile[(j - j0) * dh + base + pv.d]),
+                           acc[ch]);
+      }
+    }
+    __syncthreads();  // every thread is done with tile i's buffer
+    issue(i + kSelfStages);
+    cp_async_commit();
+    if (i == nt - 1) denom = self_softmax(p, live, red);
+  }
+#pragma unroll
+  for (int ch = 0; ch < kSelfMaxChunks; ++ch) {
+    const int base = ch * kSelfThreads;
+    if (base < dh) {
+      red[tid] = acc[ch];
+      __syncthreads();
+      self_pv_out(red, dh, base, pv.groups, denom,
+                  out + static_cast<size_t>(bh) * dh);
+      __syncthreads();
+    }
+  }
+}
+
+// opt a kernel in to the most shared memory a block may have, and the
+// largest carveout, so that as many blocks share an SM as their shared
+// memory allows
+template <typename K>
+cudaError_t configure_attn(K kernel) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kMaxSmem));
   if (err != cudaSuccess) return err;
-  decode_self_kernel<TQ, TO><<<b * h, kAttnThreads, bytes, s>>>(
-      q, kt, v, out, h, dh, t, pos);
-  return cudaGetLastError();
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// Launch the self-attention over b x h blocks: the whole-head kernel where
+// self_attn_whole takes the cache, else the tiled one; the shape as
+// self_attn_fits takes it. `pdl`: programmatic dependent launch (the
+// kernel waits for the launch before in grid_dependency_wait).
+template <typename TQ, typename TO>
+cudaError_t launch_self_attn(const TQ* q, const __nv_bfloat16* kc,
+                             const __nv_bfloat16* vc, TO* out, int b, int h,
+                             int dh, int t, int pos, bool pdl,
+                             cudaStream_t s) {
+  static const cudaError_t configured[2] = {
+      configure_attn(self_attn_kernel<TQ, TO>),
+      configure_attn(self_attn_tiled_kernel<TQ, TO>)};
+  const bool whole = self_attn_whole(dh, t);
+  if (configured[whole ? 0 : 1] != cudaSuccess)
+    return configured[whole ? 0 : 1];
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(b * h);
+  cfg.blockDim = dim3(kSelfThreads);
+  cfg.dynamicSmemBytes =
+      whole ? self_attn_smem(dh, t) : self_tiled_smem(dh, pos + 1).total;
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  if (whole)
+    return cudaLaunchKernelEx(&cfg, self_attn_kernel<TQ, TO>, q, kc, vc, out,
+                              h, dh, t, pos);
+  return cudaLaunchKernelEx(&cfg, self_attn_tiled_kernel<TQ, TO>, q, kc, vc,
+                            out, h, dh, t, pos);
 }
 
 // ---------------------------------------------------------------------------
@@ -154,10 +475,6 @@ cudaError_t launch_decode_self(const TQ* q, const __nv_bfloat16* kt,
 constexpr int kCrossThreads = 128;
 constexpr int kCrossBlocksPerSm = 6;  // at the serving shape (int8 K/V)
 constexpr int kCrossMaxDh = 4096;     // a tile of 4 keys fits at any type
-
-__host__ __device__ constexpr size_t align16(size_t n) {
-  return (n + 15) & ~static_cast<size_t>(15);
-}
 
 // PV's groups of keys: thread (g, c) of G = kCrossThreads / (Dh / 4)
 // groups sums dims 4c .. 4c + 3; past Dh = 512 one group, each thread
@@ -543,19 +860,6 @@ cross_attn_tiled_kernel(const TQ* __restrict__ q, const T* __restrict__ kt,
     store_out(out + bh * dh + d, o[d] * vsc[d] / l);
 }
 
-// opt a kernel in to the most shared memory a block may have, and the
-// largest carveout, so that six blocks share an SM
-template <typename K>
-cudaError_t configure_cross_attn(K kernel) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kMaxSmem));
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
-}
-
 // Launch the cross attention over b x h blocks, the whole-head kernel
 // where cross_whole takes the shape, else the tiled one; `pdl`:
 // programmatic dependent launch (the kernel waits for q in
@@ -566,8 +870,8 @@ cudaError_t launch_cross_attn(const TQ* q, const void* kt, const void* v,
                               TO* out, int b, int h, int dh, int nk, bool pdl,
                               cudaStream_t s) {
   static const cudaError_t configured[2] = {
-      configure_cross_attn(cross_attn_kernel<T, TQ, TO>),
-      configure_cross_attn(cross_attn_tiled_kernel<T, TQ, TO>)};
+      configure_attn(cross_attn_kernel<T, TQ, TO>),
+      configure_attn(cross_attn_tiled_kernel<T, TQ, TO>)};
   const bool whole =
       cross_whole(dh, nk, sizeof(T), kt, v, kt_scale, v_scale);
   if (configured[whole ? 0 : 1] != cudaSuccess)

@@ -37,16 +37,15 @@
 //      scratch buffer, k and v rounded to bf16 straight into the caches at
 //      `pos` -- k at a stride of T elements, the store that the TPU
 //      compiler refuses and the TPU caller does outside its kernel.
-//   2. self_attn_kernel: a block of 4 warps per (row, head). All its loads
-//      go out at once, as 16-byte cp.async copies into shared memory: q,
-//      the head's [Dh, T] kc block (contiguous) and the vc rows at
-//      positions <= pos -- one memory latency, where a serial walk over
-//      the cache pays one per step. Then warp w takes a quarter of Dh of
-//      the QK^T and lane j key j (along T, kc's minor axis), the block adds
-//      the quarters in order and takes the f32 softmax, and thread (g, d)
-//      sums keys g, g+G, ... of output dim d (contiguous in vc), the G
-//      groups added in order. The current token is position `pos` of the
-//      cache by now, one more key of the same softmax.
+//   2. self_attn_kernel of attention.cuh (f32 q, bf16 out), the design
+//      `decode_self_attention` launches too: a block of 4 warps per (row,
+//      head) copies q, the head's [Dh, T] kc block and the vc rows at
+//      positions <= pos into shared memory in one cp.async round, takes
+//      QK^T over positions <= pos split over warps
+//      and keys, the f32 softmax and PV split over dims and groups of
+//      keys. The current token is position `pos` of the cache by now, one
+//      more key of the same softmax. The self block takes caches whose
+//      head fits that kernel's shared memory (`self_block_plan`).
 //   3. block_out_kernel: the out product (split-K, S=8 at D=768: 192
 //      blocks), scale, bias and the residual.
 //   Launches 2 and 3 use programmatic dependent launch: each is scheduled
@@ -144,109 +143,6 @@ self_qkv_kernel(const __nv_bfloat16* __restrict__ x,
       });
 }
 
-constexpr int kSelfAttnThreads = 128;           // one block per (row, head)
-constexpr int kKeyParts = kSelfAttnThreads / 32;  // warps: q.k split over Dh
-
-// shared memory of self_attn_kernel: q, the head's kc block, the live vc
-// rows, the partial and final scores, a reduction scratch
-inline size_t self_attn_smem(int dh, int t) {
-  return sizeof(float) * (dh + (kKeyParts + 1) * t + kSelfAttnThreads) +
-         sizeof(__nv_bfloat16) * 2 * static_cast<size_t>(dh) * t;
-}
-
-// q [B, H, Dh] f32; kc [B, H, Dh, T] and vc [B, T, H, Dh] bf16, live at
-// positions <= pos; out [B, H, Dh] bf16. One block per (row, head); Dh a
-// multiple of 8 and kc, vc 16-byte aligned.
-__global__ void __launch_bounds__(kSelfAttnThreads)
-self_attn_kernel(const float* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ kc,
-                 const __nv_bfloat16* __restrict__ vc,
-                 __nv_bfloat16* __restrict__ out, int h, int dh, int t,
-                 int pos) {
-  // each part a multiple of 16 bytes long (Dh % 8 == 0), in this order
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // dh x t
-  __nv_bfloat16* vs = ks + dh * t;         // t x dh, rows <= pos used
-  float* qs = reinterpret_cast<float*>(vs + dh * t);  // dh
-  float* part = qs + dh;                   // kKeyParts x t
-  float* p = part + kKeyParts * t;         // t
-  float* red = p + t;                      // kSelfAttnThreads
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int bh = blockIdx.x, b = bh / h, hh = bh % h;
-  const int live = pos + 1;
-  ecap::grid_dependency_wait();
-  // every load of the block in flight at once: q, the [Dh, T] kc block
-  // (contiguous) and the live vc rows
-  const int qv = dh / 4, kv = dh * t / 8, vv = dh / 8;
-  for (int c = tid; c < qv + kv + live * vv; c += kSelfAttnThreads) {
-    if (c < qv) {
-      ecap::cp_async16(qs + 4 * c, q + static_cast<size_t>(bh) * dh + 4 * c,
-                       true);
-    } else if (c < qv + kv) {
-      const int e = 8 * (c - qv);
-      ecap::cp_async16(ks + e, kc + static_cast<size_t>(bh) * dh * t + e,
-                       true);
-    } else {
-      const int j = (c - qv - kv) / vv, e = 8 * ((c - qv - kv) % vv);
-      ecap::cp_async16(
-          vs + j * dh + e,
-          vc + ((static_cast<size_t>(b) * t + j) * h + hh) * dh + e, true);
-    }
-  }
-  ecap::cp_async_commit();
-  ecap::cp_async_wait<0>();
-  __syncthreads();
-  // warp w: dims [w * dc, (w + 1) * dc) of q.k for keys lane, lane + 32,
-  // ...; the partial sums are added in warp order below
-  const int dc = (dh + kKeyParts - 1) / kKeyParts;
-  const int d0 = warp * dc, d1 = min(dh, d0 + dc);
-  for (int j = lane; j < live; j += 32) {
-    float acc = 0.f;
-    for (int dd = d0; dd < d1; ++dd)
-      acc = fmaf(qs[dd], ecap::to_float(ks[dd * t + j]), acc);
-    part[warp * t + j] = acc;
-  }
-  __syncthreads();
-  const float rs = sqrtf(static_cast<float>(dh));
-  float lmax = ecap::kNegInf;
-  for (int j = tid; j < live; j += kSelfAttnThreads) {
-    float acc = 0.f;
-#pragma unroll
-    for (int w = 0; w < kKeyParts; ++w) acc += part[w * t + j];
-    const float s = acc / rs;
-    p[j] = s;
-    lmax = fmaxf(lmax, s);
-  }
-  const float m = ecap::block_max(lmax, red);
-  float lsum = 0.f;
-  for (int j = tid; j < live; j += kSelfAttnThreads) {
-    const float e = expf(p[j] - m);
-    p[j] = e;
-    lsum += e;
-  }
-  const float denom = ecap::block_sum(lsum, red);
-  __syncthreads();
-  // PV: thread (group g, dim dd) sums keys g, g + G, ...; the G partial
-  // sums are added in group order
-  const int groups = max(1, kSelfAttnThreads / dh);
-  for (int base = 0; base < dh; base += kSelfAttnThreads) {
-    const int gi = tid / dh, dd = base + tid % dh;
-    float acc = 0.f;
-    if (gi < groups && dd < dh)
-      for (int j = gi; j < live; j += groups)
-        acc = fmaf(p[j], ecap::to_float(vs[j * dh + dd]), acc);
-    red[tid] = acc;
-    __syncthreads();
-    if (tid < dh && base + tid < dh) {
-      float sum = 0.f;
-      for (int gg = 0; gg < groups; ++gg) sum += red[gg * dh + tid];
-      out[static_cast<size_t>(bh) * dh + base + tid] =
-          __float2bfloat16_rn(sum / denom);
-    }
-    __syncthreads();
-  }
-}
-
 // out = x + (attn wo * so + bo), all [rows, d]: the out product of both
 // sublayers (a profile tells them apart by the launch before)
 template <typename W>
@@ -291,25 +187,9 @@ cudaError_t self_block(const SelfArgs& a, int s_qkv, int s_out) {
       a.pos, a.eps);
   if (err != cudaSuccess) return err;
 
-  const int dh = a.d / a.heads;
-  const size_t attn_smem = self_attn_smem(dh, a.t);
-  err = ecap::attn_set_smem(self_attn_kernel, attn_smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.rows * a.heads);
-  cfg.blockDim = dim3(kSelfAttnThreads);
-  cfg.dynamicSmemBytes = attn_smem;
-  cfg.stream = a.s;
-  cudaLaunchAttribute pdl;
-  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl.val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = &pdl;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, self_attn_kernel,
-                           static_cast<const float*>(a.q),
-                           static_cast<const __nv_bfloat16*>(a.kc),
-                           static_cast<const __nv_bfloat16*>(a.vc), a.attn,
-                           a.heads, dh, a.t, a.pos);
+  err = ecap::launch_self_attn(static_cast<const float*>(a.q), a.kc, a.vc,
+                               a.attn, a.rows, a.heads, a.d / a.heads, a.t,
+                               a.pos, true, a.s);
   if (err != cudaSuccess) return err;
 
   return split_k::launch<block_out_kernel<W>, kOutWarps>(
@@ -408,7 +288,7 @@ extern "C" int ecap_decode_self_block(
     void* q, void* attn, void* out, int rows, int d, int heads, int t, int pos,
     float eps, int int8, int s_qkv, int s_out, void* stream) {
   if (rows < 1 || heads < 1 || d % split_k::cols<kQkvWarps>() || d % heads ||
-      (d / heads) % 8 || self_attn_smem(d / heads, t) > ecap::kMaxSmem ||
+      (d / heads) % 8 || !ecap::self_attn_whole(d / heads, t) ||
       reinterpret_cast<uintptr_t>(kc) % 16 ||
       reinterpret_cast<uintptr_t>(vc) % 16 || pos < 0 ||
       pos >= t || !split_k::valid_split(d, s_qkv) ||

@@ -38,14 +38,77 @@ def decode_self_attention_plain(q: torch.Tensor, kt: torch.Tensor,
     return out / p.sum(dim=-1)[..., None]
 
 
+MAX_SMEM = 232448        # a block's shared memory on sm_90 (common.cuh)
+# the self-attention kernels (csrc/attention.cuh): a block of four warps
+# per (row, head), q.k split over Dh between the warps; the tiled kernel's
+# K or V tiles of SELF_TILE_BYTES in a ring of SELF_STAGES buffers, its PV
+# sums of up to four chunks of 128 dims a thread
+SELF_ATTN_THREADS = 128
+SELF_KEY_PARTS = SELF_ATTN_THREADS // 32
+SELF_TILE_BYTES = 12288
+SELF_STAGES = 2
+SELF_TILED_MAX_DH = 4 * SELF_ATTN_THREADS
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def self_attn_smem(dh: int, t: int) -> int:
+    """Shared memory of the whole-head self-attention kernel (the self
+    block's attention launch, and `decode_self_attention` at caches it
+    holds) at heads dh wide and a cache of t positions: q, the head's K and
+    V cache blocks, the partial and final scores, a reduction scratch.
+    Mirrors `self_attn_smem` in csrc/attention.cuh."""
+    return (4 * (dh + (SELF_KEY_PARTS + 1) * t + SELF_ATTN_THREADS)
+            + 2 * 2 * dh * t)
+
+
+def self_attn_tile_keys(dh: int) -> int:
+    """Keys per tile of the tiled self-attention kernel: SELF_TILE_BYTES of
+    K or V, a multiple of 8 from 8 to 128. Mirrors `self_tile_keys`."""
+    return min(max(SELF_TILE_BYTES // (2 * dh) // 8 * 8, 8), 128)
+
+
+def self_attn_tiled_smem(dh: int, n: int) -> int:
+    """Shared memory of the tiled self-attention kernel over n live keys:
+    SELF_STAGES tile buffers (a K tile holds Dh rows of tk + 8 keys), q, a
+    tile's partial scores, a reduction scratch and the scores of all n
+    keys.
+    Mirrors `self_tiled_smem` in csrc/attention.cuh."""
+    tk = self_attn_tile_keys(dh)
+    return (SELF_STAGES * _align16(2 * dh * (tk + 8)) + _align16(4 * dh)
+            + 4 * SELF_KEY_PARTS * tk + 4 * SELF_ATTN_THREADS + 4 * n)
+
+
+def self_attention_fits(dh: int, t: int) -> bool:
+    """Whether `decode_self_attention` takes heads dh wide over a cache of
+    t positions: a multiple of 8 wide, as the JAX package's dispatcher
+    asks, with the head's cache in one block's shared memory (the
+    whole-head kernel) or, up to SELF_TILED_MAX_DH wide, the scores of t
+    keys (the tiled kernel: some 50,000 positions at Dh 64). Mirrors
+    `self_attn_fits` in csrc/attention.cuh."""
+    return (dh >= 8 and dh % 8 == 0 and t >= 1
+            and (self_attn_smem(dh, t) <= MAX_SMEM
+                 or (dh <= SELF_TILED_MAX_DH
+                     and self_attn_tiled_smem(dh, t) <= MAX_SMEM)))
+
+
 def decode_self_attention(q: torch.Tensor, kt: torch.Tensor,
                           v: torch.Tensor, pos: int) -> torch.Tensor:
     """q bf16 [B,H,Dh]; cache kt bf16 [B,H,Dh,T], v bf16 [B,T,H,Dh]; pos
-    the current position -> f32 [B,H,Dh]."""
+    the current position -> f32 [B,H,Dh]; Dh and T as
+    `self_attention_fits` takes them. The kernel reads positions 0..pos
+    only."""
     if _lib.dispatch_device(q) == "cpu":
         return decode_self_attention_plain(q, kt, v, pos)
     b, h, dh = q.shape
     t = kt.shape[-1]
+    if not self_attention_fits(dh, t):
+        raise ValueError(f"decode_self_attention takes heads a multiple of "
+                         f"8 wide over caches whose head or scores fit a "
+                         f"block's shared memory; got Dh={dh}, {t} "
+                         f"positions")
     _lib.check(q, "q", (torch.bfloat16,))
     _lib.check(kt, "kt", (torch.bfloat16,), (b, h, dh, t))
     _lib.check(v, "v", (torch.bfloat16,), (b, t, h, dh))
@@ -242,19 +305,6 @@ def decode_mlp(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
               float(eps), int(wfc.dtype == torch.int8), s_fc, s_pj)
     _lib.launches["decode_mlp"] += 1
     return out
-
-
-MAX_SMEM = 232448       # a block's shared memory on sm_90 (common.cuh)
-SELF_ATTN_THREADS = 128  # self_attn_kernel's block: four warps split Dh
-
-
-def self_attn_smem(dh: int, t: int) -> int:
-    """Shared memory of the self block's attention launch at heads dh wide
-    and a cache of t positions: q, the head's whole K and V cache blocks,
-    the partial and final scores, a reduction scratch. Mirrors
-    `self_attn_smem` in csrc/decode_block.cu."""
-    return (4 * (dh + (SELF_ATTN_THREADS // 32 + 1) * t + SELF_ATTN_THREADS)
-            + 2 * 2 * dh * t)
 
 
 def self_block_plan(rows: int, d: int, heads: int, t: int

@@ -18,8 +18,9 @@ The attention paths:
     (`decode_route`), and the route of separate calls elsewhere, as the
     JAX package's dispatchers fall back to XLA;
   - everything else (masked, multi-token cached, cross over a feature
-    map, or heads the cross-attention kernel does not take): plain tensor
-    ops with bf16 scores and bf16 probabilities, as the JAX fallback path.
+    map, or heads or caches the decode attention kernels do not take):
+    plain tensor ops with bf16 scores and bf16 probabilities, as the JAX
+    fallback path.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ from ..kernels import (
 )
 from ..kernels import layernorm as layernorm_kernel
 from ..kernels.decode_attention import (
-    cross_attention_fits, cross_block_fits, mlp_fits, self_block_fits,
+    cross_attention_fits, cross_block_fits, mlp_fits, self_attention_fits,
+    self_block_fits,
 )
 from .quantize import QuantizedArray, QuantizedKV, maybe_dequant, quantize_kv
 
@@ -205,7 +207,8 @@ def mha(p: dict, x: torch.Tensor, heads: int,
             cache.k.dtype)
         cache.v[:, pos:pos + tq] = v.to(cache.v.dtype)
         cache = KVCache(cache.k, cache.v, pos + tq)
-        if tq == 1 and mask is None:
+        if (tq == 1 and mask is None
+                and self_attention_fits(q.shape[-1], cache.k.shape[-1])):
             out = decode_self_attention(q[:, 0].to(compute_dtype), cache.k,
                                         cache.v, pos)
             out = out.reshape(b, 1, -1)
@@ -250,7 +253,8 @@ def decode_route(rows: int, d: int, heads: int, f: int, t: int,
     block kernels only with `decode_blocks`), as the JAX package's
     `maybe_decode_*` dispatchers return None at shapes their kernels do not
     take. A cache too long for the self block's shared memory runs that
-    sublayer as separate calls (`decode_self_attention` takes it)."""
+    sublayer as separate calls (`decode_self_attention` takes it in
+    tiles; `mha` runs plain ops where `self_attention_fits` refuses)."""
     return DecodeRoute(
         self_block=decode_blocks and self_block_fits(rows, d, heads, t),
         cross_block=decode_blocks and cross_block_fits(rows, d, heads),

@@ -144,12 +144,12 @@ def test_block_decode_step(int8):
 
 # (width, heads): the tiny preset's, where every sublayer fuses; a width
 # the self block does not take (not a multiple of 64), whose cross block
-# and MLP still fuse; heads 4 wide, which neither block kernel nor the
-# cross-attention kernel takes (the JAX dispatchers refuse them too)
+# and MLP still fuse; heads 4 wide, which neither block kernel nor either
+# decode attention kernel takes (the JAX dispatchers refuse them too)
 _ROUTE_SHAPES = {
     (64, 2): ["decode_self_block", "decode_cross_block", "decode_mlp"],
     (96, 2): ["decode_self_attention", "decode_cross_block", "decode_mlp"],
-    (64, 16): ["decode_self_attention", "decode_mlp"],
+    (64, 16): ["decode_mlp"],
 }
 
 
@@ -210,6 +210,51 @@ def test_block_decode_step_block_route(d, heads, int8, pos, monkeypatch):
              cache=TC.KVCache(t(k0), t(v0), pos))
     assert not called
     assert K.launches["decode_self_block"] == 0
+
+
+@pytest.mark.parametrize("decode_blocks", [True, False])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("pos", [0, 5, 7])
+def test_a_step_with_heads_four_wide_takes_the_reference_route(
+        pos, int8, decode_blocks, monkeypatch):
+    # 64 wide, 16 heads of 4: the JAX dispatchers refuse both block kernels
+    # and both decode attention kernels (they take heads a multiple of 8
+    # wide), so the reference runs both attentions as XLA ops with bf16
+    # scores and probabilities, then the fused decode MLP. The port takes
+    # the same route on either of its decode routes: plain ops with the
+    # causal cache mask, no decode attention kernel. Tolerance: one bf16
+    # ulp of the residual stream (|x| < 8: 2^-5), half the block-route
+    # test's, with at least 99% of the outputs bit-equal (all of them on
+    # these seeds when the test was written); the cache exactly.
+    rng = np.random.default_rng(10 + pos)
+    b, tmax, d, heads = 3, 8, 64, 16
+    p = _block_params(6, cross=True, int8=int8, d=d, heads=heads)
+    img = jnp.asarray(rng.standard_normal((b, 11, d)), jnp.bfloat16)
+    k0 = jnp.asarray(rng.standard_normal((b, heads, d // heads, tmax)),
+                     jnp.bfloat16)
+    v0 = jnp.asarray(rng.standard_normal((b, tmax, heads, d // heads)),
+                     jnp.bfloat16)
+    x = jnp.asarray(rng.standard_normal((b, 1, d)), jnp.bfloat16)
+    with jax_kernel_path(blocks=decode_blocks):
+        ckv = JC.precompute_kv(p["xattn"], img, heads)
+        ref, rc = JC.block(p, x, heads,
+                           cache=JC.KVCache(k0, v0, jnp.int32(pos)),
+                           cross_kv=ckv)
+    tp = from_jax(p, "cpu")
+    called = []
+    for name in ("decode_self_block", "decode_cross_block", "decode_mlp",
+                 "decode_self_attention", "decode_cross_attention"):
+        fn = getattr(TC, name)
+        monkeypatch.setattr(TC, name, lambda *a, _f=fn, _n=name, **k: (
+            called.append(_n), _f(*a, **k))[1])
+    out, oc = TC.block(tp, t(x), heads, cache=TC.KVCache(t(k0), t(v0), pos),
+                       cross_kv=TC.precompute_kv(tp["xattn"], t(img), heads),
+                       decode_blocks=decode_blocks)
+    assert called == ["decode_mlp"]
+    np.testing.assert_array_equal(np32(oc.k), np32(rc.k))
+    np.testing.assert_array_equal(np32(oc.v), np32(rc.v))
+    np.testing.assert_allclose(np32(out), np32(ref), atol=2 ** -5, rtol=0)
+    assert np.mean(np32(out) == np32(ref)) > 0.99
 
 
 @pytest.mark.parametrize("int8", [False, True])

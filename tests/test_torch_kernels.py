@@ -49,20 +49,23 @@ def test_flash_plain_valid_len_matches_blocked_kernel(causal):
                                atol=3e-2, rtol=0)
 
 
-def test_decode_self_attention_plain_mid_cache():
-    # f32 outputs; tolerance 1e-5 covers summation order only
+@pytest.mark.parametrize("tt,pos", [(12, 0), (12, 5), (12, 11), (300, 0),
+                                    (300, 150), (300, 299)])
+def test_decode_self_attention_plain_mid_cache(tt, pos):
+    # the plain version masks keys past pos over the whole cache, as the
+    # TPU kernel does; the kernel reads only positions 0..pos, which gives
+    # the same sums (a masked key's exp is +0). 300 positions are more than
+    # one tile of the tiled kernel (96 keys at Dh 64, 128 at Dh 16). f32
+    # outputs; tolerance 1e-5 covers summation order only
     rng = np.random.default_rng(2)
-    b, h, dh, tt = 3, 2, 16, 12
+    b, h, dh = 3, 2, 16
     q = _bf16(rng, b, h, dh)
     kt = _bf16(rng, b, h, dh, tt)
     v = _bf16(rng, b, tt, h, dh)
-    for pos in (0, 5, tt - 1):
-        ref = JDA.decode_self_attention(q, kt, v, jnp.int32(pos),
-                                        interpret=True)
-        out = K.decode_self_attention(t(q), t(kt), t(v), pos)
-        assert out.dtype == torch.float32
-        np.testing.assert_allclose(np32(out), np32(ref), atol=1e-5,
-                                   rtol=1e-5)
+    ref = JDA.decode_self_attention(q, kt, v, jnp.int32(pos), interpret=True)
+    out = K.decode_self_attention(t(q), t(kt), t(v), pos)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(np32(out), np32(ref), atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -606,6 +609,21 @@ def test_cross_kernels_refuse_heads_they_do_not_take_before_launching():
     with pytest.raises(ValueError, match="decode_cross_block takes"):
         K.decode_cross_block(x, g, b, w, s_, bias, w, s_, bias, kt, v,
                              heads=16)
+    assert K.launches == before
+
+
+def test_self_attention_refuses_heads_it_does_not_take_before_launching():
+    # heads 4 and 12 wide, and a cache whose scores do not fit a block's
+    # shared memory: the kernel branch raises before any launch (`mha`
+    # never sends them there)
+    c = _on_card
+    before = dict(K.launches)
+    for dh, tt in ((4, 8), (12, 8), (64, 50881)):
+        q = c(torch.zeros(1, 1, dh).bfloat16())
+        kt = c(torch.zeros(1, 1, dh, tt).bfloat16())
+        v = c(torch.zeros(1, tt, 1, dh).bfloat16())
+        with pytest.raises(ValueError, match="decode_self_attention takes"):
+            K.decode_self_attention(q, kt, v, 0)
     assert K.launches == before
 
 

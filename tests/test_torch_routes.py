@@ -89,6 +89,34 @@ def test_cross_attention_takes_heads_the_reference_takes(dh):
     assert DA.cross_block_fits(4, 4 * dh, 4) == (dh <= 1024)
 
 
+@pytest.mark.parametrize("dh,fits", [(4, False), (12, False), (8, True),
+                                     (64, True)])
+def test_self_attention_takes_heads_the_reference_takes(dh, fits):
+    # the JAX dispatcher gates the decode self-attention on a head width
+    # that is a multiple of 8; at the caches a preset decodes the gate is
+    # the whole of it
+    assert DA.self_attention_fits(dh, _CACHE) == fits
+    assert DA.self_attention_fits(dh, 1) == fits
+
+
+@pytest.mark.parametrize("t,fits", [(839, True), (840, True), (50880, True),
+                                    (50881, False)])
+def test_the_self_attention_takes_caches_its_scores_fit(t, fits):
+    # 12 heads of 64: up to 839 positions the head's whole cache fits the
+    # whole-head kernel's shared memory (`self_attn_smem`, as in the self
+    # block); beyond it the tiled kernel keeps two tiles of 96 keys and 4
+    # bytes of score a position (csrc/attention.cuh, `self_tiled_smem`), so
+    # 50880 positions fit in 232,448 bytes and 50881 do not
+    assert DA.self_attn_tile_keys(64) == 96
+    assert DA.self_attn_tiled_smem(64, t) == 28928 + 4 * t
+    assert (DA.self_attn_smem(64, t) <= DA.MAX_SMEM) == (t <= 839)
+    assert DA.self_attention_fits(64, t) == fits
+    # heads wider than the tiled kernel's PV takes: the whole-head kernel's
+    # caches only
+    assert DA.self_attention_fits(520, 8)
+    assert not DA.self_attention_fits(520, 200)
+
+
 def test_cross_attention_refuses_heads_beyond_its_widest():
     assert not DA.cross_attention_fits(DA.CROSS_MAX_DH + 8)
     assert not DA.cross_attention_fits(0)
@@ -129,8 +157,9 @@ def test_block_calls_the_kernels_its_route_names(d, heads, decode_blocks,
             called.append(_n), _f(*a, **k))[1])
     out, _ = TC.block(p, x, heads, cache=cache, cross_kv=ckv,
                       decode_blocks=decode_blocks)
-    want = ["decode_self_block" if route.self_block
-            else "decode_self_attention"]
+    want = (["decode_self_block"] if route.self_block
+            else ["decode_self_attention"]
+            if DA.self_attention_fits(d // heads, cache.k.shape[-1]) else [])
     if route.cross_block:
         want.append("decode_cross_block")
     elif DA.cross_attention_fits(d // heads):
