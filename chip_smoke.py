@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's perception path, fused exploration loop and
-caption-generation modes on one NVIDIA GPU.
+"""Run the PyTorch/CUDA port's perception path, fused exploration loop,
+caption-generation modes and exploration entry point (`generate`) on one
+NVIDIA GPU.
 
 Phases, each of which must pass:
   1. build the hand-written Hopper kernels from the sources in the checkout;
@@ -66,7 +67,11 @@ Phases, each of which must pass:
      functions on the CPU, fed the same detections;
   5. run the tiny preset through the kernels on the card and through the
      plain versions on the CPU (the path the CPU tests hold to the JAX
-     package) and compare;
+     package) and compare: `perceive`, and four steps of
+     `randombaseline`'s unfused loop (2 envs, 128^2 frames, 3-step
+     episodes: both envs auto-reset, on the VectorEnv's worker stream):
+     frames, tokens, and the CPU's fusion of the card's detections against
+     the card's rewards (rtol 1e-4, atol 1e-5);
   6. profile one full-width perceive batch on each decode route and one
      rollout_fused step: device time by kernel, the ported kernels' share,
      the device's idle share (device time is the union of the kernels'
@@ -77,7 +82,22 @@ Phases, each of which must pass:
      (16 crops x 4 beams), sampled `generate` (64 crops, temperature 0.7,
      top-k 50, top-p 0.9, seeded generator) and `generate_speculative`
      (16 crops, 4 drafts) beside greedy `generate` on the same crops:
-     shapes, finite scores, BOS first, PAD after EOS, lengths, launches.
+     shapes, finite scores, BOS first, PAD after EOS, lengths, launches;
+  8. drive the exploration entry point at full width: `randombaseline`'s
+     `generate` (what `python -m embodied_captioning_tpu_torch.run_exp`
+     runs) on 16 envs with the serving configuration of phase 3, writing
+     the npz observations to a temporary directory: first, on fresh envs,
+     the frames of `step_async`/`step_wait` (with perception and readbacks
+     in flight on the caller's stream) against a synchronous `step`, and
+     the batched chunked render against each env's own render, bit for bit
+     (the chunked render's peak memory within its budget), and the port's
+     native library (connected components, A*); then one warm-up step and
+     GEN_STEPS timed steps: frames/s, the per-step split (perceive,
+     upsample and fusion, `save_step_obs`, the wait in `step_wait`, the
+     worker's agent steps and render), launch counts (the raycast kernel
+     and the six `perceive` kernels each launched, the two standalone
+     decode attention kernels not), peak device memory, saved files,
+     finite rewards; one step under the profiler for the idle share.
 
 Float32 products and convolutions run without TF32 so the comparisons see
 the kernels' own error. Prints the card's name and power limit, frames/s
@@ -100,6 +120,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -107,6 +128,7 @@ import time
 import traceback
 from pathlib import Path
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
@@ -128,6 +150,14 @@ BATCHES = 2                    # timed perceive batches
 DECODE_LEN = 30                # large preset's max caption tokens
 LOOP_STEPS = 2                 # K: env steps per rollout window
 LOOP_WINDOWS = 2               # timed rollout_fused windows after a warm-up
+GEN_STEPS = 3                  # timed `generate` steps after a warm-up step
+# rgb pixels allowed more than one level apart between the card's render
+# and the CPU's: the texture noise is fract(sin(x) * 43758.5453), so the
+# sine's last bits (CUDA's sinf is within 2 ulp, the CPU's closer) shift
+# the noise by ~5e-3 and wrap it past 1 on about that share of the pixels
+# (6.0e-3 read on an H100 at the tiny preset); depth, instances and
+# classes must be equal
+RGB_SHARE = 2e-2
 # FP32 operations of the slab test per ray and box, none of them a fused
 # multiply-add, so counted at FP32_OP_PER_S: the built box loop's FP32
 # instructions per box where cuobjdump reads them (raycast_loop_sass),
@@ -1793,6 +1823,92 @@ def tiny_card_vs_cpu(dev) -> None:
         raise AssertionError("tiny preset: card and CPU disagree")
 
 
+def check_frames(what: str, got: dict, want: dict) -> float:
+    """depth, instances and classes equal; rgb within one level on all
+    but RGB_SHARE of the pixels. Returns that share."""
+    for k in ("depth", "instances", "classes"):
+        if not torch.equal(got[k].cpu(), want[k].cpu()):
+            raise AssertionError(f"{what}: {k} differs")
+    d = (got["rgb"].cpu().int() - want["rgb"].cpu().int()).abs().amax(-1)
+    share = (d > 1).float().mean().item()
+    if share > RGB_SHARE:
+        raise AssertionError(f"{what}: rgb differs by more than one level "
+                             f"on {share:.2e} of the pixels")
+    return share
+
+
+def tiny_generate_card_vs_cpu(dev) -> None:
+    """The tiny preset's unfused loop (`randombaseline`, 2 envs, 128^2
+    sensors over the 64^2 mask raster, 4 steps of 3-step episodes, so both
+    envs auto-reset on the card) through the kernels on the card, against the
+    plain path on the CPU: frames equal (rgb within one level on all but
+    RGB_SHARE of the pixels), the CPU's perception on the card's frames
+    beside the card's tokens, and the CPU's fusion of the card's
+    detections against the card's rewards within rtol 1e-4, atol
+    1e-5."""
+    from embodied_captioning_tpu_torch.agents.baselines import RandomBaseline
+    from embodied_captioning_tpu_torch.config import load_config
+    from embodied_captioning_tpu_torch.params import init_perception
+    from embodied_captioning_tpu_torch.perception import (
+        FrameResult, Perceiver)
+
+    cfg = load_config("tiny", overrides=[
+        "runtime.num_envs=2", "sensors.height=128", "sensors.width=128",
+        "sim.num_objects=6", "sim.scene_size=8.0", "map.voxel_size=0.2",
+        "sim.episode_steps=3", "runtime.caption_slots_per_frame=2",
+        "detector.score_threshold=0.0"])
+    p_cpu = init_perception(torch.Generator().manual_seed(3), cfg, "cpu")
+    card = RandomBaseline(cfg, device=dev, perceiver=Perceiver(
+        cfg, params=to_device(p_cpu, dev), device=dev))
+    cpu = RandomBaseline(cfg, device="cpu", perceiver=Perceiver(
+        cfg, params=p_cpu, device="cpu"))
+    obs, obs_cpu = card.envs.observe(), cpu.envs.observe()
+    resets, tok_eq, tok_n, worst, top, rgb = 0, 0, 0, 0.0, 0.0, 0.0
+    for step in range(4):
+        rgb = max(rgb, check_frames(f"tiny generate step {step}", obs,
+                                    obs_cpu))
+        res = card.perceive_and_fuse(obs)
+        frames = {k: v.cpu() for k, v in obs.items()}
+        ref = cpu.perceiver.process(frames["rgb"])
+        cap = ref.caption_lengths.reshape(-1) > 0
+        tok_eq += int((ref.caption_tokens.reshape(-1, 12)[cap]
+                       == res.caption_tokens.cpu().reshape(-1, 12)[cap]
+                       ).all(1).sum())
+        tok_n += int(cap.sum())
+        handed = FrameResult(res.detections.to("cpu"), None, None, None)
+        cpu.perceiver.process = lambda _: handed
+        cpu.perceive_and_fuse(frames)
+        del cpu.perceiver.process
+        r_card, r_cpu = card.rewards(), cpu.rewards()
+        worst = max(worst, float(abs(r_card - r_cpu).max()))
+        top = max(top, float(r_cpu.max()))
+        if not np.allclose(r_card, r_cpu, rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"tiny generate step {step}: rewards card "
+                                 f"{r_card} CPU {r_cpu}")
+        acts = card.actions(obs)
+        if cpu.actions(obs_cpu) != acts:
+            raise AssertionError("tiny generate: the controllers part ways")
+        card.envs.step_async(acts)
+        obs, _, dones, _ = card.envs.step_wait()
+        obs_cpu, _, dones_cpu, _ = cpu.envs.step(acts)
+        if not np.array_equal(dones, dones_cpu):
+            raise AssertionError("tiny generate: dones differ")
+        resets += int(dones.sum())
+    card.envs.close()
+    cpu.envs.close()
+    log(f"  tiny generate card vs CPU: 4 steps, {resets} auto-resets; "
+        f"frames: depth, instances, classes equal, rgb more than one level "
+        f"apart on at most {rgb:.2e} of the pixels (limit {RGB_SHARE}); "
+        f"tokens equal on {tok_eq} of {tok_n} captioned rows; rewards max "
+        f"abs diff {worst:.3e} (rtol 1e-4, atol 1e-5), largest reward "
+        f"{top:.5f}")
+    # tokens are reported, not gated: on 16 rows one greedy flip of the
+    # random-weight decoder (ROADMAP C.8) moves the share by 6%; the
+    # `perceive` check above gates the kernels against the plain path
+    if resets != 2 or top <= 1e-4:
+        raise AssertionError("tiny generate: card and CPU disagree")
+
+
 # ---------------------------------------------------------------------------
 # phase 6: where one full-width perceive batch spends its time
 # ---------------------------------------------------------------------------
@@ -2081,6 +2197,153 @@ def generation_modes(setup: dict, smi: str) -> None:
                              "the first token")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the exploration entry point (`generate`) at full width
+# ---------------------------------------------------------------------------
+
+def generate_checks(cfg, params, dev) -> None:
+    """Before the timed run, on fresh VectorEnvs of the same seeds: frames
+    of step_async/step_wait (with the caller's perception and readbacks
+    in flight on its own stream, as in `generate`) equal a synchronous
+    step's, and the batched chunked render equals each env's own render,
+    bit for bit; the chunked render's peak memory stays within its
+    budget; the native library is the port's build and runs."""
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch.envs import sim as S
+    from embodied_captioning_tpu_torch.envs.device_loop import (
+        make_action_plan)
+    from embodied_captioning_tpu_torch.envs.vector_env import VectorEnv
+    from embodied_captioning_tpu_torch.mapping import components
+    from embodied_captioning_tpu_torch.perception import perceive
+
+    va, vb = VectorEnv(cfg, device=dev), VectorEnv(cfg, device=dev)
+    obs_a, obs_b = va.observe(), vb.observe()
+    for k, acts in enumerate(make_action_plan(2, va.num_envs, "random", 1)):
+        va.step_async(acts.tolist())
+        perceive(params, obs_a["rgb"], cfg)
+        obs_a["rgb"].cpu(), obs_a["depth"].cpu()
+        obs_a = va.step_wait()[0]
+        obs_b = vb.step(acts.tolist())[0]
+        for key in obs_b:
+            if not torch.equal(obs_a[key], obs_b[key]):
+                raise AssertionError(f"step {k}: async {key} differs from "
+                                     "sync")
+    scenes = S.Scene(*(torch.stack(xs) for xs in
+                       zip(*(e.sim.scene for e in va.envs))))
+    poses = torch.stack([e.camera_pose() for e in va.envs])
+    s = cfg.sensors
+    budget = 6 << 30
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    chunked = S.render_batch_chunked(scenes, poses, s.height, s.width,
+                                     s.hfov_deg, s.max_depth, budget)
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = K.launches["raycast_minargmin"]
+    for i, env in enumerate(va.envs):
+        one = env.observe()
+        for key in one:
+            if not torch.equal(chunked[key][i], one[key]):
+                raise AssertionError(f"chunked render: env {i} {key} "
+                                     "differs from its own render")
+    out_bytes = sum(v.numel() * v.element_size() for v in chunked.values())
+    log(f"  async frames == sync frames (2 steps, {va.num_envs} envs, "
+        f"bit for bit); chunked render ({launches} raycast launches) == "
+        f"per-env renders; its peak {peak / 2**30:.2f} GiB beside a budget "
+        f"of {budget / 2**30:.2f} GiB plus {out_bytes / 2**30:.2f} GiB of "
+        f"outputs")
+    if peak > budget + out_bytes:
+        raise AssertionError("the chunked render exceeds its memory budget")
+    va.close()
+    vb.close()
+    del va, vb, chunked
+    lib = Path(components.native_library()._name).resolve()
+    port = REPO / "embodied_captioning_tpu_torch" / "native" / "build"
+    grid = torch.zeros(8, 8, 8, dtype=torch.int32)
+    grid[1:3, 1:3, 1:3] = 1
+    grid[5:7, 5:7, 5:7] = 2
+    _, n = components.connected_components_26(grid.numpy())
+    if not lib.is_relative_to(port) or components._load_native() is None \
+            or n != 2:
+        raise AssertionError(f"native library {lib}: not the port's build "
+                             f"or wrong ({n} components)")
+    log(f"  native library loaded: {lib.relative_to(REPO)} "
+        f"(connected_components_26 and astar_2d)")
+
+
+def generate_full_width(setup: dict, smi: str) -> dict:
+    """`randombaseline`'s generate, the entry point of run_exp, at the
+    serving configuration (16 envs of 96-box scenes at 1280^2, the
+    detector artifact, random seeded captioner, 4 caption slots), with
+    observations written to a temporary directory: one warm-up step, then
+    GEN_STEPS timed steps with the per-step split, launch counts, peak
+    device memory, then one step under the profiler for the idle share."""
+    import tempfile
+
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch.agents.baselines import RandomBaseline
+    from embodied_captioning_tpu_torch.config import apply_dotlist
+    from embodied_captioning_tpu_torch.perception import Perceiver
+
+    dev = setup["state"].x.device
+    with tempfile.TemporaryDirectory(prefix="ecap_generate_") as obs_dir:
+        cfg = apply_dotlist(setup["cfg"], [f"runtime.obs_dir={obs_dir}",
+                                           "sim.scene_seed=100"])
+        generate_checks(cfg, setup["params"], dev)
+        trainer = RandomBaseline(cfg, device=dev, perceiver=Perceiver(
+            cfg, params=setup["params"], device=dev))
+        e = trainer.envs.num_envs
+        path = trainer.envs.envs[0].get_path((1.0, 1.0), (10.0, 10.0))
+        if len(path) == 0:
+            raise AssertionError("A* found no path across the room")
+        trainer.generate(1)                                   # warm-up
+        torch.cuda.synchronize()
+        K.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        split: dict = {}
+        t0 = time.perf_counter()
+        trainer.generate(GEN_STEPS, timings=split)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(K.launches)
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        trainer.generate(1)
+        torch.cuda.synchronize()
+        one_us = (time.perf_counter() - t0) * 1e6
+        profile_run("one generate step (observe, perceive, fuse, save, "
+                    "render)", lambda: trainer.generate(1), one_us)
+        rewards = trainer.rewards()
+        saved = len(trainer.saved_paths)
+        on_disk = sum(len(f) for _, _, f in os.walk(obs_dir))
+        trainer.envs.close()
+    per = {k: v / GEN_STEPS * 1e3 for k, v in split.items()}
+    fps = e * GEN_STEPS / dt
+    log(f"  launches in the timed generate steps: {counts}")
+    log(f"generate: {fps:.2f} frames/s on {smi} ({e} envs x {GEN_STEPS} "
+        f"steps in {dt:.3f} s); ms per step: perceive "
+        f"{per['perceive']:.1f}, upsample+fusion {per['fuse']:.1f}, "
+        f"save_step_obs {per['save']:.1f}, waiting in step_wait "
+        f"{per['wait']:.1f}; the worker (agent steps + render) "
+        f"{per['worker']:.1f}; peak device memory {peak / 2**30:.2f} GiB; "
+        f"{saved} files saved ({on_disk} on disk); rewards "
+        + " ".join(f"{r:.5f}" for r in rewards))
+    steps_run = 1 + GEN_STEPS + 2
+    if saved != steps_run * e * 4 or on_disk != saved:
+        raise AssertionError(f"generate saved {saved} files ({on_disk} on "
+                             f"disk), expected {steps_run * e * 4}")
+    if not np.isfinite(rewards).all():
+        raise AssertionError(f"non-finite rewards {rewards}")
+    path_kernels = ("raycast_minargmin", "fused_preprocess",
+                    "flash_attention", "layernorm", "decode_self_block",
+                    "decode_cross_block", "decode_mlp")
+    if any(counts[k] <= 0 for k in path_kernels) or (
+            counts["decode_self_attention"] or counts["decode_cross_attention"]):
+        raise AssertionError(f"generate launch counts {counts}")
+    return dict(counts=counts, fps=fps, per_step_ms=per, peak_bytes=peak)
+
+
 def card_name() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -2165,6 +2428,7 @@ def main() -> int:
         fuse_card_vs_cpu(setup)
         log("[5] tiny preset: card vs CPU")
         tiny_card_vs_cpu(dev)
+        tiny_generate_card_vs_cpu(dev)
         log("[6] device time of one full-width perceive batch on each "
             "decode route and of one rollout_fused step")
         from embodied_captioning_tpu_torch.perception import perceive
@@ -2183,13 +2447,16 @@ def main() -> int:
                     sum(loop["per_step_ms"].values()) * 1e3)
         log("[7] beam, sampled and speculative generation at full width")
         generation_modes(setup, smi)
+        log("[8] the exploration entry point (generate) at full width")
+        gen = generate_full_width(setup, smi)
     except Exception:
         traceback.print_exc()
         return 1
     # launches: over the timed rollout_fused windows, which run every kernel
     # but the two standalone decode attention kernels; theirs are from the
     # perceive batch on the route of separate calls (phase 3).
-    # launches_perceive: over the timed perceive batches of phase 3
+    # launches_perceive: over the timed perceive batches of phase 3;
+    # launches_generate: over the timed generate steps of phase 8
     kernels = []
     for n, r in rows.items():
         in_loop = loop["counts"][n] > 0
@@ -2198,7 +2465,8 @@ def main() -> int:
             launches=loop["counts"][n] if in_loop else routes["counts"][n],
             launches_from=("rollout_fused" if in_loop
                            else "perceive(decode_blocks=False)"),
-            launches_perceive=res["counts"].get(n, 0), **r))
+            launches_perceive=res["counts"].get(n, 0),
+            launches_generate=gen["counts"][n], **r))
     if any(k["launches"] <= 0 for k in kernels):
         print(f"chip_smoke: a kernel was never launched: {kernels}",
               file=sys.stderr)

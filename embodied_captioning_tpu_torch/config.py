@@ -1,10 +1,11 @@
-"""Configuration dataclasses for the perception and exploration-loop slices.
+"""Configuration dataclasses: a copy of the JAX package's configuration
+tree, field for field, with the same presets, YAML overlays and
+`a.b.c=value` dotlist overrides, so one overlay configures both packages
+alike and `to_dict` of the two trees is equal.
 
-A copy of the fields of the JAX package's configuration tree that the
-ported paths read (detector, captioner, sentence encoder, sensors,
-simulator, voxel map, reward scale, runtime), with the same presets and
-the same `merge` / `apply_dotlist` overlay rules, so one overlay dict
-configures both packages alike.
+A few fields select paths the port does not have; the modules that would
+read them refuse other values (the detector `family` and `stem_s2d`) or
+say what they do instead where the field is declared.
 """
 
 from __future__ import annotations
@@ -12,11 +13,16 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field, fields, is_dataclass
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
+# the 6 target object classes, keyed by COCO ids
+# {57 couch, 58 plant, 59 bed, 60 table, 61 toilet, 62 tv}
+COCO_CLASS_IDS: Tuple[int, ...] = (57, 58, 59, 60, 61, 62)
 CLASS_NAMES: Tuple[str, ...] = ("couch", "plant", "bed", "table", "toilet",
                                "tv")
 NUM_CLASSES = len(CLASS_NAMES)
+COCO_TO_LOCAL: Dict[int, int] = {c: i for i, c in enumerate(COCO_CLASS_IDS)}
+LOCAL_TO_COCO: Dict[int, int] = {i: c for i, c in enumerate(COCO_CLASS_IDS)}
 CLIP_VOCAB_SIZE = 49408  # open_clip CLIP BPE vocabulary size
 
 
@@ -27,18 +33,22 @@ class SensorConfig:
     hfov_deg: float = 79.0
     min_depth: float = 0.5
     max_depth: float = 15.0
+    camera_height: float = 0.88  # camera above the agent's base
 
 
 @dataclass(frozen=True)
 class SimConfig:
     """Built-in raycast simulator."""
 
+    backend: str = "raycast"  # raycast | replay (the port: raycast only)
     scene_seed: int = 0
     scene_size: float = 12.0  # square room extent in meters
     num_objects: int = 12
     max_boxes: int = 96  # static capacity of the scene's AABB set
+    episode_steps: int = 300
     forward_step: float = 0.25
     turn_angle_deg: float = 10.0
+    replay_dir: Optional[str] = None  # recorded episodes (backend replay)
     num_distractors: int = 0  # non-target clutter objects (class -1)
     interior_walls: int = 2   # occluding wall segments
     tex_boost: float = 0.0    # added texture contrast
@@ -69,6 +79,7 @@ class TextDecoderConfig:
     pad_id: int = 0
     bos_id: int = 1
     eos_id: int = 2
+    moe_experts: int = 0  # mixture-of-experts MLPs (the port: dense only)
 
 
 @dataclass(frozen=True)
@@ -76,6 +87,8 @@ class CaptionerConfig:
     vision: VitConfig = field(default_factory=VitConfig)
     text: TextDecoderConfig = field(default_factory=TextDecoderConfig)
     max_caption_len: int = 30
+    dtype: str = "bfloat16"
+    remat: bool = False  # rematerialised encoder blocks (training)
 
     @staticmethod
     def tiny() -> "CaptionerConfig":
@@ -145,8 +158,17 @@ class DetectorConfig:
     paste_size: int = 0
     score_threshold: float = 0.5
     nms_iou_threshold: float = 0.5
-    family: str = "rcnn"  # the port has the rcnn family only
+    # approximate proposal top-k on the TPU; the port's top-k is exact, as
+    # the JAX package's is off the TPU
+    approx_topk: bool = False
     stem_s2d: bool = False  # the port has the direct stem only
+    dtype: str = "bfloat16"
+    family: str = "rcnn"  # the port has the rcnn family only
+    # query-family settings (not ported)
+    num_queries: int = 64
+    query_layers: int = 6
+    no_object_weight: float = 0.1
+    query_aux_topk: int = 0
 
     @property
     def fpn_strides(self) -> Tuple[int, ...]:
@@ -167,7 +189,7 @@ class DetectorConfig:
                               block="bottleneck", norm="affine", fpn_dim=256,
                               min_level=1, add_p6=True, pre_nms_topk=1024,
                               num_proposals=128, max_detections=16,
-                              paste_size=256)
+                              paste_size=256, approx_topk=True)
 
 
 @dataclass(frozen=True)
@@ -175,6 +197,7 @@ class MapConfig:
     """3D semantic voxel map."""
 
     voxel_size: float = 0.05
+    map_scale: float = 0.025  # top-down raster
     grid: Tuple[int, int, int] = (256, 64, 256)  # X (x), Y (height), Z
     max_objects: int = 128
     max_views_per_object: int = 16  # caption-embedding capacity per object
@@ -183,6 +206,7 @@ class MapConfig:
     solution: str = "max"  # seal | bayesian | ours | avg | max
     # obstacle height band in world-y meters
     height_thresh: Tuple[float, float] = (0.10, 0.25)
+    cc_connectivity: int = 26
 
     @staticmethod
     def tiny() -> "MapConfig":
@@ -191,22 +215,59 @@ class MapConfig:
 
 
 @dataclass(frozen=True)
+class PolicyConfig:
+    """Global exploration policy."""
+
+    map_size: int = 128  # input maps resized to map_size x map_size
+    input_channels: int = 2
+    hidden: int = 256
+    orientation_bins: int = 72
+    recurrent: bool = False
+    action_space: str = "box2"  # (x, y) in [0,1]^2 map goal
+
+
+@dataclass(frozen=True)
 class PPOConfig:
+    clip_param: float = 0.2
+    ppo_epoch: int = 4
+    num_mini_batch: int = 2
+    value_loss_coef: float = 0.5
+    entropy_coef: float = 0.001
+    lr: float = 2.5e-4
+    eps: float = 1e-5
+    max_grad_norm: float = 0.5
+    gamma: float = 0.99
+    tau: float = 0.95
+    use_gae: bool = True
+    num_global_steps: int = 20
+    replanning_steps: int = 80
     reward_scale: float = 1e-3  # disagreement sum / 1000
 
 
 @dataclass(frozen=True)
 class RuntimeConfig:
     num_envs: int = 4
+    env_name: str = "Habitat3Env"  # envs/registry.py name
+    detector_batch: int = 8
     # caption only the top-k scored detection slots of each frame (0 = all)
     caption_slots_per_frame: int = 0
     # decode padded (invalid) slots too, so decode work does not depend on
     # how many detections the detector returns
     caption_invalid_slots: bool = False
+    mesh_shape: Tuple[int, ...] = (1,)  # the port runs on one device
+    mesh_axes: Tuple[str, ...] = ("data",)
+    seed: int = 7
+    obs_dir: Optional[str] = None  # where to save npz observations
+    save_gt_obs: bool = False  # also record the ground-truth detections
+    checkpoint_dir: Optional[str] = None
+    save_periodic: int = 100
+    log_interval: int = 10
 
 
 @dataclass(frozen=True)
 class ExperimentConfig:
+    trainer_name: str = "goalexplorationbaseline-v0"
+    mode: str = "generate"  # train | generate
     preset: str = "tiny"
     sensors: SensorConfig = field(default_factory=SensorConfig)
     sim: SimConfig = field(default_factory=SimConfig)
@@ -215,6 +276,7 @@ class ExperimentConfig:
         default_factory=SentenceEncoderConfig.tiny)
     detector: DetectorConfig = field(default_factory=DetectorConfig.tiny)
     map: MapConfig = field(default_factory=MapConfig.tiny)
+    policy: PolicyConfig = field(default_factory=PolicyConfig)
     ppo: PPOConfig = field(default_factory=PPOConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
 
@@ -236,6 +298,16 @@ class ExperimentConfig:
                 map=MapConfig(),
             )
         raise ValueError(f"unknown preset {name!r}")
+
+
+def to_dict(cfg: Any) -> Any:
+    if is_dataclass(cfg):
+        return {f.name: to_dict(getattr(cfg, f.name)) for f in fields(cfg)}
+    if isinstance(cfg, (list, tuple)):
+        return [to_dict(v) for v in cfg]
+    if isinstance(cfg, dict):
+        return {k: to_dict(v) for k, v in cfg.items()}
+    return cfg
 
 
 def merge(cfg: Any, overlay: Dict[str, Any]) -> Any:
@@ -276,3 +348,20 @@ def apply_dotlist(cfg: Any, overrides: List[str]) -> Any:
             node = node.setdefault(key, {})
         node[keys[-1]] = _parse_value(raw)
     return merge(cfg, overlay)
+
+
+def load_yaml(path: str) -> Dict[str, Any]:
+    import yaml  # imported here: only YAML overlays need pyyaml
+
+    with open(path) as fh:
+        return yaml.safe_load(fh) or {}
+
+
+def load_config(preset: str = "tiny", yaml_path: Optional[str] = None,
+                overrides: Optional[List[str]] = None) -> ExperimentConfig:
+    cfg = ExperimentConfig.preset_config(preset)
+    if yaml_path:
+        cfg = merge(cfg, load_yaml(yaml_path))
+    if overrides:
+        cfg = apply_dotlist(cfg, overrides)
+    return cfg

@@ -383,6 +383,41 @@ def render_batch(scenes: Scene, poses: torch.Tensor, height: int, width: int,
             "classes": torch.where(valid, class_px, -1)}
 
 
+# device bytes `render_batch` holds per ray at its peak, outputs included
+# (float32 rays, reciprocals and hit points with their float64
+# temporaries, the [H, W, 11] attribute table, shading temporaries), and
+# the {0,1} [H*W, Bx] product it builds for one env at a time (bool and
+# float32): what `render_batch_chunked` budgets for (16 envs at 1280^2
+# and 96 boxes take about 2/3 of this on an H100, chip_smoke.py phase 8)
+RENDER_BYTES_PER_RAY = 256
+ONEHOT_BYTES_PER_RAY_BOX = 5
+
+
+def render_batch_chunked(scenes: Scene, poses: torch.Tensor, height: int,
+                         width: int, hfov_deg: float, max_depth: float = 15.0,
+                         budget_bytes: int = 6 << 30,
+                         attr_mode: str = "onehot"
+                         ) -> Dict[str, torch.Tensor]:
+    """`render_batch` in chunks of envs that bound device memory: the
+    chunk is the largest divisor of the batch whose intermediates
+    (RENDER_BYTES_PER_RAY per ray and env, plus one env's one-hot
+    product) fit `budget_bytes`, so every chunk has one shape."""
+    n = poses.shape[0]
+    rays = height * width
+    fixed = (rays * scenes.box_min.shape[-2] * ONEHOT_BYTES_PER_RAY_BOX
+             if attr_mode == "onehot" else 0)
+    cap = max(1, (budget_bytes - fixed) // (rays * RENDER_BYTES_PER_RAY))
+    if cap >= n:
+        return render_batch(scenes, poses, height, width, hfov_deg,
+                            max_depth, attr_mode)
+    chunk = max(d for d in range(1, cap + 1) if n % d == 0)
+    outs = [render_batch(Scene(*(x[i:i + chunk] for x in scenes)),
+                         poses[i:i + chunk], height, width, hfov_deg,
+                         max_depth, attr_mode)
+            for i in range(0, n, chunk)]
+    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+
 def render(scene: Scene, pose: torch.Tensor, height: int, width: int,
            hfov_deg: float, max_depth: float = 15.0,
            attr_mode: str = "onehot") -> Dict[str, torch.Tensor]:

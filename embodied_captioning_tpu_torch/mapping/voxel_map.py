@@ -334,3 +334,28 @@ def disagreement_reward(state: VoxelMapState, cfg: MapConfig,
     """[...] reward = the disagreement channel of `topdown_maps`, summed,
     times `scale`."""
     return _disagreement_map(state, cfg).sum(dim=(-2, -1)) * scale
+
+
+@torch.no_grad()
+def kl_score(state: VoxelMapState, depth: torch.Tensor, pose: torch.Tensor,
+             pred_masks: torch.Tensor, pred_logits: torch.Tensor,
+             pred_valid: torch.Tensor, cfg: MapConfig,
+             hfov_deg: float = 79.0) -> torch.Tensor:
+    """Per-detection KL(map-consensus logits || prediction logits) over
+    the pixels of each detection that land on mapped voxels, for one env
+    (depth [H, W], pose [4, 4], pred_masks [N, H, W], pred_logits [N, C]).
+    Returns [N] float32, 0 where a detection hits no mapped voxel or is
+    invalid."""
+    points, dvalid = backproject_depth(depth, pose, hfov_deg)
+    flat_idx, inb = world_to_voxel(points, state.lower, cfg)
+    _, map_logits = resolve_map(state, cfg)
+    hit = ((pred_masks > 0.5) & (dvalid & inb)
+           & (state.count > 0)[flat_idx])                    # [N, H, W]
+    w = hit.float()
+    n = torch.clamp(w.sum(dim=(1, 2)), min=1.0)
+    tgt = torch.einsum("nhw,hwc->nc", w, map_logits[flat_idx]) / n[:, None]
+    p = torch.softmax(tgt, dim=-1)
+    logq = torch.log_softmax(pred_logits.float(), dim=-1)
+    kl = (p * (torch.log(torch.clamp(p, min=1e-12)) - logq)).sum(dim=-1)
+    kl = torch.where(hit.flatten(1).any(dim=1), kl, 0.0)
+    return torch.where(pred_valid.bool(), kl, 0.0)

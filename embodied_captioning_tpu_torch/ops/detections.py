@@ -5,9 +5,15 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
+
+from ..config import NUM_CLASSES
+
+_ARRAY_FIELDS = ("boxes", "classes", "scores", "logits", "valid", "masks",
+                 "embeddings", "object_ids", "episode_ids")
 
 
 @dataclass
@@ -16,7 +22,8 @@ class Detections:
     computes them); classes [..., N] int32 (local
     ids 0..5); scores [..., N] f32; logits [..., N, C] f32 per-class
     probabilities; valid [..., N] bool; masks [..., N, Hm, Wm];
-    embeddings [..., N, D] caption embeddings."""
+    embeddings [..., N, D] caption embeddings; captions: host-side
+    caption payload (an object array), or None."""
 
     boxes: torch.Tensor
     classes: torch.Tensor
@@ -27,13 +34,80 @@ class Detections:
     embeddings: Optional[torch.Tensor] = None
     object_ids: Optional[torch.Tensor] = None   # [..., N] int32, -1 = none
     episode_ids: Optional[torch.Tensor] = None  # [..., N] int32
+    captions: Optional[Any] = None
+
+    @staticmethod
+    def empty(capacity: int, num_classes: int = NUM_CLASSES,
+              mask_size: Optional[int] = None,
+              embed_dim: Optional[int] = None, device="cuda"
+              ) -> "Detections":
+        n, f32 = capacity, torch.float32
+
+        def zeros(*shape, dtype=f32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return Detections(
+            boxes=zeros(n, 4), classes=zeros(n, dtype=torch.int32),
+            scores=zeros(n), logits=zeros(n, num_classes),
+            valid=zeros(n, dtype=torch.bool),
+            masks=zeros(n, mask_size, mask_size) if mask_size else None,
+            embeddings=zeros(n, embed_dim) if embed_dim else None,
+            object_ids=torch.full((n,), -1, dtype=torch.int32, device=device),
+            episode_ids=torch.full((n,), -1, dtype=torch.int32,
+                                   device=device),
+        )
 
     @property
     def capacity(self) -> int:
         return self.boxes.shape[-2]
 
+    def count(self) -> torch.Tensor:
+        return self.valid.to(torch.int32).sum(dim=-1)
+
+    def index(self, i: int) -> "Detections":
+        """One batch row: every tensor field sliced at `i` (None fields and
+        the host-side captions pass through)."""
+        return self.replace(**{f: getattr(self, f)[i] for f in _ARRAY_FIELDS
+                               if getattr(self, f) is not None})
+
     def replace(self, **kw) -> "Detections":
         return dataclasses.replace(self, **kw)
+
+    def to(self, device) -> "Detections":
+        return self.replace(**{f: getattr(self, f).to(device)
+                               for f in _ARRAY_FIELDS
+                               if getattr(self, f) is not None})
+
+    def to_numpy_dict(self) -> Dict[str, Any]:
+        """Host-side payload of the `bbs` npz files. numpy has no bf16, so
+        bf16 fields are widened to float32 (exactly)."""
+        out: Dict[str, Any] = {}
+        for f in _ARRAY_FIELDS:
+            v = getattr(self, f)
+            if v is not None:
+                v = v.detach()
+                if v.dtype == torch.bfloat16:
+                    v = v.float()
+                out[f] = v.cpu().numpy()
+        if self.captions is not None:
+            out["captions"] = self.captions
+        return out
+
+    @staticmethod
+    def from_numpy_dict(d: Dict[str, Any], device="cuda") -> "Detections":
+        """Tensors on `device` from a `to_numpy_dict` payload (of either
+        package: a bfloat16 array arrives as bf16)."""
+
+        def tensor(a):
+            a = np.asarray(a)
+            if a.dtype.name == "bfloat16":
+                return torch.from_numpy(a.astype(np.float32)).to(
+                    device=device, dtype=torch.bfloat16)
+            return torch.from_numpy(np.array(a)).to(device)
+
+        return Detections(**{f: tensor(d[f]) if f in d else None
+                             for f in _ARRAY_FIELDS},
+                          captions=d.get("captions"))
 
 
 def boxes_from_masks(masks: torch.Tensor, valid: torch.Tensor

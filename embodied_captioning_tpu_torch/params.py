@@ -126,15 +126,18 @@ def load_detector_artifact(path: str, device="cuda"
                            ) -> Tuple[dict, dict]:
     """Read a serving artifact (`det_serving_256.pkl`): returns (served
     detector params on `device`, serving config as a dict of the port's
-    `DetectorConfig` fields). Query-family settings are dropped; the
-    port's proposal top-k is always exact."""
+    `DetectorConfig` fields). Query-family settings, the compute type
+    and the approximate top-k switch are dropped: the port serves the
+    rcnn family in bf16 and its proposal top-k is always exact."""
     with open(path, "rb") as fh:
         artifact = _ArtifactUnpickler(fh).load()
     cfg = dict(artifact["serving_cfg"])
     if cfg.get("family", "rcnn") != "rcnn" or cfg.get("stem_s2d", False):
         raise ValueError("the port serves the rcnn family with the direct "
                          "stem only")
-    known = {f.name for f in dataclasses.fields(DetectorConfig)}
+    known = {f.name for f in dataclasses.fields(DetectorConfig)} - {
+        "approx_topk", "dtype", "num_queries", "query_layers",
+        "no_object_weight", "query_aux_topk"}
     cfg = {k: v for k, v in cfg.items() if k in known}
     return from_jax(artifact["served"], device), cfg
 

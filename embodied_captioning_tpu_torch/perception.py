@@ -14,7 +14,6 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -126,10 +125,12 @@ class Perceiver:
         self.tokenizer: Tokenizer = default_tokenizer(
             cfg.captioner.text.vocab_size)
 
-    def process(self, images_u8: np.ndarray) -> FrameResult:
+    def process(self, images_u8) -> FrameResult:
         """Square [.., H, H, 3] uint8 frames at any resolution (non-square
-        frames are resized to a square first)."""
-        images = torch.as_tensor(np.asarray(images_u8)).to(self.device)
+        frames are resized to a square first), as a tensor (used where it
+        lies when on the perceiver's device, never copied through the
+        host) or a numpy array."""
+        images = torch.as_tensor(images_u8, device=self.device)
         if images.dim() == 3:
             images = images[None]
         if images.shape[1] != images.shape[2]:

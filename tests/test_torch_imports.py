@@ -1,4 +1,5 @@
-"""The port imports neither JAX nor the JAX package (AST scan)."""
+"""The port imports neither JAX nor the JAX package (AST scan), and names
+no file of the JAX package's native library."""
 
 import ast
 from pathlib import Path
@@ -26,6 +27,20 @@ def test_no_jax_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
+@pytest.mark.parametrize("path", FILES + sorted(
+    (REPO / "embodied_captioning_tpu_torch").rglob("*.cpp")),
+    ids=lambda p: str(p.relative_to(REPO)))
+def test_no_path_to_the_jax_native_library(path):
+    """The port builds its own copy of ccl3d.cpp (mapping/components.py):
+    no file names the JAX package's native directory or its library, so
+    nothing can load it by path, which the import scan cannot see."""
+    text = path.read_text()
+    for needle in ("libecap_native", "embodied_captioning_tpu/native",
+                   '"embodied_captioning_tpu", "native"',
+                   "'embodied_captioning_tpu', 'native'"):
+        assert needle not in text, (path, needle)
+
+
 def test_scan_covers_every_subpackage_and_the_smoke_script():
     scanned = {str(p.relative_to(REPO)) for p in FILES}
     pkg = "embodied_captioning_tpu_torch/"
@@ -33,7 +48,9 @@ def test_scan_covers_every_subpackage_and_the_smoke_script():
                 "mapping/consensus.py", "ops/geometry.py", "ops/cosine.py",
                 "kernels/raycast.py", "kernels/layernorm.py",
                 "kernels/preprocess.py", "kernels/decode_attention.py",
-                "models/captioner.py", "sensor_data.py", "perception.py"):
+                "models/captioner.py", "sensor_data.py", "perception.py",
+                "envs/env.py", "envs/vector_env.py", "agents/baselines.py",
+                "utils/obs_store.py", "mapping/components.py", "run_exp.py"):
         assert pkg + rel in scanned, rel
     assert "chip_smoke.py" in scanned
     # every directory of the package that holds Python files is scanned

@@ -54,9 +54,99 @@ def jax_kernel_path(blocks: bool = False):
 
 
 # ---------------------------------------------------------------------------
+# the unfused exploration loop of both packages (agents/baselines.py)
+# ---------------------------------------------------------------------------
+
+# tiny settings of the generate tests: 128^2 sensors over the tiny
+# detector's 64^2 mask raster, so fusion runs on upsampled masks; the KL
+# env, so each step reads the KL reward too; detector threshold 0 so that
+# the random-weight detector yields detections
+GENERATE_OVERRIDES = [
+    "runtime.num_envs=2", "sensors.height=128", "sensors.width=128",
+    "sim.num_objects=6", "sim.scene_size=8.0", "map.voxel_size=0.2",
+    "runtime.caption_slots_per_frame=2", "detector.score_threshold=0.0",
+    "runtime.env_name=SemanticDisagreement-kl"]
+
+
+def _readouts(envs, base_reward) -> dict:
+    """Per env: the KL reward (`get_reward` of the KL env), the
+    disagreement reward and the top-down maps."""
+    return dict(kl=[env.get_reward() for env in envs],
+                disagreement=[base_reward(env) for env in envs],
+                maps=[np.asarray(env.get_and_update_disagreement_map())
+                      for env in envs])
+
+
+def jax_generate_records(jcfg, steps: int, trainer: str = "randombaseline",
+                         blocks: bool = True):
+    """`steps` iterations of the JAX package's unfused loop (the body of
+    BaseTrainer.generate, synchronous and without the store) with its
+    Pallas kernels (`jax_kernel_path(blocks)`). Returns (trainer, records):
+    per step the frames handed to perception, the detections at the mask
+    raster (`to_numpy_dict`), the readouts after fusion and the actions."""
+    import embodied_captioning_tpu.agents.baselines  # noqa: F401
+    from embodied_captioning_tpu.agents.registry import get_trainer
+    from embodied_captioning_tpu.envs.env import EmbodiedEnv
+
+    tr = get_trainer(trainer)(jcfg)
+    records = []
+    obs = tr.envs.observe()
+    with jax_kernel_path(blocks=blocks):
+        for _ in range(steps):
+            result = tr.perceive_and_fuse(obs)
+            rec = dict(obs={k: np.array(v) for k, v in obs.items()},
+                       det=result.detections.to_numpy_dict(),
+                       **_readouts(tr.envs.envs, EmbodiedEnv.get_reward))
+            rec["actions"] = [int(a) for a in tr.actions(obs)]
+            obs = tr.envs.step(rec["actions"])[0]
+            records.append(rec)
+    return tr, records
+
+
+def port_generate_on(cfg, params, records, trainer: str = "randombaseline",
+                     frames: str = "handed", detections: bool = False):
+    """The port's unfused loop over the JAX records' steps, on the CPU,
+    taking the same actions (asserted equal to its own controller's).
+    `frames`: "handed" perceives the JAX package's frames, "own" its own
+    render; with `detections` perception is skipped and the JAX package's
+    detections are fused. Returns the readouts per step."""
+    from embodied_captioning_tpu_torch.agents import baselines  # noqa: F401
+    from embodied_captioning_tpu_torch.agents.registry import get_trainer
+    from embodied_captioning_tpu_torch.envs.env import EmbodiedEnv
+    from embodied_captioning_tpu_torch.ops.detections import Detections
+    from embodied_captioning_tpu_torch.perception import (
+        FrameResult, Perceiver)
+
+    tr = get_trainer(trainer)(cfg, device="cpu", perceiver=Perceiver(
+        cfg, params=params, device="cpu"))
+    out = []
+    obs = tr.envs.observe()
+    for rec in records:
+        if frames == "handed":
+            obs = {k: torch.from_numpy(v) for k, v in rec["obs"].items()}
+        if detections:
+            det = Detections.from_numpy_dict(rec["det"], "cpu")
+            tr.perceiver.process = lambda _, d=det: FrameResult(
+                d, None, None, None)
+        tr.perceive_and_fuse(obs)
+        out.append(_readouts(tr.envs.envs, EmbodiedEnv.get_reward))
+        acts = [int(a) for a in tr.actions(obs)]
+        assert acts == rec["actions"], (acts, rec["actions"])
+        obs = tr.envs.step(acts)[0]
+    return out
+
+
+def readouts_agree(got: dict, want: dict, env: int) -> bool:
+    """Rewards of one env within rtol 1e-4 / atol 1e-5 (the JAX package's
+    loop-parity tolerance)."""
+    return all(np.allclose(got[k][env], want[k][env], rtol=1e-4, atol=1e-5)
+               for k in ("kl", "disagreement"))
+
+
+# ---------------------------------------------------------------------------
 # probes: the measurements behind the tolerances of the loop-slice tests
 # (python tests/torch_parity.py render | rollout-scan | rollout-scan-blocks
-# | beam); not collected
+# | beam | generate-scan); not collected
 # ---------------------------------------------------------------------------
 
 def probe_render(size: int = 128, seeds=(1, 2, 3, 7, 11),
@@ -155,6 +245,42 @@ def probe_rollout_scan(blocks: bool, bases=(1, 13, 25, 37), envs: int = 12,
     return rows
 
 
+def probe_generate_scan(seeds=range(0, 20, 2), steps: int = 4):
+    """The unfused loop (randombaseline, 2 envs a scene seed) of both
+    packages on their block decode routes with the same float weights:
+    per env with a reward above 1e-5, whether the port's KL and
+    disagreement rewards agree with the JAX package's at every step (rtol
+    1e-4 / atol 1e-5) when it fuses the JAX package's detections
+    ("detections"), perceives the JAX package's frames ("handed") or its
+    own render ("own")."""
+    from embodied_captioning_tpu.config import load_config
+    from embodied_captioning_tpu_torch import params as P
+    from embodied_captioning_tpu_torch.config import load_config as tload
+
+    rows = []
+    for seed in seeds:
+        ov = GENERATE_OVERRIDES + [f"sim.scene_seed={seed}"]
+        jtr, recs = jax_generate_records(load_config("tiny", overrides=ov),
+                                         steps)
+        params = P.from_jax(jax.tree_util.tree_map(
+            np.asarray, jtr.perceiver.params), "cpu")
+        cfg = tload("tiny", overrides=ov)
+        got = {f: port_generate_on(cfg, params, recs, frames=f)
+               for f in ("handed", "own")}
+        got["detections"] = port_generate_on(cfg, params, recs,
+                                             detections=True)
+        for i in range(2):
+            if not any(max(r["disagreement"][i], r["kl"][i]) > 1e-5
+                       for r in recs):
+                continue
+            rows.append(dict(
+                scene_seed=seed, env=i,
+                jax=[r["disagreement"][i] for r in recs],
+                **{f: all(readouts_agree(g, r, i) for g, r in
+                          zip(got[f], recs)) for f in got}))
+    return rows
+
+
 def probe_beam(seeds=(0, 1, 2, 3), widths=(2, 3, 4), crops: int = 4):
     """Tiny `generate_beam` on `crops` random 64^2 crops per seed: per
     seed and beam width, on how many rows the best beam's tokens of the
@@ -204,6 +330,12 @@ if __name__ == "__main__":
     elif what == "beam":
         for row in probe_beam():
             print(row)
+    elif what == "generate-scan":
+        rows = probe_generate_scan()
+        for row in rows:
+            print(row)
+        print({f: f"{sum(r[f] for r in rows)} of {len(rows)} envs agree"
+               for f in ("detections", "handed", "own")})
     else:
         sys.exit("usage: python tests/torch_parity.py render | rollout-scan "
-                 "| rollout-scan-blocks | beam")
+                 "| rollout-scan-blocks | beam | generate-scan")
