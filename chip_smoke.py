@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's perception path, fused exploration loop,
-caption-generation modes and exploration entry point (`generate`) on one
-NVIDIA GPU.
+caption-generation modes, exploration entry point (`generate`) and PPO
+training entry point (`train`) on one NVIDIA GPU.
 
 Phases, each of which must pass:
   1. build the hand-written Hopper kernels from the sources in the checkout;
@@ -97,7 +97,24 @@ Phases, each of which must pass:
      worker's agent steps and render), launch counts (the raycast kernel
      and the six `perceive` kernels each launched, the two standalone
      decode attention kernels not), peak device memory, saved files,
-     finite rewards; one step under the profiler for the idle share.
+     finite rewards; one step under the profiler for the idle share;
+  9. drive PPO training at full width: first `ppo_update` on the card
+     against the CPU on the same rollout, weights and permutations (the
+     first backward the port runs on the card: first-minibatch gradients,
+     parameters after the update and metrics within the CPU tests'
+     limits, feed-forward and GRU policies); then
+     `goalexplorationbaseline-v0`'s `train` on 16 envs with the serving
+     configuration of phase 3 and the policy at its defaults (128^2 maps,
+     72 orientation bins): 2 updates of 2 decisions of 2 steps unfused,
+     then the same fused (`rollout_fused` windows), each with finite
+     metrics, moved parameters, launch counts (raycast and the six
+     `perceive` kernels launched, the two standalone decode attentions
+     not), the split of an update (rollout, policy inputs, update), env
+     steps/s, peak memory, and `policy.pkl` written and read back equal,
+     then one decision and its update under the profiler for the idle
+     share; one PPO update at the reference's batch (8 decisions x 16
+     envs, 4 epochs x 2 minibatches), timed and profiled; and `run_exp
+     --mode train` at the tiny preset in process on the card.
 
 Float32 products and convolutions run without TF32 so the comparisons see
 the kernels' own error. Prints the card's name and power limit, frames/s
@@ -1914,15 +1931,15 @@ def tiny_generate_card_vs_cpu(dev) -> None:
 # ---------------------------------------------------------------------------
 
 def profile_run(what: str, fn, unprofiled_us: float, top: int = 15) -> None:
-    """Device time by kernel over one call of `fn` (torch.profiler), the
-    share of the ported kernels, and the device's idle share of the
-    unprofiled time of the same work measured in an earlier phase."""
+    """Device time by kernel over one call of `fn` (torch.profiler, the
+    device's activity alone), the share of the ported kernels, and the
+    device's idle share of the unprofiled time of the same work measured in
+    an earlier phase."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     for _ in range(3):  # again if the trace lost its device events
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -2344,6 +2361,331 @@ def generate_full_width(setup: dict, smi: str) -> dict:
     return dict(counts=counts, fps=fps, per_step_ms=per, peak_bytes=peak)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: PPO training (`train`) at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_UPDATES = 2              # PPO updates per train call in phase 9
+TRAIN_DECISIONS = 2            # decisions per update
+TRAIN_WINDOW = 2               # env steps per decision (num_global_steps)
+# the reference's rollout batch: horizon 8 x 16 envs, PPOConfig's 4 epochs
+# x 2 minibatches
+REF_HORIZON = 8
+
+
+def random_rollout(t: int, e: int, map_size: int, recurrent: bool,
+                   seed: int):
+    """A rollout of random maps, orientations, actions, log-probs, values,
+    rewards and masks (tests/test_torch_policy.py's)."""
+    from embodied_captioning_tpu_torch.agents.storage import Rollout
+
+    rng = np.random.default_rng(seed)
+    return Rollout(
+        maps=rng.random((t + 1, e, map_size, map_size, 2)).astype(np.float32),
+        orientation=rng.integers(0, 72, (t + 1, e)).astype(np.int32),
+        raw_actions=rng.standard_normal((t, e, 2)).astype(np.float32),
+        log_probs=(rng.standard_normal((t, e)) - 2).astype(np.float32),
+        values=rng.random((t + 1, e)).astype(np.float32),
+        rewards=rng.random((t, e)).astype(np.float32),
+        masks=(rng.random((t + 1, e)) > 0.2).astype(np.float32),
+        rnn_states=((rng.standard_normal((t, e, 256)) * 0.5).astype(
+            np.float32) if recurrent else None))
+
+
+HEAD_LEAVES = ("value.", "act.", "log_std")
+
+
+def ppo_card_vs_cpu(dev) -> None:
+    """The same rollout, weights and permutations through `ppo_update` on
+    the card and on the CPU (a rollout of 4 decisions x 4 envs, 2 epochs x
+    2 minibatches), with the limits of tests/test_torch_policy.py: the
+    first minibatch's gradients within a relative L2 error of 1e-2 per leaf
+    (5e-2 with the GRU), the parameters after the update within Adam's
+    2 * lr a step of each other with a mean difference under a tenth of the
+    mean move, the metrics within 2e-3. At the CPU tests' 32^2 maps every
+    leaf's gradient is held; at the policy's default 128^2 maps, the path's
+    own shapes, the trunk's bf16 gradients are chaotic (ROADMAP C.20), so
+    the gradients of the head leaves (value, act, log_std) are held, and
+    the update-level checks as at 32^2."""
+    from embodied_captioning_tpu_torch.agents import ppo as PPO
+    from embodied_captioning_tpu_torch.agents.policy import init_policy
+    from embodied_captioning_tpu_torch.config import PolicyConfig, PPOConfig
+
+    cfg = PPOConfig(ppo_epoch=2, num_mini_batch=2)
+    for size, recurrent in ((32, False), (32, True), (128, False),
+                            (128, True)):
+        params = init_policy(torch.Generator().manual_seed(5),
+                             PolicyConfig(map_size=size, recurrent=recurrent),
+                             device="cpu")
+        ids = parameter_names(params)
+        names = [ids[id(x)] for x in PPO.tree_leaves(params)]
+        held = [size == 32 or n.startswith(HEAD_LEAVES) for n in names]
+        ro = random_rollout(4, 4, size, recurrent, seed=0)
+        g = torch.Generator().manual_seed(6)
+        perms = [torch.randperm(16, generator=g) for _ in range(2)]
+
+        def first_grads(p):
+            batch = PPO.prepare_batch(ro, cfg, p["log_std"].device)
+            idx = perms[0][:8].to(p["log_std"].device)
+            return [x.cpu() for x in PPO.tree_leaves(
+                PPO.ppo_grads(p, batch, idx, cfg)[0])]
+
+        def rel(a, b):
+            return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+        grads, state, metrics = {}, {}, {}
+        for where, p in (("cpu", params), ("card", to_device(params, dev))):
+            grads[where] = first_grads(p)
+            state[where], metrics[where] = PPO.ppo_update_with(
+                PPO.create_state(p, cfg), ro, perms, cfg)
+        tol = 5e-2 if recurrent else 1e-2
+        errs = [rel(a, b) for a, b in zip(grads["card"], grads["cpu"])]
+        held_err = max(e for e, h in zip(errs, held) if h)
+        p0 = PPO.tree_leaves(params)
+        p_cpu = PPO.tree_leaves(state["cpu"].params)
+        p_card = [x.cpu() for x in PPO.tree_leaves(state["card"].params)]
+        diff = torch.cat([(a - b).abs().flatten()
+                          for a, b in zip(p_card, p_cpu)])
+        move = torch.cat([(a - b).abs().flatten()
+                          for a, b in zip(p_cpu, p0)])
+        steps = cfg.ppo_epoch * cfg.num_mini_batch
+        m_err = max(abs(float(metrics["card"][k]) - float(metrics["cpu"][k]))
+                    / abs(float(metrics["cpu"][k])) for k in metrics["cpu"])
+        what = f"{'GRU' if recurrent else 'feed-forward'}, {size}^2 maps"
+        log(f"  ppo_update card vs CPU ({what}): first-minibatch gradients' "
+            f"relative L2 error per leaf, held ones * (limit {tol:.0e}): "
+            + ", ".join(f"{n} {e:.2e}{' *' if h else ''}"
+                        for n, e, h in zip(names, errs, held)))
+        log(f"    parameters after the update: max diff "
+            f"{diff.max().item() / cfg.lr:.3f} lr (limit {2 * steps} lr), "
+            f"mean diff {diff.mean().item() / cfg.lr:.4f} lr beside a mean "
+            f"move of {move.mean().item() / cfg.lr:.4f} lr; metrics max "
+            f"relative diff {m_err:.2e}; loss card "
+            f"{float(metrics['card']['loss']):.6f}, CPU "
+            f"{float(metrics['cpu']['loss']):.6f}")
+        if (held_err > tol
+                or diff.max().item() > 2 * cfg.lr * steps
+                or diff.mean() > 0.1 * move.mean() or m_err > 2e-3
+                or not math.isfinite(m_err)):
+            raise AssertionError(f"ppo_update ({what}): the card and the CPU "
+                                 "disagree")
+
+
+def ppo_update_reference_batch(dev, smi: str) -> dict:
+    """One PPO update at the reference's batch (8 decisions x 16 envs,
+    PPOConfig's 4 epochs x 2 minibatches, the policy at 128^2 maps) on
+    random rollout data: a warm-up, 3 timed updates (host clock around
+    synchronised calls), one profiled."""
+    from embodied_captioning_tpu_torch.agents import ppo as PPO
+    from embodied_captioning_tpu_torch.agents.policy import init_policy
+    from embodied_captioning_tpu_torch.config import PolicyConfig, PPOConfig
+
+    cfg = PPOConfig()
+    params = init_policy(torch.Generator(device=dev).manual_seed(7),
+                         PolicyConfig(), device=dev)
+    n_params = sum(x.numel() for x in PPO.tree_leaves(params))
+    ro = random_rollout(REF_HORIZON, FRAMES, 128, False, seed=1)
+    g = torch.Generator(device=dev).manual_seed(8)
+
+    def update():
+        state, m = PPO.ppo_update(PPO.create_state(params, cfg), ro, g, cfg)
+        return float(m["loss"])
+
+    update()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = update()
+        times.append(time.perf_counter() - t0)
+    ms = sorted(times)[1] * 1e3
+    log(f"ppo_update at the reference's batch ({REF_HORIZON} x {FRAMES} "
+        f"rows, {cfg.ppo_epoch} epochs x {cfg.num_mini_batch} minibatches, "
+        f"{n_params} parameters): {ms:.1f} ms (median of 3: "
+        + ", ".join(f"{t * 1e3:.1f}" for t in times) + f") on {smi}; "
+        f"loss {loss:.5f}")
+    if not math.isfinite(loss):
+        raise AssertionError("ppo_update: non-finite loss")
+    profile_run("one ppo_update at the reference's batch", update, ms * 1e3)
+    return dict(ms=ms, n_params=n_params)
+
+
+def train_full_width(setup: dict, smi: str) -> dict:
+    """`goalexplorationbaseline-v0`'s `train` at the serving configuration
+    (16 envs of 96-box scenes at 1280^2, the detector artifact, the seeded
+    int8 captioner, 4 caption slots, 256 x 64 x 256 voxel grids, the policy
+    at PolicyConfig's defaults): TRAIN_UPDATES updates of TRAIN_DECISIONS
+    decisions of TRAIN_WINDOW steps, unfused and then fused. For each:
+    finite metrics, changed parameters, launch counts, the split of an
+    update (rollout, policy inputs, update), env steps/s, peak memory, the
+    checkpoint written and read back equal; then one decision and its
+    update unprofiled and under the profiler for the idle share. The first
+    decision of an episode builds each env's traversability grid for the
+    goal planner (a Python loop over cells); its planning time stands on a
+    line of its own, and the second update, with the grids cached, gives
+    the steady-state rollout and env steps/s."""
+    import tempfile
+
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch.agents.goal_exploration import (
+        GoalExplorationTrainer)
+    from embodied_captioning_tpu_torch.agents.ppo import tree_leaves
+    from embodied_captioning_tpu_torch.config import apply_dotlist
+    from embodied_captioning_tpu_torch.perception import Perceiver
+    from embodied_captioning_tpu_torch.utils.profiling import PROFILER
+
+    dev = setup["state"].x.device
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="ecap_train_") as ckpt:
+        cfg = apply_dotlist(setup["cfg"], [
+            "sim.scene_seed=100", f"ppo.num_global_steps={TRAIN_WINDOW}",
+            f"runtime.checkpoint_dir={ckpt}"])
+        if cfg.sim.episode_steps % TRAIN_WINDOW:
+            raise AssertionError("the window must divide the episode")
+        t_start = time.perf_counter()
+        trainer = GoalExplorationTrainer(cfg, device=dev, perceiver=Perceiver(
+            cfg, params=setup["params"], device=dev))
+        e = trainer.envs.num_envs
+        log(f"  trainer built in {time.perf_counter() - t_start:.1f} s")
+        parts = time_calls(trainer, ("_act", "_goals_from_actions",
+                                     "perceive_and_fuse", "fused_window"))
+        time_calls(trainer.envs, ("step_wait",), parts)
+        for fused in (False, True):
+            form = "fused" if fused else "unfused"
+            before = [x.clone() for x in tree_leaves(trainer.ppo_state.params)]
+            torch.cuda.synchronize()
+            K.reset_launches()
+            PROFILER.reset()
+            torch.cuda.reset_peak_memory_stats()
+            for k in parts:
+                parts[k] = []
+            n_log = len(trainer.metrics_log)
+            t0 = time.perf_counter()
+            trainer.train(TRAIN_UPDATES, TRAIN_DECISIONS, fused=fused)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = dict(K.launches)
+            peak = torch.cuda.max_memory_allocated()
+            rollouts = list(PROFILER.stats["rollout"])
+            stats = {k: sum(v) for k, v in PROFILER.stats.items()}
+            stats.update({k: sum(v) for k, v in parts.items() if v})
+            plans = list(parts["_goals_from_actions"])
+            metrics = trainer.metrics_log[n_log:]
+            after = tree_leaves(trainer.ppo_state.params)
+            moved = max((a - b).abs().max().item()
+                        for a, b in zip(after, before))
+            steps = TRAIN_UPDATES * TRAIN_DECISIONS * TRAIN_WINDOW
+            per = {k: v / TRAIN_UPDATES * 1e3 for k, v in stats.items()}
+            sps = e * steps / stats["rollout"]
+            steady_sps = (e * TRAIN_DECISIONS * TRAIN_WINDOW
+                          / rollouts[-1])
+            log(f"  launches in train({form}): {counts}")
+            log(f"train ({form}): {TRAIN_UPDATES} updates x "
+                f"{TRAIN_DECISIONS} decisions x {TRAIN_WINDOW} steps x {e} "
+                f"envs in {dt:.3f} s on {smi}; ms per update: rollout "
+                f"{per['rollout']:.1f} (policy inputs "
+                f"{per['policy_inputs']:.1f} of it; "
+                + ", ".join(f"{k} {per[k]:.1f}" for k in parts if k in per)
+                + f"), update {per['update']:.1f}; {sps:.2f} env steps/s "
+                f"in the "
+                f"rollout; peak device memory {peak / 2**30:.2f} GiB; "
+                f"parameters moved by up to {moved:.3e}; metrics "
+                + "; ".join(", ".join(f"{k} {v:.5f}" for k, v in m.items())
+                            for m in metrics))
+            log(f"train ({form}): goal planning of the first decision "
+                f"{plans[0] * 1e3:.1f} ms, of the later ones "
+                + ", ".join(f"{t * 1e3:.1f}" for t in plans[1:])
+                + f" ms; the last update's rollout (grids cached) "
+                f"{rollouts[-1] * 1e3:.1f} ms, {steady_sps:.2f} env steps/s "
+                f"on {smi}; rollout ms per update "
+                + ", ".join(f"{t * 1e3:.1f}" for t in rollouts))
+            if len(metrics) != TRAIN_UPDATES or not all(
+                    math.isfinite(v) for m in metrics for v in m.values()):
+                raise AssertionError(f"train({form}) metrics {metrics}")
+            if not moved > 0:
+                raise AssertionError(f"train({form}) left the parameters "
+                                     "as they were")
+            path_kernels = ("raycast_minargmin", "fused_preprocess",
+                            "flash_attention", "layernorm",
+                            "decode_self_block", "decode_cross_block",
+                            "decode_mlp")
+            if any(counts[k] <= 0 for k in path_kernels) or (
+                    counts["decode_self_attention"]
+                    or counts["decode_cross_attention"]):
+                raise AssertionError(f"train({form}) launch counts {counts}")
+            log(f"  train({form}) checked at {time.perf_counter() - t_start:.1f} s")
+            # the checkpoint of the last update, read back
+            path = os.path.join(ckpt, "policy.pkl")
+            saved = [x.clone() for x in after]
+            trainer.load_checkpoint(path)
+            if not all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(trainer.ppo_state.params), saved)):
+                raise AssertionError("policy.pkl read back differs")
+            # one decision and its update, for the idle share
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train(1, 1, fused=fused)
+            torch.cuda.synchronize()
+            one_us = (time.perf_counter() - t0) * 1e6
+            profile_run(f"train({form}): one decision of {TRAIN_WINDOW} "
+                        "steps and its update",
+                        lambda: trainer.train(1, 1, fused=fused), one_us)
+            log(f"  train({form}) profiled at {time.perf_counter() - t_start:.1f} s")
+            out[form] = dict(counts=counts, seconds=dt, per_update_ms=per,
+                             env_steps_per_s=sps,
+                             steady_env_steps_per_s=steady_sps,
+                             first_plan_ms=plans[0] * 1e3, peak_bytes=peak,
+                             metrics=metrics)
+        trainer.envs.close()
+    return out
+
+
+def time_calls(obj, names, split=None) -> dict:
+    """Replace the methods `names` of `obj` by wrappers that append the
+    synchronised wall time of each call to split[name]; returns split."""
+    split = {} if split is None else split
+    for name in names:
+        split[name] = []
+
+        def timed(*a, _fn=getattr(obj, name), _name=name, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                split[_name].append(time.perf_counter() - t0)
+
+        setattr(obj, name, timed)
+    return split
+
+
+def run_exp_train_on_card() -> None:
+    """`run_exp --mode train` at the tiny preset, in process, on the card:
+    its JSON line shows the updates and finite metrics, and policy.pkl is
+    written."""
+    import contextlib
+    import io
+    import tempfile
+
+    from embodied_captioning_tpu_torch import run_exp
+
+    with tempfile.TemporaryDirectory(prefix="ecap_run_exp_") as ckpt:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = run_exp.main([
+                "--trainer", "goalexplorationbaseline-v0", "--mode", "train",
+                "--preset", "tiny", "--steps", "1", "ppo.num_global_steps=2",
+                f"runtime.checkpoint_dir={ckpt}"])
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        written = os.path.exists(os.path.join(ckpt, "policy.pkl"))
+    log(f"  run_exp --mode train on the card: rc {rc}, {line}")
+    if rc != 0 or line["mode"] != "train" or line["updates"] != 1 or not (
+            written and all(math.isfinite(v) for m in line["metrics"]
+                            for v in m.values())):
+        raise AssertionError("run_exp --mode train on the card failed")
+
+
 def card_name() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -2449,6 +2791,11 @@ def main() -> int:
         generation_modes(setup, smi)
         log("[8] the exploration entry point (generate) at full width")
         gen = generate_full_width(setup, smi)
+        log("[9] PPO training (train) at full width")
+        ppo_card_vs_cpu(dev)
+        train = train_full_width(setup, smi)
+        ppo_update_reference_batch(dev, smi)
+        run_exp_train_on_card()
     except Exception:
         traceback.print_exc()
         return 1
@@ -2456,7 +2803,9 @@ def main() -> int:
     # but the two standalone decode attention kernels; theirs are from the
     # perceive batch on the route of separate calls (phase 3).
     # launches_perceive: over the timed perceive batches of phase 3;
-    # launches_generate: over the timed generate steps of phase 8
+    # launches_generate: over the timed generate steps of phase 8;
+    # launches_train: over phase 9's two timed train calls (unfused, then
+    # fused)
     kernels = []
     for n, r in rows.items():
         in_loop = loop["counts"][n] > 0
@@ -2466,7 +2815,9 @@ def main() -> int:
             launches_from=("rollout_fused" if in_loop
                            else "perceive(decode_blocks=False)"),
             launches_perceive=res["counts"].get(n, 0),
-            launches_generate=gen["counts"][n], **r))
+            launches_generate=gen["counts"][n],
+            launches_train=(train["unfused"]["counts"][n]
+                            + train["fused"]["counts"][n]), **r))
     if any(k["launches"] <= 0 for k in kernels):
         print(f"chip_smoke: a kernel was never launched: {kernels}",
               file=sys.stderr)

@@ -1,5 +1,8 @@
-"""Agent trainers. Importing the subpackage populates the trainer registry
-with the exploration baselines; the PPO trainers are not ported yet."""
+"""Agent trainers. Importing the subpackage fills the trainer registry:
+the exploration baselines, the PPO goal-exploration trainers and the
+remaining trainer family."""
 
 from . import baselines  # noqa: F401
+from . import goal_exploration  # noqa: F401
+from . import extra_trainers  # noqa: F401
 from .registry import get_trainer, list_trainers  # noqa: F401

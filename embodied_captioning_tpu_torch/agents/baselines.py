@@ -217,6 +217,10 @@ class BaseTrainer:
         self.envs.timings = None
         return sorted(self.saved_paths)
 
+    def train(self, num_steps: Optional[int] = None):
+        """A baseline learns nothing: training is `generate`."""
+        return self.generate(num_steps)
+
     def rewards(self) -> np.ndarray:
         return np.asarray([env.get_reward() for env in self.envs.envs])
 

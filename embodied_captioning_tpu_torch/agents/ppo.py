@@ -1,0 +1,232 @@
+"""PPO: clipped surrogate, clipped value loss, entropy bonus, gradients
+clipped by their global norm, Adam; `ppo_epoch` epochs of
+`num_mini_batch` minibatches.
+
+The optimizer is written out on the parameter tree with the arithmetic
+of the JAX package's `optax.chain(clip_by_global_norm(max_grad_norm),
+adam(lr, eps=eps))`: the global norm over the leaves in sorted-key order,
+`(t / norm) * max_norm` only where the norm reaches `max_norm`, Adam's
+bias-corrected moments with `eps` outside the square root, the step
+scaled by -lr. `ppo_update` draws one permutation per epoch from a
+`torch.Generator` and hands them to `ppo_update_with`, which is
+deterministic given (state, rollout, permutations).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..config import PPOConfig
+from .policy import evaluate_actions
+from .storage import Rollout, compute_gae
+
+ADAM_B1 = 0.9
+ADAM_B2 = 0.999
+
+
+# ---------------------------------------------------------------------------
+# parameter trees (nested dicts and lists of tensors)
+# ---------------------------------------------------------------------------
+
+def tree_leaves(tree: Any) -> List[torch.Tensor]:
+    """Leaves in JAX's order: dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(tree: Any, leaves: Sequence) -> Any:
+    """`tree`'s structure with `leaves` (in `tree_leaves` order)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            out = {k: build(node[k]) for k in sorted(node)}
+            return {k: out[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return [build(v) for v in node]
+        return next(it)
+
+    return build(tree)
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+# ---------------------------------------------------------------------------
+# optimizer
+# ---------------------------------------------------------------------------
+
+class AdamState(NamedTuple):
+    count: int
+    mu: Any
+    nu: Any
+
+
+class PPOState(NamedTuple):
+    params: dict
+    opt_state: AdamState
+
+
+def create_state(params: dict, cfg: PPOConfig) -> PPOState:
+    return PPOState(params, AdamState(0, tree_map(torch.zeros_like, params),
+                                      tree_map(torch.zeros_like, params)))
+
+
+def clip_by_global_norm(grads: Any, max_norm: float) -> Any:
+    leaves = tree_leaves(grads)
+    norm = torch.sqrt(sum(torch.sum(torch.square(x)) for x in leaves))
+    keep = norm < max_norm
+    return tree_map(lambda t: torch.where(keep, t, (t / norm) * max_norm),
+                    grads)
+
+
+def adam_step(state: PPOState, grads: Any, cfg: PPOConfig) -> PPOState:
+    """One step of the clip-then-Adam chain: new params and moments."""
+    grads = clip_by_global_norm(grads, cfg.max_grad_norm)
+    opt = state.opt_state
+    mu = tree_map(lambda g, m: (1 - ADAM_B1) * g + ADAM_B1 * m, grads, opt.mu)
+    nu = tree_map(lambda g, v: (1 - ADAM_B2) * (g * g) + ADAM_B2 * v, grads,
+                  opt.nu)
+    count = opt.count + 1
+    # the corrections in float32, as optax's `1 - decay**count`
+    bc1 = float(np.float32(1) - np.float32(ADAM_B1) ** np.float32(count))
+    bc2 = float(np.float32(1) - np.float32(ADAM_B2) ** np.float32(count))
+    step = -cfg.lr
+
+    def update(p, m, v):
+        u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        return p + u * step
+
+    params = tree_map(update, state.params, mu, nu)
+    return PPOState(params, AdamState(count, mu, nu))
+
+
+# ---------------------------------------------------------------------------
+# the update
+# ---------------------------------------------------------------------------
+
+class Batch(NamedTuple):
+    """A rollout flattened over (time, env), on the policy's device."""
+
+    maps: torch.Tensor        # [N, H, W, C]
+    orientation: torch.Tensor  # [N]
+    actions: torch.Tensor     # [N, A]
+    old_log_probs: torch.Tensor  # [N]
+    old_values: torch.Tensor  # [N]
+    returns: torch.Tensor     # [N]
+    advantages: torch.Tensor  # [N], normalised
+    rnn_states: Optional[torch.Tensor]  # [N, D]
+
+
+def prepare_batch(rollout: Rollout, cfg: PPOConfig, device) -> Batch:
+    """GAE, advantage normalisation (population std) and flattening."""
+    t_len, e = rollout.rewards.shape
+    n = t_len * e
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    returns, advantages = compute_gae(
+        dev(rollout.rewards), dev(rollout.values), dev(rollout.masks),
+        cfg.gamma, cfg.tau)
+    adv = ((advantages - advantages.mean())
+           / (advantages.std(correction=0) + 1e-5))
+
+    def flat(x):
+        x = dev(x[:t_len])
+        return x.reshape(n, *x.shape[2:])
+
+    return Batch(
+        maps=flat(rollout.maps), orientation=flat(rollout.orientation),
+        actions=flat(rollout.raw_actions),
+        old_log_probs=flat(rollout.log_probs),
+        old_values=flat(rollout.values), returns=returns.reshape(n),
+        advantages=adv.reshape(n),
+        rnn_states=(None if rollout.rnn_states is None
+                    else flat(rollout.rnn_states)))
+
+
+def ppo_loss(params: dict, batch: Batch, idx: torch.Tensor, cfg: PPOConfig,
+             categorical: bool = False):
+    """(total, (action_loss, value_loss, entropy)) on the rows `idx`."""
+    lp, ent, v = evaluate_actions(
+        params, batch.maps[idx], batch.orientation[idx], batch.actions[idx],
+        categorical,
+        rnn_state=None if batch.rnn_states is None else batch.rnn_states[idx])
+    adv = batch.advantages[idx]
+    old_v = batch.old_values[idx]
+    ret = batch.returns[idx]
+    ratio = torch.exp(lp - batch.old_log_probs[idx])
+    s1 = ratio * adv
+    s2 = torch.clamp(ratio, 1 - cfg.clip_param, 1 + cfg.clip_param) * adv
+    action_loss = -torch.mean(torch.minimum(s1, s2))
+    v_clip = old_v + torch.clamp(v - old_v, -cfg.clip_param, cfg.clip_param)
+    vl = torch.square(v - ret)
+    vl_clip = torch.square(v_clip - ret)
+    value_loss = 0.5 * torch.mean(torch.maximum(vl, vl_clip))
+    total = (action_loss + cfg.value_loss_coef * value_loss
+             - cfg.entropy_coef * ent)
+    return total, (action_loss, value_loss, ent)
+
+
+def ppo_grads(params: dict, batch: Batch, idx: torch.Tensor, cfg: PPOConfig,
+              categorical: bool = False):
+    """(gradients as a tree like `params`, loss, aux) of one minibatch;
+    a leaf the loss does not reach gets zeros."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    tracked = tree_unflatten(params, leaves)
+    with torch.enable_grad():
+        total, aux = ppo_loss(tracked, batch, idx, cfg, categorical)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return (tree_unflatten(params, grads), total.detach(),
+            tuple(a.detach() for a in aux))
+
+
+def ppo_update_with(state: PPOState, rollout: Rollout,
+                    perms: Sequence[torch.Tensor], cfg: PPOConfig,
+                    categorical: bool = False):
+    """One PPO update with the given per-epoch permutations of the N =
+    T * E rows: minibatch m of an epoch takes rows perm[m*mb:(m+1)*mb],
+    mb = N // num_mini_batch (the remainder rows sit out). Returns (new
+    state, metrics averaged over epochs and minibatches)."""
+    batch = prepare_batch(rollout, cfg, state.params["log_std"].device)
+    n = batch.returns.shape[0]
+    mb = n // cfg.num_mini_batch
+    rows = []
+    for perm in perms:
+        perm = perm.to(batch.returns.device)
+        for m in range(cfg.num_mini_batch):
+            idx = perm[m * mb:(m + 1) * mb]
+            grads, loss, aux = ppo_grads(state.params, batch, idx, cfg,
+                                         categorical)
+            state = adam_step(state, grads, cfg)
+            rows.append(torch.stack([loss, *aux]))
+    means = torch.stack(rows).mean(dim=0)
+    return state, dict(zip(("loss", "action_loss", "value_loss", "entropy"),
+                           means.unbind()))
+
+
+def ppo_update(state: PPOState, rollout: Rollout,
+               generator: torch.Generator, cfg: PPOConfig,
+               categorical: bool = False):
+    """One full PPO update (ppo_epoch x num_mini_batch) over a rollout,
+    minibatch order drawn from `generator`."""
+    perms = [torch.randperm(rollout.rewards.size, generator=generator,
+                            device=generator.device)
+             for _ in range(cfg.ppo_epoch)]
+    return ppo_update_with(state, rollout, perms, cfg, categorical)

@@ -50,7 +50,41 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [..., M, K] @ b [K, N] or [..., K, N] with float32 accumulation
     and a float32 result. bf16 products are exact in float32, so on the
     CPU the operands are widened; on the card cuBLAS multiplies the bf16
-    operands on the tensor cores and writes float32."""
+    operands on the tensor cores and writes float32. With a 2-D `b`,
+    differentiable (`_MatmulF32`) where autograd records and an operand
+    needs a gradient."""
+    if b.dim() == 2 and torch.is_grad_enabled() and (
+            a.requires_grad or b.requires_grad):
+        return _MatmulF32.apply(a, b)
+    return _matmul_f32(a, b)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """`matmul_f32` of a [..., K] by b [K, N] with the backward JAX takes
+    of `jnp.dot(a, b, preferred_element_type=float32)`: each operand's
+    gradient is the float32 product of the float32 cotangent with the
+    other operand widened to float32, rounded to the operand's type.
+    (cuBLAS's `mm(..., out_dtype=float32)` has no autograd formula.)"""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        return _matmul_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        a, b = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.mm(g2, b.float().t()).reshape(a.shape).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.mm(a.reshape(-1, a.shape[-1]).float().t(),
+                          g2).to(b.dtype)
+        return ga, gb
+
+
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return torch.matmul(a.float(), b.float())
     if b.dim() == 2:

@@ -1,10 +1,13 @@
-"""Weight bridge: JAX parameter trees and the detector artifact -> tensors.
+"""Weight bridge: JAX parameter trees and the detector artifact -> tensors,
+and float trees of tensors -> numpy trees in the JAX package's layout.
 
 Layouts are kept as the JAX package has them (dense kernels [in, out],
 int8 `QuantizedArray(q, scale)` with per-output-channel scales), with one
 exception: 4-D convolution kernels named "w" arrive HWIO and are stored
 OIHW, the layout `torch.nn.functional.conv2d` takes. For an int8 conv
-kernel the scale stays per output channel, now axis 0.
+kernel the scale stays per output channel, now axis 0. `to_numpy` turns
+them back, so a pickled numpy tree (a `policy.pkl` checkpoint) written by
+either package loads in the other.
 """
 
 from __future__ import annotations
@@ -70,6 +73,30 @@ def from_jax(tree: Any, device="cuda") -> Any:
     return walk(tree, "")
 
 
+def to_numpy(tree: Any) -> Any:
+    """The inverse of `from_jax` for float trees (nested dicts and lists
+    of tensors): numpy arrays, 4-D kernels named "w" back to HWIO."""
+
+    def walk(node: Any, name: str) -> Any:
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, "") for v in node]
+        t = node.detach()
+        if name == "w" and t.dim() == 4:
+            t = t.permute(2, 3, 1, 0)
+        return t.cpu().contiguous().numpy()
+
+    return walk(tree, "")
+
+
+def load_pickle(path: str) -> Any:
+    """Unpickle a tree of numpy arrays (a JAX package artifact or
+    checkpoint) without JAX, refusing every class outside numpy."""
+    with open(path, "rb") as fh:
+        return _ArtifactUnpickler(fh).load()
+
+
 class _ArtifactUnpickler(pickle.Unpickler):
     """Resolves only numpy's array reconstruction and the JAX package's
     `QuantizedArray` (mapped to a plain (q, scale) tuple), so the artifact
@@ -86,7 +113,7 @@ class _ArtifactUnpickler(pickle.Unpickler):
                 module = "numpy.core" + module[len("numpy._core"):]
             return super().find_class(module, name)
         raise pickle.UnpicklingError(
-            f"detector artifact names a class outside numpy: {module}.{name}")
+            f"the pickle names a class outside numpy: {module}.{name}")
 
 
 class _PickledQuantized(NamedTuple):
@@ -129,8 +156,7 @@ def load_detector_artifact(path: str, device="cuda"
     `DetectorConfig` fields). Query-family settings, the compute type
     and the approximate top-k switch are dropped: the port serves the
     rcnn family in bf16 and its proposal top-k is always exact."""
-    with open(path, "rb") as fh:
-        artifact = _ArtifactUnpickler(fh).load()
+    artifact = load_pickle(path)
     cfg = dict(artifact["serving_cfg"])
     if cfg.get("family", "rcnn") != "rcnn" or cfg.get("stem_s2d", False):
         raise ValueError("the port serves the rcnn family with the direct "

@@ -1,13 +1,17 @@
-"""Run an exploration experiment: a registered trainer's `generate` on the
-GPU (or on the CPU with --device cpu).
+"""Run an exploration experiment: a registered trainer's `generate` or
+`train` on the GPU (or on the CPU with --device cpu).
 
 Usage:
   python -m embodied_captioning_tpu_torch.run_exp --trainer randombaseline \
       --mode generate --preset tiny --steps 20 --obs-dir DIR \
       [--device cpu] [key.path=value ...]
+  python -m embodied_captioning_tpu_torch.run_exp \
+      --trainer goalexplorationbaseline-v0 --mode train --preset tiny \
+      --steps 1 ppo.num_global_steps=2 [--device cpu] [key.path=value ...]
 
-Prints one JSON line: saved files, frames, seconds, frames/s and each
-env's reward.
+Prints one JSON line. generate: saved files, frames, seconds, frames/s
+and each env's reward; train: the number of PPO updates (`--steps`, 2 by
+default), the metrics of the last three and the seconds.
 """
 
 from __future__ import annotations
@@ -28,15 +32,16 @@ def main(argv=None) -> int:
     ap.add_argument("--preset", default="tiny")
     ap.add_argument("--config", default=None, help="YAML overlay path")
     ap.add_argument("--steps", type=int, default=None,
-                    help="env steps for generate")
+                    help="env steps for generate / updates for train")
     ap.add_argument("--obs-dir", default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("overrides", nargs="*", help="a.b.c=value overrides")
     args = ap.parse_args(argv)
 
-    if args.mode == "train":
-        print("run_exp: --mode train needs the PPO trainers, which are not "
-              "ported yet (ROADMAP A.12)", file=sys.stderr)
+    if args.trainer == "myppo":
+        print("run_exp: the distributed PPO trainer 'myppo' needs the "
+              "parallel layer, which is not ported yet (ROADMAP A.15)",
+              file=sys.stderr)
         return 2
     if torch.device(args.device).type == "cuda" and \
             not torch.cuda.is_available():
@@ -44,8 +49,7 @@ def main(argv=None) -> int:
               "CPU)", file=sys.stderr)
         return 2
 
-    from .agents.registry import get_trainer
-    from .agents import baselines  # noqa: F401 (fills the registry)
+    from .agents import get_trainer  # (importing fills the registry)
     from .config import load_config
 
     overrides = list(args.overrides)
@@ -60,15 +64,22 @@ def main(argv=None) -> int:
           f"init={time.time() - t0:.1f}s", flush=True)
 
     t0 = time.time()
-    paths = trainer.generate(args.steps)
-    dt = time.time() - t0
-    n_frames = (args.steps or cfg.sim.episode_steps) * cfg.runtime.num_envs
-    print(json.dumps({
-        "mode": "generate", "saved_files": len(paths),
-        "frames": n_frames, "seconds": round(dt, 2),
-        "fps": round(n_frames / max(dt, 1e-6), 2),
-        "rewards": [float(r) for r in trainer.rewards()],
-    }))
+    if args.mode == "generate":
+        paths = trainer.generate(args.steps)
+        dt = time.time() - t0
+        n_frames = (args.steps or cfg.sim.episode_steps) * \
+            cfg.runtime.num_envs
+        print(json.dumps({
+            "mode": "generate", "saved_files": len(paths),
+            "frames": n_frames, "seconds": round(dt, 2),
+            "fps": round(n_frames / max(dt, 1e-6), 2),
+            "rewards": [float(r) for r in trainer.rewards()],
+        }))
+    else:
+        metrics = trainer.train(args.steps or 2)
+        print(json.dumps({"mode": "train", "updates": len(metrics),
+                          "metrics": metrics[-3:],
+                          "seconds": round(time.time() - t0, 2)}))
     trainer.envs.close()
     return 0
 

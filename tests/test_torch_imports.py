@@ -50,7 +50,10 @@ def test_scan_covers_every_subpackage_and_the_smoke_script():
                 "kernels/preprocess.py", "kernels/decode_attention.py",
                 "models/captioner.py", "sensor_data.py", "perception.py",
                 "envs/env.py", "envs/vector_env.py", "agents/baselines.py",
-                "utils/obs_store.py", "mapping/components.py", "run_exp.py"):
+                "utils/obs_store.py", "mapping/components.py", "run_exp.py",
+                "agents/policy.py", "agents/storage.py", "agents/ppo.py",
+                "agents/goal_exploration.py", "agents/extra_trainers.py",
+                "utils/profiling.py", "utils/logging.py"):
         assert pkg + rel in scanned, rel
     assert "chip_smoke.py" in scanned
     # every directory of the package that holds Python files is scanned

@@ -146,7 +146,7 @@ def readouts_agree(got: dict, want: dict, env: int) -> bool:
 # ---------------------------------------------------------------------------
 # probes: the measurements behind the tolerances of the loop-slice tests
 # (python tests/torch_parity.py render | rollout-scan | rollout-scan-blocks
-# | beam | generate-scan); not collected
+# | beam | generate-scan | grad-chaos); not collected
 # ---------------------------------------------------------------------------
 
 def probe_render(size: int = 128, seeds=(1, 2, 3, 7, 11),
@@ -314,6 +314,90 @@ def probe_beam(seeds=(0, 1, 2, 3), widths=(2, 3, 4), crops: int = 4):
     return rows
 
 
+def jax_first_gradients(params, rollout, key, jcfg):
+    """The JAX package's own gradients of the first minibatch of
+    `ppo_update`: its optimizer is swapped, for this call, for one that
+    keeps the first gradients it sees in its state and updates nothing.
+    Returns the gradient tree (numpy)."""
+    import jax.numpy as jnp
+    import optax
+
+    from embodied_captioning_tpu.agents import ppo as JPPO
+
+    def init(p):
+        return (jnp.zeros([], jnp.int32),
+                jax.tree_util.tree_map(jnp.zeros_like, p))
+
+    def update(g, state, p=None):
+        count, first = state
+        first = jax.tree_util.tree_map(
+            lambda f, x: jnp.where(count == 0, x, f), first, g)
+        return jax.tree_util.tree_map(jnp.zeros_like, g), (count + 1, first)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JPPO, "make_optimizer",
+                   lambda c: optax.GradientTransformation(init, update))
+        state, _ = JPPO.ppo_update(JPPO.create_state(params, jcfg), rollout,
+                                   key, jcfg)
+    return jax.tree_util.tree_map(np.asarray, state.opt_state[1])
+
+
+def probe_gradient_chaos(map_sizes=(32, 128), moves=(1e-4, 2e-3)) -> list:
+    """How far bf16 rounding moves the policy's first-minibatch gradients
+    (ROADMAP C.20): per map size and policy form, the largest relative L2
+    change of a trunk leaf (convs, fc1, fc2, the orientation embedding)
+    of the JAX package's own gradients when the rollout's maps move by
+    `moves` of themselves, beside the port's distance from the JAX
+    package on the unmoved maps (the rollout of tests/test_torch_policy.py,
+    4 decisions x 4 envs)."""
+    from embodied_captioning_tpu.agents import policy as JP
+    from embodied_captioning_tpu.config import PolicyConfig as JPolicy
+    from embodied_captioning_tpu.config import PPOConfig as JPPOConfig
+    from embodied_captioning_tpu_torch.agents import ppo as TPPO
+    from embodied_captioning_tpu_torch.agents import storage as TS
+    from embodied_captioning_tpu_torch.config import PPOConfig
+    from embodied_captioning_tpu_torch.params import from_jax, to_numpy
+    from test_torch_policy import _rollout
+
+    jcfg = JPPOConfig(num_mini_batch=2, ppo_epoch=2)
+    key = jax.random.PRNGKey(3)
+    trunk = ("convs", "fc1", "fc2", "orient_emb")
+
+    def trunk_errors(got, want):
+        out = []
+        for name in trunk:
+            for a, b in zip(TPPO.tree_leaves(from_jax(got[name], "cpu")),
+                            TPPO.tree_leaves(from_jax(want[name], "cpu"))):
+                out.append(float((a - b).norm() / b.norm().clamp(min=1e-30)))
+        return max(out)
+
+    rows = []
+    for size in map_sizes:
+        for recurrent in (False, True):
+            jp = JP.init_policy(jax.random.PRNGKey(0),
+                                JPolicy(map_size=size, recurrent=recurrent))
+            ro = _rollout(size, 4, 4, recurrent)
+            want = jax_first_gradients(jp, ro, key, jcfg)
+            perm = np.asarray(jax.random.permutation(
+                jax.random.split(key, 2)[0], 16))
+            batch = TPPO.prepare_batch(TS.Rollout(*ro), PPOConfig(
+                num_mini_batch=2, ppo_epoch=2), "cpu")
+            tp = from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+            got = to_numpy(TPPO.ppo_grads(
+                tp, batch, torch.from_numpy(perm[:8]),
+                PPOConfig(num_mini_batch=2, ppo_epoch=2))[0])
+            row = dict(map_size=size, recurrent=recurrent,
+                       port_vs_jax=round(trunk_errors(got, want), 4))
+            for m in moves:
+                rng = np.random.default_rng(9)
+                moved = ro._replace(maps=(ro.maps * (1 + m * rng.standard_normal(
+                    ro.maps.shape))).astype(np.float32))
+                row[f"jax_maps_moved_{m:g}"] = round(trunk_errors(
+                    jax_first_gradients(jp, moved, key, jcfg), want), 4)
+            rows.append(row)
+    return rows
+
+
 if __name__ == "__main__":
     import sys
     from pathlib import Path
@@ -330,6 +414,9 @@ if __name__ == "__main__":
     elif what == "beam":
         for row in probe_beam():
             print(row)
+    elif what == "grad-chaos":
+        for row in probe_gradient_chaos():
+            print(row)
     elif what == "generate-scan":
         rows = probe_generate_scan()
         for row in rows:
@@ -338,4 +425,4 @@ if __name__ == "__main__":
                for f in ("detections", "handed", "own")})
     else:
         sys.exit("usage: python tests/torch_parity.py render | rollout-scan "
-                 "| rollout-scan-blocks | beam | generate-scan")
+                 "| rollout-scan-blocks | beam | generate-scan | grad-chaos")
