@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's perception path, fused exploration loop,
-caption-generation modes, exploration entry point (`generate`) and PPO
-training entry point (`train`) on one NVIDIA GPU.
+caption-generation modes, exploration entry point (`generate`), PPO
+training entry point (`train`) and captioner fine-tune
+(`finetune_captioner`) on one NVIDIA GPU.
 
 Phases, each of which must pass:
   1. build the hand-written Hopper kernels from the sources in the checkout;
@@ -40,6 +41,13 @@ Phases, each of which must pass:
      preprocess at the 64 crops of a batch (equal bit for bit) and on true
      resizes (from sources of 150, 333 and 1280 pixels, patch 16 and 7),
      with its instructions counted in the built library (cuobjdump -sass);
+     the LayerNorm backward at the fine-tune step's shapes (ViT [8*257,
+     1024], pool [8*256, 1024], decoder [8*77, 768], bf16), the ViT
+     [64*257, 1024] and decoder [64, 768] bf16 shapes and the sentence
+     encoder's [64, 64, 384] f32 (dx, dg, db against the plain version,
+     twice for equal bits, timed warm and cold in L2 beside
+     native_layer_norm_backward), on its scalar path ([37, 100]) and with
+     a float32 cotangent of bf16 input;
   3. drive `perceive` at full width -- the serving configuration of
      bench.py: the large preset (ViT-L/14 at 224^2, 768-wide 12+12-layer
      decoder, 49,408-token vocabulary, post-LN MiniLM-class sentence
@@ -114,7 +122,18 @@ Phases, each of which must pass:
      then one decision and its update under the profiler for the idle
      share; one PPO update at the reference's batch (8 decisions x 16
      envs, 4 epochs x 2 minibatches), timed and profiled; and `run_exp
-     --mode train` at the tiny preset in process on the card.
+     --mode train` at the tiny preset in process on the card;
+ 10. drive the captioner fine-tune: `train_step` at the tiny preset on the
+     card against the CPU (every leaf's gradient within limits set from
+     the CPU's own spread, every leaf with a non-zero CPU gradient non-zero
+     and finite on the card, the loss and its parts, the parameters after
+     one step within 2 lr an element, and to rounding where both gradients
+     share a sign); one timed `train_step` at the large
+     preset at the fine-tune's batch of 8 with `remat` off and then on (ms
+     a step, peak memory, LayerNorm forward and backward launches, device
+     busy and idle share under the profiler); then `finetune_captioner`
+     at the large preset on the store phase 8 wrote: its JSON line and
+     its pickle read back.
 
 Float32 products and convolutions run without TF32 so the comparisons see
 the kernels' own error. Prints the card's name and power limit, frames/s
@@ -205,6 +224,7 @@ PORTED_KERNELS = ("flash_head", "flash_stream", "self_attn_tiled_kernel",
                   "mlp_ln_kernel", "mlp_gemm_kernel",
                   "self_qkv_kernel", "self_attn_kernel", "block_out_kernel",
                   "cross_q_kernel", "layernorm_kernel", "layernorm_vec_kernel",
+                  "layernorm_bwd_rows", "layernorm_bwd_cols",
                   "raycast_kernel", "preprocess_kernel")
 # the self block's and the cross block's three launches (decode_block.cu);
 # both end in block_out_kernel, which belongs to the block whose first
@@ -660,11 +680,15 @@ def log_rows(rows: dict) -> None:
                     f"{c['cold_copies']} copies)" if "cold_ms" in c else "")
             all_t = (f", over all T {c['bound_all_t_ms'] * 1e3:.2f} us"
                      if "bound_all_t_ms" in c else "")
+            extra = (f" ({c['partials_bytes'] / 1e3:.0f} kB of float32 "
+                     f"partials written and read besides: the design's "
+                     f"overhead, not in the bound)"
+                     if "partials_bytes" in c else "")
             log(f"  {what}: {c['ms'] * 1e3:.1f} us kernel "
                 f"({c['device_us']:.1f} us on the device){cold}, "
                 f"{c['plain_ms'] * 1e3:.1f} us plain, bound "
-                f"{c['bound_ms'] * 1e3:.2f} us ({c['bound_by']}){all_t}, "
-                f"library {lib}{copy}")
+                f"{c['bound_ms'] * 1e3:.2f} us ({c['bound_by']}){extra}"
+                f"{all_t}, library {lib}{copy}")
 
 
 def generation_kernel_checks(K, QZ, dev) -> dict:
@@ -1263,6 +1287,115 @@ def loop_kernel_checks(K, dev, scenes, poses, cfg) -> dict:
     return rows
 
 
+def layernorm_bwd_checks(K, dev) -> dict:
+    """The LayerNorm backward kernel against its plain version at the
+    shapes the fine-tune's step at FT_BATCH crops gives it (the ViT's
+    [FT_BATCH * 257, 1024], the attentional pool's [FT_BATCH * 256, 1024]
+    and the decoder's [FT_BATCH * 77, 768], bf16, one-pass statistics),
+    then at the perceive batch's ViT [ROWS * 257, 1024] and decoder
+    [ROWS, 768] bf16 and the sentence encoder's [ROWS, 64, 384] f32
+    (two-pass); each run twice for equal bits, timed with its inputs warm
+    and cold in L2; then the scalar path ([37, 100], bf16 and f32) and a
+    bf16 x with a float32 cotangent. Tolerances: bf16 dx one bf16 ulp of
+    the largest |dx|; f32 dx 1e-5 of its row's largest |dx|; dg and db,
+    sums over the rows in another order, 1e-5 of each column's sum of
+    absolute terms. The bound counts the function's own traffic (x, dy
+    and g read, dx, dg and db written); the float32 partials of dg and db
+    that this kernel's two launches pass between them are its design's
+    overhead, reported beside it as `partials_bytes`."""
+    from embodied_captioning_tpu_torch.kernels.layernorm import BWD_PARTS
+
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def inputs(shape, dtype, dy_dtype=None):
+        d = shape[-1]
+        return ((torch.randn(*shape, generator=g, device=dev) * 1.5 + 0.3
+                 ).to(dtype),
+                1.0 + 0.1 * torch.randn(d, generator=g, device=dev),
+                torch.randn(*shape, generator=g, device=dev).to(
+                    dy_dtype or dtype))
+
+    def case(name, x, lg, dy):
+        want = K.layernorm_bwd_plain(x, lg, dy)
+        got = K.layernorm_bwd(x, lg, dy)
+        d = x.shape[-1]
+        xf, dyf = x.float().reshape(-1, d), dy.float().reshape(-1, d)
+        if x.dtype == torch.bfloat16:
+            tol = 2.0 ** (math.floor(math.log2(
+                want[0].float().abs().max().item())) - 7)
+            err = check_close(f"layernorm_bwd {name} dx", got[0], want[0],
+                              tol)
+        else:
+            scale = want[0].float().abs().reshape(-1, d).amax(
+                dim=1, keepdim=True).reshape(*x.shape[:-1], 1)
+            err = check_close(f"layernorm_bwd {name} dx / its row's max",
+                              got[0] / scale, want[0] / scale, 1e-5)
+        m1 = xf.mean(dim=1, keepdim=True)
+        xhat_abs = (xf - m1).abs() * torch.rsqrt(
+            torch.square(xf - m1).mean(dim=1, keepdim=True) + 1e-5)
+        for part, i, l1 in (("dg", 1, (dyf.abs() * xhat_abs).sum(dim=0)),
+                            ("db", 2, dyf.abs().sum(dim=0))):
+            diff = (got[i] - want[i]).abs()
+            worst = (diff / (1e-5 * l1 + 1e-6)).max().item()
+            log(f"  layernorm_bwd {name} {part}: max_abs_err "
+                f"{diff.max().item():.3e}, {worst:.3f} of its limit (1e-5 of "
+                f"the column's sum of absolute terms)")
+            if not math.isfinite(worst) or worst > 1.0:
+                raise AssertionError(f"layernorm_bwd {name} {part}")
+        again = K.layernorm_bwd(x, lg, dy)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"layernorm_bwd {name}: two runs on the "
+                                 f"same inputs differ")
+        return err
+
+    cases = []
+    for name, shape, dtype, two_pass in (
+            ("fine-tune vit", (FT_BATCH * 257, 1024), torch.bfloat16, False),
+            ("fine-tune pool", (FT_BATCH * 256, 1024), torch.bfloat16, False),
+            ("fine-tune decoder", (FT_BATCH * 77, 768), torch.bfloat16,
+             False),
+            ("vit", (ROWS * 257, 1024), torch.bfloat16, False),
+            ("decoder", (ROWS, 768), torch.bfloat16, False),
+            ("sentence_encoder", (ROWS, 64, 384), torch.float32, True)):
+        mode = "two-pass" if two_pass else "one-pass"
+        x, lg, dy = inputs(shape, dtype)
+        err = case(f"{name} {list(shape)} {mode}", x, lg, dy)
+        d = shape[-1]
+        rows = x.numel() // d
+        per = -(-rows // min(rows, BWD_PARTS))
+        parts = -(-rows // per)
+        # x, dy and g read, dx written, dg and db written (float32); ~16
+        # float32 operations an element (statistics, the two means, dx,
+        # the two column sums)
+        lb, lf = bound_ms(nbytes(x, dy, lg, x) + 2 * d * 4, 16 * x.numel(),
+                          FP32_FLOP_PER_S)
+        wg, wb = lg.to(dtype), torch.zeros(d, dtype=dtype, device=dev)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(x, [d], wg, wb,
+                                                         1e-5)
+        cases.append(dict(
+            case=f"{name} {mode}", shape=list(shape),
+            replaces="embodied_captioning_tpu/models/common.py:83",
+            max_abs_err=err, partials_bytes=2 * 2 * parts * d * 4,
+            **kernel_ms(lambda: K.layernorm_bwd(x, lg, dy), 100),
+            plain_ms=time_ms(lambda: K.layernorm_bwd_plain(x, lg, dy), 20),
+            bound_ms=lb, bound_by=lf,
+            **library(lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, x, [d], mean, rstd, wg, wb, [True, True, True]), 100),
+            **cold_l2(lambda xx, dd: K.layernorm_bwd(xx, lg, dd), (x, dy),
+                      100)))
+        del x, dy
+    bf = torch.bfloat16
+    case("[37,100] bf16 (scalar path)", *inputs((37, 100), bf))
+    case("[37,100] f32 (scalar path)", *inputs((37, 100), torch.float32))
+    case(f"[{ROWS},768] bf16 x, f32 cotangent",
+         *inputs((ROWS, 768), bf, torch.float32))
+    log("  layernorm_bwd: two runs give equal bits at every shape above")
+    rows = {"layernorm_bwd": dict(
+        source=PORT_KERNELS + "layernorm.cu", **cases[0], cases=cases[1:])}
+    log_rows(rows)
+    return rows
+
+
 def layernorm_host_split(K, x, g, b, n: int = 2000) -> dict:
     """Host time of one LayerNorm wrapper call on x in its default mode,
     split into its pieces, each timed alone in a loop on the host's clock
@@ -1494,7 +1627,8 @@ def check_decode_counts(counts: dict, steps: int, batches: int,
     step through the block kernels or through the attention kernels, every
     MLP through the decode-MLP kernel; one preprocess launch and one flash
     launch per ViT layer per batch; at least the ViT's ln_pre and two norms
-    per ViT block per batch plus one LayerNorm per step."""
+    per ViT block per batch plus one LayerNorm per step; no LayerNorm
+    backward (serving records no gradient)."""
     counts = dict(counts)
     n_self, n_cross = decoder_sublayers(ccfg)
     vit = ccfg.vision.layers
@@ -1506,7 +1640,7 @@ def check_decode_counts(counts: dict, steps: int, batches: int,
               "decode_self_attention": unfused[0],
               "decode_cross_attention": unfused[1],
               "decode_mlp": n_self * steps, "fused_preprocess": batches,
-              "raycast_minargmin": 0}
+              "raycast_minargmin": 0, "layernorm_bwd": 0}
     n_ln = counts.pop("layernorm")
     if n_ln < (2 * vit + 1) * batches + steps:
         raise AssertionError(f"{n_ln} LayerNorm launches in {batches} "
@@ -1744,8 +1878,10 @@ def rollouts_full_width(setup: dict, smi: str) -> dict:
     if not bool(moved.any()):
         raise AssertionError("no agent moved")
     # the loop decodes on the block route: every kernel but the two
-    # standalone decode attention kernels runs in it
-    idle = {"decode_self_attention", "decode_cross_attention"}
+    # standalone decode attention kernels and the LayerNorm backward (no
+    # gradient is recorded) runs in it
+    idle = {"decode_self_attention", "decode_cross_attention",
+            "layernorm_bwd"}
     if (counts["raycast_minargmin"] != steps
             or counts["fused_preprocess"] != steps
             or any((v <= 0) != (k in idle) for k, v in counts.items())):
@@ -1930,11 +2066,12 @@ def tiny_generate_card_vs_cpu(dev) -> None:
 # phase 6: where one full-width perceive batch spends its time
 # ---------------------------------------------------------------------------
 
-def profile_run(what: str, fn, unprofiled_us: float, top: int = 15) -> None:
+def profile_run(what: str, fn, unprofiled_us: float, top: int = 15
+                ) -> float:
     """Device time by kernel over one call of `fn` (torch.profiler, the
     device's activity alone), the share of the ported kernels, and the
     device's idle share of the unprofiled time of the same work measured in
-    an earlier phase."""
+    an earlier phase. Returns the device busy time (us)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1986,6 +2123,7 @@ def profile_run(what: str, fn, unprofiled_us: float, top: int = 15) -> None:
                 e for e in events if any(k in e.name for k in parts)])
             log(f"    {name}: {span / n:.1f} us on the device per call "
                 f"({n} calls)")
+    return busy
 
 
 def block_calls(events) -> dict:
@@ -2289,52 +2427,50 @@ def generate_checks(cfg, params, dev) -> None:
         f"(connected_components_26 and astar_2d)")
 
 
-def generate_full_width(setup: dict, smi: str) -> dict:
+def generate_full_width(setup: dict, smi: str, obs_dir: str) -> dict:
     """`randombaseline`'s generate, the entry point of run_exp, at the
     serving configuration (16 envs of 96-box scenes at 1280^2, the
     detector artifact, random seeded captioner, 4 caption slots), with
-    observations written to a temporary directory: one warm-up step, then
-    GEN_STEPS timed steps with the per-step split, launch counts, peak
-    device memory, then one step under the profiler for the idle share."""
-    import tempfile
-
+    observations written to `obs_dir` (phase 10's fine-tune reads them):
+    one warm-up step, then GEN_STEPS timed steps with the per-step split,
+    launch counts, peak device memory, then one step under the profiler
+    for the idle share."""
     from embodied_captioning_tpu_torch import kernels as K
     from embodied_captioning_tpu_torch.agents.baselines import RandomBaseline
     from embodied_captioning_tpu_torch.config import apply_dotlist
     from embodied_captioning_tpu_torch.perception import Perceiver
 
     dev = setup["state"].x.device
-    with tempfile.TemporaryDirectory(prefix="ecap_generate_") as obs_dir:
-        cfg = apply_dotlist(setup["cfg"], [f"runtime.obs_dir={obs_dir}",
-                                           "sim.scene_seed=100"])
-        generate_checks(cfg, setup["params"], dev)
-        trainer = RandomBaseline(cfg, device=dev, perceiver=Perceiver(
-            cfg, params=setup["params"], device=dev))
-        e = trainer.envs.num_envs
-        path = trainer.envs.envs[0].get_path((1.0, 1.0), (10.0, 10.0))
-        if len(path) == 0:
-            raise AssertionError("A* found no path across the room")
-        trainer.generate(1)                                   # warm-up
-        torch.cuda.synchronize()
-        K.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        split: dict = {}
-        t0 = time.perf_counter()
-        trainer.generate(GEN_STEPS, timings=split)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = dict(K.launches)
-        peak = torch.cuda.max_memory_allocated()
-        t0 = time.perf_counter()
-        trainer.generate(1)
-        torch.cuda.synchronize()
-        one_us = (time.perf_counter() - t0) * 1e6
-        profile_run("one generate step (observe, perceive, fuse, save, "
-                    "render)", lambda: trainer.generate(1), one_us)
-        rewards = trainer.rewards()
-        saved = len(trainer.saved_paths)
-        on_disk = sum(len(f) for _, _, f in os.walk(obs_dir))
-        trainer.envs.close()
+    cfg = apply_dotlist(setup["cfg"], [f"runtime.obs_dir={obs_dir}",
+                                       "sim.scene_seed=100"])
+    generate_checks(cfg, setup["params"], dev)
+    trainer = RandomBaseline(cfg, device=dev, perceiver=Perceiver(
+        cfg, params=setup["params"], device=dev))
+    e = trainer.envs.num_envs
+    path = trainer.envs.envs[0].get_path((1.0, 1.0), (10.0, 10.0))
+    if len(path) == 0:
+        raise AssertionError("A* found no path across the room")
+    trainer.generate(1)                                   # warm-up
+    torch.cuda.synchronize()
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    split: dict = {}
+    t0 = time.perf_counter()
+    trainer.generate(GEN_STEPS, timings=split)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(K.launches)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    trainer.generate(1)
+    torch.cuda.synchronize()
+    one_us = (time.perf_counter() - t0) * 1e6
+    profile_run("one generate step (observe, perceive, fuse, save, "
+                "render)", lambda: trainer.generate(1), one_us)
+    rewards = trainer.rewards()
+    saved = len(trainer.saved_paths)
+    on_disk = sum(len(f) for _, _, f in os.walk(obs_dir))
+    trainer.envs.close()
     per = {k: v / GEN_STEPS * 1e3 for k, v in split.items()}
     fps = e * GEN_STEPS / dt
     log(f"  launches in the timed generate steps: {counts}")
@@ -2677,13 +2813,313 @@ def run_exp_train_on_card() -> None:
                 "--trainer", "goalexplorationbaseline-v0", "--mode", "train",
                 "--preset", "tiny", "--steps", "1", "ppo.num_global_steps=2",
                 f"runtime.checkpoint_dir={ckpt}"])
-        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        printed = buf.getvalue().strip().splitlines()
+        line = json.loads(printed[-1])
         written = os.path.exists(os.path.join(ckpt, "policy.pkl"))
     log(f"  run_exp --mode train on the card: rc {rc}, {line}")
     if rc != 0 or line["mode"] != "train" or line["updates"] != 1 or not (
             written and all(math.isfinite(v) for m in line["metrics"]
                             for v in m.values())):
         raise AssertionError("run_exp --mode train on the card failed")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the captioner fine-tune (`finetune_captioner`)
+# ---------------------------------------------------------------------------
+
+FT_BATCH = 8                   # the fine-tune script's default batch
+FT_STEPS = 3                   # timed train steps after a warm-up step
+FT_LR = 1e-3                   # phase 10a's step (2 lr bounds a sign flip)
+FT_TRIPLET = 0.1               # the fine-tune script's triplet weight
+
+
+def leaf_paths(tree, path: str = "") -> list:
+    """Dotted names of a parameter tree's leaves in `tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_paths(tree[k], f"{path}.{k}" if path else k)]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_paths(v, f"{path}[{i}]")]
+    return [path]
+
+
+def finetune_batch(cfg, n: int, seed: int, dev) -> list:
+    """n uint8 crops at the ViT's input size, tokens BOS .. EOS of lengths
+    6-30 padded with PAD, object ids in pairs (the triplet loss's
+    positives), all valid."""
+    rng = np.random.default_rng(seed)
+    s, t = cfg.vision.image_size, cfg.text
+    imgs = rng.integers(0, 256, (n, s, s, 3), dtype=np.uint8)
+    toks = np.full((n, t.context_length), t.pad_id, np.int32)
+    for i in range(n):
+        k = int(rng.integers(5, min(30, t.context_length - 1)))
+        toks[i, 0] = t.bos_id
+        toks[i, 1:k] = rng.integers(3, t.vocab_size, k - 1)
+        toks[i, k] = t.eos_id
+    ids = np.arange(n, dtype=np.int32) // 2
+    return [torch.from_numpy(x).to(dev)
+            for x in (imgs, toks, ids, np.ones(n, bool))]
+
+
+def finetune_card_vs_cpu(dev) -> None:
+    """`train_step` at the tiny preset on the card (the LayerNorm forward
+    and backward kernels, the fused preprocess) and on the CPU (their plain
+    versions), same weights and batch (4 crops, triplet weight 0.1). Every
+    leaf's gradient within the larger of 5% of its norm and 3x the CPU's
+    own spread: how far the CPU's gradient of that leaf moves when the
+    parameters move by 1e-4 of themselves (two draws; ROADMAP C.20: the
+    key biases' gradients are zero in exact arithmetic, and the multimodal
+    cross-attention's query and key see nearly equal keys, so theirs are
+    rounding noise); every leaf whose CPU gradient is non-zero non-zero and
+    finite on the card (ROADMAP C.21); the loss and its parts within the
+    larger of 1e-3 and 3x their spread; the parameters after one step
+    within 2 lr (1 + 0.01 |p|) of each other (a gradient whose sign
+    differs moves an element 2 lr the other way), and where both clipped
+    gradients have one sign and are at least 1e-4 (Adam's eps then moves
+    the first step by under 1e-4 of itself) within 1e-4 lr + 2^-21 (|p| +
+    lr): the same step but for rounding, which a wrong weight decay (lr
+    0.01 |p|) oversteps where |p| is of order 1 (the LayerNorm gains)."""
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch.config import CaptionerConfig
+    from embodied_captioning_tpu_torch.models.captioner import init_captioner
+    from embodied_captioning_tpu_torch.train import captioner_train as TT
+    from embodied_captioning_tpu_torch.train.optim import (
+        tree_leaves, tree_map)
+
+    cfg = CaptionerConfig.tiny()
+    params = init_captioner(torch.Generator().manual_seed(11), cfg, "cpu")
+    names = leaf_paths(params)
+    batch = finetune_batch(cfg, 4, 0, "cpu")
+
+    def run(p, where):
+        g, loss, aux = TT.loss_and_grads(
+            to_device(p, where), *[x.to(where) for x in batch], cfg,
+            FT_TRIPLET)
+        return ([x.float().cpu() for x in tree_leaves(g)],
+                dict({k: float(v) for k, v in aux.items()}, loss=float(loss)))
+
+    g_cpu, parts_cpu = run(params, "cpu")
+    spreads = [0.0] * len(names)
+    part_spread = {k: 0.0 for k in parts_cpu}
+    for seed in (1, 2):
+        gen = torch.Generator().manual_seed(seed)
+        moved = tree_map(lambda x: x * (1 + 1e-4 * torch.randn(
+            x.shape, generator=gen)), params)
+        gm, pm = run(moved, "cpu")
+        spreads = [max(s, (a - b).norm().item())
+                   for s, a, b in zip(spreads, gm, g_cpu)]
+        part_spread = {k: max(v, abs(pm[k] - parts_cpu[k]))
+                       for k, v in part_spread.items()}
+    torch.cuda.synchronize()
+    K.reset_launches()
+    g_card, parts_card = run(params, dev)
+    counts = dict(K.launches)
+    worst, bad, dead = [], [], []
+    for n, a, b, sp in zip(names, g_card, g_cpu, spreads):
+        err = (a - b).norm().item()
+        lim = max(5e-2 * b.norm().item(), 3 * sp)
+        worst.append((err / lim if lim > 0 else (0.0 if err == 0 else
+                                                  math.inf), n))
+        if not err <= lim:
+            bad.append((n, err, lim))
+        if bool((b != 0).any()) and not (bool((a != 0).any())
+                                          and bool(torch.isfinite(a).all())):
+            dead.append(n)
+    worst.sort(reverse=True)
+    log(f"  fine-tune card vs CPU (tiny, 4 crops): {len(names)} leaves; "
+        f"gradient error / limit, the largest five: "
+        + ", ".join(f"{n} {r:.3f}" for r, n in worst[:5])
+        + f"; leaves with a non-zero CPU gradient and a zero or non-finite "
+        f"card gradient: {len(dead)}")
+    for k in parts_cpu:
+        lim = max(1e-3 * abs(parts_cpu[k]), 3 * part_spread[k])
+        log(f"    {k}: card {parts_card[k]:.6f}, CPU {parts_cpu[k]:.6f} "
+            f"(limit {lim:.2e})")
+        if not abs(parts_card[k] - parts_cpu[k]) <= lim:
+            bad.append((k, parts_card[k], parts_cpu[k]))
+    log(f"    launches in the card's loss and gradients: "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if counts["layernorm_bwd"] <= 0 or counts["layernorm"] <= 0 or \
+            counts["fused_preprocess"] <= 0 or counts["flash_attention"]:
+        raise AssertionError(f"fine-tune launch counts {counts}")
+    states = {}
+    for where in ("cpu", dev):
+        st = TT.create_train_state(to_device(params, where))
+        states[str(where)] = TT.train_step(
+            st, *[x.to(where) for x in batch], cfg, lr=FT_LR,
+            triplet_weight=FT_TRIPLET)[0]
+    p0 = tree_leaves(params)
+    p_cpu = tree_leaves(states["cpu"].params)
+    p_card = [x.cpu() for x in tree_leaves(states[str(dev)].params)]
+    ratio = max(((a - b).abs() / (2 * FT_LR * (1 + 0.01 * c.abs()) + 1e-7)
+                 ).max().item() for a, b, c in zip(p_card, p_cpu, p0))
+    flips = sum(int(((a - b).abs() > FT_LR).sum()) for a, b in
+                zip(p_card, p_cpu))
+    total = sum(x.numel() for x in p0)
+    def clip_scale(gs):
+        norm = math.sqrt(sum(float(torch.sum(torch.square(x.double())))
+                             for x in gs))
+        return 1.0 if norm < TT.MAX_GRAD_NORM else TT.MAX_GRAD_NORM / norm
+
+    ca, cb = clip_scale(g_card), clip_scale(g_cpu)
+    tight, n_same, n_large = 0.0, 0, 0
+    for a, b, c, ga, gb in zip(p_card, p_cpu, p0, g_card, g_cpu):
+        ga, gb = ga * ca, gb * cb
+        same = (torch.sign(ga) == torch.sign(gb)) & (
+            torch.minimum(ga.abs(), gb.abs()) >= 1e-4)
+        if bool(same.any()):
+            lim = 1e-4 * FT_LR + 2.0 ** -21 * (c[same].abs() + FT_LR)
+            tight = max(tight, ((a - b)[same].abs() / lim).max().item())
+        n_same += int(same.sum())
+        n_large += int((c[same].abs() >= 0.5).sum())
+    log(f"    parameters after one step: max diff {ratio:.4f} of 2 lr "
+        f"(1 + 0.01 |p|); {flips} of {total} elements more than lr apart "
+        f"(a flipped gradient sign); {n_same} elements whose clipped "
+        f"gradients share a sign and are at least 1e-4 ({n_large} of them "
+        f"with |p| >= 0.5): max diff {tight:.4f} of 1e-4 lr + 2^-21 (|p| + "
+        f"lr)")
+    if (bad or dead or not ratio <= 1.0 or not tight <= 1.0
+            or n_same < total // 4 or n_large < 100):
+        raise AssertionError(f"fine-tune card vs CPU: {bad} {dead} {ratio} "
+                             f"{tight} {n_same} {n_large}")
+
+
+def finetune_full_width(dev, smi: str) -> dict:
+    """One `train_step` at the large preset (ViT-L/14 at 224^2, the 768-wide
+    12+12-layer decoder, 49,408-token vocabulary; seeded weights) at the
+    fine-tune's batch of FT_BATCH crops, triplet weight 0.1: with `remat`
+    off and then on, a warm-up step, FT_STEPS timed steps (host clock
+    around synchronised steps), their launch counts and peak memory, one
+    step under the profiler for device busy and idle share. Returns the
+    readings and the parameter shapes."""
+    import dataclasses
+    import gc
+
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch.config import CaptionerConfig
+    from embodied_captioning_tpu_torch.models.captioner import init_captioner
+    from embodied_captioning_tpu_torch.train import captioner_train as TT
+    from embodied_captioning_tpu_torch.train.optim import tree_leaves
+
+    # the fine-tune's own memory: what is allocated past what earlier
+    # phases left (their objects are collected first)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    cfg = CaptionerConfig.large()
+    params = init_captioner(torch.Generator(device=dev).manual_seed(0), cfg,
+                            dev)
+    leaves = tree_leaves(params)
+    n_params = sum(x.numel() for x in leaves)
+    batch = finetune_batch(cfg, FT_BATCH, 3, dev)
+    out = dict(n_params=n_params, shapes=[tuple(x.shape) for x in leaves])
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+
+        def step(st):
+            return TT.train_step(st, *batch, c, triplet_weight=FT_TRIPLET)
+
+        state = TT.create_train_state(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, aux = step(state)                             # warm-up
+        torch.cuda.synchronize()
+        K.reset_launches()
+        times, losses = [], []
+        for _ in range(FT_STEPS):
+            t0 = time.perf_counter()
+            state, aux = step(state)
+            losses.append(float(aux["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts = dict(K.launches)
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = sorted(times)[len(times) // 2] * 1e3
+        moved = sum(int(not torch.equal(a, b)) for a, b in
+                    zip(tree_leaves(state.params), leaves))
+        log(f"fine-tune train_step, large preset, batch {FT_BATCH}, remat "
+            f"{'on' if remat else 'off'}: {ms:.1f} ms a step (median of "
+            f"{FT_STEPS}: " + ", ".join(f"{t * 1e3:.1f}" for t in times)
+            + f") on {smi}; {FT_BATCH / ms * 1e3:.2f} crops/s; peak device "
+            f"memory {peak / 2**30:.2f} GiB (weights, optimizer state, "
+            f"gradients and activations; {base / 2**30:.2f} GiB of earlier "
+            f"phases beside it); {n_params} parameters, "
+            f"{moved} of {len(leaves)} leaves moved; losses "
+            + " ".join(f"{x:.4f}" for x in losses)
+            + f"; LayerNorm launches a step: forward "
+            f"{counts['layernorm'] / FT_STEPS:g}, backward "
+            f"{counts['layernorm_bwd'] / FT_STEPS:g}; all launches over the "
+            f"timed steps {({k: v for k, v in counts.items() if v})}")
+        if (not all(math.isfinite(x) for x in losses) or moved != len(leaves)
+                or counts["layernorm_bwd"] <= 0
+                or counts["fused_preprocess"] != FT_STEPS
+                or counts["flash_attention"]):
+            raise AssertionError(f"fine-tune step (remat {remat}) failed: "
+                                 f"{losses} {moved} {counts}")
+        busy = profile_run(f"one fine-tune step, remat "
+                           f"{'on' if remat else 'off'}",
+                           lambda: step(state), ms * 1e3)
+        out["remat" if remat else "plain"] = dict(
+            ms=ms, peak_bytes=peak, counts=counts, busy_us=busy)
+        del state, aux
+        torch.cuda.empty_cache()
+    return out
+
+
+def finetune_entry_point(store: str, shapes: list) -> dict:
+    """`finetune_captioner` (python -m embodied_captioning_tpu_torch.
+    finetune_captioner) at the large preset on the store that phase 8's
+    `generate` wrote, in process on the card, with its defaults (1 epoch,
+    batch 8, lr 1e-4, triplet weight 0.1) and the repository's
+    pseudo_captions.json ({}: the captions come from the store): its JSON
+    line (pairs, steps = pairs // 8, finite losses) and the pickle read
+    back (numpy leaves of the init's shapes, all finite)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from embodied_captioning_tpu_torch import finetune_captioner
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch.params import load_pickle
+    from embodied_captioning_tpu_torch.train.optim import tree_leaves
+
+    with tempfile.TemporaryDirectory(prefix="ecap_finetune_") as d:
+        save = os.path.join(d, "captioner_finetuned.pkl")
+        buf = io.StringIO()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = finetune_captioner.main([
+                store, "--preset", "large", "--save", save,
+                "--pseudo-captions", str(REPO / "pseudo_captions.json")])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(K.launches)
+        printed = buf.getvalue().strip().splitlines()
+        line = json.loads(printed[-1])
+        size = os.path.getsize(save) if os.path.exists(save) else 0
+        t0 = time.perf_counter()
+        tree = tree_leaves(load_pickle(save)) if size else []
+        dt_load = time.perf_counter() - t0
+    log("  " + "; ".join(x for x in printed[:-1]
+                         if x.startswith("[finetune]")))
+    log(f"  finetune_captioner on phase 8's store: rc {rc}, {line}; "
+        f"{dt:.1f} s in all; the pickle {size / 2**30:.2f} GiB, read back "
+        f"in {dt_load:.1f} s; launches {({k: v for k, v in counts.items() if v})}")
+    ok = (rc == 0 and line.get("pairs", 0) > 0
+          and line["steps"] == line["pairs"] // FT_BATCH
+          and line["steps"] > 0
+          and all(math.isfinite(line[k]) for k in ("first_loss",
+                                                   "last_loss"))
+          and line["saved"] == save
+          and [tuple(x.shape) for x in tree] == shapes
+          and all(isinstance(x, np.ndarray) and np.isfinite(x).all()
+                  for x in tree)
+          and counts["layernorm_bwd"] > 0)
+    if not ok:
+        raise AssertionError("finetune_captioner on the card failed")
+    return dict(line=line, seconds=dt, counts=counts)
 
 
 def card_name() -> str:
@@ -2757,6 +3193,7 @@ def main() -> int:
         rows.update(loop_kernel_checks(K, dev, setup["scenes"],
                                        camera_poses(setup["state"]),
                                        setup["cfg"]))
+        rows.update(layernorm_bwd_checks(K, dev))
         log("[3] perceive at full width")
         res = perceive_full_width(setup)
         log(f"perceive: {res['fps']:.2f} frames/s on {smi} "
@@ -2785,39 +3222,58 @@ def main() -> int:
         rows["layernorm"]["perceive_split"] = layernorm_split(
             K, res["params"], lambda: perceive(res["params"], routes["frames"],
                                                res["cfg"]))
+        route_counts, perceive_counts = routes["counts"], res["counts"]
         profile_run("one rollout_fused step", loop["one_step"],
                     sum(loop["per_step_ms"].values()) * 1e3)
         log("[7] beam, sampled and speculative generation at full width")
         generation_modes(setup, smi)
-        log("[8] the exploration entry point (generate) at full width")
-        gen = generate_full_width(setup, smi)
-        log("[9] PPO training (train) at full width")
-        ppo_card_vs_cpu(dev)
-        train = train_full_width(setup, smi)
-        ppo_update_reference_batch(dev, smi)
-        run_exp_train_on_card()
+        import tempfile
+        with tempfile.TemporaryDirectory(prefix="ecap_generate_") as store:
+            log("[8] the exploration entry point (generate) at full width")
+            gen = generate_full_width(setup, smi, store)
+            log("[9] PPO training (train) at full width")
+            ppo_card_vs_cpu(dev)
+            train = train_full_width(setup, smi)
+            ppo_update_reference_batch(dev, smi)
+            run_exp_train_on_card()
+            # the full-width perception state, frames and voxel maps of
+            # phases 3-9 are not needed past here: free them for the
+            # large preset's training state
+            del setup, res, routes
+            loop.pop("one_step")
+            torch.cuda.empty_cache()
+            log("[10] the captioner fine-tune (finetune_captioner)")
+            finetune_card_vs_cpu(dev)
+            ft = finetune_full_width(dev, smi)
+            finetune_entry_point(store, ft["shapes"])
     except Exception:
         traceback.print_exc()
         return 1
     # launches: over the timed rollout_fused windows, which run every kernel
-    # but the two standalone decode attention kernels; theirs are from the
-    # perceive batch on the route of separate calls (phase 3).
+    # but the two standalone decode attention kernels and the LayerNorm
+    # backward; the first two's are from the perceive batch on the route of
+    # separate calls (phase 3), the backward's from phase 10's fine-tune
+    # steps.
     # launches_perceive: over the timed perceive batches of phase 3;
     # launches_generate: over the timed generate steps of phase 8;
     # launches_train: over phase 9's two timed train calls (unfused, then
-    # fused)
+    # fused); launches_finetune: over phase 10's FT_STEPS timed large-preset
+    # train steps with remat off, the only path of the LayerNorm backward
     kernels = []
     for n, r in rows.items():
-        in_loop = loop["counts"][n] > 0
+        if loop["counts"][n] > 0:
+            launches, src = loop["counts"][n], "rollout_fused"
+        elif route_counts[n] > 0:
+            launches, src = route_counts[n], "perceive(decode_blocks=False)"
+        else:
+            launches, src = ft["plain"]["counts"][n], "finetune train_step"
         kernels.append(dict(
-            name=n, route="cuda",
-            launches=loop["counts"][n] if in_loop else routes["counts"][n],
-            launches_from=("rollout_fused" if in_loop
-                           else "perceive(decode_blocks=False)"),
-            launches_perceive=res["counts"].get(n, 0),
+            name=n, route="cuda", launches=launches, launches_from=src,
+            launches_perceive=perceive_counts.get(n, 0),
             launches_generate=gen["counts"][n],
             launches_train=(train["unfused"]["counts"][n]
-                            + train["fused"]["counts"][n]), **r))
+                            + train["fused"]["counts"][n]),
+            launches_finetune=ft["plain"]["counts"][n], **r))
     if any(k["launches"] <= 0 for k in kernels):
         print(f"chip_smoke: a kernel was never launched: {kernels}",
               file=sys.stderr)

@@ -2,78 +2,31 @@
 clipped by their global norm, Adam; `ppo_epoch` epochs of
 `num_mini_batch` minibatches.
 
-The optimizer is written out on the parameter tree with the arithmetic
-of the JAX package's `optax.chain(clip_by_global_norm(max_grad_norm),
-adam(lr, eps=eps))`: the global norm over the leaves in sorted-key order,
-`(t / norm) * max_norm` only where the norm reaches `max_norm`, Adam's
-bias-corrected moments with `eps` outside the square root, the step
-scaled by -lr. `ppo_update` draws one permutation per epoch from a
+The optimizer is the JAX package's `optax.chain(clip_by_global_norm(
+max_grad_norm), adam(lr, eps=eps))`, written out on the parameter tree in
+`train/optim.py`. `ppo_update` draws one permutation per epoch from a
 `torch.Generator` and hands them to `ppo_update_with`, which is
 deterministic given (state, rollout, permutations).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..config import PPOConfig
+from ..train.optim import (
+    AdamState, adam_init, adam_update, tree_leaves, tree_unflatten,
+)
 from .policy import evaluate_actions
 from .storage import Rollout, compute_gae
 
-ADAM_B1 = 0.9
-ADAM_B2 = 0.999
-
 
 # ---------------------------------------------------------------------------
-# parameter trees (nested dicts and lists of tensors)
+# optimizer state
 # ---------------------------------------------------------------------------
-
-def tree_leaves(tree: Any) -> List[torch.Tensor]:
-    """Leaves in JAX's order: dict keys sorted, lists in order."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
-
-
-def tree_unflatten(tree: Any, leaves: Sequence) -> Any:
-    """`tree`'s structure with `leaves` (in `tree_leaves` order)."""
-    it = iter(leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            out = {k: build(node[k]) for k in sorted(node)}
-            return {k: out[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            return [build(v) for v in node]
-        return next(it)
-
-    return build(tree)
-
-
-def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v, *(r[i] for r in rest))
-                for i, v in enumerate(tree)]
-    return fn(tree, *rest)
-
-
-# ---------------------------------------------------------------------------
-# optimizer
-# ---------------------------------------------------------------------------
-
-class AdamState(NamedTuple):
-    count: int
-    mu: Any
-    nu: Any
-
 
 class PPOState(NamedTuple):
     params: dict
@@ -81,37 +34,13 @@ class PPOState(NamedTuple):
 
 
 def create_state(params: dict, cfg: PPOConfig) -> PPOState:
-    return PPOState(params, AdamState(0, tree_map(torch.zeros_like, params),
-                                      tree_map(torch.zeros_like, params)))
+    return PPOState(params, adam_init(params))
 
 
-def clip_by_global_norm(grads: Any, max_norm: float) -> Any:
-    leaves = tree_leaves(grads)
-    norm = torch.sqrt(sum(torch.sum(torch.square(x)) for x in leaves))
-    keep = norm < max_norm
-    return tree_map(lambda t: torch.where(keep, t, (t / norm) * max_norm),
-                    grads)
-
-
-def adam_step(state: PPOState, grads: Any, cfg: PPOConfig) -> PPOState:
+def adam_step(state: PPOState, grads, cfg: PPOConfig) -> PPOState:
     """One step of the clip-then-Adam chain: new params and moments."""
-    grads = clip_by_global_norm(grads, cfg.max_grad_norm)
-    opt = state.opt_state
-    mu = tree_map(lambda g, m: (1 - ADAM_B1) * g + ADAM_B1 * m, grads, opt.mu)
-    nu = tree_map(lambda g, v: (1 - ADAM_B2) * (g * g) + ADAM_B2 * v, grads,
-                  opt.nu)
-    count = opt.count + 1
-    # the corrections in float32, as optax's `1 - decay**count`
-    bc1 = float(np.float32(1) - np.float32(ADAM_B1) ** np.float32(count))
-    bc2 = float(np.float32(1) - np.float32(ADAM_B2) ** np.float32(count))
-    step = -cfg.lr
-
-    def update(p, m, v):
-        u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        return p + u * step
-
-    params = tree_map(update, state.params, mu, nu)
-    return PPOState(params, AdamState(count, mu, nu))
+    return PPOState(*adam_update(state.params, state.opt_state, grads,
+                                 cfg.lr, cfg.max_grad_norm, cfg.eps))
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,9 @@ from .decode_attention import (
     decode_self_block_plain,
 )
 from .flash_attention import flash_attention, flash_attention_plain
-from .layernorm import layernorm, layernorm_plain
+from .layernorm import (
+    layernorm, layernorm_bwd, layernorm_bwd_plain, layernorm_plain,
+)
 from .preprocess import fused_preprocess, fused_preprocess_plain
 from .raycast import raycast_minargmin, raycast_minargmin_plain
 
@@ -23,6 +25,6 @@ __all__ = [
     "decode_self_block", "decode_self_block_plain",
     "decode_cross_block", "decode_cross_block_plain",
     "fused_preprocess", "fused_preprocess_plain",
-    "layernorm", "layernorm_plain",
+    "layernorm", "layernorm_plain", "layernorm_bwd", "layernorm_bwd_plain",
     "raycast_minargmin", "raycast_minargmin_plain",
 ]

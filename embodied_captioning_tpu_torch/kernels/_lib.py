@@ -36,6 +36,7 @@ launches: Dict[str, int] = {
     "decode_cross_block": 0,
     "raycast_minargmin": 0,
     "layernorm": 0,
+    "layernorm_bwd": 0,
     "fused_preprocess": 0,
 }
 
@@ -55,6 +56,7 @@ _SIGNATURES = {
     "ecap_decode_cross_block": [_P] * 16 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
     "ecap_raycast_minargmin": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ecap_layernorm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
+    "ecap_layernorm_bwd": [_P] * 7 + [_I, _I, _I, _F, _I, _I, _I, _P],
     "ecap_fused_preprocess": [_P] * 8 + [_I] * 5 + [_F] * 6 + [_P],
 }
 

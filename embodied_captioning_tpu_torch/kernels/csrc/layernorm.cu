@@ -314,6 +314,246 @@ int launch(const void* xv, const void* gv, const void* bv, void* outv,
   return cudaGetLastError();
 }
 
+// ---- the backward ----------------------------------------------------------
+//
+// Replaces: embodied_captioning_tpu/models/common.py _ln_pallas_bwd (the
+//   custom VJP of the Pallas LayerNorm; not a pallas_call of its own):
+//     dx = inv * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)),
+//     dxhat = dy * g, xhat = (x - mean) * inv,
+//     dg = sum over rows of dy * xhat, db = sum over rows of dy.
+//   The row statistics are recomputed from x in the forward's own mode
+//   (one-pass with the floor, or two-pass), so the forward stays as it is.
+//
+// Bound on an H100 SXM (3.35 TB/s): memory. x and dy are read and dx is
+// written once per element, with ~15 operations per element in between;
+// the float32 partials of dg and db add 2 x parts x d floats each way.
+//
+// Design (a simple kernel that is right; making it fast is later work):
+//   layernorm_bwd_rows: the rows are cut into `parts` contiguous groups,
+//     one block per group; each warp of the block takes every W-th row of
+//     the group. A row is walked three times by the warp's lanes (the
+//     statistics, the two means, then dx), in chunks of 8 elements read as
+//     16-byte vectors where the row and the pointers allow it, else one
+//     element at a time; the second and third walks hit L1/L2. Each lane
+//     adds dy * xhat and dy into its own columns of its warp's float32
+//     accumulators in shared memory (a column belongs to one lane, so no
+//     atomics); at the end the block sums its warps in order into its
+//     partial row of dg and db.
+//   layernorm_bwd_cols: each column's partials are summed over the groups
+//     in a fixed order (eight strided sums, then those eight in order).
+//   No atomics anywhere: two runs give the same bits.
+
+template <int N>
+__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float (&f)[N]) {
+  if constexpr (N == 8) {
+    unpack(*reinterpret_cast<const uint4*>(p), f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) f[i] = __bfloat162float(p[i]);
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_chunk(const float* p, float (&f)[N]) {
+  if constexpr (N % 4 == 0) {
+    load_floats<N>(p, f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) f[i] = p[i];
+  }
+}
+template <int N>
+__device__ __forceinline__ void store_chunk(__nv_bfloat16* p, const float (&f)[N]) {
+  if constexpr (N == 8) {
+    store_vec<8>(p, f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = __float2bfloat16_rn(f[i]);
+  }
+}
+template <int N>
+__device__ __forceinline__ void store_chunk(float* p, const float (&f)[N]) {
+  if constexpr (N % 4 == 0) {
+    store_vec<N>(p, f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = f[i];
+  }
+}
+
+constexpr int kBwdMaxWarps = 8;
+constexpr size_t kBwdStaticSmem = 48 * 1024;
+
+template <typename Tx, typename Tdy, int N>
+__global__ void __launch_bounds__(kBwdMaxWarps * 32)
+layernorm_bwd_rows(const Tx* __restrict__ x, const float* __restrict__ g,
+                   const Tdy* __restrict__ dy, Tx* __restrict__ dx,
+                   float* __restrict__ dg_part, float* __restrict__ db_part,
+                   int rows, int d, int rows_per_part, float eps,
+                   int two_pass) {
+  extern __shared__ float acc[];  // [W][2][d]: per warp, dg then db
+  const int nw = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* my_dg = acc + static_cast<size_t>(warp) * 2 * d;
+  float* my_db = my_dg + d;
+  for (int i = threadIdx.x; i < nw * 2 * d; i += blockDim.x) acc[i] = 0.f;
+  __syncthreads();
+
+  const int nch = d / N;
+  const float inv_d = 1.f / static_cast<float>(d);
+  const int r0 = blockIdx.x * rows_per_part;
+  const int r1 = min(rows, r0 + rows_per_part);
+  for (int row = r0 + warp; row < r1; row += nw) {
+    const Tx* xr = x + static_cast<size_t>(row) * d;
+    const Tdy* dyr = dy + static_cast<size_t>(row) * d;
+    Tx* dxr = dx + static_cast<size_t>(row) * d;
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < nch; c += 32) {
+      float f[N];
+      load_chunk<N>(xr + c * N, f);
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        s1 += f[e];
+        s2 += f[e] * f[e];
+      }
+    }
+    const float mean = ecap::warp_sum(s1) * inv_d;
+    float var;
+    if (two_pass) {
+      float sq = 0.f;
+      for (int c = lane; c < nch; c += 32) {
+        float f[N];
+        load_chunk<N>(xr + c * N, f);
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          const float t = f[e] - mean;
+          sq += t * t;
+        }
+      }
+      var = ecap::warp_sum(sq) * inv_d;
+    } else {
+      var = variance_one_pass(ecap::warp_sum(s2), mean, inv_d);
+    }
+    const float inv = rsqrtf(var + eps);
+
+    float a1 = 0.f, a2 = 0.f;
+    for (int c = lane; c < nch; c += 32) {
+      float f[N], dd[N], gg[N];
+      load_chunk<N>(xr + c * N, f);
+      load_chunk<N>(dyr + c * N, dd);
+      load_chunk<N>(g + c * N, gg);
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        const float xhat = (f[e] - mean) * inv;
+        const float dxh = dd[e] * gg[e];
+        a1 += dxh;
+        a2 += dxh * xhat;
+      }
+    }
+    const float m1 = ecap::warp_sum(a1) * inv_d;
+    const float m2 = ecap::warp_sum(a2) * inv_d;
+
+    for (int c = lane; c < nch; c += 32) {
+      float f[N], dd[N], gg[N], out[N];
+      load_chunk<N>(xr + c * N, f);
+      load_chunk<N>(dyr + c * N, dd);
+      load_chunk<N>(g + c * N, gg);
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        const float xhat = (f[e] - mean) * inv;
+        out[e] = inv * (dd[e] * gg[e] - m1 - xhat * m2);
+        my_dg[c * N + e] += dd[e] * xhat;
+        my_db[c * N + e] += dd[e];
+      }
+      store_chunk<N>(dxr + c * N, out);
+    }
+  }
+  __syncthreads();
+  float* pg = dg_part + static_cast<size_t>(blockIdx.x) * d;
+  float* pb = db_part + static_cast<size_t>(blockIdx.x) * d;
+  for (int col = threadIdx.x; col < d; col += blockDim.x) {
+    float sg = 0.f, sb = 0.f;
+    for (int w = 0; w < nw; ++w) {
+      sg += acc[static_cast<size_t>(w) * 2 * d + col];
+      sb += acc[static_cast<size_t>(w) * 2 * d + d + col];
+    }
+    pg[col] = sg;
+    pb[col] = sb;
+  }
+}
+
+constexpr int kColTile = 32, kColGroups = 8;
+
+__global__ void __launch_bounds__(kColTile * kColGroups)
+layernorm_bwd_cols(const float* __restrict__ dg_part,
+                   const float* __restrict__ db_part, float* __restrict__ dg,
+                   float* __restrict__ db, int parts, int d) {
+  __shared__ float sg[kColGroups][kColTile + 1], sb[kColGroups][kColTile + 1];
+  const int col = blockIdx.x * kColTile + threadIdx.x;
+  float a = 0.f, b = 0.f;
+  if (col < d) {
+    for (int p = threadIdx.y; p < parts; p += kColGroups) {
+      a += dg_part[static_cast<size_t>(p) * d + col];
+      b += db_part[static_cast<size_t>(p) * d + col];
+    }
+  }
+  sg[threadIdx.y][threadIdx.x] = a;
+  sb[threadIdx.y][threadIdx.x] = b;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < d) {
+    float ta = 0.f, tb = 0.f;
+    for (int i = 0; i < kColGroups; ++i) {
+      ta += sg[i][threadIdx.x];
+      tb += sb[i][threadIdx.x];
+    }
+    dg[col] = ta;
+    db[col] = tb;
+  }
+}
+
+template <typename Tx, typename Tdy, int N>
+int launch_bwd(const void* x, const void* g, const void* dy, void* dx,
+               float* dg, float* db, float* part, int rows, int d, int parts,
+               float eps, int two_pass, cudaStream_t stream) {
+  auto kernel = layernorm_bwd_rows<Tx, Tdy, N>;
+  // as many warps as fit 48 KB of accumulators, 1 to 8; past that (rows
+  // over 6144 wide) one warp with the dynamic shared memory raised
+  int warps = static_cast<int>(kBwdStaticSmem / (8 * static_cast<size_t>(d)));
+  warps = warps < 1 ? 1 : (warps > kBwdMaxWarps ? kBwdMaxWarps : warps);
+  const size_t smem = static_cast<size_t>(warps) * 2 * d * sizeof(float);
+  if (smem > ecap::kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > kBwdStaticSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int rows_per_part = (rows + parts - 1) / parts;
+  float* dg_part = part;
+  float* db_part = part + static_cast<size_t>(parts) * d;
+  kernel<<<parts, warps * 32, smem, stream>>>(
+      static_cast<const Tx*>(x), static_cast<const float*>(g),
+      static_cast<const Tdy*>(dy), static_cast<Tx*>(dx), dg_part, db_part,
+      rows, d, rows_per_part, eps, two_pass);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  layernorm_bwd_cols<<<(d + kColTile - 1) / kColTile,
+                       dim3(kColTile, kColGroups), 0, stream>>>(
+      dg_part, db_part, dg, db, parts, d);
+  return cudaGetLastError();
+}
+
+template <typename Tx, typename Tdy>
+int dispatch_bwd(const void* x, const void* g, const void* dy, void* dx,
+                 float* dg, float* db, float* part, int rows, int d,
+                 int parts, float eps, int two_pass, cudaStream_t stream) {
+  if (d % 8 == 0 && aligned16(x) && aligned16(g) && aligned16(dy) &&
+      aligned16(dx))
+    return launch_bwd<Tx, Tdy, 8>(x, g, dy, dx, dg, db, part, rows, d, parts,
+                                  eps, two_pass, stream);
+  return launch_bwd<Tx, Tdy, 1>(x, g, dy, dx, dg, db, part, rows, d, parts,
+                                eps, two_pass, stream);
+}
+
 }  // namespace
 
 // x [rows, d] bf16 or f32; g, b [d] f32; out [rows, d] bf16 or f32.
@@ -331,4 +571,31 @@ extern "C" int ecap_layernorm(const void* x, const void* g, const void* b,
   if (out_bf16)
     return launch<float, __nv_bfloat16>(x, g, b, out, rows, d, eps, two_pass, s);
   return launch<float, float>(x, g, b, out, rows, d, eps, two_pass, s);
+}
+
+// The LayerNorm backward. x, dx [rows, d] bf16 or f32 (x's type); dy
+// [rows, d] bf16 or f32 (the forward output's type); g [d] f32; dg, db [d]
+// f32; part: float32 scratch of 2 x parts x d (parts in 1..rows).
+extern "C" int ecap_layernorm_bwd(const void* x, const void* g, const void* dy,
+                                  void* dx, void* dg, void* db, void* part,
+                                  int rows, int d, int parts, float eps,
+                                  int two_pass, int x_bf16, int dy_bf16,
+                                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || d <= 0 || parts < 1 || parts > rows)
+    return cudaErrorInvalidValue;
+  float* fg = static_cast<float*>(dg);
+  float* fb = static_cast<float*>(db);
+  float* fp = static_cast<float*>(part);
+  if (x_bf16 && dy_bf16)
+    return dispatch_bwd<__nv_bfloat16, __nv_bfloat16>(
+        x, g, dy, dx, fg, fb, fp, rows, d, parts, eps, two_pass, s);
+  if (x_bf16)
+    return dispatch_bwd<__nv_bfloat16, float>(x, g, dy, dx, fg, fb, fp, rows,
+                                              d, parts, eps, two_pass, s);
+  if (dy_bf16)
+    return dispatch_bwd<float, __nv_bfloat16>(x, g, dy, dx, fg, fb, fp, rows,
+                                              d, parts, eps, two_pass, s);
+  return dispatch_bwd<float, float>(x, g, dy, dx, fg, fb, fp, rows, d, parts,
+                                    eps, two_pass, s);
 }

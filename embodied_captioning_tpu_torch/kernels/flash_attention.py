@@ -4,6 +4,11 @@ PyTorch version.
 Replaces the TPU kernel embodied_captioning_tpu/ops/pallas/
 flash_attention.py:flash_attention. On a CUDA tensor the wrapper launches
 the kernel; on a CPU tensor it runs `flash_attention_plain`.
+
+The kernel has no backward, as the TPU kernel has none: where autograd
+records and q, k or v needs a gradient the wrapper raises, on either
+device, rather than return an output that gradients cannot cross.
+`models/common.mha` sends such calls to its plain attention.
 """
 
 from __future__ import annotations
@@ -46,7 +51,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False,
                     valid_len: Optional[int] = None) -> torch.Tensor:
     """q, k, v contiguous bf16 [B, H, T, D] (D in 32, 64, 128) -> bf16
-    [B, H, T, D]. Any T; keys at index >= `valid_len` are masked."""
+    [B, H, T, D]. Any T; keys at index >= `valid_len` are masked. Raises
+    where autograd records and an input needs a gradient."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError("flash_attention has no backward: call it under "
+                           "torch.no_grad() or on inputs that need no "
+                           "gradient")
     if _lib.dispatch_device(q) == "cpu":
         return flash_attention_plain(q, k, v, causal, valid_len)
     b, h, t, d = q.shape

@@ -1,7 +1,13 @@
 """CoCa-class captioner: ViT encoder, unimodal text decoder and multimodal
-cross-attention decoder, with KV-cached generation: greedy or sampled
+cross-attention decoder, with the training forward (`forward`,
+`caption_loss`) and KV-cached generation: greedy or sampled
 (`generate`), beam search (`generate_beam`) and self-speculative greedy
 (`generate_speculative`).
+
+The training forward runs every LayerNorm through the LayerNorm kernel
+(forward and backward) and the image preprocess through the fused
+preprocess kernel; attention and products are plain tensor ops on cuBLAS,
+the route the JAX package's `train_step` differentiates.
 
 Per decode step every self-attention and cross-attention sublayer runs as
 one block kernel and every MLP as the fused decode-MLP kernel; with
@@ -11,16 +17,16 @@ projections and the decode self-/cross-attention kernels instead.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..config import CaptionerConfig
 from .common import (
-    KVCache, block, block_init, dense, dense_init, layernorm, layernorm_init,
-    precompute_kv, randn,
+    KVCache, block, block_init, causal_mask, dense, dense_init, layernorm,
+    layernorm_init, precompute_kv, randn,
 )
-from .vit import encode_image, init_vit
+from .vit import encode_image, init_vit, run_blocks
 
 
 def init_captioner(g: torch.Generator, cfg: CaptionerConfig, device) -> dict:
@@ -41,6 +47,94 @@ def init_captioner(g: torch.Generator, cfg: CaptionerConfig, device) -> dict:
         "logit_scale": torch.tensor(2.659, device=device),
     }
 
+
+# ---------------------------------------------------------------------------
+# the training forward
+# ---------------------------------------------------------------------------
+
+def _text_tower(params: dict, tokens: torch.Tensor, cfg: CaptionerConfig
+                ) -> torch.Tensor:
+    """Tokens [B, T] -> unimodal text features [B, T, width] (bf16),
+    causal self-attention."""
+    t = tokens.shape[1]
+    x = (params["tok_emb"][tokens.long()]
+         + params["pos_emb"][None, :t]).to(torch.bfloat16)
+    mask = causal_mask(t, tokens.device)
+    for blk in params["text_blocks"]:
+        x, _ = block(blk, x, cfg.text.heads, mask=mask)
+    return layernorm(params["ln_text"], x)
+
+
+def _mm_tower(params: dict, text_feats: torch.Tensor,
+              img_tokens: torch.Tensor, heads: int, remat: bool = False
+              ) -> torch.Tensor:
+    """Text features [B, T, width] cross-attending the pooled image tokens
+    -> multimodal features [B, T, width]; `remat` checkpoints each
+    block."""
+    mask = causal_mask(text_feats.shape[1], text_feats.device)
+    x = run_blocks(lambda blk, h: block(blk, h, heads, mask=mask,
+                                        cross=img_tokens)[0],
+                   params["mm_blocks"], text_feats, remat)
+    return layernorm(params["ln_mm"], x)
+
+
+def forward(params: dict, images_u8: torch.Tensor, tokens: torch.Tensor,
+            cfg: CaptionerConfig):
+    """Training forward of uint8 crops [B, H, W, 3] and tokens [B, T]:
+    (logits [B, T, V] bf16, image embedding [B, E] f32, text embedding
+    [B, E] f32), both embeddings L2-normalised; the text embedding is the
+    text feature at the last non-pad position."""
+    pooled, img_emb = encode_image(params["vision"], images_u8, cfg.vision,
+                                   remat=cfg.remat)
+    text_feats = _text_tower(params, tokens, cfg)
+    mm = _mm_tower(params, text_feats, pooled, cfg.text.heads,
+                   remat=cfg.remat)
+    logits = dense(params["head"], mm)
+    lengths = (tokens != cfg.text.pad_id).sum(dim=1) - 1
+    rows = torch.arange(tokens.shape[0], device=tokens.device)
+    pooled_txt = text_feats[rows, lengths.clamp(min=0)]
+    txt_emb = dense(params["text_proj"], pooled_txt).float()
+    txt_emb = txt_emb / torch.clamp(
+        torch.linalg.norm(txt_emb, dim=-1, keepdim=True), min=1e-8)
+    return logits, img_emb, txt_emb
+
+
+def caption_losses(logits: torch.Tensor, img_emb: torch.Tensor,
+                   txt_emb: torch.Tensor, tokens: torch.Tensor,
+                   logit_scale: torch.Tensor, cfg: CaptionerConfig,
+                   contrastive_weight: float = 1.0,
+                   caption_weight: float = 2.0
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The CoCa loss of `forward`'s outputs: caption_weight x next-token
+    cross-entropy over non-pad targets + contrastive_weight x the
+    symmetric CLIP loss. Returns (total, {"caption_ce", "contrastive"})."""
+    targets = tokens[:, 1:].long()
+    pred = logits[:, :-1]
+    mask = (targets != cfg.text.pad_id).float()
+    logp = torch.log_softmax(pred.float(), dim=-1)
+    nll = -torch.gather(logp, 2, targets[..., None])[..., 0]
+    ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    sim = torch.exp(logit_scale) * img_emb @ txt_emb.T
+    con = 0.5 * (-torch.log_softmax(sim, dim=1).diagonal().mean()
+                 - torch.log_softmax(sim, dim=0).diagonal().mean())
+    return caption_weight * ce + contrastive_weight * con, {
+        "caption_ce": ce, "contrastive": con}
+
+
+def caption_loss(params: dict, images_u8: torch.Tensor, tokens: torch.Tensor,
+                 cfg: CaptionerConfig, contrastive_weight: float = 1.0,
+                 caption_weight: float = 2.0):
+    """CoCa loss = captioning cross-entropy + CLIP-style contrastive (the
+    open_clip CoCa objective): (total, {"caption_ce", "contrastive"})."""
+    logits, img_emb, txt_emb = forward(params, images_u8, tokens, cfg)
+    return caption_losses(logits, img_emb, txt_emb, tokens,
+                          params["logit_scale"], cfg, contrastive_weight,
+                          caption_weight)
+
+
+# ---------------------------------------------------------------------------
+# KV-cached generation
+# ---------------------------------------------------------------------------
 
 def _cross_kvs(params: dict, pooled: torch.Tensor, heads: int):
     """Cross-attention K/V of every multimodal block, computed once per

@@ -9,7 +9,11 @@ plain dicts of tensors in the JAX package's layouts.
 Every LayerNorm runs through the LayerNorm kernel (`layernorm`).
 
 The attention paths:
-  - uncached self-attention without a mask: the flash kernel;
+  - uncached self-attention without a mask: the flash kernel, except where
+    autograd records and an input needs a gradient (training): the flash
+    kernel has no backward, as the TPU kernel has none, so those calls take
+    the plain path below, the attention the JAX package's `train_step`
+    differentiates;
   - one-token cached decoding in `block`: the whole self-attention and
     cross-attention sublayers as the block kernels (`decode_blocks=True`,
     the default), or, with `decode_blocks=False`, LayerNorm, projections
@@ -46,25 +50,39 @@ BERT_LN_EPS = 1e-12  # HF BertConfig.layer_norm_eps
 NEG_INF = -1e30
 
 
+def _records_grad(*ts: torch.Tensor) -> bool:
+    """Autograd records and one of `ts` needs a gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [..., M, K] @ b [K, N] or [..., K, N] with float32 accumulation
     and a float32 result. bf16 products are exact in float32, so on the
     CPU the operands are widened; on the card cuBLAS multiplies the bf16
-    operands on the tensor cores and writes float32. With a 2-D `b`,
-    differentiable (`_MatmulF32`) where autograd records and an operand
-    needs a gradient."""
-    if b.dim() == 2 and torch.is_grad_enabled() and (
-            a.requires_grad or b.requires_grad):
+    operands on the tensor cores and writes float32. Differentiable
+    (`_MatmulF32`) where autograd records and an operand needs a
+    gradient."""
+    if _records_grad(a, b):
         return _MatmulF32.apply(a, b)
     return _matmul_f32(a, b)
 
 
+def _sum_to(t: torch.Tensor, shape) -> torch.Tensor:
+    """t summed over the axes that broadcasting added to `shape`."""
+    lead = t.dim() - len(shape)
+    if lead:
+        t = t.sum(dim=tuple(range(lead)))
+    dims = tuple(i for i, s in enumerate(shape) if s == 1 and t.shape[i] != 1)
+    return t.sum(dim=dims, keepdim=True) if dims else t
+
+
 class _MatmulF32(torch.autograd.Function):
-    """`matmul_f32` of a [..., K] by b [K, N] with the backward JAX takes
-    of `jnp.dot(a, b, preferred_element_type=float32)`: each operand's
+    """`matmul_f32` with the backward JAX takes of `jnp.dot` /
+    `jnp.einsum(..., preferred_element_type=float32)`: each operand's
     gradient is the float32 product of the float32 cotangent with the
-    other operand widened to float32, rounded to the operand's type.
-    (cuBLAS's `mm(..., out_dtype=float32)` has no autograd formula.)"""
+    other operand widened to float32, summed over the axes broadcasting
+    added, rounded to the operand's type. (cuBLAS's `mm` and `bmm` with
+    `out_dtype=float32` have no autograd formula.)"""
 
     @staticmethod
     def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -74,6 +92,15 @@ class _MatmulF32(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         a, b = ctx.saved_tensors
+        if b.dim() > 2:
+            ga = gb = None
+            if ctx.needs_input_grad[0]:
+                ga = _sum_to(torch.matmul(g, b.float().transpose(-1, -2)),
+                             a.shape).to(a.dtype)
+            if ctx.needs_input_grad[1]:
+                gb = _sum_to(torch.matmul(a.float().transpose(-1, -2), g),
+                             b.shape).to(b.dtype)
+            return ga, gb
         g2 = g.reshape(-1, g.shape[-1])
         ga = gb = None
         if ctx.needs_input_grad[0]:
@@ -115,7 +142,8 @@ def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5,
     """LayerNorm over the last axis with float32 statistics, through the
     LayerNorm kernel in the mode the JAX package's default path uses for
     the input's dtype: one-pass with a relative floor for bf16 input,
-    two-pass for float32 input."""
+    two-pass for float32 input. Under training, its backward is the
+    LayerNorm backward kernel."""
     return layernorm_kernel(x, p["g"], p["b"], eps, out_dtype)
 
 
@@ -152,6 +180,12 @@ class KVCache(NamedTuple):
             index=0)
 
 
+def causal_mask(t: int, device=None) -> torch.Tensor:
+    """[1, 1, T, T] lower-triangular attend mask."""
+    return torch.tril(torch.ones(t, t, dtype=torch.bool, device=device)
+                      )[None, None]
+
+
 def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
     b, t, d = x.shape
     return x.reshape(b, t, heads, d // heads)
@@ -177,7 +211,8 @@ def _attention_plain(q: torch.Tensor, kt: torch.Tensor, v: torch.Tensor,
     """q [B,Tq,H,Dh] bf16, kt [B,H,Dh,Tk], v head-major [B,H,Tk,Dh] (bf16,
     or int8 with kt_scale [B,H,Tk] and v_scale [B,H,Dh]) -> [B,Tq,H*Dh]
     f32. bf16 scores, float32 max/denominator, bf16 probabilities,
-    normalisation after PV."""
+    normalisation after PV. The max is a constant to autograd, as the JAX
+    package's `stop_gradient` makes it."""
     dh = q.shape[-1]
     logits = matmul_f32(q.permute(0, 2, 1, 3), kt.to(torch.bfloat16))
     logits = logits.to(torch.bfloat16).float() / math.sqrt(dh)
@@ -185,7 +220,7 @@ def _attention_plain(q: torch.Tensor, kt: torch.Tensor, v: torch.Tensor,
         logits = logits * kt_scale[:, :, None, :]
     if mask is not None:
         logits = torch.where(mask, logits, NEG_INF)
-    m = logits.amax(dim=-1, keepdim=True)
+    m = logits.amax(dim=-1, keepdim=True).detach()
     pexp = torch.exp(logits - m).to(torch.bfloat16)
     denom = pexp.float().sum(dim=-1)  # [B, H, Tq]
     out = matmul_f32(pexp, v.to(torch.bfloat16))  # [B, H, Tq, Dh]
@@ -257,7 +292,7 @@ def mha(p: dict, x: torch.Tensor, heads: int,
                 causal if mask is None else (mask & causal))
         return dense(p["o"], out.to(compute_dtype), compute_dtype), cache
 
-    if kv is None and mask is None:
+    if kv is None and mask is None and not _records_grad(q, k, v):
         out = flash_attention(
             q.transpose(1, 2).to(compute_dtype).contiguous(),
             k.transpose(1, 2).to(compute_dtype).contiguous(),
@@ -303,9 +338,12 @@ def block(p: dict, x: torch.Tensor, heads: int,
           mask: Optional[torch.Tensor] = None,
           cache: Optional[KVCache] = None, compute_dtype=torch.bfloat16,
           cross_kv=None, decode_blocks: bool = True,
+          cross: Optional[torch.Tensor] = None,
           ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Pre-LN transformer block with an optional cross-attention sublayer
-    over precomputed K/V. One token per row on a bf16 stream is the decode
+    """Pre-LN transformer block with an optional cross-attention sublayer,
+    over precomputed K/V (`cross_kv`, the decode loop) or over a feature
+    map (`cross`, the training forward; `ln_kv` is applied to it first
+    where present). One token per row on a bf16 stream is the decode
     step: the MLP sublayer (LN + fc + GELU + proj + residual) runs as the
     fused decode-MLP kernel when there is a cache, and with `decode_blocks`
     the cached self-attention sublayer and the cross-attention sublayer
@@ -330,7 +368,13 @@ def block(p: dict, x: torch.Tensor, heads: int,
                            mask=mask, cache=cache,
                            compute_dtype=compute_dtype)
             x = x + h
-    if cross_kv is not None and "xattn" in p:
+    if cross is not None and "xattn" in p:
+        if "ln_kv" in p:
+            cross = layernorm(p["ln_kv"], cross)
+        h, _ = mha(p["xattn"], layernorm(p["ln_x"], x), heads, kv=cross,
+                   compute_dtype=compute_dtype)
+        x = x + h
+    elif cross_kv is not None and "xattn" in p:
         if route.cross_block:
             x = _decode_cross_block(p["xattn"], p["ln_x"], x, cross_kv,
                                     heads)

@@ -1,12 +1,14 @@
 """Vision Transformer encoder with the CoCa attentional pooler. Blocks run
 in bf16 with float32 accumulation; self-attention goes through the flash
-kernel."""
+kernel, or, where autograd records and needs its gradient, through the
+plain attention (`common.mha`)."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import VitConfig
 from ..ops.image import preprocess_for_vit
@@ -34,19 +36,34 @@ def init_vit(g: torch.Generator, cfg: VitConfig, device) -> dict:
     }
 
 
+def run_blocks(fn: Callable, blocks: list, x: torch.Tensor,
+               remat: bool) -> torch.Tensor:
+    """x through fn(blk, x) for each block in turn; with `remat` each
+    block is checkpointed (`torch.utils.checkpoint`, non-reentrant): the
+    backward recomputes the block's internals from its input, so only
+    the residual stream is kept between blocks (the JAX package's
+    `jax.checkpoint` per block)."""
+    for blk in blocks:
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(fn, blk, x, use_reentrant=False)
+        else:
+            x = fn(blk, x)
+    return x
+
+
 def vit_features(params: dict, patch_tokens: torch.Tensor, cfg: VitConfig,
-                 final_ln: bool = True) -> torch.Tensor:
+                 final_ln: bool = True, remat: bool = False) -> torch.Tensor:
     """Patch tokens [B, T, p*p*3] -> features [B, T+1, width] (bf16).
     `final_ln=False` skips ln_post (the CoCa-exact ordering applies it
-    after pooling)."""
+    after pooling). `remat` checkpoints each block (`run_blocks`)."""
     x = dense(params["patch"], patch_tokens)
     b = x.shape[0]
     cls = params["cls"].expand(b, 1, cfg.width)
     x = (torch.cat([cls, x.float()], dim=1) + params["pos"][None]
          ).to(torch.bfloat16)
     x = layernorm(params["ln_pre"], x)
-    for blk in params["blocks"]:
-        x = block(blk, x, cfg.heads)[0]
+    x = run_blocks(lambda blk, h: block(blk, h, cfg.heads)[0],
+                   params["blocks"], x, remat)
     return layernorm(params["ln_post"], x) if final_ln else x
 
 
@@ -68,13 +85,15 @@ def attentional_pool(params: dict, feats: torch.Tensor, pool_heads: int
     return layernorm(params["pool_ln"], out)
 
 
-def encode_image(params: dict, images_u8: torch.Tensor, cfg: VitConfig
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def encode_image(params: dict, images_u8: torch.Tensor, cfg: VitConfig,
+                 remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """uint8 [B, H, W, 3] -> (pooled tokens [B, Q(-1), width] for the
-    decoder, global embedding [B, embed_dim] L2-normalised)."""
+    decoder, global embedding [B, embed_dim] L2-normalised). `remat`
+    checkpoints each ViT block."""
     tokens = preprocess_for_vit(images_u8, cfg.image_size, cfg.patch_size)
     coca_exact = "pool_ln_q" in params
-    feats = vit_features(params, tokens, cfg, final_ln=not coca_exact)
+    feats = vit_features(params, tokens, cfg, final_ln=not coca_exact,
+                         remat=remat)
     pooled = attentional_pool(params, feats, cfg.pool_heads)
     if coca_exact:
         pooled = layernorm(params["ln_post"], pooled)

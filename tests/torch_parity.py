@@ -53,6 +53,66 @@ def jax_kernel_path(blocks: bool = False):
     jax.clear_caches()
 
 
+@contextlib.contextmanager
+def jax_train_path():
+    """Run the JAX package on its default path (ECAP_USE_PALLAS and
+    ECAP_PALLAS_LN unset): the path its `train_step` differentiates, since
+    its Pallas flash attention has no VJP (jax.grad through it fails to
+    linearize). Attention is then XLA attention with bf16 scores and the
+    max under stop_gradient, LayerNorm `_layernorm_ref`, the preprocess the
+    unfused `preprocess_for_vit`."""
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("ECAP_USE_PALLAS", "ECAP_PALLAS_LN", "ECAP_PALLAS_BLOCKS",
+                     "ECAP_HEADMAJOR", "ECAP_FUSE_QKV_ENC", "ECAP_W8A8"):
+            mp.delenv(name, raising=False)
+        jax.clear_caches()
+        try:
+            yield
+        finally:
+            jax.clear_caches()
+    jax.clear_caches()
+
+
+def leaf_names(tree, path: str = "") -> list:
+    """Dotted names of a parameter tree's leaves in `tree_leaves` order
+    (dict keys sorted, lists in order)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{path}.{k}" if path else k)]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{path}[{i}]")]
+    return [path]
+
+
+def perturbed(tree, seed: int, rel: float = 1e-4):
+    """A JAX parameter tree with every leaf moved by `rel` of itself
+    (times a standard normal draw), for measuring how far the JAX
+    package's own bf16 gradients move (ROADMAP C.20)."""
+    leaves, tdef = jax.tree_util.tree_flatten(tree)
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_unflatten(tdef, [
+        np.asarray(x) * (1 + rel * rng.standard_normal(np.shape(x))).astype(
+            np.float32) for x in leaves])
+
+
+def gradient_errors(got: list, want: list, spreads: list, rel: float,
+                    spread_factor: float) -> list:
+    """Per leaf (error, limit): error = ||got - want||, limit = the larger
+    of rel * ||want|| and spread_factor * spread, where `spread` is how
+    far the JAX package's own gradient of that leaf moved when the
+    parameters moved by 1e-4 of themselves. A leaf whose gradient is
+    mathematically zero or rounding noise (a key bias; the query and key
+    of an attention whose keys are nearly equal) moves by more than its
+    own norm there, so only the spread can bound it."""
+    out = []
+    for g, w, s in zip(got, want, spreads):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        out.append((float(np.linalg.norm(g - w)),
+                    max(rel * float(np.linalg.norm(w)), spread_factor * s)))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the unfused exploration loop of both packages (agents/baselines.py)
 # ---------------------------------------------------------------------------
@@ -398,6 +458,34 @@ def probe_gradient_chaos(map_sizes=(32, 128), moves=(1e-4, 2e-3)) -> list:
     return rows
 
 
+def probe_preprocess_diff(cases=((64, 64, 8), (224, 224, 14), (64, 90, 8),
+                                  (224, 333, 14)), seed: int = 0) -> list:
+    """The port's preprocess twin (`fused_preprocess_plain`) against the JAX
+    package's unfused `preprocess_for_vit` (its default path) on 4 random
+    uint8 images per (out size, source size, patch): the largest absolute
+    difference of the float32 tokens, the share of tokens that differ, and
+    the share whose bf16 rounding (the patch product's input) differs."""
+    import jax.numpy as jnp
+
+    from embodied_captioning_tpu.ops.image import preprocess_for_vit as jpre
+    from embodied_captioning_tpu_torch.ops.image import preprocess_for_vit
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for size, src, patch in cases:
+        imgs = rng.integers(0, 256, (4, src, src, 3), dtype=np.uint8)
+        want = np.asarray(jpre(jnp.asarray(imgs), size, patch))
+        got = preprocess_for_vit(torch.from_numpy(imgs), size, patch).numpy()
+        bf = [torch.from_numpy(np.array(x)).to(torch.bfloat16)
+              for x in (want, got)]
+        rows.append(dict(size=size, source=src, patch=patch,
+                         max_abs=float(np.abs(got - want).max()),
+                         share_differ=float((got != want).mean()),
+                         share_bf16_differ=float(
+                             (bf[0] != bf[1]).float().mean())))
+    return rows
+
+
 if __name__ == "__main__":
     import sys
     from pathlib import Path
@@ -417,6 +505,9 @@ if __name__ == "__main__":
     elif what == "grad-chaos":
         for row in probe_gradient_chaos():
             print(row)
+    elif what == "preprocess-diff":
+        for row in probe_preprocess_diff():
+            print(row)
     elif what == "generate-scan":
         rows = probe_generate_scan()
         for row in rows:
@@ -425,4 +516,5 @@ if __name__ == "__main__":
                for f in ("detections", "handed", "own")})
     else:
         sys.exit("usage: python tests/torch_parity.py render | rollout-scan "
-                 "| rollout-scan-blocks | beam | generate-scan | grad-chaos")
+                 "| rollout-scan-blocks | beam | generate-scan | grad-chaos "
+                 "| preprocess-diff")
