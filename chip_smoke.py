@@ -46,8 +46,10 @@ Phases, each of which must pass:
      [64*257, 1024] and decoder [64, 768] bf16 shapes and the sentence
      encoder's [64, 64, 384] f32 (dx, dg, db against the plain version,
      twice for equal bits, timed warm and cold in L2 beside
-     native_layer_norm_backward), on its scalar path ([37, 100]) and with
-     a float32 cotangent of bf16 input;
+     native_layer_norm_backward, with its launch plan, its launches per
+     call and the bytes of its float32 partials), on its generic path
+     ([37, 100] bf16 and f32, [64, 1024] f32) and with a float32 cotangent
+     of bf16 input;
   3. drive `perceive` at full width -- the serving configuration of
      bench.py: the large preset (ViT-L/14 at 224^2, 768-wide 12+12-layer
      decoder, 49,408-token vocabulary, post-LN MiniLM-class sentence
@@ -153,6 +155,7 @@ Usage: python3 chip_smoke.py
 
 from __future__ import annotations
 
+import collections
 import itertools
 import json
 import math
@@ -224,6 +227,7 @@ PORTED_KERNELS = ("flash_head", "flash_stream", "self_attn_tiled_kernel",
                   "mlp_ln_kernel", "mlp_gemm_kernel",
                   "self_qkv_kernel", "self_attn_kernel", "block_out_kernel",
                   "cross_q_kernel", "layernorm_kernel", "layernorm_vec_kernel",
+                  "layernorm_bwd_regs", "layernorm_bwd_sum",
                   "layernorm_bwd_rows", "layernorm_bwd_cols",
                   "raycast_kernel", "preprocess_kernel")
 # the self block's and the cross block's three launches (decode_block.cu);
@@ -276,37 +280,83 @@ def busy_us(events) -> float:
     return busy
 
 
+# A trace can lose the records of the kernels at its two ends: the first
+# kernel after the profiler starts (in every trace of one run), now and
+# then the one after it, or the last one or two before it stops. So each
+# traced loop starts and ends with a margin of marker kernels, a spin of
+# MARKER_CYCLES and two empty ones, which the readings leave out. A traced
+# loop of n calls of one wrapper launches the same kernels on every call,
+# so a trace in which some kernel's launches are not a whole multiple of
+# n lost one all the same: the loop is traced again (`traced_calls`), and
+# every retaken trace is logged and counted in RETRACES.
+MARKER = "spin_kernel"
+MARKER_CYCLES = 20_000
+TRACE_TRIES = 5
+RETRACES: list = []  # (first kernel, traces taken) where one was retaken
+
+
+def trace_marker() -> None:
+    """Launch the margin of marker kernels (torch.cuda._sleep's
+    spin_kernel) that starts or ends a traced loop."""
+    torch.cuda._sleep(MARKER_CYCLES)
+    for _ in range(2):
+        torch.cuda._sleep(1)
+
+
 def device_events(prof) -> list:
-    return [e for e in prof.events() if e.device_type.name == "CUDA"]
+    return [e for e in prof.events()
+            if e.device_type.name == "CUDA" and MARKER not in e.name]
+
+
+def lost_launches(events, calls: int) -> dict:
+    """{kernel: launches} of the kernels whose launches in a trace of
+    `calls` calls are not a whole multiple of `calls`."""
+    counts = collections.Counter(e.name for e in events)
+    return {k: n for k, n in counts.items() if n % calls}
+
+
+def traced_calls(fn, calls: int):
+    """Device events of a torch.profiler trace of `calls` calls of `fn`,
+    between markers, in which every kernel launched a whole multiple of
+    `calls` times; traced again, TRACE_TRIES times at most, where a trace
+    comes back without device events or short of a launch (see MARKER)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for tries in range(1, TRACE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trace_marker()
+            for _ in range(calls):
+                fn()
+            trace_marker()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        lost = lost_launches(events, calls)
+        if events and not lost:
+            if tries > 1:
+                RETRACES.append((kernel_name(events[0].name), tries))
+            return events
+        log(f"  (trace {tries} of {calls} calls: "
+            + (", ".join(f"{kernel_name(k)} {n} launches"
+                         for k, n in lost.items()) or "no device events")
+            + "; traced again)")
+    raise AssertionError(f"no whole trace of {calls} calls in {TRACE_TRIES} "
+                         f"tries")
 
 
 def device_profile(fn, iters: int = 10) -> tuple:
     """(device busy time per call of `fn`, {kernel: device time per call})
-    from a short torch.profiler run of its timing loop: the kernels' own
-    time, without the host's cost of enqueueing them."""
-    from torch.profiler import ProfilerActivity, profile
-
+    from a torch.profiler run of its timing loop: the kernels' own time,
+    without the host's cost of enqueueing them (see MARKER)."""
     fn()
     torch.cuda.synchronize()
-    # a trace now and then comes back without its device events; the
-    # loop is profiled again then, three times at most
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        busy = busy_us(device_events(prof))
-        if busy > 0:
-            break
-    else:
-        raise AssertionError("the profiler saw no device time in three "
-                             "traces")
-    by_kernel = {kernel_name(e.key): e.self_device_time_total / iters
-                 for e in prof.key_averages()
-                 if e.device_type.name == "CUDA"
-                 and e.self_device_time_total > 0}
-    return busy / iters, by_kernel
+    events = traced_calls(fn, iters)
+    by_kernel: dict = {}
+    for e in events:
+        k = kernel_name(e.name)
+        by_kernel[k] = (by_kernel.get(k, 0.0)
+                        + (e.time_range.end - e.time_range.start) / iters)
+    return busy_us(events) / iters, by_kernel
 
 
 def device_us(fn, iters: int = 10) -> float:
@@ -872,8 +922,9 @@ def generation_kernel_checks(K, QZ, dev) -> dict:
         max_abs_err=max(v for k, v in errs.items() if "cross" in k),
         device_us_by_launch=cross_launches, **timed)
 
-    # fused preprocess: equal bit for bit (no fused multiply-add, IEEE
-    # divisions, the taps shared with the plain version)
+    # fused preprocess: equal bit for bit (every operation spelled with
+    # its rounding, IEEE divisions, the taps shared with the plain
+    # version)
     def crops(n, size):
         return torch.randint(0, 256, (n, size, size, 3), generator=g,
                              device=dev, dtype=torch.uint8)
@@ -1092,16 +1143,16 @@ def raycast_loop_sass(lib: Path) -> dict:
 def preprocess_sass(lib: Path) -> dict:
     """Instructions of each preprocess_kernel instance in a built library
     (cuobjdump -sass), by kind, and of the loop that computes one output
-    pixel (the shortest loop with the two IEEE divisions of each of its
-    three channels: six FCHK), where there is one. Empty where the toolkit
-    has no cuobjdump."""
+    pixel (the shortest loop with the IEEE division by std of each of its
+    three channels: three FCHK), where there is one. Empty where the
+    toolkit has no cuobjdump."""
     out = {}
     for fn, ins in sass_functions(sass_text(lib), "preprocess_kernel").items():
         ops = [o for _, o, _ in ins]
         counts = {o: ops.count(o) for o in sorted(set(ops))}
         r = dict(instructions=len(ins), by_kind=by_kind(counts),
                  by_opcode=counts)
-        loops = [b for b in loop_bodies(ins) if b.get("FCHK", 0) >= 6]
+        loops = [b for b in loop_bodies(ins) if b.get("FCHK", 0) >= 3]
         if loops:
             pixel = min(loops, key=lambda b: sum(b.values()))
             r["pixel_loop"] = dict(instructions=sum(pixel.values()),
@@ -1287,6 +1338,14 @@ def loop_kernel_checks(K, dev, scenes, poses, cfg) -> dict:
     return rows
 
 
+def launches_traced(fn, name: str, iters: int = 5) -> tuple:
+    """(launches of the kernels whose names hold `name`, calls) in a
+    torch.profiler trace of `iters` calls of `fn` (see MARKER)."""
+    fn()
+    torch.cuda.synchronize()
+    return sum(name in e.name for e in traced_calls(fn, iters)), iters
+
+
 def layernorm_bwd_checks(K, dev) -> dict:
     """The LayerNorm backward kernel against its plain version at the
     shapes the fine-tune's step at FT_BATCH crops gives it (the ViT's
@@ -1295,17 +1354,24 @@ def layernorm_bwd_checks(K, dev) -> dict:
     then at the perceive batch's ViT [ROWS * 257, 1024] and decoder
     [ROWS, 768] bf16 and the sentence encoder's [ROWS, 64, 384] f32
     (two-pass); each run twice for equal bits, timed with its inputs warm
-    and cold in L2; then the scalar path ([37, 100], bf16 and f32) and a
-    bf16 x with a float32 cotangent. Tolerances: bf16 dx one bf16 ulp of
-    the largest |dx|; f32 dx 1e-5 of its row's largest |dx|; dg and db,
-    sums over the rows in another order, 1e-5 of each column's sum of
-    absolute terms. The bound counts the function's own traffic (x, dy
-    and g read, dx, dg and db written); the float32 partials of dg and db
-    that this kernel's two launches pass between them are its design's
-    overhead, reported beside it as `partials_bytes`."""
-    from embodied_captioning_tpu_torch.kernels.layernorm import BWD_PARTS
+    and cold in L2, with its plan (`kernels/layernorm.bwd_plan`), its
+    launches per call and the bytes of its float32 partials; then the
+    generic path ([37, 100], bf16 and f32) and a bf16 x with a float32
+    cotangent. Tolerances: bf16 dx one bf16 ulp of the largest |dx|; f32
+    dx 1e-5 of its row's largest |dx|; dg and db, sums over the rows in
+    another order, 1e-5 of each column's sum of absolute terms. The bound
+    counts the function's own traffic (x, dy and g read, dx, dg and db
+    written); the float32 partials of dg and db that the first launch
+    writes and the second reads are its design's overhead, reported
+    beside it as `partials_bytes` (written and read) and their share of
+    the function's bytes."""
+    from embodied_captioning_tpu_torch.kernels.layernorm import (
+        bwd_plan, bwd_room)
 
     g = torch.Generator(device=dev).manual_seed(4)
+    slots, widest = bwd_room(dev)
+    log(f"  layernorm_bwd: the card holds {slots} clusters of register-path "
+        f"blocks at once and launches few-row clusters of up to {widest}")
 
     def inputs(shape, dtype, dy_dtype=None):
         d = shape[-1]
@@ -1316,9 +1382,12 @@ def layernorm_bwd_checks(K, dev) -> dict:
                     dy_dtype or dtype))
 
     def case(name, x, lg, dy):
+        d = x.shape[-1]
+        plan = bwd_plan(x.numel() // d, d, x.element_size(),
+                        dy.element_size(), slots, widest)
+        log(f"  layernorm_bwd {name}: plan {plan._asdict()}")
         want = K.layernorm_bwd_plain(x, lg, dy)
         got = K.layernorm_bwd(x, lg, dy)
-        d = x.shape[-1]
         xf, dyf = x.float().reshape(-1, d), dy.float().reshape(-1, d)
         if x.dtype == torch.bfloat16:
             tol = 2.0 ** (math.floor(math.log2(
@@ -1346,7 +1415,7 @@ def layernorm_bwd_checks(K, dev) -> dict:
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"layernorm_bwd {name}: two runs on the "
                                  f"same inputs differ")
-        return err
+        return err, plan
 
     cases = []
     for name, shape, dtype, two_pass in (
@@ -1359,23 +1428,26 @@ def layernorm_bwd_checks(K, dev) -> dict:
             ("sentence_encoder", (ROWS, 64, 384), torch.float32, True)):
         mode = "two-pass" if two_pass else "one-pass"
         x, lg, dy = inputs(shape, dtype)
-        err = case(f"{name} {list(shape)} {mode}", x, lg, dy)
+        err, plan = case(f"{name} {list(shape)} {mode}", x, lg, dy)
         d = shape[-1]
-        rows = x.numel() // d
-        per = -(-rows // min(rows, BWD_PARTS))
-        parts = -(-rows // per)
         # x, dy and g read, dx written, dg and db written (float32); ~16
         # float32 operations an element (statistics, the two means, dx,
         # the two column sums)
-        lb, lf = bound_ms(nbytes(x, dy, lg, x) + 2 * d * 4, 16 * x.numel(),
-                          FP32_FLOP_PER_S)
+        own = nbytes(x, dy, lg, x) + 2 * d * 4
+        lb, lf = bound_ms(own, 16 * x.numel(), FP32_FLOP_PER_S)
         wg, wb = lg.to(dtype), torch.zeros(d, dtype=dtype, device=dev)
         _, mean, rstd = torch.ops.aten.native_layer_norm(x, [d], wg, wb,
                                                          1e-5)
+        partials = 2 * 2 * plan.partials * d * 4
+        # a whole trace, so a whole number of launches a call
+        n, calls = launches_traced(lambda: K.layernorm_bwd(x, lg, dy),
+                                   "layernorm_bwd")
         cases.append(dict(
             case=f"{name} {mode}", shape=list(shape),
             replaces="embodied_captioning_tpu/models/common.py:83",
-            max_abs_err=err, partials_bytes=2 * 2 * parts * d * 4,
+            max_abs_err=err, plan=plan._asdict(), partials_bytes=partials,
+            partials_share=partials / own, launches_traced=[n, calls],
+            launches_per_call=n // calls,
             **kernel_ms(lambda: K.layernorm_bwd(x, lg, dy), 100),
             plain_ms=time_ms(lambda: K.layernorm_bwd_plain(x, lg, dy), 20),
             bound_ms=lb, bound_by=lf,
@@ -1383,12 +1455,21 @@ def layernorm_bwd_checks(K, dev) -> dict:
                 dy, x, [d], mean, rstd, wg, wb, [True, True, True]), 100),
             **cold_l2(lambda xx, dd: K.layernorm_bwd(xx, lg, dd), (x, dy),
                       100)))
+        log(f"  layernorm_bwd {name}: {n} launches in {calls} traced "
+            f"calls, partials {partials} bytes "
+            f"({partials / own:.3f} of the function's), device "
+            f"{cases[-1]['device_us']:.1f} us against "
+            f"native_layer_norm_backward's "
+            f"{cases[-1]['library_device_us']:.1f} and a bound of "
+            f"{lb * 1e3:.2f}")
         del x, dy
     bf = torch.bfloat16
-    case("[37,100] bf16 (scalar path)", *inputs((37, 100), bf))
-    case("[37,100] f32 (scalar path)", *inputs((37, 100), torch.float32))
+    case("[37,100] bf16 (generic path)", *inputs((37, 100), bf))
+    case("[37,100] f32 (generic path)", *inputs((37, 100), torch.float32))
     case(f"[{ROWS},768] bf16 x, f32 cotangent",
          *inputs((ROWS, 768), bf, torch.float32))
+    case(f"[{ROWS},1024] f32 (generic path)",
+         *inputs((ROWS, 1024), torch.float32))
     log("  layernorm_bwd: two runs give equal bits at every shape above")
     rows = {"layernorm_bwd": dict(
         source=PORT_KERNELS + "layernorm.cu", **cases[0], cases=cases[1:])}
@@ -2077,10 +2158,14 @@ def profile_run(what: str, fn, unprofiled_us: float, top: int = 15
     torch.cuda.synchronize()
     for _ in range(3):  # again if the trace lost its device events
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trace_marker()
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+            trace_marker()
+            torch.cuda.synchronize()
         events = device_events(prof)
         busy = busy_us(events)
         if busy > 0:
@@ -2089,7 +2174,8 @@ def profile_run(what: str, fn, unprofiled_us: float, top: int = 15
         raise AssertionError("the profiler saw no device time in three "
                              "traces")
     rows = [e for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0
+            and MARKER not in e.key]
     rows.sort(key=lambda e: -e.self_device_time_total)
     ported = [e for e in rows
               if any(k in e.key for k in PORTED_KERNELS)]
@@ -2189,7 +2275,9 @@ def layernorm_split(K, params, fn) -> dict:
             labels.clear()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
+                trace_marker()
                 fn()
+                trace_marker()
                 torch.cuda.synchronize()
             ln = sorted((e for e in device_events(prof)
                          if "layernorm" in e.name),
@@ -3278,6 +3366,8 @@ def main() -> int:
         print(f"chip_smoke: a kernel was never launched: {kernels}",
               file=sys.stderr)
         return 1
+    log(f"profiler traces taken again for a lost launch (first kernel, "
+        f"tries): {RETRACES or 'none'}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

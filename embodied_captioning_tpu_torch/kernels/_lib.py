@@ -56,7 +56,8 @@ _SIGNATURES = {
     "ecap_decode_cross_block": [_P] * 16 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
     "ecap_raycast_minargmin": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ecap_layernorm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
-    "ecap_layernorm_bwd": [_P] * 7 + [_I, _I, _I, _F, _I, _I, _I, _P],
+    "ecap_layernorm_bwd": [_P] * 7 + [_I, _I, _F] + [_I] * 7 + [_P],
+    "ecap_layernorm_bwd_slots": [_I, _P, _P, _P],
     "ecap_fused_preprocess": [_P] * 8 + [_I] * 5 + [_F] * 6 + [_P],
 }
 
@@ -126,6 +127,14 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def current_stream() -> int:
+    """The current device's current stream, as a raw handle: without
+    building a torch.cuda.Stream and without torch.cuda.current_device()'s
+    initialisation check (the callers hold a CUDA tensor, so CUDA is
+    initialised, and the kernels launch on the current device)."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+
 def call(name: str, *args) -> None:
     """Launch `name` on the current device's current stream; raise if CUDA
     refused it."""
@@ -133,12 +142,7 @@ def call(name: str, *args) -> None:
     if fn is None:
         library()
         fn = _entries[name]
-    # the stream's handle without building a torch.cuda.Stream and without
-    # torch.cuda.current_device()'s initialisation check: the caller holds
-    # a CUDA tensor, so CUDA is initialised, and the kernel launches on the
-    # current device
-    stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
-    err = fn(*args, stream)
+    err = fn(*args, current_stream())
     if err != 0:
         raise RuntimeError(f"{name} failed: CUDA error {err}")
 

@@ -3,22 +3,28 @@
 // Replaces: embodied_captioning_tpu/ops/pallas/preprocess.py
 //   fused_preprocess (_preprocess_kernel)
 //
-//   [N, H, W, 3] uint8 -> half-pixel bilinear resize to out x out (vertical
-//   lerp, then horizontal) -> (v / 255 - mean) / std -> [N, T, p*p*3] f32,
-//   a token holding its patch's rows, then columns, then channels.
+//   [N, H, W, 3] uint8 -> v / 255 -> half-pixel bilinear resize to out x
+//   out (the vertical two-tap sum, then the horizontal one) -> (v - mean) /
+//   std -> [N, T, p*p*3] f32, a token holding its patch's rows, then
+//   columns, then channels.
 //
 // The TPU kernel takes one image and is mapped over a batch; here the batch
 // is a leading axis of one launch. The source rows, columns and fractions
 // come precomputed from the wrapper (as the TPU kernel's do), so the kernel
-// and its plain version share them. Every product and sum is rounded
-// separately (no fused multiply-add) and the divisions are IEEE, so the
-// result equals the plain version's bit for bit.
+// and its plain version share them. The arithmetic is the order of the JAX
+// package's default path (`ops/image.preprocess_for_vit` as XLA on the CPU
+// computes it): an IEEE v / 255 per source byte (a product with the
+// rounded reciprocal, corrected by its residual), each two-tap sum as two
+// rounded products and their rounded sum, and an IEEE division by std;
+// every operation is spelled with its rounding, so the result equals the
+// plain version's bit for bit. (XLA on the CPU rounds some output sizes'
+// tap sums as one FMA instead: kernels/preprocess.py says by how much.)
 //
 // Bound on an H100 SXM (3.35 TB/s): memory. 64 crops of 224^2: 9.6 MB read,
 // 38.5 MB written, ~14 us. A thread per output element with 64-bit index
 // arithmetic (divisions by runtime sizes) spent its time on integer
-// instructions, not on memory; the two IEEE divisions per element remain
-// the largest cost that the numerics fix.
+// instructions, not on memory; the IEEE division by std per element
+// remains the largest cost that the numerics fix.
 //
 // Design: one block per (crop, patch row, group of tokens), each group up
 // to 1024 output pixels (4 tokens of 14^2 at the serving shape: 4,096
@@ -79,14 +85,27 @@ __host__ __device__ inline int tile_pixels(int group, int p) {
   return group * p * p < kTilePixels ? group * p * p : kTilePixels;
 }
 
-// channel c of a staged pixel word as a float, exactly: the byte placed in
-// the mantissa of 2^23 (one byte permute), then 2^23 subtracted
+// v / 255 rounded as an IEEE division, for an integer v in [0, 255]: the
+// product with the rounded reciprocal, corrected by its residual (exact for
+// every byte; the product alone misses 126 of the 256)
+__device__ __forceinline__ float div255(float v) {
+  const float r = 1.f / 255.f;
+  const float q = __fmul_rn(v, r);
+  return __fmaf_rn(__fmaf_rn(-q, 255.f, v), r, q);
+}
+// channel c of a staged pixel word / 255: the byte placed in the mantissa
+// of 2^23 (one byte permute), 2^23 subtracted, then div255
 __device__ __forceinline__ float channel(uint32_t word, int c) {
-  return __fsub_rn(
-      __uint_as_float(__byte_perm(word, 0x4bu, 0x4550 | c)), 8388608.f);
+  return div255(__fsub_rn(
+      __uint_as_float(__byte_perm(word, 0x4bu, 0x4550 | c)), 8388608.f));
 }
 __device__ __forceinline__ float u8_to_float(uint8_t v) {
-  return __fsub_rn(__uint_as_float(0x4b000000u | v), 8388608.f);
+  return div255(__fsub_rn(__uint_as_float(0x4b000000u | v), 8388608.f));
+}
+// (1 - w) * lo + w * hi: two rounded products and their rounded sum
+__device__ __forceinline__ float two_taps(float lo, float hi, float w0,
+                                          float w) {
+  return __fadd_rn(__fmul_rn(lo, w0), __fmul_rn(hi, w));
 }
 
 // The block's output, a tile of pixels at a time: a thread computes whole
@@ -113,8 +132,8 @@ __device__ __forceinline__ void write_tiles(
       const int xa = s_x0[ox], xb = s_x1[ox];
       const float wy = s_fy[ly], wx = s_fx[ox];
       const float wy0 = __fsub_rn(1.f, wy), wx0 = __fsub_rn(1.f, wx);
-      float v[4][3];  // texels (upper left, upper right, lower left, lower
-                      // right) by channel
+      float v[4][3];  // texels / 255 (upper left, upper right, lower left,
+                      // lower right) by channel
       if constexpr (kStaged) {
         const uint32_t* ra = rows + s_ra[ly];
         const uint32_t* rb = rows + s_rb[ly];
@@ -136,13 +155,10 @@ __device__ __forceinline__ void write_tiles(
       }
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        const float left =
-            __fadd_rn(__fmul_rn(v[0][c], wy0), __fmul_rn(v[2][c], wy));
-        const float right =
-            __fadd_rn(__fmul_rn(v[1][c], wy0), __fmul_rn(v[3][c], wy));
-        const float y = __fadd_rn(__fmul_rn(left, wx0), __fmul_rn(right, wx));
-        tile[3 * i + c] = __fdiv_rn(
-            __fsub_rn(__fdiv_rn(y, 255.f), a.mean[c]), a.stdv[c]);
+        const float left = two_taps(v[0][c], v[2][c], wy0, wy);
+        const float right = two_taps(v[1][c], v[3][c], wy0, wy);
+        const float y = two_taps(left, right, wx0, wx);
+        tile[3 * i + c] = __fdiv_rn(__fsub_rn(y, a.mean[c]), a.stdv[c]);
       }
     }
     __syncthreads();

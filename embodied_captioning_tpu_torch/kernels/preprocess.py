@@ -4,11 +4,20 @@ tokens.
 
 Replaces the TPU kernel fused_preprocess of
 embodied_captioning_tpu/ops/pallas/preprocess.py, with a leading batch axis
-in place of a map over images. The normalisation is spelled
-`(v / 255 - mean) / std`, the spelling of the unfused
-`ops/image.preprocess_for_vit` (the TPU kernel multiplies by a folded
-reciprocal, which differs in the last bits of an f32). On a CUDA tensor the
-wrapper launches the kernel; on a CPU tensor it runs the plain version.
+in place of a map over images. The arithmetic is that of the JAX package's
+default path, `ops/image.preprocess_for_vit` as XLA on the CPU computes it:
+`v / 255` first, the vertical two-tap sum, the horizontal one, then
+`(v - mean) / std` (the TPU kernel resizes raw values and multiplies by a
+folded reciprocal, which differs in the last bits of an f32). Each two-tap
+sum is two rounded products and their rounded sum, as XLA rounds the
+resize's dense weight product at 224 (the large preset), where the two
+packages agree bit for bit. At some other output sizes (with the XLA this
+was measured on: 0 or 49-63 rows mod 64, the tiny preset's 64 among them)
+XLA sums the two taps in one FMA instead, and the tokens differ by at
+most 2^-21, two float32 ulps of the largest tokens (|t| < 2.2): one more
+rounding in each of the two passes, scaled by 1/std (~3.7). On a CUDA
+tensor the wrapper launches the kernel; on a CPU tensor it runs the plain
+version.
 """
 
 from __future__ import annotations
@@ -47,27 +56,33 @@ def _patch_tokens(img: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(n, g * g, patch * patch * 3)
 
 
+def _two_taps(lo: torch.Tensor, hi: torch.Tensor,
+              w_hi: torch.Tensor) -> torch.Tensor:
+    """(1 - w_hi) * lo + w_hi * hi in float32: two rounded products and
+    their rounded sum."""
+    return lo * (1.0 - w_hi) + hi * w_hi
+
+
 def fused_preprocess_plain(img_u8: torch.Tensor, out_size: int, patch: int,
                            mean: Sequence[float] = CLIP_MEAN,
                            std: Sequence[float] = CLIP_STD) -> torch.Tensor:
-    """[N, H, W, 3] uint8 -> [N, T, p*p*3] f32: vertical lerp, then
-    horizontal, each product and sum rounded on its own, then
-    `(v / 255 - mean) / std`."""
+    """[N, H, W, 3] uint8 -> [N, T, p*p*3] f32: `v / 255`, the vertical
+    two-tap sum, then the horizontal one, then `(v - mean) / std`."""
     dev = img_u8.device
     h, w = img_u8.shape[1], img_u8.shape[2]
     y0, y1, fy = source_taps(out_size, h, dev)
     x0, x1, fx = source_taps(out_size, w, dev)
-    fy, fx = fy[None, :, None, None], fx[None, None, :, None]
-    rows = (img_u8[:, y0.long()].float() * (1.0 - fy)
-            + img_u8[:, y1.long()].float() * fy)          # [N, out, W, 3]
-    v = (rows[:, :, x0.long()] * (1.0 - fx)
-         + rows[:, :, x1.long()] * fx)                    # [N, out, out, 3]
-    m = torch.tensor(mean, dtype=torch.float32, device=dev)
-    s = torch.tensor(std, dtype=torch.float32, device=dev)
-    # a tensor divisor: PyTorch on the card turns a division by a Python
+    # tensor divisors: PyTorch on the card turns a division by a Python
     # scalar into a product with its reciprocal
     c255 = torch.tensor(255.0, dtype=torch.float32, device=dev)
-    return _patch_tokens((v / c255 - m) / s, patch)
+    x = img_u8.float() / c255
+    rows = _two_taps(x[:, y0.long()], x[:, y1.long()],
+                     fy[None, :, None, None])      # [N, out, W, 3]
+    v = _two_taps(rows[:, :, x0.long()], rows[:, :, x1.long()],
+                  fx[None, None, :, None])         # [N, out, out, 3]
+    m = torch.tensor(mean, dtype=torch.float32, device=dev)
+    s = torch.tensor(std, dtype=torch.float32, device=dev)
+    return _patch_tokens((v - m) / s, patch)
 
 
 def fused_preprocess(img_u8: torch.Tensor, out_size: int, patch: int,
@@ -92,7 +107,7 @@ def fused_preprocess(img_u8: torch.Tensor, out_size: int, patch: int,
                       device=dev)
     _lib.call("ecap_fused_preprocess", img_u8.data_ptr(),
               *(t.data_ptr() for t in taps), out.data_ptr(), n, h, w,
-              out_size, patch, *(float(x) for x in mean),
-              *(float(x) for x in std))
+              out_size, patch,
+              *(float(x) for x in mean), *(float(x) for x in std))
     _lib.launches["fused_preprocess"] += 1
     return out

@@ -13,6 +13,7 @@
 """
 
 import ctypes
+import importlib
 import math
 
 import jax
@@ -57,9 +58,13 @@ def _fake_call(name, *a):
         _view(out, (rows, d), od).copy_(K.layernorm_plain(
             _view(x, (rows, d), xd), _view(g, (d,), torch.float32),
             _view(b, (d,), torch.float32), eps, od, bool(two_pass)))
+    elif name == "ecap_layernorm_bwd_slots":
+        _, slots, widest = a
+        ctypes.c_int.from_address(slots).value = 33
+        ctypes.c_int.from_address(widest).value = 16
     elif name == "ecap_layernorm_bwd":
-        (x, g, dy, dx, dg, db, _, rows, d, _, eps, two_pass, x_bf16,
-         dy_bf16) = a
+        (x, g, dy, dx, dg, db, _, rows, d, eps, two_pass, x_bf16, dy_bf16,
+         *_) = a
         xd = torch.bfloat16 if x_bf16 else torch.float32
         dyd = torch.bfloat16 if dy_bf16 else torch.float32
         got = K.layernorm_bwd_plain(
@@ -86,6 +91,7 @@ def kernel_branch(monkeypatch):
     monkeypatch.setattr(_lib, "check", lambda *a, **k: None)
     monkeypatch.setattr(_lib, "check_param", lambda *a, **k: None)
     monkeypatch.setattr(_lib, "call", _fake_call)
+    monkeypatch.setattr(_lib, "current_stream", lambda: 0)
     _lib.reset_launches()
     yield _lib.launches
     _lib.reset_launches()
@@ -117,6 +123,83 @@ def test_layernorm_kernel_branch_passes_gradients(kernel_branch, dtype):
         np.testing.assert_allclose(np32(got), np32(want),
                                    atol=tol if got is x.grad else 1e-5,
                                    rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape,dtype,dy_dtype", [
+    ((3, 5, D), torch.bfloat16, torch.bfloat16),
+    ((40, 256), torch.float32, torch.float32),
+    ((6, 100), torch.bfloat16, torch.float32)])
+def test_layernorm_bwd_kernel_branch_launches_its_plan(
+        kernel_branch, monkeypatch, shape, dtype, dy_dtype):
+    # the wrapper hands the kernel `bwd_plan`'s geometry for these rows on
+    # a card of 33 cluster slots and few-row clusters of up to 16 blocks
+    # (the fake library's answers), with a scratch at least as long as the
+    # plan asks, kept for the next call
+    KL = importlib.import_module(
+        "embodied_captioning_tpu_torch.kernels.layernorm")
+    seen = []
+
+    def record(name, *a):
+        if name == "ecap_layernorm_bwd":
+            *_, vectors, blocks, cluster, warps = a
+            seen.append(((vectors, blocks, cluster, warps), a[6]))
+        _fake_call(name, *a)
+
+    monkeypatch.setattr(_lib, "call", record)
+    monkeypatch.setattr(KL, "_room", {})
+    monkeypatch.setattr(KL, "_scratch", {})
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                         ).to(dtype)
+    dy = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                          ).to(dy_dtype)
+    g = torch.from_numpy(1 + 0.1 * rng.standard_normal(shape[-1]).astype(
+        np.float32))
+    got = K.layernorm_bwd(x, g, dy)
+    want = K.layernorm_bwd_plain(x, g, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    d = shape[-1]
+    plan = KL.bwd_plan(x.numel() // d, d, x.element_size(),
+                       dy.element_size(), 33, 16)
+    geometry, scratch = seen[0]
+    assert geometry == (plan.vectors, plan.blocks, plan.cluster,
+                        plan.warps)
+    buf = KL._scratch[x.device.index, 0]
+    assert scratch == buf.data_ptr() and buf.numel() >= plan.scratch_floats
+    K.layernorm_bwd(x, g, dy)
+    assert seen[1][1] == scratch
+    assert kernel_branch["layernorm_bwd"] == 2
+
+
+def test_layernorm_bwd_scratch_is_one_per_stream(kernel_branch,
+                                                 monkeypatch):
+    # two streams each get their own partials, so that backwards in flight
+    # on both at once do not write one buffer; a stream gets its own back
+    KL = importlib.import_module(
+        "embodied_captioning_tpu_torch.kernels.layernorm")
+    seen = []
+
+    def record(name, *a):
+        if name == "ecap_layernorm_bwd":
+            seen.append(a[6])
+        _fake_call(name, *a)
+
+    stream = [1]
+    monkeypatch.setattr(_lib, "call", record)
+    monkeypatch.setattr(_lib, "current_stream", lambda: stream[0])
+    monkeypatch.setattr(KL, "_room", {})
+    monkeypatch.setattr(KL, "_scratch", {})
+    rng = np.random.default_rng(3)
+    # past one cluster on a card of 33 slots: two launches, with partials
+    x = torch.from_numpy(rng.standard_normal((600, 64)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((600, 64)).astype(np.float32))
+    g = torch.ones(64)
+    assert KL.bwd_plan(600, 64, 4, 4, 33, 16).partials > 1
+    for s in (1, 2, 1):
+        stream[0] = s
+        K.layernorm_bwd(x, g, dy)
+    assert seen[0] != seen[1] and seen[2] == seen[0]
+    assert set(KL._scratch) == {(None, 1), (None, 2)}
 
 
 def test_flash_attention_refuses_gradient_recording_input(kernel_branch):

@@ -71,7 +71,10 @@ def test_every_kernel_has_a_signature_a_counter_and_a_source():
              "decode_cross_block", "raycast_minargmin", "layernorm",
              "layernorm_bwd", "fused_preprocess"}
     assert set(_lib.launches) == names
-    assert set(_lib._SIGNATURES) == {"ecap_" + n for n in names}
+    # and one entry that launches nothing: the LayerNorm backward's query
+    # of the clusters a card holds at once, for its launch plan
+    assert set(_lib._SIGNATURES) == {"ecap_" + n for n in names} | {
+        "ecap_layernorm_bwd_slots"}
     sources = "".join(p.read_text() for p in _lib.CSRC.glob("*.cu"))
     for name in _lib._SIGNATURES:
         assert f'extern "C" int {name}(' in sources, name

@@ -375,10 +375,14 @@ def test_decode_cross_block_plain(int8, kv_int8):
                          ids=["identity", "up40", "up150", "down320",
                               "identity224-patch16", "down640"])
 def test_fused_preprocess_plain(in_size, out_size, patch):
-    # against the TPU kernel, which folds the normalisation into one
-    # multiply-add (1e-4, the tolerance of the JAX package's own test), and
-    # against both packages' unfused preprocess_for_vit; at the identity
-    # size the port's two spellings are the same arithmetic
+    # against the TPU kernel, which resizes raw values and folds the
+    # normalisation into one multiply-add (1e-4, the tolerance of the JAX
+    # package's own test); against the JAX package's unfused
+    # preprocess_for_vit, its default path (ROADMAP C.24): equal bit for
+    # bit at 224 and the identity sizes, within 2^-21 at 64 (XLA's FMA
+    # spelling there, see test_preprocess_for_vit_equals_jax_default_path);
+    # against the port's own unfused ops, whose products sum in another
+    # order, within 2e-6, and equal at the identity size
     from embodied_captioning_tpu.ops.image import (
         preprocess_for_vit as j_preprocess)
     from embodied_captioning_tpu.ops.pallas.preprocess import (
@@ -393,9 +397,10 @@ def test_fused_preprocess_plain(in_size, out_size, patch):
     out = K.fused_preprocess(t(img), out_size, patch)
     assert out.dtype == torch.float32 and out.shape == ref.shape
     np.testing.assert_allclose(np32(out), ref, atol=1e-4, rtol=1e-4)
-    np.testing.assert_allclose(
-        np32(out), np.asarray(j_preprocess(jnp.asarray(img), out_size,
-                                           patch)), atol=1e-4, rtol=1e-4)
+    want = np.asarray(j_preprocess(jnp.asarray(img), out_size, patch))
+    np.testing.assert_allclose(np32(out), want, atol=2.0 ** -21, rtol=0)
+    if out_size == 224 or in_size == out_size:
+        np.testing.assert_array_equal(np32(out), want)
     assert torch.equal(TI.preprocess_for_vit(t(img), out_size, patch), out)
     unfused = TI.patchify(TI.normalize(TI.resize_bilinear(
         t(img).float() / 255.0, out_size, out_size)), patch)
@@ -404,6 +409,36 @@ def test_fused_preprocess_plain(in_size, out_size, patch):
     else:
         np.testing.assert_allclose(np32(out), np32(unfused), atol=2e-6,
                                    rtol=0)
+
+
+@pytest.mark.parametrize("out_size,in_size,patch",
+                         [(64, 64, 8), (224, 224, 14), (64, 90, 8),
+                          (224, 333, 14), (63, 50, 7), (128, 200, 8),
+                          (113, 97, 113), (112, 97, 112), (48, 97, 8),
+                          (49, 97, 7)])
+def test_preprocess_for_vit_equals_jax_default_path(out_size, in_size,
+                                                    patch):
+    # ROADMAP C.24: the port's preprocess_for_vit (the fused kernel's plain
+    # version on the CPU) against the JAX package's default path at
+    # `python tests/torch_parity.py preprocess-diff`'s four cases (4
+    # images) and on both sides of the sizes where XLA on the CPU changes
+    # how it rounds the resize's dense weight product. Where XLA sums the
+    # two taps as separate products (1-48 rows mod 64: 224, 112, 48; and
+    # the identity sizes, whose weights are 0 and 1) the two are equal bit
+    # for bit. Where it sums them in one FMA (0 or 49-63 rows mod 64), the
+    # port's one spelling rounds once more in each pass: the tokens differ
+    # by at most 2^-21, two float32 ulps of the largest tokens (|t| < 2.2)
+    from embodied_captioning_tpu.ops.image import (
+        preprocess_for_vit as j_preprocess)
+    from embodied_captioning_tpu_torch.ops import image as TI
+
+    imgs = np.random.default_rng(0).integers(
+        0, 256, (4, in_size, in_size, 3), dtype=np.uint8)
+    want = np.asarray(j_preprocess(jnp.asarray(imgs), out_size, patch))
+    got = TI.preprocess_for_vit(torch.from_numpy(imgs), out_size, patch)
+    np.testing.assert_allclose(got.numpy(), want, atol=2.0 ** -21, rtol=0)
+    if out_size in (224, 112, 48) or in_size == out_size:
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_generation_kernel_wrappers_take_the_plain_version_on_cpu_only():
@@ -657,3 +692,134 @@ def test_check_param_checks_each_tensor_once_and_again_after_a_change():
     # the record goes with the tensor
     del g
     assert key not in _lib._valid_params
+
+
+# ---------------------------------------------------------------------------
+# the LayerNorm backward's launch plan (kernels/layernorm.bwd_plan)
+# ---------------------------------------------------------------------------
+
+# (rows, d, x bytes, dy bytes): chip_smoke.py phase 2's shapes (the
+# fine-tune step's at batch 8, the perceive batch's, the sentence encoder's,
+# a bf16 x with a float32 cotangent), then tiny ones
+_BWD_SHAPES = [(2056, 1024, 2, 2), (2048, 1024, 2, 2), (616, 768, 2, 2),
+               (16448, 1024, 2, 2), (64, 768, 2, 2), (4096, 384, 4, 4),
+               (64, 768, 2, 4), (37, 100, 2, 2), (37, 100, 4, 4),
+               (1, 64, 2, 2), (3, 64, 4, 4), (8, 64, 2, 2), (65, 64, 4, 4),
+               (257, 512, 2, 2), (9, 8, 2, 2), (1, 1024, 4, 2)]
+# the fine-tune step's shapes, whose partials the plan keeps within 0.15
+# of the function's own bytes
+_FINETUNE_SHAPES = _BWD_SHAPES[:3]
+
+
+def _bwd_rows_of_each_unit(plan, rows):
+    """The rows each warp (register path: the grid's warps split the rows
+    evenly into contiguous runs) or row group (generic path) takes, as the
+    kernels index them."""
+    if plan.route == "registers":
+        w = plan.blocks * plan.warps
+        return [range(u * rows // w, (u + 1) * rows // w) for u in range(w)]
+    return [range(min(rows, u * plan.rows_per),
+                  min(rows, (u + 1) * plan.rows_per))
+            for u in range(plan.blocks)]
+
+
+@pytest.mark.parametrize("slots", [30, 16, 1])
+@pytest.mark.parametrize("rows,d,xb,dyb", _BWD_SHAPES)
+def test_layernorm_bwd_plan_covers_every_row_once(rows, d, xb, dyb, slots):
+    from embodied_captioning_tpu_torch.kernels.layernorm import (
+        BWD_CLUSTER, BWD_FEW_WARPS, BWD_WARPS, bwd_plan)
+
+    plan = bwd_plan(rows, d, xb, dyb, slots, 16)
+    units = _bwd_rows_of_each_unit(plan, rows)
+    taken = [r for unit in units for r in unit]
+    assert sorted(taken) == list(range(rows))
+    assert max(len(u) for u in units) == plan.rows_per
+    # the scratch the kernels' contract asks for: a float32 row of dg and
+    # db for each cluster past one (registers) or each row group (generic),
+    # summed by a second launch
+    if plan.route == "registers":
+        assert plan.blocks % plan.cluster == 0
+        clusters = plan.blocks // plan.cluster
+        assert plan.partials == (clusters if clusters > 1 else 0)
+        assert plan.launches == (2 if clusters > 1 else 1)
+        if rows <= 8 * BWD_WARPS:
+            # a few rows: one cluster of up to 16 blocks of 4 warps, a row
+            # a warp
+            assert (plan.warps, plan.cluster, plan.rows_per) == (
+                BWD_FEW_WARPS, plan.blocks, 1)
+            assert plan.blocks <= 16 and (plan.blocks - 1) * 4 < rows
+        else:
+            assert plan.warps == BWD_WARPS
+            assert plan.cluster == BWD_CLUSTER
+            # a persistent grid: every block resident at once; a row a
+            # warp until the card is full, no cluster without rows
+            assert clusters <= max(1, slots)
+            assert (plan.rows_per == 1
+                    or plan.blocks == max(1, slots) * BWD_CLUSTER)
+            assert (plan.blocks - plan.cluster) * BWD_WARPS < rows
+    else:
+        assert plan.cluster == 1 and plan.partials == plan.blocks
+        assert 1 <= plan.blocks <= min(rows, 256) and plan.launches == 2
+        assert all(len(u) for u in units)
+    assert plan.scratch_floats >= 2 * plan.partials * d
+
+
+@pytest.mark.parametrize("rows,d,xb,dyb", _FINETUNE_SHAPES)
+def test_layernorm_bwd_plan_keeps_partials_small_at_the_finetune_shapes(
+        rows, d, xb, dyb):
+    from embodied_captioning_tpu_torch.kernels.layernorm import bwd_plan
+
+    for slots in (33, 30, 16):
+        plan = bwd_plan(rows, d, xb, dyb, slots, 16)
+        assert plan.route == "registers"
+        # the partials written and read again, against x and dy read, dx
+        # written, g read and dg, db written
+        own = rows * d * (2 * xb + dyb) + 3 * d * 4
+        assert 2 * 2 * plan.partials * d * 4 <= 0.15 * own
+
+
+@pytest.mark.parametrize("rows,d,xb,dyb,aligned,route", [
+    (37, 100, 2, 2, True, "generic"),      # d not a multiple of 8
+    (4, 1032, 2, 2, True, "generic"),      # wider than 1024
+    (4, 4096, 4, 4, True, "generic"),
+    (64, 1024, 4, 4, True, "generic"),     # float32 x and dy past 768
+    (64, 1024, 2, 2, False, "generic"),    # a pointer off 16 bytes
+    (64, 768, 4, 4, True, "registers"),
+    (64, 1024, 2, 4, True, "registers"),
+    (64, 8, 4, 4, True, "registers"),
+    (64, 1024, 2, 2, True, "registers")])
+def test_layernorm_bwd_plan_routes(rows, d, xb, dyb, aligned, route):
+    from embodied_captioning_tpu_torch.kernels.layernorm import (
+        bwd_plan, bwd_vectors)
+
+    plan = bwd_plan(rows, d, xb, dyb, 33, 16, aligned)
+    assert plan.route == route
+    assert plan.vectors == (bwd_vectors(d, xb, dyb) if aligned else 0)
+    if route == "registers":
+        assert plan.vectors == -(-d // 256)
+
+
+@pytest.mark.parametrize("widest", [16, 12, 8, 1])
+@pytest.mark.parametrize("rows", [1, 8, 33, 48, 64])
+def test_layernorm_bwd_plan_caps_the_few_rows_cluster(rows, widest):
+    # a few rows take one cluster of 4-warp blocks only as wide as the
+    # card launches (`bwd_room`'s `widest`: fewer SMs free to a GPC, as on
+    # a partitioned card); wider, they take the blocks of 8 warps in
+    # clusters of BWD_CLUSTER that every row count past 64 takes, and
+    # still cover every row once
+    from embodied_captioning_tpu_torch.kernels.layernorm import (
+        BWD_CLUSTER, BWD_FEW_WARPS, BWD_WARPS, bwd_plan)
+
+    plan = bwd_plan(rows, 768, 2, 2, 30, widest)
+    few = -(-rows // BWD_FEW_WARPS)
+    assert plan.route == "registers" and plan.cluster <= max(widest, 4)
+    if few <= widest:
+        assert (plan.blocks, plan.cluster, plan.warps) == (few, few,
+                                                           BWD_FEW_WARPS)
+    else:
+        assert (plan.cluster, plan.warps) == (BWD_CLUSTER, BWD_WARPS)
+    units = _bwd_rows_of_each_unit(plan, rows)
+    assert sorted(r for u in units for r in u) == list(range(rows))
+    clusters = plan.blocks // plan.cluster
+    assert plan.launches == (2 if clusters > 1 else 1)
+    assert plan.scratch_floats >= 2 * plan.partials * 768

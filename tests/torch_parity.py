@@ -486,6 +486,36 @@ def probe_preprocess_diff(cases=((64, 64, 8), (224, 224, 14), (64, 90, 8),
     return rows
 
 
+def probe_preprocess_rounding(outs=tuple(range(40, 300, 3)) + (64, 128, 224),
+                              src: int = 997, seed: int = 0) -> list:
+    """How XLA on the CPU rounds the JAX package's resize (a dense weight
+    product [out, src] @ [src, ...]) at each output size: every two-tap sum
+    as one FMA ("fma"), as two rounded products and their sum ("separate",
+    the port's one spelling), or neither throughout ("mixed"). One random
+    image of `src` x 7 pixels, vertical pass."""
+    import jax.numpy as jnp
+
+    from embodied_captioning_tpu.ops import image as JI
+    from embodied_captioning_tpu_torch.kernels.preprocess import source_taps
+
+    x = (np.random.default_rng(seed).integers(0, 256, (1, src, 7, 3))
+         .astype(np.float32) / np.float32(255))
+    rows = []
+    for out in outs:
+        w = JI._interp_weights(JI._src_coords(out, src, False), src)
+        got = np.asarray(jnp.einsum("oh,...hwc->...owc", w, x,
+                                    preferred_element_type=jnp.float32))
+        i0, i1, f = (np.asarray(v) for v in source_taps(out, src, "cpu"))
+        lo = x[:, i0] * (1 - f)[None, :, None, None]
+        hi = x[:, i1].astype(np.float64) * f[None, :, None, None]
+        fma = (hi + lo.astype(np.float64)).astype(np.float32)
+        sep = lo + hi.astype(np.float32)
+        rows.append(dict(out=out, xla=(
+            "fma" if np.array_equal(got, fma) else
+            "separate" if np.array_equal(got, sep) else "mixed")))
+    return rows
+
+
 if __name__ == "__main__":
     import sys
     from pathlib import Path
@@ -508,6 +538,12 @@ if __name__ == "__main__":
     elif what == "preprocess-diff":
         for row in probe_preprocess_diff():
             print(row)
+    elif what == "preprocess-rounding":
+        rows = probe_preprocess_rounding()
+        for row in rows:
+            print(row)
+        print({k: sum(r["xla"] == k for r in rows)
+               for k in ("separate", "fma", "mixed")})
     elif what == "generate-scan":
         rows = probe_generate_scan()
         for row in rows:
@@ -517,4 +553,4 @@ if __name__ == "__main__":
     else:
         sys.exit("usage: python tests/torch_parity.py render | rollout-scan "
                  "| rollout-scan-blocks | beam | generate-scan | grad-chaos "
-                 "| preprocess-diff")
+                 "| preprocess-diff | preprocess-rounding")
