@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's perception path, fused exploration loop,
 caption-generation modes, exploration entry point (`generate`), PPO
-training entry point (`train`) and captioner fine-tune
-(`finetune_captioner`) on one NVIDIA GPU.
+training entry point (`train`), captioner fine-tune
+(`finetune_captioner`) and learning self-checks (`selfcheck_training`,
+`selfcheck_detector`) on one NVIDIA GPU.
 
 Phases, each of which must pass:
   1. build the hand-written Hopper kernels from the sources in the checkout;
@@ -135,7 +136,26 @@ Phases, each of which must pass:
      a step, peak memory, LayerNorm forward and backward launches, device
      busy and idle share under the profiler); then `finetune_captioner`
      at the large preset on the store phase 8 wrote: its JSON line and
-     its pickle read back.
+     its pickle read back;
+ 11. drive the two learning self-checks: (a) `detector_loss` at the tiny
+     preset on the card against the CPU for the five ROI heads with masks
+     (the loss, its five parts and every leaf's gradient within limits set
+     from the CPU's own spread), then the parameters after one clip + Adam
+     step; (b) one timed detector training step at the large preset (R50
+     bottleneck FPN P3-P6, affine norm, 1024^2, 128 proposals, masks) and
+     at the base preset (GroupNorm, 256^2), batch 8, on frames of the
+     port's simulator: ms a step, peak memory, device busy and idle share,
+     device time by kernel family; (c) `selfcheck_training` whole at the
+     tiny preset with the JAX script's defaults and --speculative: its
+     JSON line, held-out sbert_cosine > 0.8 with int8 within 0.01, the
+     launches of the run; then 20 steps at the large preset on 64 crops:
+     step_ms_median, hbm_peak_gb; (d) `selfcheck_detector --steps 700
+     --episodes 4` at the tiny preset: map50_train > 0.4, mask_iou > 0.5
+     on more than 5 matched detections; (e) on the captioner (c) trained,
+     free-running greedy decoding of the held-out crops through the
+     kernels and through their plain versions, float and int8: equal
+     tokens on at least 90% of rows, every sublayer on a fused kernel, and
+     speculative decoding beside greedy.
 
 Float32 products and convolutions run without TF32 so the comparisons see
 the kernels' own error. Prints the card's name and power limit, frames/s
@@ -3210,6 +3230,409 @@ def finetune_entry_point(store: str, shapes: list) -> dict:
     return dict(line=line, seconds=dt, counts=counts)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the two learning self-checks (`selfcheck_training`,
+# `selfcheck_detector`)
+# ---------------------------------------------------------------------------
+
+DET_HEADS = ("ce", "focal", "soft", "softfocal", "msefocal")
+DET_STEP_BATCH = 8             # the detector self-check's default batch
+DET_STEPS = 3                  # timed detector steps after a warm-up step
+DET_LR = 1e-3                  # the detector self-check's default lr
+DET_SPREAD_DRAWS = 4           # 11a: moves of the CPU's parameters
+SELF_CHECK_BAR = 0.8           # held-out sbert_cosine: the JAX script's bar
+INT8_GAP = 0.01                # int8_sbert_cosine within this of it
+MAP50_TRAIN_BAR = 0.4          # the detector self-check's bars at 700 steps
+MASK_IOU_BAR = 0.5
+MASK_MATCHED_BAR = 5
+MIN_FREE_RUN_AGREE = 0.9       # C.8: rows with equal free-running tokens
+# kernels the learning path launches: the render (raycast), the training
+# forward and backward (LayerNorm, its backward, the preprocess), the
+# evaluation's ViT (flash) and greedy decoding on the block route
+LEARNING_KERNELS = ("raycast_minargmin", "layernorm", "layernorm_bwd",
+                    "fused_preprocess", "flash_attention", "decode_mlp",
+                    "decode_self_block", "decode_cross_block")
+
+
+def kernel_family(name: str) -> str:
+    """A device kernel's family for the step's split: convolutions (cuDNN's
+    forward, data and weight gradients), products (GEMMs), the port's own
+    kernels, and elementwise / reductions / copies (everything else)."""
+    n = name.lower()
+    if any(k in name for k in PORTED_KERNELS):
+        return "ported kernels"
+    if any(k in n for k in ("conv", "fprop", "dgrad", "wgrad", "cudnn",
+                            "implicit", "winograd")):
+        return "convolutions"
+    if any(k in n for k in ("gemm", "cutlass", "cublas", "matmul", "xmma")):
+        return "products"
+    return "elementwise, reductions, copies"
+
+
+def family_split(fn) -> dict:
+    """Device time (ms) by kernel family over one call of `fn`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trace_marker()
+        fn()
+        torch.cuda.synchronize()
+        trace_marker()
+        torch.cuda.synchronize()
+    split: dict = {}
+    for e in device_events(prof):
+        f = kernel_family(e.name)
+        split[f] = split.get(f, 0.0) + (e.time_range.end
+                                        - e.time_range.start) / 1e3
+    return split
+
+
+def detector_batch(cfg, n: int, g: int, seed: int, dev):
+    """n uint8 frames at the detector's size and padded ground truth of g
+    boxes each (80% valid), classes, teacher probabilities and box-shaped
+    masks at the detector's size."""
+    from embodied_captioning_tpu_torch.ops.detections import Detections
+
+    s = cfg.image_size
+    rng = np.random.default_rng(seed)
+    x1 = rng.uniform(0, s * 0.8, (n, g))
+    y1 = rng.uniform(0, s * 0.8, (n, g))
+    boxes = np.stack([x1, y1,
+                      np.minimum(x1 + rng.uniform(s / 10, s / 2, (n, g)), s),
+                      np.minimum(y1 + rng.uniform(s / 10, s / 2, (n, g)), s)],
+                     -1).astype(np.float32)
+    masks = np.zeros((n, g, s, s), np.uint8)
+    for i in range(n):
+        for j in range(g):
+            a, b, c, d = boxes[i, j].astype(int)
+            masks[i, j, b:d, a:c] = 1
+    images = torch.from_numpy(rng.integers(0, 256, (n, s, s, 3),
+                                           dtype=np.uint8)).to(dev)
+    gt = Detections(
+        boxes=torch.from_numpy(boxes), scores=torch.ones(n, g),
+        classes=torch.from_numpy(rng.integers(0, 6, (n, g)).astype(np.int32)),
+        logits=torch.from_numpy(rng.dirichlet(np.ones(6), (n, g)).astype(
+            np.float32)),
+        valid=torch.from_numpy(rng.random((n, g)) < 0.8),
+        masks=torch.from_numpy(masks)).to(dev)
+    return images, gt
+
+
+def detector_card_vs_cpu(dev, smi: str) -> None:
+    """11a: `detector_loss` at the tiny preset on the card (cuDNN
+    convolutions, the port's ops under autograd) and on the CPU, same
+    weights and batch (2 frames, 8 ground-truth boxes with masks), for the
+    five ROI heads: the loss and its five parts within the larger of 1e-4
+    of their value and 3x their CPU spread (how far the CPU's part moves
+    when the parameters move by 1e-4 of themselves, the largest of
+    DET_SPREAD_DRAWS draws: a 1e-4 move shifts the loss by about 1e-2, a
+    rounding of the bf16 stream as large as the card's own, and the
+    largest of two draws reads up to half of the largest of eight); every
+    leaf's gradient within the larger of 5% of its norm and 3x its CPU
+    spread; every leaf with a non-zero CPU gradient non-zero and finite on
+    the card. Then one clip-by-global-norm(5) + Adam step (ce head): the
+    parameters within 2 lr of each other."""
+    from embodied_captioning_tpu_torch.config import DetectorConfig
+    from embodied_captioning_tpu_torch.models.detector import init_detector
+    from embodied_captioning_tpu_torch.selfcheck_detector import (
+        loss_and_grads, train_step)
+    from embodied_captioning_tpu_torch.train.optim import (
+        adam_init, tree_leaves, tree_map)
+
+    cfg = DetectorConfig.tiny()
+    params = init_detector(torch.Generator().manual_seed(5), cfg, "cpu")
+    names = leaf_paths(params)
+    images, gt = detector_batch(cfg, 2, 8, 0, "cpu")
+
+    def run(p, where, head):
+        g, loss, aux = loss_and_grads(to_device(p, where), images.to(where),
+                                      gt.to(where), cfg, head)
+        return ([x.float().cpu() for x in tree_leaves(g)],
+                dict({k: float(v) for k, v in aux.items()}, loss=float(loss)))
+
+    bad, summary = [], []
+    for head in DET_HEADS:
+        g_cpu, parts_cpu = run(params, "cpu", head)
+        spreads = [0.0] * len(g_cpu)
+        part_spread = {k: 0.0 for k in parts_cpu}
+        for seed in range(1, DET_SPREAD_DRAWS + 1):
+            gen = torch.Generator().manual_seed(seed)
+            moved = tree_map(lambda x: x * (1 + 1e-4 * torch.randn(
+                x.shape, generator=gen)), params)
+            gm, pm = run(moved, "cpu", head)
+            spreads = [max(s, (a - b).norm().item())
+                       for s, a, b in zip(spreads, gm, g_cpu)]
+            part_spread = {k: max(v, abs(pm[k] - parts_cpu[k]))
+                           for k, v in part_spread.items()}
+        g_card, parts_card = run(params, dev, head)
+        worst = 0.0
+        for n, a, b, sp in zip(names, g_card, g_cpu, spreads):
+            err = (a - b).norm().item()
+            lim = max(5e-2 * b.norm().item(), 3 * sp)
+            worst = max(worst, err / lim if lim > 0 else
+                        (0.0 if err == 0 else math.inf))
+            if not err <= lim:
+                bad.append((head, n, err, lim))
+            if bool((b != 0).any()) and not (
+                    bool((a != 0).any()) and bool(torch.isfinite(a).all())):
+                bad.append((head, n, "zero or non-finite on the card"))
+        part_err = {}
+        for k in parts_cpu:
+            lim = max(1e-4 * abs(parts_cpu[k]), 3 * part_spread[k])
+            part_err[k] = abs(parts_card[k] - parts_cpu[k]) / max(lim, 1e-30)
+            if not part_err[k] <= 1.0:
+                bad.append((head, k, parts_card[k], parts_cpu[k], lim))
+        k = max(part_err, key=part_err.get)
+        summary.append(f"{head}: loss card {parts_card['loss']:.5f} CPU "
+                       f"{parts_cpu['loss']:.5f} (spread "
+                       f"{part_spread['loss']:.2e}); worst part {k} "
+                       f"{part_err[k]:.3f} of its limit (card "
+                       f"{parts_card[k]:.5f}, CPU {parts_cpu[k]:.5f}, spread "
+                       f"{part_spread[k]:.2e}); worst leaf {worst:.3f} of "
+                       f"its limit")
+    log(f"  detector_loss card ({smi}) vs CPU (tiny, 2 frames, 8 boxes, "
+        f"masks), {len(names)} leaves:\n    " + "\n    ".join(summary))
+    after = {}
+    for where in ("cpu", dev):
+        p, opt, _ = train_step(to_device(params, where), adam_init(
+            to_device(params, where)), images.to(where), gt.to(where), cfg,
+            "ce", lambda c: DET_LR)
+        after[str(where)] = [x.cpu() for x in tree_leaves(p)]
+    ratio = max(((a - b).abs() / (2 * DET_LR + 1e-7)).max().item()
+                for a, b in zip(after[str(dev)], after["cpu"]))
+    log(f"    parameters after one clip + Adam step (ce): max diff "
+        f"{ratio:.4f} of 2 lr")
+    if bad or not ratio <= 1.0:
+        raise AssertionError(f"detector card vs CPU: {bad[:8]} {ratio}")
+
+
+def detector_step_full_width(dev, smi: str, preset: str) -> dict:
+    """11b: one detector training step at `preset` (large: the R50
+    bottleneck FPN P3-P6 with affine norm at 1024^2, 128 proposals; base:
+    basic blocks with GroupNorm at 256^2), batch DET_STEP_BATCH, ce head,
+    masks on, seeded weights, on frames of the port's simulator with their
+    ground truth (`selfcheck_detector.collect`): a warm-up step,
+    DET_STEPS timed steps (host clock around synchronised steps), peak
+    memory, and one step under the profiler (device busy and idle share,
+    device time by kernel family)."""
+    import gc
+
+    from embodied_captioning_tpu_torch.config import load_config
+    from embodied_captioning_tpu_torch.models.detector import init_detector
+    from embodied_captioning_tpu_torch.selfcheck_detector import (
+        batch_of, collect, train_step)
+    from embodied_captioning_tpu_torch.train.optim import (
+        adam_init, tree_leaves)
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    cfg = load_config(preset)
+    dcfg = cfg.detector
+    t0 = time.perf_counter()
+    frames = collect(cfg, 2, DET_STEP_BATCH // 2, 0,
+                     np.random.default_rng(0), dev)
+    collect_s = time.perf_counter() - t0
+    images, gt = batch_of(frames, range(DET_STEP_BATCH), dcfg.image_size, dev)
+    params = init_detector(torch.Generator(device=dev).manual_seed(0), dcfg,
+                           dev)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    state = [params, adam_init(params)]
+
+    def step():
+        state[0], state[1], loss = train_step(state[0], state[1], images, gt,
+                                              dcfg, "ce", lambda c: DET_LR)
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    step()                                                   # warm-up
+    torch.cuda.synchronize()
+    times, losses = [], []
+    for _ in range(DET_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = sorted(times)[len(times) // 2] * 1e3
+    moved = sum(int(not torch.equal(a, b)) for a, b in
+                zip(tree_leaves(state[0]), tree_leaves(params)))
+    log(f"detector train step, {preset} preset ({dcfg.block} blocks, "
+        f"{dcfg.norm} norm, {dcfg.image_size}^2, {dcfg.num_proposals} "
+        f"proposals, masks), batch {DET_STEP_BATCH}, ce head: {ms:.1f} ms a "
+        f"step (median of {DET_STEPS}: "
+        + ", ".join(f"{t * 1e3:.1f}" for t in times)
+        + f") on {smi}; {DET_STEP_BATCH / ms * 1e3:.2f} frames/s; peak "
+        f"device memory {peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB of "
+        f"earlier phases beside it); {n_params} parameters, {moved} leaves "
+        f"moved; losses " + " ".join(f"{x:.4f}" for x in losses)
+        + f"; {len(frames)} frames collected in {collect_s:.1f} s, "
+        f"{int(gt.valid.sum())} valid boxes")
+    if not all(math.isfinite(x) for x in losses) or moved == 0:
+        raise AssertionError(f"detector step ({preset}) failed: {losses}")
+    busy = profile_run(f"one detector train step, {preset} preset", step,
+                       ms * 1e3, top=10)
+    split = family_split(step)
+    total = sum(split.values())
+    log("    device time by family: " + "; ".join(
+        f"{k} {v:.1f} ms ({v / total:.3f})"
+        for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
+    del state, images, gt, frames
+    torch.cuda.empty_cache()
+    return dict(ms=ms, peak_bytes=peak, busy_us=busy, split=split)
+
+
+def run_entry(main, argv: list) -> tuple:
+    """An entry point's `main(argv)` in this process, its output echoed:
+    (return code, its last line as JSON)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    text = buf.getvalue()
+    for line in text.strip().splitlines():
+        log("    | " + line[:400])
+    return rc, json.loads(text.strip().splitlines()[-1])
+
+
+def captioner_selfcheck(dev, smi: str, tmp: str) -> dict:
+    """11c: the captioner self-check whole, on the card, with the JAX
+    script's defaults (tiny preset, 192 train crops asked for, 300 steps,
+    batch 16) and --speculative: its JSON line, the bar held-out
+    sbert_cosine > SELF_CHECK_BAR with int8_sbert_cosine within INT8_GAP of
+    it (read with the port's own seeded captioner and sentence encoder),
+    speculative decoding's exactness, and the launches of the whole run;
+    then a timed run at the large preset (20 steps on 64 crops). Returns
+    the tiny run's trained state and eval corpus (for 11e)."""
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch import selfcheck_training as ST
+
+    kept = {}
+    train = ST.train
+
+    def keep_state(*a, **k):
+        out = train(*a, **k)
+        kept["state"] = out[0]
+        return out
+
+    cache = os.path.join(tmp, "captioner_eval.npz")
+    ST.train = keep_state
+    try:
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        rc, line = run_entry(ST.main, ["--speculative", "--eval-cache",
+                                       cache])
+        seconds = time.perf_counter() - t0
+        counts = dict(K.launches)
+    finally:
+        ST.train = train
+    cos, cos_q = line.get("sbert_cosine", 0.0), line.get("int8_sbert_cosine",
+                                                         0.0)
+    spec = line.get("speculative", {})
+    log(f"  captioner self-check (tiny, JAX script defaults) on {smi}: "
+        f"{seconds:.1f} s; sbert_cosine {cos} (bar > {SELF_CHECK_BAR}), "
+        f"int8 {cos_q} (within {INT8_GAP}), class_word_accuracy "
+        f"{line.get('class_word_accuracy')}, bleu {line.get('bleu')}; "
+        f"speculative exact: "
+        + ", ".join(f"{b} {v['exact']}" for b, v in spec.items())
+        + f"; launches {({k: v for k, v in counts.items() if v})}")
+    missing = [k for k in LEARNING_KERNELS if counts[k] <= 0]
+    if (rc != 0 or missing or not cos > SELF_CHECK_BAR
+            or not abs(cos_q - cos) <= INT8_GAP):
+        raise AssertionError(f"captioner self-check failed: rc {rc}, "
+                             f"kernels not launched {missing}, {line}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rc_l, large = run_entry(ST.main, ["--preset", "large", "--steps", "20",
+                                      "--train-crops", "64"])
+    log(f"  captioner self-check, large preset, 20 steps on "
+        f"{large.get('train_crops')} crops, batch 16, on {smi}: "
+        f"step_ms_median {large.get('step_ms_median')} ms, hbm_peak_gb "
+        f"{large.get('hbm_peak_gb')} of {large.get('hbm_limit_gb')}, "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    if rc_l != 0 or not math.isfinite(large.get("last_loss", math.nan)):
+        raise AssertionError(f"large captioner self-check failed: {large}")
+    torch.cuda.empty_cache()
+    return dict(line=line, counts=counts, large=large,
+                state=kept["state"], eval_cache=cache)
+
+
+def detector_selfcheck(smi: str) -> dict:
+    """11d: the detector self-check on the card at the tiny preset with
+    --steps 700 --episodes 4: its JSON line and the bars map50_train >
+    MAP50_TRAIN_BAR, mask_iou > MASK_IOU_BAR with mask_matched >
+    MASK_MATCHED_BAR."""
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch import selfcheck_detector as SD
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rc, line = run_entry(SD.main, ["--steps", "700", "--episodes", "4"])
+    seconds = time.perf_counter() - t0
+    counts = dict(K.launches)
+    log(f"  detector self-check (tiny, 700 steps, 4 episodes) on {smi}: "
+        f"{seconds:.1f} s; map50_train {line.get('map50_train')} (bar > "
+        f"{MAP50_TRAIN_BAR}), mask_iou {line.get('mask_iou')} (bar > "
+        f"{MASK_IOU_BAR}) on {line.get('mask_matched')} matched (bar > "
+        f"{MASK_MATCHED_BAR}), map50 unseen scenes {line.get('map50_before')}"
+        f" -> {line.get('map50_after')}; launches "
+        f"{({k: v for k, v in counts.items() if v})}")
+    if (rc != 0 or not line.get("map50_train", 0) > MAP50_TRAIN_BAR
+            or not line.get("mask_iou", 0) > MASK_IOU_BAR
+            or not line.get("mask_matched", 0) > MASK_MATCHED_BAR):
+        raise AssertionError(f"detector self-check failed: {line}")
+    return dict(line=line, counts=counts, seconds=seconds)
+
+
+def free_running_on_trained_weights(K, cap: dict, dev, smi: str) -> None:
+    """11e (ROADMAP C.8, C.15): greedy decoding of the held-out crops by the
+    captioner 11c trained, free-running through the kernels and through
+    their plain versions, float and int8: rows with equal tokens at least
+    MIN_FREE_RUN_AGREE; the route the decode step took, and the kernels
+    launched; speculative decoding against greedy on the same weights."""
+    from embodied_captioning_tpu_torch.config import CaptionerConfig
+    from embodied_captioning_tpu_torch.models.captioner import (
+        generate, generate_speculative)
+    from embodied_captioning_tpu_torch.models.common import decode_route
+    from embodied_captioning_tpu_torch.models.quantize import quantize_params
+
+    cfg = CaptionerConfig.tiny()
+    crops = torch.from_numpy(np.load(cap["eval_cache"])["crops"]).to(dev)
+    params = cap["state"].params
+    t = cfg.text
+    route = decode_route(crops.shape[0], t.width, t.heads,
+                         int(t.width * t.mlp_ratio), cfg.max_caption_len,
+                         True)
+    bad = []
+    for what, p in (("float", params), ("int8", quantize_params(params))):
+        K.reset_launches()
+        tk = generate(p, crops, cfg)[0]
+        counts = {k: v for k, v in K.launches.items() if v}
+        with plain_kernels(K):
+            tp = generate(p, crops, cfg)[0]
+        agree = (tk == tp).all(dim=1).float().mean().item()
+        spec = generate_speculative(p, crops, cfg)[0]
+        spec_rows = (spec == tk).all(dim=1).float().mean().item()
+        log(f"  C.8 on trained weights ({what}, {crops.shape[0]} held-out "
+            f"crops, {smi}): free-running tokens equal through the kernels and "
+            f"their plain versions on {agree:.3f} of rows (gate "
+            f"{MIN_FREE_RUN_AGREE}); route {route._asdict()}; launches "
+            f"{counts}; C.15: speculative equals greedy through the kernels "
+            f"on {spec_rows:.3f} of rows")
+        if not agree >= MIN_FREE_RUN_AGREE:
+            bad.append((what, agree))
+        if what == "float" and not all(route):
+            bad.append(("route", route))
+    if bad:
+        raise AssertionError(f"free-running decoding on trained weights: "
+                             f"{bad}")
+
+
 def card_name() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -3334,6 +3757,15 @@ def main() -> int:
             finetune_card_vs_cpu(dev)
             ft = finetune_full_width(dev, smi)
             finetune_entry_point(store, ft["shapes"])
+        log("[11] the learning self-checks (selfcheck_training, "
+            "selfcheck_detector)")
+        detector_card_vs_cpu(dev, smi)
+        for preset in ("large", "base"):
+            detector_step_full_width(dev, smi, preset)
+        with tempfile.TemporaryDirectory(prefix="ecap_selfcheck_") as tmp:
+            cap = captioner_selfcheck(dev, smi, tmp)
+            det = detector_selfcheck(smi)
+            free_running_on_trained_weights(K, cap, dev, smi)
     except Exception:
         traceback.print_exc()
         return 1
@@ -3346,7 +3778,9 @@ def main() -> int:
     # launches_generate: over the timed generate steps of phase 8;
     # launches_train: over phase 9's two timed train calls (unfused, then
     # fused); launches_finetune: over phase 10's FT_STEPS timed large-preset
-    # train steps with remat off, the only path of the LayerNorm backward
+    # train steps with remat off; launches_learning: over phase 11's two
+    # self-checks at the tiny preset (11c and 11d), collection, training
+    # and evaluation
     kernels = []
     for n, r in rows.items():
         if loop["counts"][n] > 0:
@@ -3361,7 +3795,8 @@ def main() -> int:
             launches_generate=gen["counts"][n],
             launches_train=(train["unfused"]["counts"][n]
                             + train["fused"]["counts"][n]),
-            launches_finetune=ft["plain"]["counts"][n], **r))
+            launches_finetune=ft["plain"]["counts"][n],
+            launches_learning=cap["counts"][n] + det["counts"][n], **r))
     if any(k["launches"] <= 0 for k in kernels):
         print(f"chip_smoke: a kernel was never launched: {kernels}",
               file=sys.stderr)

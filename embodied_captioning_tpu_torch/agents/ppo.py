@@ -17,8 +17,8 @@ import numpy as np
 import torch
 
 from ..config import PPOConfig
-from ..train.optim import (
-    AdamState, adam_init, adam_update, tree_leaves, tree_unflatten,
+from ..train.optim import (  # tree_leaves: callers take it from here too
+    AdamState, adam_init, adam_update, tree_leaves, value_and_grad,
 )
 from .policy import evaluate_actions
 from .storage import Rollout, compute_gae
@@ -115,15 +115,9 @@ def ppo_grads(params: dict, batch: Batch, idx: torch.Tensor, cfg: PPOConfig,
               categorical: bool = False):
     """(gradients as a tree like `params`, loss, aux) of one minibatch;
     a leaf the loss does not reach gets zeros."""
-    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    tracked = tree_unflatten(params, leaves)
-    with torch.enable_grad():
-        total, aux = ppo_loss(tracked, batch, idx, cfg, categorical)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(leaves, grads)]
-    return (tree_unflatten(params, grads), total.detach(),
-            tuple(a.detach() for a in aux))
+    total, aux, grads = value_and_grad(
+        lambda p: ppo_loss(p, batch, idx, cfg, categorical), params)
+    return grads, total, aux
 
 
 def ppo_update_with(state: PPOState, rollout: Rollout,

@@ -1,9 +1,13 @@
 """MiniLM-class sentence encoder: token ids -> mean-pooled, L2-normalised
 embeddings, with PAD (id 0) masked out. `post_ln` selects the BERT layer
-ordering (embedding LayerNorm, post-LN blocks with erf GELU)."""
+ordering (embedding LayerNorm, post-LN blocks with erf GELU).
+`SentenceEncoder` is the strings-in, embeddings-out surface."""
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
+import numpy as np
 import torch
 
 from ..config import SentenceEncoderConfig
@@ -11,7 +15,7 @@ from .common import (
     BERT_LN_EPS, block, block_init, block_post_ln, dense, dense_init,
     layernorm, layernorm_init, randn,
 )
-from .tokenizer import PAD_ID
+from .tokenizer import PAD_ID, Tokenizer, default_tokenizer
 
 
 def init_sentence_encoder(g: torch.Generator, cfg: SentenceEncoderConfig,
@@ -54,3 +58,44 @@ def encode_tokens(params: dict, tokens: torch.Tensor,
     e = dense(params["proj"], pooled, compute_dtype=cdt).float()
     return e / torch.clamp(torch.linalg.norm(e, dim=-1, keepdim=True),
                            min=1e-8)
+
+
+class SentenceEncoder:
+    """Strings in, L2-normalised float32 embeddings out (numpy), as
+    SentenceTransformer's `encode`."""
+
+    def __init__(self, params: dict, cfg: SentenceEncoderConfig,
+                 tokenizer: Optional[Tokenizer] = None):
+        self.params = params
+        self.cfg = cfg
+        self.tokenizer = tokenizer or default_tokenizer(cfg.vocab_size)
+
+    @staticmethod
+    def create(seed: int = 0, cfg: Optional[SentenceEncoderConfig] = None,
+               device="cuda") -> "SentenceEncoder":
+        """Seeded random weights with the JAX `init_sentence_encoder`'s
+        shapes and scales, drawn from a `torch.Generator` seeded with
+        `seed`: the numbers differ from the JAX package's
+        `SentenceEncoder.create(seed)`, which draws from jax.random."""
+        cfg = cfg or SentenceEncoderConfig()
+        g = torch.Generator(device=device).manual_seed(seed)
+        return SentenceEncoder(init_sentence_encoder(g, cfg, device), cfg)
+
+    def encode(self, sentences: Sequence[str]) -> np.ndarray:
+        """[len(sentences), embed_dim] float32. The batch is padded with
+        all-PAD rows to the next power of two (the JAX package's bucket),
+        and those rows are sliced off."""
+        n = len(sentences)
+        if n == 0:
+            return np.zeros((0, self.cfg.embed_dim), np.float32)
+        tokens = self.tokenizer.encode_batch(list(sentences),
+                                             self.cfg.max_len)
+        bucket = 1 << (n - 1).bit_length()
+        if bucket > n:
+            tokens = np.concatenate(
+                [tokens, np.zeros((bucket - n, tokens.shape[1]),
+                                  tokens.dtype)])
+        dev = self.params["tok_emb"].device
+        out = encode_tokens(self.params, torch.from_numpy(tokens).to(dev),
+                            self.cfg)
+        return out[:n].cpu().numpy()

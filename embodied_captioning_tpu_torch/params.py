@@ -75,9 +75,12 @@ def from_jax(tree: Any, device="cuda") -> Any:
 
 def to_numpy(tree: Any) -> Any:
     """The inverse of `from_jax` for float trees (nested dicts and lists
-    of tensors): numpy arrays, 4-D kernels named "w" back to HWIO."""
+    of tensors, None kept): numpy arrays, 4-D kernels named "w" back to
+    HWIO."""
 
     def walk(node: Any, name: str) -> Any:
+        if node is None:
+            return None
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):

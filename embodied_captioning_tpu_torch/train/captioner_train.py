@@ -24,9 +24,7 @@ import torch
 
 from ..config import CaptionerConfig
 from ..models.captioner import caption_losses, forward
-from .optim import (
-    AdamState, adam_init, adam_update, tree_leaves, tree_unflatten,
-)
+from .optim import AdamState, adam_init, adam_update, value_and_grad
 
 
 def triplet_loss_hard(embeddings: torch.Tensor, object_ids: torch.Tensor,
@@ -74,21 +72,18 @@ def loss_and_grads(params: dict, images_u8: torch.Tensor,
     """(gradients as a tree like `params`, total loss, {"caption_ce",
     "contrastive"[, "triplet"]}) of one batch; a leaf the loss does not
     reach gets zeros."""
-    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    tracked = tree_unflatten(params, leaves)
-    with torch.enable_grad():
-        logits, img_emb, txt_emb = forward(tracked, images_u8, tokens, cfg)
+    def loss(p):
+        logits, img_emb, txt_emb = forward(p, images_u8, tokens, cfg)
         total, aux = caption_losses(logits, img_emb, txt_emb, tokens,
-                                    tracked["logit_scale"], cfg)
+                                    p["logit_scale"], cfg)
         if triplet_weight > 0:
             tl = triplet_loss_hard(img_emb, object_ids, sample_valid)
             total = total + triplet_weight * tl
             aux = dict(aux, triplet=tl)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(leaves, grads)]
-    return (tree_unflatten(params, grads), total.detach(),
-            {k: v.detach() for k, v in aux.items()})
+        return total, aux
+
+    total, aux, grads = value_and_grad(loss, params)
+    return grads, total, aux
 
 
 def train_step(state: TrainState, images_u8: torch.Tensor,

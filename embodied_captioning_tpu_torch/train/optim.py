@@ -23,7 +23,10 @@ ADAM_B2 = 0.999
 
 
 def tree_leaves(tree: Any) -> List[torch.Tensor]:
-    """Leaves in JAX's order: dict keys sorted, lists in order."""
+    """Leaves in JAX's order: dict keys sorted, lists in order; None is an
+    empty subtree, as in JAX."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
@@ -36,6 +39,8 @@ def tree_unflatten(tree: Any, leaves: Sequence) -> Any:
     it = iter(leaves)
 
     def build(node):
+        if node is None:
+            return None
         if isinstance(node, dict):
             out = {k: build(node[k]) for k in sorted(node)}
             return {k: out[k] for k in node}
@@ -47,6 +52,8 @@ def tree_unflatten(tree: Any, leaves: Sequence) -> Any:
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
@@ -54,6 +61,23 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
         return [tree_map(fn, v, *(r[i] for r in rest))
                 for i, v in enumerate(tree)]
     return fn(tree, *rest)
+
+
+def value_and_grad(fn: Callable[[Any], Any], params: Any):
+    """`jax.value_and_grad(fn, has_aux=True)(params)` on a tree of tensors:
+    fn(params) -> (loss, aux); returns (loss, aux, gradients as a tree like
+    `params`), detached. A leaf the loss does not reach gets zeros."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss, aux = fn(tree_unflatten(params, leaves))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    if isinstance(aux, dict):
+        aux = {k: v.detach() for k, v in aux.items()}
+    else:
+        aux = tuple(a.detach() for a in aux)
+    return loss.detach(), aux, tree_unflatten(params, grads)
 
 
 class AdamState(NamedTuple):
@@ -96,3 +120,39 @@ def adam_update(params: Any, opt: AdamState, grads: Any, lr: float,
         return p + u * step
 
     return tree_map(update, params, mu, nu), AdamState(count, mu, nu)
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0
+                                 ) -> Callable[[int], float]:
+    """optax's `warmup_cosine_decay_schedule` (exponent 1), computed as it
+    computes it, in float32: a linear ramp from `init_value` to
+    `peak_value` over `warmup_steps`, then a cosine from `peak_value` to
+    `end_value` at `decay_steps` (counted from 0, warmup included), held
+    there after. Maps the optimizer's count before the update (0 for the
+    first step, as optax's schedule reads it) to the step size."""
+    f32 = np.float32
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cos_steps = decay_steps - warmup_steps
+    if cos_steps <= 0:
+        raise ValueError("the cosine part needs decay_steps > warmup_steps")
+
+    def linear(count: int) -> np.float32:
+        if warmup_steps <= 0:
+            return f32(init_value)
+        c = min(max(count, 0), warmup_steps)
+        frac = f32(1) - f32(c) / f32(warmup_steps)
+        return f32(init_value - peak_value) * frac + f32(peak_value)
+
+    def cosine(count: int) -> np.float32:
+        c = f32(min(count, cos_steps))
+        decay = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * c / f32(cos_steps)))
+        return f32(peak_value) * (f32(1 - alpha) * decay + f32(alpha))
+
+    def schedule(count: int) -> float:
+        value = (linear(count) if count < warmup_steps
+                 else cosine(count - warmup_steps))
+        return float(value)
+
+    return schedule

@@ -73,9 +73,26 @@ def jax_train_path():
     jax.clear_caches()
 
 
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """torch's intra-op threads set to `n` inside, restored on exit. The
+    tier-1 run puts six test workers on the machine's cores: small torch
+    ops on all of them spin at each parallel region's barrier for the
+    threads other workers hold (a detector training test took 86 s on 8
+    threads beside a loaded CPU, 5.5 s on 2)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
 def leaf_names(tree, path: str = "") -> list:
     """Dotted names of a parameter tree's leaves in `tree_leaves` order
-    (dict keys sorted, lists in order)."""
+    (dict keys sorted, lists in order; None is no leaf)."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [n for k in sorted(tree)
                 for n in leaf_names(tree[k], f"{path}.{k}" if path else k)]
@@ -516,6 +533,43 @@ def probe_preprocess_rounding(outs=tuple(range(40, 300, 3)) + (64, 128, 224),
     return rows
 
 
+def probe_template_cosines(port_seeds=(0, 1, 2, 3)) -> list:
+    """The captioner self-check's bar reads the mean cosine of a
+    sentence encoder's embeddings of the predicted and the reference
+    captions, "a {colour} {class}", with random seeded weights. Per
+    encoder (the JAX package's SentenceEncoder.create(0), jax.random, and
+    the port's create(seed), a torch.Generator), the mean cosine of two
+    different template captions, of two of one class, and of two of
+    different classes: what a wrong caption scores."""
+    from embodied_captioning_tpu.config import SentenceEncoderConfig as JC
+    from embodied_captioning_tpu.models.sbert import SentenceEncoder as JSE
+    from embodied_captioning_tpu_torch.config import SentenceEncoderConfig
+    from embodied_captioning_tpu_torch.models.sbert import SentenceEncoder
+
+    caps = [f"a {c} {k}" for c in ("brown", "green", "blue", "white",
+                                   "black")
+            for k in ("couch", "plant", "bed", "table", "toilet", "tv")]
+    cls = [c.split()[2] for c in caps]
+
+    def row(name, e):
+        s = np.asarray(e, np.float64) @ np.asarray(e, np.float64).T
+        n = len(caps)
+        pairs = [(i, j) for i in range(n) for j in range(n) if i != j]
+        return dict(encoder=name,
+                    different=round(float(np.mean([s[i, j]
+                                                   for i, j in pairs])), 4),
+                    same_class=round(float(np.mean([
+                        s[i, j] for i, j in pairs if cls[i] == cls[j]])), 4),
+                    other_class=round(float(np.mean([
+                        s[i, j] for i, j in pairs if cls[i] != cls[j]])), 4))
+
+    rows = [row("jax create(0)", JSE.create(0, JC.tiny()).encode(caps))]
+    for seed in port_seeds:
+        rows.append(row(f"port create({seed})", SentenceEncoder.create(
+            seed, SentenceEncoderConfig.tiny(), "cpu").encode(caps)))
+    return rows
+
+
 if __name__ == "__main__":
     import sys
     from pathlib import Path
@@ -544,6 +598,9 @@ if __name__ == "__main__":
             print(row)
         print({k: sum(r["xla"] == k for r in rows)
                for k in ("separate", "fma", "mixed")})
+    elif what == "template-cosines":
+        for row in probe_template_cosines():
+            print(row)
     elif what == "generate-scan":
         rows = probe_generate_scan()
         for row in rows:
@@ -553,4 +610,4 @@ if __name__ == "__main__":
     else:
         sys.exit("usage: python tests/torch_parity.py render | rollout-scan "
                  "| rollout-scan-blocks | beam | generate-scan | grad-chaos "
-                 "| preprocess-diff | preprocess-rounding")
+                 "| preprocess-diff | preprocess-rounding | template-cosines")
