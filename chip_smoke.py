@@ -2,8 +2,10 @@
 """Run the PyTorch/CUDA port's perception path, fused exploration loop,
 caption-generation modes, exploration entry point (`generate`), PPO
 training entry point (`train`), captioner fine-tune
-(`finetune_captioner`) and learning self-checks (`selfcheck_training`,
-`selfcheck_detector`) on one NVIDIA GPU.
+(`finetune_captioner`), learning self-checks (`selfcheck_training`,
+`selfcheck_detector`), pseudo-labeler (`run_pseudolabeler`),
+pseudo-captioner (`pseudocaption`) and teacher-student detector pipeline
+(`train_detector`) on one NVIDIA GPU.
 
 Phases, each of which must pass:
   1. build the hand-written Hopper kernels from the sources in the checkout;
@@ -155,7 +157,31 @@ Phases, each of which must pass:
      free-running greedy decoding of the held-out crops through the
      kernels and through their plain versions, float and int8: equal
      tokens on at least 90% of rows, every sublayer on a fused kernel, and
-     speculative decoding beside greedy.
+     speculative decoding beside greedy;
+ 12. drive pseudo-labeling, pseudo-captioning and the teacher-student
+     pipeline: (a) on the card against the CPU: `raytrace_pseudo_labels`
+     on a map the CPU integrates (masks, slots, classes, validity equal);
+     the flip merge of `forward_tta` on the same passes and `forward_mc`
+     on handed keep masks at the tiny preset, and both on the committed
+     detector artifact's trained weights over rendered frames (the share
+     of detections matched, boxes and scores); two
+     `TeacherStudent.training_step`s per head (ce, focal) at the tiny
+     preset: the first loss and its parts within limits from the CPU's
+     spread, and what each update did (elements moved alike, the decay
+     applied, Adam's moments and count, the parameters within 2 lr a
+     step), with a decay of 0.01 shown to be caught; (b) at full width
+     on phase 8's store (the serving configuration of phase 3): one timed `predict` over
+     LABEL_FRAMES frames with the kernels' launches, every consensus of
+     `CONSENSUS_REGISTRY` through its labeler class (the semantic-map
+     labelers' integrate and raytrace timed apart), the re-captioning of
+     the raytraced instances, and `run_pseudolabeler` as a subprocess;
+     (c) `pseudocaption` with sbert and tfidf through the entry point and
+     `_clip_consensus` on crops from the store; (d) `train_detector` at
+     the large preset (default pipeline, soft consensus, focal head) for
+     one round on SUBSET_ENVS envs of the store: labeling time, ms a
+     step, peak memory; then one round each of the online, gt and swa
+     pipelines at the tiny preset on a store written on the card; (e)
+     `selfcheck_detector --tta` on a short run at the tiny preset.
 
 Float32 products and convolutions run without TF32 so the comparisons see
 the kernels' own error. Prints the card's name and power limit, frames/s
@@ -1665,14 +1691,14 @@ def teacher_forced(cp, crops, ccfg, K) -> dict:
                 img_cos=img_cos.min().item())
 
 
-def full_width_setup(dev) -> dict:
-    """The serving configuration, its weights, the FRAMES seeded scenes
-    (seeds 100.., as bench.py's loop mode) with their spawned agents, and
-    BATCHES + 1 batches of frames rendered along the "explore" plan."""
+def serving_perception(dev) -> tuple:
+    """The serving configuration (bench.py's loop mode: the large preset,
+    SLOTS caption slots a frame, FRAMES envs) and its weights: the
+    committed detector artifact, a random captioner and sentence encoder
+    from a generator seeded 0, int8. Returns (cfg, params, the artifact's
+    detector config)."""
     from embodied_captioning_tpu_torch.config import (
         ExperimentConfig, apply_dotlist, merge)
-    from embodied_captioning_tpu_torch.envs import device_loop as DL
-    from embodied_captioning_tpu_torch.envs.sim import RaycastSim
     from embodied_captioning_tpu_torch.models.captioner import init_captioner
     from embodied_captioning_tpu_torch.models.quantize import quantize_params
     from embodied_captioning_tpu_torch.models.sbert import (
@@ -1694,6 +1720,17 @@ def full_width_setup(dev) -> dict:
         captioner=quantize_params(init_captioner(g, cfg.captioner, dev)),
         sbert=quantize_params(init_sentence_encoder(g, cfg.sentence_encoder,
                                                     dev)))
+    return cfg, params, det_cfg
+
+
+def full_width_setup(dev) -> dict:
+    """The serving configuration, its weights, the FRAMES seeded scenes
+    (seeds 100.., as bench.py's loop mode) with their spawned agents, and
+    BATCHES + 1 batches of frames rendered along the "explore" plan."""
+    from embodied_captioning_tpu_torch.envs import device_loop as DL
+    from embodied_captioning_tpu_torch.envs.sim import RaycastSim
+
+    cfg, params, det_cfg = serving_perception(dev)
     sims = [RaycastSim(cfg.sim, cfg.sensors, seed=100 + i, device=dev)
             for i in range(FRAMES)]
     scenes, state = DL.states_from_sims(sims)
@@ -3633,6 +3670,733 @@ def free_running_on_trained_weights(K, cap: dict, dev, smi: str) -> None:
                              f"{bad}")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: pseudo-labeling, pseudo-captioning, the teacher-student pipeline
+# ---------------------------------------------------------------------------
+
+LABEL_PRESET = "large"         # 12b-d: the entry points' preset
+LABEL_FRAMES = 32              # 12b: frames of phase 8's store labelled
+LABEL_BATCH = 8                # run_pseudolabeler's default batch
+SUBSET_ENVS = 4                # 12b's subprocess, 12d: env dirs of the store
+CLIP_OBJECTS = 16              # 12c: objects scored by _clip_consensus
+TS_LR = 1e-4                   # TeacherStudent's default step size
+# 12a: (moved alike at least, |decay estimate| at most, moments at most)
+# after the first and the second TeacherStudent step, card against CPU.
+# Read on an H100 (PERF.md, PR 14): after one step 0.9918-0.9925 moved
+# alike, decay within 1.1e-4, moments 1.14e-2-1.39e-2; after two
+# 0.983-0.987, moments 4.0e-2-6.2e-2; a decay of 0.01 moved alike 0.557.
+# test_torch_pipelines.py holds the CPU to the JAX package at (0.99, 2e-3,
+# 0.02) and (0.95, -, 0.35); a reset state counts 1
+TS_UPDATE = ((0.97, 2e-3, 0.05), (0.95, None, 0.35))
+TTA_STEPS = 100                # 12e: training steps of the short run
+MC_SAMPLES = 3                 # 12a: forward_mc's stochastic passes
+# 12a: the MC statistics' limit, test_torch_pseudolabel.py's against the
+# JAX package (bf16 box-head outputs an ulp apart, doubled by dropout)
+MC_ATOL = 3e-3
+TRAINED_FRAMES = 16            # 12a: frames for the trained detector
+# 12a: the trained detector card against CPU on these frames, read on an
+# H100 (PERF.md, PR 14): `forward` matched 45 of 48 detections (a score
+# of 0.502 at the 0.5 threshold), boxes within 5 px (the detector's boxes
+# are bf16, ROADMAP C.6: one ulp is a pixel at 128-255), scores within
+# 5.3e-3; `forward_tta` matched 47 of 51 (0.92), 3 boxes 5-11 px off and
+# 2 scores 0.07 off (the merge kept the other pass's copy of an object).
+# The shares are gated: matched, and of those within TTA_BOX_PX and
+# TTA_SCORE_ATOL
+TTA_AGREE, TTA_CLOSE = 0.85, 0.85
+TTA_BOX_PX, TTA_SCORE_ATOL = 2.0, 5e-3
+# `forward_mc`: 936 of 2048 proposals at the same index (0.457: trained
+# objectness reorders near-equal proposals), mean and std within 9.9e-3
+# and 1.4e-2 there (sharp trained logits: a bf16 ulp of a logit near 10
+# is 0.06)
+MC_TRAINED_ROWS, MC_TRAINED_ATOL = 0.3, 0.03
+
+
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _tiny_map_frames(cfg, n: int, seed: int):
+    """Depth, pose and ground-truth detections of the port's simulator on
+    the CPU along a short walk, with seeded logits and embeddings."""
+    from embodied_captioning_tpu_torch.envs.sim import RaycastSim
+
+    sim = RaycastSim(cfg.sim, cfg.sensors, seed=seed, device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for a in (2, 2, 1, 3, 2, 1, 2, 3)[:n]:
+        sim.step(a)
+        obs = sim.observe()
+        det = sim.gt_detections(obs, max_instances=12)
+        m = det.valid.shape[0]
+        out.append(dict(
+            depth=obs["depth"],
+            pose=torch.from_numpy(sim.agent.camera_matrix()).float(),
+            masks=det.masks.float(), classes=det.classes,
+            logits=torch.randn(m, cfg.map.num_classes, generator=g),
+            embeddings=torch.randn(m, cfg.map.embed_dim, generator=g),
+            valid=det.valid))
+    return out, sim.bounds()[0]
+
+
+def raytrace_card_vs_cpu(dev) -> str:
+    """12a: `raytrace_pseudo_labels` on a map the CPU integrates from six
+    frames, the same map on the card: masks, slots, classes and validity
+    equal; logits within 1e-5 relative (exp and log on the card)."""
+    import dataclasses
+
+    from embodied_captioning_tpu_torch.config import load_config
+    from embodied_captioning_tpu_torch.mapping import voxel_map as V
+
+    cfg = load_config("tiny", overrides=["sensors.height=64",
+                                         "sensors.width=64"])
+    bad, n_valid, worst = [], 0, 0.0
+    for solution in ("max", "bayesian"):
+        mcfg = dataclasses.replace(cfg.map, grid=(64, 16, 64),
+                                   voxel_size=0.2, max_views_per_object=3,
+                                   solution=solution)
+        cfg = dataclasses.replace(cfg, map=mcfg)
+        frames, lower = _tiny_map_frames(cfg, 6, 15)
+        st = V.create(mcfg, lower, device="cpu")
+        for f in frames:
+            V.integrate_frame(st, f["depth"], f["pose"], f["masks"],
+                              f["classes"], f["logits"], f["embeddings"],
+                              f["valid"], mcfg,
+                              hfov_deg=cfg.sensors.hfov_deg)
+        card = to_device(st, dev)
+        for f in frames:
+            kw = dict(hfov_deg=cfg.sensors.hfov_deg, max_objects_out=12,
+                      min_pixels=20)
+            want = V.raytrace_pseudo_labels(st, f["depth"], f["pose"], mcfg,
+                                            **kw)
+            got = V.raytrace_pseudo_labels(card, f["depth"].to(dev),
+                                           f["pose"].to(dev), mcfg, **kw)
+            for name, a, b in zip(("masks", "slots", "classes", "logits",
+                                   "valid"), got, want):
+                a = a.cpu()
+                if name == "logits":
+                    err = ((a - b).abs() / b.abs().clamp(min=1e-6)).max()
+                    worst = max(worst, err.item())
+                    if not err.item() <= 1e-5:
+                        bad.append((solution, name, err.item()))
+                elif not torch.equal(a, b):
+                    bad.append((solution, name))
+            n_valid += int(want[4].sum())
+    if bad or n_valid == 0:
+        raise AssertionError(f"raytrace card vs CPU: {bad[:6]} ({n_valid} "
+                             f"valid objects)")
+    return (f"raytrace: masks, slots, classes, validity equal on "
+            f"{n_valid} objects of 12 frames (max, bayesian), logits "
+            f"{worst:.2e} relative")
+
+
+def trained_frames(n: int, dev) -> torch.Tensor:
+    """n frames at the detector artifact's 256^2 input, rendered by the
+    port's simulator on `dev` in the large preset's scenes (seeds 100..,
+    as bench.py's loop mode), each after two steps of a walk."""
+    from embodied_captioning_tpu_torch.config import (
+        ExperimentConfig, apply_dotlist)
+    from embodied_captioning_tpu_torch.envs.sim import RaycastSim
+
+    cfg = apply_dotlist(ExperimentConfig.preset_config("large"),
+                        ["sensors.height=256", "sensors.width=256"])
+    out = []
+    for i in range(n):
+        sim = RaycastSim(cfg.sim, cfg.sensors, seed=100 + i, device=dev)
+        for a in (2, 1):
+            sim.step(a)
+        out.append(torch.as_tensor(sim.observe()["rgb"], device=dev))
+    return torch.stack(out)
+
+
+def mc_card_vs_cpu(p, pc, imgs, x, cfg, min_rows: float, atol: float,
+                   what: str) -> str:
+    """`forward_mc` with the same handed keep masks on the card (`pc`, `x`)
+    and on the CPU (`p`, `imgs`): the proposals equal, index by index, on
+    at least `min_rows` of the valid ones, and the MC mean and std there
+    within `atol` (the masks are indexed by proposal, so a proposal that
+    moved to another index draws other masks)."""
+    from embodied_captioning_tpu_torch.models import detector as DET
+
+    keep = torch.rand((MC_SAMPLES, imgs.shape[0], cfg.num_proposals, 1024),
+                      generator=torch.Generator().manual_seed(2)) < 0.5
+    ref = DET.forward_mc(p, imgs, cfg, MC_SAMPLES, dropout_keep=keep)
+    mc = [t.cpu() for t in DET.forward_mc(pc, x, cfg, MC_SAMPLES,
+                                          dropout_keep=keep.to(x.device))]
+    rows = ref[1] & mc[1] & (ref[0] == mc[0]).all(-1)
+    errs = [(mc[i] - ref[i]).abs()[rows].max().item() if rows.any() else
+            math.inf for i in (2, 3)]
+    n, valid = int(rows.sum()), int(ref[1].sum())
+    if not (n >= min_rows * valid and valid > 0 and max(errs) <= atol):
+        raise AssertionError(f"forward_mc card vs CPU ({what}): {errs} on "
+                             f"{n} of {valid} valid proposals")
+    return (f"forward_mc ({what}, {MC_SAMPLES} passes, handed masks): {n} of "
+            f"{valid} valid proposals equal (limit {min_rows}), mean "
+            f"{errs[0]:.2e}, std {errs[1]:.2e} (limit {atol})")
+
+
+def detector_variants_card_vs_cpu(dev) -> str:
+    """12a: the detector's inference variants on the card against the CPU.
+    At the tiny preset with random weights: the flip merge on the same
+    passes (the card's two `forward` passes merged on the card by
+    `forward_tta` and on the CPU by `merge_flipped`: equal; a random
+    detector's own passes part ways at bf16 near-ties, ROADMAP C.7) and
+    `forward_mc`. On the committed artifact's trained weights (int8,
+    256^2) and TRAINED_FRAMES rendered frames: `forward_tta`'s detections
+    matched slot by slot (valid on both sides, the same class) on at least
+    TTA_AGREE of those valid on either, and at least TTA_CLOSE of the
+    matched ones within TTA_BOX_PX and TTA_SCORE_ATOL; `forward_mc`."""
+    import dataclasses
+
+    from embodied_captioning_tpu_torch.config import DetectorConfig
+    from embodied_captioning_tpu_torch.models import detector as DET
+    from embodied_captioning_tpu_torch.params import load_detector_artifact
+
+    cfg = dataclasses.replace(DetectorConfig.tiny(), score_threshold=0.01)
+    # seed 4: 23 valid proposals and 16 merged detections on these frames
+    # (seeds 0-11 give 0-23; random weights rarely propose boxes wider than
+    # a pixel)
+    p = DET.init_detector(torch.Generator().manual_seed(4), cfg, "cpu")
+    pd = to_device(p, dev)
+    imgs = synthetic_frames(2, cfg.image_size, 11, "cpu")
+    x = imgs.to(dev)
+    passes = [DET.forward(pd, x, cfg),
+              DET.forward(pd, torch.flip(x, dims=[2]), cfg)]
+    got = DET.forward_tta(pd, x, cfg).to("cpu")
+    want = DET.merge_flipped(*(d.to("cpu") for d in passes), cfg)
+    diff = [f for f in ("boxes", "classes", "scores", "logits", "valid",
+                        "masks") if not torch.equal(getattr(got, f),
+                                                    getattr(want, f))]
+    if diff or int(want.valid.sum()) == 0:
+        raise AssertionError(f"forward_tta card vs CPU merge: {diff}, "
+                             f"{int(want.valid.sum())} valid")
+    lines = [f"forward_tta (tiny, random weights): the card's merge of its "
+             f"two passes equals the CPU's on every field "
+             f"({int(want.valid.sum())} detections)",
+             mc_card_vs_cpu(p, pd, imgs, x, cfg, 0.5, MC_ATOL,
+                            "tiny, random weights")]
+
+    path = REPO / "embodied_captioning_tpu/models/data/det_serving_256.pkl"
+    p, dcfg = load_detector_artifact(str(path), "cpu")
+    tcfg = DetectorConfig(**dcfg)
+    pc = to_device(p, dev)
+    x = trained_frames(TRAINED_FRAMES, dev)
+    imgs = x.cpu()
+    for fn in (DET.forward, DET.forward_tta):
+        card = fn(pc, x, tcfg).to("cpu")
+        ref = fn(p, imgs, tcfg)
+        either = int((card.valid | ref.valid).sum())
+        both = card.valid & ref.valid & (card.classes == ref.classes)
+        box = (card.boxes.float() - ref.boxes.float()).abs().amax(-1)[both]
+        score = (card.scores.float() - ref.scores.float()).abs()[both]
+        close = int(((box <= TTA_BOX_PX) & (score <= TTA_SCORE_ATOL)).sum())
+        matched = int(both.sum())
+        agree = matched / max(either, 1)
+        lines.append(
+            f"{fn.__name__} (trained artifact, {TRAINED_FRAMES} frames): "
+            f"{matched} of {either} detections matched ({agree:.3f}), "
+            f"{close} of them within {TTA_BOX_PX} px and {TTA_SCORE_ATOL} "
+            f"in score (the farthest {box.max().item():.2f} px, "
+            f"{score.max().item():.2e})" if matched else "no match")
+    # gated: the TTA (the plain pass above for comparison)
+    if not (agree >= TTA_AGREE and close >= TTA_CLOSE * matched > 0):
+        raise AssertionError(f"forward_tta card vs CPU: {lines[-1]} "
+                             f"(limits {TTA_AGREE}, {TTA_CLOSE})")
+    lines.append(mc_card_vs_cpu(p, pc, imgs, x, tcfg, MC_TRAINED_ROWS,
+                                MC_TRAINED_ATOL, "trained artifact"))
+    return "; ".join(lines)
+
+
+def labelled_batch(n: int = 2, size: int = 48, seed: int = 0) -> dict:
+    """The JAX package's pipeline tests' synthetic labelled batch."""
+    from embodied_captioning_tpu_torch.config import NUM_CLASSES
+
+    rng = np.random.default_rng(seed)
+    return {
+        "image": (rng.random((n, size, size, 3)) * 255).astype(np.uint8),
+        "boxes": np.tile(np.array([[4, 4, 20, 20], [26, 26, 44, 44],
+                                   [0, 0, 0, 0], [0, 0, 0, 0]], np.float32),
+                         (n, 1, 1)),
+        "classes": np.tile(np.array([1, 3, 0, 0], np.int32), (n, 1)),
+        "logits": np.tile(np.eye(NUM_CLASSES, dtype=np.float32)[[1, 3, 0, 0]],
+                          (n, 1, 1)),
+        "valid": np.tile(np.array([True, True, False, False]), (n, 1)),
+        "object_ids": np.tile(np.array([5, 6, -1, -1]), (n, 1)),
+        "episode": np.zeros(n, np.int64),
+        "step": np.arange(n),
+    }
+
+
+def teacher_student_card_vs_cpu(dev) -> str:
+    """12a: two `TeacherStudent.training_step`s per head (ce, focal) at the
+    tiny preset on the card and on the CPU, same student and batches: the
+    first step's loss and its parts within the larger of 1e-4 of their
+    value and 3x their CPU spread (DET_SPREAD_DRAWS moves of the weights
+    by 1e-4 of themselves, as 11a); after each step, what the update did
+    (`train/optim.update_gaps`, `relative_gap`): the share of elements
+    moved alike, the decay applied beyond the CPU's and Adam's moments
+    within TS_UPDATE's limits, the step counts equal, and every parameter
+    within 2 lr a step."""
+    from embodied_captioning_tpu_torch.config import load_config
+    from embodied_captioning_tpu_torch.models.detector import init_detector
+    from embodied_captioning_tpu_torch.train.optim import (
+        relative_gap, tree_leaves, tree_map, update_gaps)
+    from embodied_captioning_tpu_torch.train import pipelines as TP
+    from embodied_captioning_tpu_torch.train.pipelines import TeacherStudent
+
+    cfg = load_config("tiny")
+    student = init_detector(torch.Generator().manual_seed(0), cfg.detector,
+                            "cpu")
+    before = [x.numpy() for x in tree_leaves(student)]
+    batches = [labelled_batch(), labelled_batch(seed=1)]
+
+    def steps(params, where, head, n=2):
+        ts = TeacherStudent(cfg, consensus="vanilla", head=head,
+                            student_params=to_device(params, where),
+                            device=where)
+        out = []
+        for batch in batches[:n]:
+            parts = ts.training_step(batch)
+            st = ts.opt_state
+            out.append((parts, st.count, *([x.cpu().numpy() for x in
+                                            tree_leaves(t)] for t in
+                                           (ts.student, st.mu, st.nu))))
+        return out
+
+    def update_faults(card, ref):
+        """(what each step did, the steps past TS_UPDATE's limits)."""
+        read, bad = [], []
+        for i, ((_, c, p, mu, nu), (_, rc, rp, rmu, rnu)) in enumerate(
+                zip(card, ref)):
+            agree_lim, decay_lim, mom_lim = TS_UPDATE[i]
+            gaps = update_gaps(before, p, rp, TS_LR)
+            mom = max(relative_gap(mu, rmu), relative_gap(nu, rnu))
+            ratio = max(np.abs(a - b).max() / (2 * (i + 1) * TS_LR + 1e-7)
+                        for a, b in zip(p, rp))
+            read.append(f"step {i + 1}: moved alike {gaps['agree']:.5f}, "
+                        f"decay {gaps['decay']:+.2e}, moments {mom:.2e}, "
+                        f"parameters {ratio:.4f} of {2 * (i + 1)} lr")
+            if not (c == rc == i + 1 and gaps["agree"] >= agree_lim
+                    and (decay_lim is None
+                         or abs(gaps["decay"]) <= decay_lim)
+                    and mom <= mom_lim and ratio <= 1.0):
+                bad.append((i + 1, c, rc, gaps, mom, ratio))
+        return read, bad
+
+    lines, bad = [], []
+    for head in ("ce", "focal"):
+        ref = steps(student, "cpu", head)
+        want = ref[0][0]
+        spread = {k: 0.0 for k in want}
+        for seed in range(1, DET_SPREAD_DRAWS + 1):
+            gen = torch.Generator().manual_seed(seed)
+            moved = tree_map(lambda x: x * (1 + 1e-4 * torch.randn(
+                x.shape, generator=gen)), student)
+            pm = steps(moved, "cpu", head, n=1)[0][0]
+            spread = {k: max(v, abs(pm[k] - want[k]))
+                      for k, v in spread.items()}
+        card = steps(student, dev, head)
+        got = card[0][0]
+        worst = {}
+        for k in want:
+            lim = max(1e-4 * abs(want[k]), 3 * spread[k])
+            worst[k] = abs(got[k] - want[k]) / max(lim, 1e-30)
+            if not worst[k] <= 1.0:
+                bad.append((head, k, got[k], want[k], lim))
+        read, faults = update_faults(card, ref)
+        bad += [(head, f) for f in faults]
+        k = max(worst, key=worst.get)
+        lines.append(f"{head}: loss card {got['loss']:.5f} CPU "
+                     f"{want['loss']:.5f}, worst part {k} {worst[k]:.3f} of "
+                     f"its limit; " + "; ".join(read))
+    # the same checks catch the captioner's decay (0.01) on the card
+    # (`ref`: the CPU's focal steps)
+    wd, TP.WEIGHT_DECAY = TP.WEIGHT_DECAY, 0.01
+    try:
+        _, caught = update_faults(steps(student, dev, "focal"), ref)
+    finally:
+        TP.WEIGHT_DECAY = wd
+    if bad or not caught:
+        raise AssertionError(f"TeacherStudent card vs CPU: {bad}; a decay "
+                             f"of 0.01 caught: {caught}")
+    return ("TeacherStudent.training_step: " + "; ".join(lines)
+            + f"; a decay of 0.01 on the card caught by {caught[0]}")
+
+
+def labeling_card_vs_cpu(dev, smi: str) -> None:
+    """12a, at the tiny preset: the raytrace, the detector's inference
+    variants and the teacher-student step on the card against the CPU."""
+    for line in (raytrace_card_vs_cpu(dev), detector_variants_card_vs_cpu(dev),
+                 teacher_student_card_vs_cpu(dev)):
+        log(f"  {line} ({smi})")
+
+
+def subset_store(store: str, root: str, envs: int) -> str:
+    """A store of the first `envs` env directories of `store` (its files
+    linked, since the store's loader does not follow linked
+    directories)."""
+    out = os.path.join(root, f"subset_{envs}")
+    if os.path.exists(out):
+        return out
+    for name in sorted(os.listdir(store))[:envs]:
+        os.makedirs(os.path.join(out, name), exist_ok=True)
+        for f in os.listdir(os.path.join(store, name)):
+            os.symlink(os.path.join(store, name, f),
+                       os.path.join(out, name, f))
+    return out
+
+
+def _label_copies(preds: list) -> list:
+    """The predictions with their own class and logit arrays (the host
+    consensus stages relabel in place)."""
+    import dataclasses
+
+    return [dataclasses.replace(p, classes=p.classes.copy(),
+                                logits=p.logits.copy()) for p in preds]
+
+
+def pseudolabel_full_width(store: str, tmp: str, dev, smi: str) -> dict:
+    """12b: the labelers at full width on phase 8's store (the serving
+    configuration of phase 3: the detector artifact, 1280^2 frames, 16
+    detections a frame): one timed `predict` over LABEL_FRAMES frames (the
+    semantic-map captioner's, which keeps the captions too) with the
+    kernels' launches, then every consensus of CONSENSUS_REGISTRY through
+    its labeler class on copies of those predictions (the semantic-map
+    labelers' integrate and raytrace timed apart), the re-captioning of
+    the raytraced instances, and `run_pseudolabeler` as a subprocess on
+    SUBSET_ENVS envs of the store."""
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch.labeling.datasets import (
+        EpisodeDetectionDataset)
+    from embodied_captioning_tpu_torch.labeling.pseudolabeler import (
+        CONSENSUS_REGISTRY)
+    from embodied_captioning_tpu_torch.perception import Perceiver
+
+    cfg, params, _ = serving_perception(dev)
+    per = Perceiver(cfg, params=params, device=dev)
+    ds = EpisodeDetectionDataset(store, label_modality="bbs",
+                                 with_depth_pose=True)
+    total = len(ds)
+    ds.index = ds.index[:LABEL_FRAMES]
+    cap = CONSENSUS_REGISTRY["semantic_map_captioner"](cfg, perceiver=per)
+    cap.predict(_one_batch(ds), LABEL_BATCH)   # warm-up
+    process, perceive_s = per.process, []
+
+    def timed_process(images):
+        sync(dev)
+        t = time.perf_counter()
+        out = process(images)
+        sync(dev)
+        perceive_s.append(time.perf_counter() - t)
+        return out
+
+    per.process = timed_process
+    sync(dev)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    preds = cap.predict(ds, LABEL_BATCH)
+    sync(dev)
+    predict_s = time.perf_counter() - t0
+    per.process = process
+    counts = dict(K.launches)
+    n_det = int(sum(p.valid.sum() for p in preds))
+    log(f"  predict (the semantic-map captioner's) over {len(preds)} of "
+        f"{total} frames at {cfg.sensors.height}^2, batch {LABEL_BATCH}, on "
+        f"{smi}: {predict_s:.2f} s, {predict_s / len(preds) * 1e3:.1f} ms a "
+        f"frame, of which `perceive` {sum(perceive_s) / len(preds) * 1e3:.1f}"
+        f" (the rest: the store's loads, the host copies and id matching, "
+        f"the captions' decoding); {n_det} detections, {len(cap.captions)} "
+        f"objects with captions; launches "
+        f"{({k: v for k, v in counts.items() if v})}")
+    labeling_kernels = ("fused_preprocess", "flash_attention", "layernorm",
+                        "decode_self_block", "decode_cross_block",
+                        "decode_mlp")
+    on_card = torch.device(dev).type == "cuda"
+    if len(preds) != LABEL_FRAMES or on_card and any(
+            counts[k] <= 0 for k in labeling_kernels):
+        raise AssertionError(f"predict: {len(preds)} frames, {counts}")
+    rows = {}
+    for name, cls in CONSENSUS_REGISTRY.items():
+        labeler = cls(cfg, perceiver=per)
+        spans = {}
+        if hasattr(labeler, "accumulate"):
+            accumulate = labeler.accumulate
+
+            def timed(ps, accumulate=accumulate, spans=spans):
+                t = time.perf_counter()
+                accumulate(ps)
+                sync(dev)
+                spans["integrate"] = time.perf_counter() - t
+
+            labeler.accumulate = timed
+        copies = _label_copies(preds)
+        sync(dev)
+        t0 = time.perf_counter()
+        out = labeler.get_pseudo_labels(copies)
+        sync(dev)
+        dt = time.perf_counter() - t0
+        inst = int(sum(p.valid.sum() for p in out))
+        ok = len(out) == len(preds) and all(
+            np.isfinite(p.logits).all() and p.boxes.shape[-1] == 4
+            and (p.object_ids[p.valid] >= 0).all() for p in out)
+        row = dict(frames=len(out), instances=inst, seconds=dt,
+                   ms_per_frame=dt / len(out) * 1e3)
+        if spans:
+            row["integrate_ms_per_frame"] = spans["integrate"] / len(out) * 1e3
+            row["raytrace_ms_per_frame"] = (dt - spans["integrate"]) / len(
+                out) * 1e3
+        if name == "semantic_map_captioner":
+            t0 = time.perf_counter()
+            caps = labeler.recaption(out)
+            sync(dev)
+            row["recaption_s"] = time.perf_counter() - t0
+            row["recaptioned"] = len(caps)
+            ok = ok and len(caps) == len({(p.episode, int(i)) for p in out
+                                          for i in p.object_ids[p.valid]})
+            ok = ok and all(isinstance(c, str) for c in caps.values())
+        if name == "vanilla":
+            paths = labeler.save_pseudo_labels(out, os.path.join(tmp, "pl"))
+            ok = ok and len(paths) == len(out)
+        rows[name] = row
+        log(f"  consensus {name}: {inst} instances over {len(out)} frames, "
+            f"{dt:.3f} s ({row['ms_per_frame']:.1f} ms a frame)"
+            + (f"; integrate {row['integrate_ms_per_frame']:.1f} ms a frame,"
+               f" raytrace {row['raytrace_ms_per_frame']:.1f}"
+               if spans else "")
+            + (f"; recaption {row['recaptioned']} instances in "
+               f"{row['recaption_s']:.2f} s" if "recaption_s" in row else ""))
+        if not ok:
+            raise AssertionError(f"consensus {name} failed: {row}")
+    sub = subset_store(store, tmp, SUBSET_ENVS)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "embodied_captioning_tpu_torch."
+         "run_pseudolabeler", sub, "--out", os.path.join(tmp, "pl_cli"),
+         "--preset", LABEL_PRESET, "--consensus", "semantic_map", "--device",
+         str(dev)],
+        cwd=str(REPO), capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    log(f"  run_pseudolabeler (subprocess, {LABEL_PRESET} preset, "
+        f"{SUBSET_ENVS} envs of the store) in {cli_s:.1f} s, rc "
+        f"{proc.returncode}: "
+        + (lines[-1] if lines else proc.stderr[-2000:]))
+    line = json.loads(lines[-1]) if proc.returncode == 0 else {}
+    if proc.returncode != 0 or set(line) != {"frames", "instances", "files",
+                                             "out"} or line["files"] != \
+            line["frames"] or line["frames"] <= 0:
+        raise AssertionError(f"run_pseudolabeler failed: "
+                             f"{proc.stderr[-3000:]}")
+    return dict(counts=counts, predict_s=predict_s, frames=len(preds),
+                rows=rows, cli=line, cli_s=cli_s, per=per, cfg=cfg)
+
+
+def _one_batch(ds):
+    """A dataset of the first LABEL_BATCH frames of `ds` (a warm-up)."""
+    import copy
+
+    first = copy.copy(ds)
+    first.index = ds.index[:LABEL_BATCH]
+    return first
+
+
+def pseudocaption_full_width(store: str, tmp: str, lab: dict, dev,
+                             smi: str) -> dict:
+    """12c: `pseudocaption` at the large preset on phase 8's store, sbert
+    and tfidf through the entry point; then `_clip_consensus` (the
+    captioner's contrastive heads, `captioner.forward`) called directly on
+    crops of the CLIP_OBJECTS objects with the most captions (the entry
+    point hands no crops), each crop its first view's box expanded by 0.2,
+    on the card."""
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch import pseudocaption as PC
+    from embodied_captioning_tpu_torch.labeling.pseudocaptioner import (
+        PseudoCaptioner, filter_banned, group_captions, records_from_store)
+    from embodied_captioning_tpu_torch.ops.detections import expand_boxes
+    from embodied_captioning_tpu_torch.ops.image import crop_and_resize
+    from embodied_captioning_tpu_torch.utils.obs_store import SampleLoader
+
+    out = {}
+    for method in ("sbert", "tfidf"):
+        t0 = time.perf_counter()
+        rc, line = run_entry(PC.main, [store, "--method", method, "--out",
+                                       os.path.join(tmp, f"pc_{method}.json"),
+                                       "--preset", LABEL_PRESET, "--device",
+                                       str(dev)])
+        dt = time.perf_counter() - t0
+        log(f"  pseudocaption --method {method} ({LABEL_PRESET} preset) on "
+            f"{smi}: "
+            f"{line} in {dt:.2f} s, {line.get('objects', 0) / dt:.1f} "
+            f"objects/s")
+        if rc != 0 or set(line) != {"objects", "method", "out"}:
+            raise AssertionError(f"pseudocaption {method} failed: {line}")
+        out[method] = dict(line=line, seconds=dt)
+    records = records_from_store(store)
+    groups = {k: filter_banned(v) for k, v in group_captions(records).items()}
+    # the objects with the most captions first
+    keys = sorted((k for k in groups if groups[k]),
+                  key=lambda k: (-len(groups[k]), k))[:CLIP_OBJECTS]
+    loader = SampleLoader(store)
+    crops = {}
+    size = lab["cfg"].captioner.vision.image_size
+    for key in keys:
+        ep, oid = key
+        step = next(r["step"] for r in records
+                    if (r["episode"], r["object_id"]) == key)
+        cam = loader.camera_of(ep, "bbs")
+        bbs = loader.get_sample(ep, cam, "bbs", step).data
+        slot = int(np.nonzero(np.asarray(bbs["object_ids"]) == oid)[0][0])
+        rgb = loader.get_sample(ep, loader.camera_of(ep, "rgb"), "rgb",
+                                step).data
+        box = torch.tensor(np.asarray(bbs["boxes"], np.float32)[slot:slot + 1],
+                           device=dev)
+        h, w = rgb.shape[:2]
+        crops[key] = crop_and_resize(
+            torch.as_tensor(rgb, device=dev).float(),
+            expand_boxes(box, 0.2, h, w), size)[0].to(torch.uint8
+                                                     ).cpu().numpy()
+    pc = PseudoCaptioner(lab["cfg"], perceiver=lab["per"], method="clip",
+                         device=dev)
+    sync(dev)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    chosen = {k: pc._clip_consensus(groups[k], crops[k]) for k in keys}
+    sync(dev)
+    dt = time.perf_counter() - t0
+    counts = {k: v for k, v in K.launches.items() if v}
+    log(f"  _clip_consensus on {len(keys)} objects' crops ({size}^2, "
+        f"{sum(len(groups[k]) for k in keys)} captions) on {smi}: "
+        f"{dt:.2f} s, {len(keys) / max(dt, 1e-9):.1f} objects/s; launches "
+        f"{counts}")
+    if not keys or not all(chosen[k] in groups[k] for k in keys):
+        raise AssertionError(f"clip consensus: {chosen}")
+    out["clip"] = dict(objects=len(keys), seconds=dt, counts=counts)
+    return out
+
+
+def train_detector_full_width(store: str, tmp: str, dev, smi: str) -> dict:
+    """12d: `train_detector --preset large --pipeline default --consensus
+    soft --head focal`, one round on SUBSET_ENVS envs of phase 8's store:
+    the labeling time, ms per training step, peak memory, the JSON line;
+    then one round each of `online`, `gt` and `swa` at the tiny preset on a
+    store the port's `generate` writes on the card (with `bbsgt` labels
+    written beside it: each frame's labels, boxes moved by a quarter
+    pixel)."""
+    from embodied_captioning_tpu_torch import train_detector as TDR
+    from embodied_captioning_tpu_torch.train import pipelines as PL
+
+    collect, step = PL.Pipeline.collect_pseudolabeled_dataset, \
+        PL.TeacherStudent.training_step
+    spans = {"label": [], "step": []}
+
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            sync(dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync(dev)
+            spans[key].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    sub = subset_store(store, tmp, SUBSET_ENVS)
+    PL.Pipeline.collect_pseudolabeled_dataset = timed(collect, "label")
+    PL.TeacherStudent.training_step = timed(step, "step")
+    try:
+        on_card = torch.device(dev).type == "cuda"
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc, line = run_entry(TDR.main, [
+            "--obs-dir", sub, "--preset", LABEL_PRESET, "--pipeline",
+            "default",
+            "--consensus", "soft", "--head", "focal", "--save",
+            os.path.join(tmp, "pipeline.pkl"), "--device", str(dev)])
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        large = dict(line=line, seconds=dt, label_s=sum(spans["label"]),
+                     step_ms=[s * 1e3 for s in spans["step"]],
+                     peak_bytes=peak)
+    finally:
+        PL.Pipeline.collect_pseudolabeled_dataset = collect
+        PL.TeacherStudent.training_step = step
+    steps = large["step_ms"]
+    log(f"  train_detector ({LABEL_PRESET} preset, default pipeline, soft "
+        f"consensus, focal head, {SUBSET_ENVS} envs of the store) on {smi}: "
+        f"{dt:.1f} s; labeling {large['label_s']:.2f} s; {len(steps)} steps, "
+        f"ms a step: first {steps[0] if steps else 0:.1f}, median of the "
+        f"rest {float(np.median(steps[1:])) if len(steps) > 1 else 0:.1f}; "
+        f"peak {peak / 2**30:.2f} GiB; {line}")
+    if rc != 0 or line.get("train_steps", 0) < 1 or not all(
+            math.isfinite(v) for v in (line.get("last") or {"x": math.nan}
+                                       ).values()):
+        raise AssertionError(f"train_detector large failed: {line}")
+    tiny = tiny_store(os.path.join(tmp, "tiny_obs"), dev)
+    others = {}
+    for pipeline in ("online", "gt", "swa"):
+        rc, line = run_entry(TDR.main, ["--obs-dir", tiny, "--pipeline",
+                                        pipeline, "--device", str(dev)]
+                             + TINY_STORE)
+        log(f"  train_detector --pipeline {pipeline} (tiny) on {smi}: {line}")
+        if rc != 0 or line.get("train_steps", 0) < 1:
+            raise AssertionError(f"train_detector {pipeline} failed: {line}")
+        others[pipeline] = line
+    return dict(large=large, others=others)
+
+
+# the tiny store's settings: 64^2 frames, detector threshold 0 so that the
+# random-weight detector yields labels. A copy of tests/torch_parity.py's
+# STORE_OVERRIDES (that module imports the JAX package, which this script
+# must not): keep the two alike
+TINY_STORE = ["runtime.num_envs=2", "sensors.height=64", "sensors.width=64",
+              "sim.num_objects=6", "sim.scene_size=8.0", "map.voxel_size=0.2",
+              "detector.score_threshold=0.0"]
+
+
+def tiny_store(path: str, dev) -> str:
+    """4 steps of `randombaseline`'s generate (2 envs, TINY_STORE) at
+    `path`, with `bbsgt` labels beside the `bbs` ones."""
+    import glob
+
+    from embodied_captioning_tpu_torch.agents import get_trainer
+    from embodied_captioning_tpu_torch.config import load_config
+
+    cfg = load_config("tiny", overrides=TINY_STORE + [
+        f"runtime.obs_dir={path}"])
+    tr = get_trainer("randombaseline")(cfg, device=dev)
+    tr.generate(4)
+    tr.envs.close()
+    for f in glob.glob(os.path.join(path, "*", "*modality_bbs_id_*.npz")):
+        d = np.load(f, allow_pickle=True)["arr_0"].item()
+        inst = dict(d["instances"])
+        inst["boxes"] = np.asarray(inst["boxes"], np.float32) + 0.25
+        np.savez_compressed(
+            f.replace("modality_bbs_id_", "modality_bbsgt_id_"),
+            np.array({"instances": inst}, dtype=object))
+    return path
+
+
+def selfcheck_detector_tta(dev, smi: str) -> dict:
+    """12e: `selfcheck_detector --tta` at the tiny preset on a short run
+    (TTA_STEPS steps, 2 episodes, phase 11d's seed 0): map50_after_tta
+    beside map50_after."""
+    from embodied_captioning_tpu_torch import selfcheck_detector as SD
+
+    t0 = time.perf_counter()
+    rc, line = run_entry(SD.main, ["--steps", str(TTA_STEPS), "--episodes",
+                                   "2", "--tta", "--device", str(dev)])
+    dt = time.perf_counter() - t0
+    log(f"  selfcheck_detector --tta (tiny, {TTA_STEPS} steps, 2 episodes) "
+        f"on {smi}: {dt:.1f} s; map50_after {line.get('map50_after')}, "
+        f"map50_after_tta {line.get('map50_after_tta')}, "
+        f"map50_after_ema_tta {line.get('map50_after_ema_tta')}")
+    tta = line.get("map50_after_tta")
+    if rc != 0 or not isinstance(tta, float) or not 0.0 <= tta <= 1.0 or \
+            "map50_after_ema_tta" not in line:
+        raise AssertionError(f"selfcheck_detector --tta failed: {line}")
+    return line
+
+
 def card_name() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -3757,15 +4521,30 @@ def main() -> int:
             finetune_card_vs_cpu(dev)
             ft = finetune_full_width(dev, smi)
             finetune_entry_point(store, ft["shapes"])
-        log("[11] the learning self-checks (selfcheck_training, "
-            "selfcheck_detector)")
-        detector_card_vs_cpu(dev, smi)
-        for preset in ("large", "base"):
-            detector_step_full_width(dev, smi, preset)
-        with tempfile.TemporaryDirectory(prefix="ecap_selfcheck_") as tmp:
-            cap = captioner_selfcheck(dev, smi, tmp)
-            det = detector_selfcheck(smi)
-            free_running_on_trained_weights(K, cap, dev, smi)
+            log("[11] the learning self-checks (selfcheck_training, "
+                "selfcheck_detector)")
+            detector_card_vs_cpu(dev, smi)
+            for preset in ("large", "base"):
+                detector_step_full_width(dev, smi, preset)
+            with tempfile.TemporaryDirectory(prefix="ecap_selfcheck_") as tmp:
+                cap = captioner_selfcheck(dev, smi, tmp)
+                det = detector_selfcheck(smi)
+                free_running_on_trained_weights(K, cap, dev, smi)
+            cap.pop("state")
+            torch.cuda.empty_cache()
+            log("[12] pseudo-labeling, pseudo-captioning and the "
+                "teacher-student pipeline (run_pseudolabeler, pseudocaption, "
+                "train_detector)")
+            t12 = time.perf_counter()
+            labeling_card_vs_cpu(dev, smi)
+            with tempfile.TemporaryDirectory(prefix="ecap_label_") as tmp:
+                lab = pseudolabel_full_width(store, tmp, dev, smi)
+                pseudocaption_full_width(store, tmp, lab, dev, smi)
+                del lab["per"]
+                torch.cuda.empty_cache()
+                train_detector_full_width(store, tmp, dev, smi)
+            selfcheck_detector_tta(dev, smi)
+            log(f"  phase 12 in {time.perf_counter() - t12:.1f} s")
     except Exception:
         traceback.print_exc()
         return 1
@@ -3780,7 +4559,8 @@ def main() -> int:
     # fused); launches_finetune: over phase 10's FT_STEPS timed large-preset
     # train steps with remat off; launches_learning: over phase 11's two
     # self-checks at the tiny preset (11c and 11d), collection, training
-    # and evaluation
+    # and evaluation; launches_labeling: over phase 12b's timed `predict`
+    # (LABEL_FRAMES frames of phase 8's store)
     kernels = []
     for n, r in rows.items():
         if loop["counts"][n] > 0:
@@ -3796,7 +4576,8 @@ def main() -> int:
             launches_train=(train["unfused"]["counts"][n]
                             + train["fused"]["counts"][n]),
             launches_finetune=ft["plain"]["counts"][n],
-            launches_learning=cap["counts"][n] + det["counts"][n], **r))
+            launches_learning=cap["counts"][n] + det["counts"][n],
+            launches_labeling=lab["counts"][n], **r))
     if any(k["launches"] <= 0 for k in kernels):
         print(f"chip_smoke: a kernel was never launched: {kernels}",
               file=sys.stderr)

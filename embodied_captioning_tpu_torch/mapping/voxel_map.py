@@ -359,3 +359,48 @@ def kl_score(state: VoxelMapState, depth: torch.Tensor, pose: torch.Tensor,
     kl = (p * (torch.log(torch.clamp(p, min=1e-12)) - logq)).sum(dim=-1)
     kl = torch.where(hit.flatten(1).any(dim=1), kl, 0.0)
     return torch.where(pred_valid.bool(), kl, 0.0)
+
+
+@torch.no_grad()
+def raytrace_pseudo_labels(state: VoxelMapState, depth: torch.Tensor,
+                           pose: torch.Tensor, cfg: MapConfig,
+                           hfov_deg: float = 79.0, max_objects_out: int = 16,
+                           min_pixels: int = 100):
+    """Re-render the map's objects into a camera, for one env: each pixel's
+    owning object by exact voxel lookup of the back-projected depth.
+
+    Returns (masks [O, H, W] bool, object slots [O] int32, classes [O]
+    int32, logits [O, C], valid [O]) of the `max_objects_out` objects with
+    the most visible pixels (at least `min_pixels`), ties to the lower
+    slot; each object's logits resolved from its ring buffer of view
+    logits with the map's consensus strategy."""
+    points, dvalid = backproject_depth(depth, pose, hfov_deg)
+    flat_idx, inb = world_to_voxel(points, state.lower, cfg)
+    ok = dvalid & inb
+    vox_obj = torch.where(state.count > 0, state.vox_obj, -1)
+    pix_obj = torch.where(ok, vox_obj[flat_idx], -1)            # [H, W]
+
+    M = state.obj_active.shape[0]
+    flat = pix_obj.reshape(-1)
+    counts = torch.bincount(torch.where(flat < 0, M, flat).long(),
+                            minlength=M + 1)[:M].to(torch.int32)
+    eligible = state.obj_active & (counts >= min_pixels)
+    counts_m = torch.where(eligible, counts, -1)
+    top = torch.argsort(-counts_m, stable=True)[:max_objects_out]
+    valid = eligible[top]
+
+    masks = (pix_obj[None] == top[:, None, None]) & valid[:, None, None]
+    classes = torch.where(valid, state.obj_class[top], -1)
+
+    K = state.obj_logits.shape[1]
+    rows = state.obj_logits[top]                                # [O, K, C]
+    rcnt = torch.clamp(state.obj_logit_cnt[top], max=K)
+    row_valid = (torch.arange(K, device=rows.device)[None, :]
+                 < rcnt[:, None])[..., None]
+    stats = VoxelStats(
+        col_max=torch.where(row_valid, rows, -torch.inf).amax(dim=1),
+        col_sum=torch.where(row_valid, rows, 0.0).sum(dim=1),
+        col_exp=torch.where(row_valid, torch.exp(rows), 0.0).sum(dim=1),
+        count=rcnt)
+    _, logits = resolve(stats, cfg.solution)
+    return masks, top.to(torch.int32), classes, logits, valid

@@ -470,6 +470,86 @@ def full_masks(det: Detections, size: int, src_size: int = 0
     return paste_masks(det.masks, det.boxes * scale, size, size)
 
 
+def flip_detections(det: Detections, size: float) -> Detections:
+    """Mirror the detections of a horizontally flipped image back into the
+    original image: x -> size - x (the ends swapped; in the boxes' dtype);
+    ROI mask crops live in box-local coordinates, so they mirror along
+    their own x axis. Classes, scores and logits carry no geometry."""
+    b = det.boxes
+    flipped = torch.stack([size - b[..., 2], b[..., 1],
+                           size - b[..., 0], b[..., 3]], dim=-1)
+    flipped = flipped * det.valid[..., None]
+    masks = (torch.flip(det.masks, dims=[-1]) if det.masks is not None
+             else None)
+    return det.replace(boxes=flipped, masks=masks)
+
+
+@torch.no_grad()
+def forward_tta(params: dict, images: torch.Tensor, cfg: DetectorConfig,
+                with_masks: bool = True) -> Detections:
+    """Horizontal-flip test-time augmentation: `forward` on the frames and
+    on their mirror, merged by `merge_flipped`."""
+    det_a = forward(params, images, cfg, with_masks=with_masks)
+    det_b = forward(params, torch.flip(images, dims=[2]), cfg,
+                    with_masks=with_masks)
+    return merge_flipped(det_a, det_b, cfg)
+
+
+def merge_flipped(det_a: Detections, det_b: Detections,
+                  cfg: DetectorConfig) -> Detections:
+    """The detections of the frames (`det_a`) and of their mirror
+    (`det_b`): the second mirrored back, the union (2N slots a frame)
+    merged by one more round of per-class NMS; every field of a slot NMS
+    drops is zeroed."""
+    det_b = flip_detections(det_b, float(cfg.image_size))
+    fields = ("boxes", "classes", "scores", "logits", "valid", "masks")
+    cat = {f: torch.cat([getattr(det_a, f), getattr(det_b, f)], dim=1)
+           for f in fields}
+    idx, keep = class_aware_nms_topk(cat["boxes"], cat["scores"],
+                                     cat["classes"], cfg.nms_iou_threshold,
+                                     cfg.max_detections, cat["valid"])
+    out = {f: _gather_rows(v, idx) for f, v in cat.items()}
+    return Detections(
+        boxes=out["boxes"] * keep[..., None],
+        classes=out["classes"] * keep,
+        scores=out["scores"] * keep,
+        logits=out["logits"] * keep[..., None],
+        valid=keep,
+        masks=out["masks"] * keep[..., None, None])
+
+
+@torch.no_grad()
+def forward_mc(params: dict, images: torch.Tensor, cfg: DetectorConfig,
+               samples: int = 5, dropout_rate: float = 0.5,
+               generator: Optional[torch.Generator] = None,
+               dropout_keep: Optional[torch.Tensor] = None):
+    """MC-dropout inference: `samples` stochastic passes of the box head
+    over shared proposals, dropping units of its first layer. Returns
+    (proposals [B, P, 4], their validity [B, P], mean class
+    probabilities [B, P, C+1], their population standard deviation).
+    The masks are drawn from `generator`, or handed in as `dropout_keep`
+    (bool [samples, B, P, 1024]): jax.random and torch never draw the
+    same numbers."""
+    if cfg.family != "rcnn":
+        raise ValueError("forward_mc supports the rcnn family only")
+    images = images.float() / 255.0
+    fpn = backbone_fpn(params, images, cfg)
+    obj, deltas = _rpn_head(params, fpn)
+    anchors = all_anchors(cfg.image_size, cfg.fpn_strides, images.device)
+    props, pvalid = _propose(obj, deltas, anchors, cfg)
+    probs = []
+    for s in range(samples):
+        keep = (dropout_keep[s] if dropout_keep is not None
+                else torch.rand((*props.shape[:2], 1024),
+                                generator=generator, device=images.device)
+                < 1 - dropout_rate)
+        _, cls_logits, _ = _box_head(params, fpn[0], props, cfg,
+                                     dropout_rate, keep)
+        probs.append(torch.softmax(cls_logits.float(), dim=-1))
+    probs = torch.stack(probs)                    # [S, B, P, C+1]
+    return props, pvalid, probs.mean(dim=0), probs.std(dim=0, correction=0)
+
+
 # ---------------------------------------------------------------------------
 # training losses
 # ---------------------------------------------------------------------------

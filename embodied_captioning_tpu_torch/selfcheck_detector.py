@@ -12,23 +12,24 @@ and zoom-cropped with numpy draws, the JAX script's) or with
 `--device-train` on a corpus kept on the device and augmented there
 (`ops/augment`, drawn from a `torch.Generator`), with an optional EMA of
 the weights. It reports mAP@50 on unseen scenes before and after, on
-training frames, and the mask IoU of matched detections; `--calibrate`
-adds the frozen-affine artifact and its folded int8 serving form, `--save`
-writes the artifact as numpy trees in the JAX package's layout. Weights
+training frames, and the mask IoU of matched detections; `--tta` adds
+the unseen-scene mAP of the horizontal-flip merge (`forward_tta`);
+`--calibrate` adds the frozen-affine artifact and its folded int8 serving
+form (with `--tta`, also its merge), `--save` writes the artifact as numpy trees in the JAX package's
+layout. Weights
 start from a seeded `torch.Generator` (numbers differ from jax.random);
 the walks and batch order are numpy draws, the same in both packages.
 
 Flags of the JAX script whose modules are not ported exit with code 2:
-`--tta` (ROADMAP A.14), `--eval-wide`, `--eval-wide-cache`,
-`--eval-serving`, `--ckpt`, `--affine-finetune`, `--pack-masks`
-(ROADMAP A.15).
+`--eval-wide`, `--eval-wide-cache`, `--eval-serving`, `--ckpt`,
+`--affine-finetune`, `--pack-masks` (ROADMAP A.15).
 
 Usage:
   python -m embodied_captioning_tpu_torch.selfcheck_detector \\
       [--preset tiny] [--steps 300] [--episodes 6] [--head ce] \\
       [--device-train [--augment [--augment-crop]] [--ema D] \\
-       [--scan-steps K]] [--calibrate] [--save art.pkl] [--device cpu] \\
-      [key.path=value ...]
+       [--scan-steps K]] [--tta] [--calibrate] [--save art.pkl] \\
+      [--device cpu] [key.path=value ...]
 """
 
 from __future__ import annotations
@@ -297,16 +298,18 @@ def train(params: dict, frames: Sequence[Frame], dcfg, steps: int,
 
 
 def eval_map(params: dict, frames: Sequence[Frame], cfg_, batch: int,
-             device) -> float:
-    """mAP@50 of `forward` (no masks) over whole batches of `frames`."""
-    from .models.detector import forward
+             device, tta: bool = False) -> float:
+    """mAP@50 of `forward` (no masks) over whole batches of `frames`; of
+    `forward_tta` (the horizontal-flip merge) with `tta`."""
+    from .models.detector import forward, forward_tta
     from .utils.metrics import evaluate_detections
 
     preds, gts = [], []
     for i in range(0, len(frames) - batch + 1, batch):
         images, gt = batch_of(frames, range(i, i + batch), cfg_.image_size,
                               device)
-        det = forward(params, images, cfg_, with_masks=False)
+        det = (forward_tta if tta else forward)(params, images, cfg_,
+                                               with_masks=False)
         for b in range(images.shape[0]):
             preds.append(det.index(b))
             gts.append(gt.index(b))
@@ -360,8 +363,7 @@ def eval_mask_iou(params: dict, frames: Sequence[Frame], dcfg, batch: int,
 
 
 # flags of the JAX script that need modules not ported yet
-UNPORTED = (("tta", "--tta needs detector.forward_tta", "A.14"),
-            ("eval_wide", "--eval-wide (the wide eval corpus)", "A.15"),
+UNPORTED = (("eval_wide", "--eval-wide (the wide eval corpus)", "A.15"),
             ("eval_wide_cache", "--eval-wide-cache (the wide eval corpus)",
              "A.15"),
             ("eval_serving", "--eval-serving (the approximate top-k serving "
@@ -509,6 +511,11 @@ def main(argv=None) -> int:
     with_ema = args.device_train and args.ema > 0
     map_ema = (eval_map(ema_params, test_frames, eval_cfg, args.batch, dev)
                if with_ema else None)
+    map_tta = (eval_map(params, test_frames, eval_cfg, args.batch, dev,
+                        tta=True) if args.tta else None)
+    map_ema_tta = (eval_map(ema_params, test_frames, eval_cfg, args.batch,
+                            dev, tta=True)
+                   if args.tta and map_ema is not None else None)
     # serve the better of the raw and EMA weights on this corpus
     best_p = (ema_params if (map_ema is not None and map_ema >= map_after)
               else params)
@@ -529,6 +536,10 @@ def main(argv=None) -> int:
                                  min_size=64)
         serving["map50_served_int8"] = round(
             eval_map(served, test_frames, served_cfg, args.batch, dev), 4)
+        if args.tta:
+            serving["map50_served_int8_tta"] = round(
+                eval_map(served, test_frames, served_cfg, args.batch, dev,
+                         tta=True), 4)
     if args.save:
         art = {
             "params": to_numpy(params),
@@ -554,7 +565,10 @@ def main(argv=None) -> int:
         "seed": args.seed,
         "map50_after_ema": (round(map_ema, 4) if map_ema is not None
                             else None),
-        "map50_after_tta": None, "map50_after_ema_tta": None,
+        "map50_after_tta": (round(map_tta, 4) if map_tta is not None
+                            else None),
+        "map50_after_ema_tta": (round(map_ema_tta, 4)
+                                if map_ema_tta is not None else None),
         "eval_sha": (corpus_checksum(test_frames)
                      if args.split == "scenes" else None),
         "frames": len(train_frames), "steps": args.steps,

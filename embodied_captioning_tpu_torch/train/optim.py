@@ -3,17 +3,20 @@ their global norm, then Adam or AdamW.
 
 The arithmetic is the JAX package's optax chains written out on the tree,
 `optax.chain(clip_by_global_norm(max_norm), adam(lr, eps=eps))` (PPO) and
-`optax.chain(clip_by_global_norm(max_norm), adamw(lr,
-weight_decay=wd))` (the captioner's fine-tune): the global norm over the
-leaves in sorted-key order, `(t / norm) * max_norm` only where the norm
-reaches `max_norm`, Adam's bias-corrected moments with `eps` outside the
-square root, AdamW's decay `wd * p` added to the step on every leaf, the
-step scaled by -lr.
+`optax.chain(clip_by_global_norm(max_norm), adamw(lr, weight_decay=wd))`
+(the captioner's fine-tune at 0.01; the teacher-student detector at
+optax's default 1e-4): the global norm over the leaves in sorted-key
+order, `(t / norm) * max_norm` only where the norm reaches `max_norm`,
+Adam's bias-corrected moments with `eps` outside the square root, AdamW's
+decay `wd * p` added to the step on every leaf, the step scaled by -lr.
+optax's warmup-cosine and piecewise-constant schedules come with it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple, Sequence
+from typing import (
+    Any, Callable, Dict, List, NamedTuple, Optional, Sequence,
+)
 
 import numpy as np
 import torch
@@ -156,3 +159,64 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
         return float(value)
 
     return schedule
+
+
+def piecewise_constant_schedule(init_value: float,
+                                boundaries_and_scales: Optional[
+                                    Dict[int, float]] = None
+                                ) -> Callable[[int], float]:
+    """optax's `piecewise_constant_schedule`, computed as it computes it,
+    in float32: `init_value` times every scale whose boundary step the
+    count has reached (a scale applies from its boundary on)."""
+    if boundaries_and_scales is not None and any(
+            s < 0.0 for s in boundaries_and_scales.values()):
+        raise ValueError("piecewise_constant_schedule expects non-negative "
+                         "scale factors")
+    bounds = sorted((boundaries_and_scales or {}).items())
+
+    def schedule(count: int) -> float:
+        if not bounds:
+            return init_value
+        v = np.float32(init_value)
+        for threshold, scale in bounds:
+            if count >= threshold:
+                v = np.float32(scale) * v
+        return float(v)
+
+    return schedule
+
+
+def update_gaps(before: Sequence[np.ndarray], got: Sequence[np.ndarray],
+                want: Sequence[np.ndarray], lr: float) -> Dict[str, float]:
+    """How two runs of the same Adam(W) steps from the leaves `before` part
+    (numpy leaves, in one order): `agree`, the share of the elements that
+    either run moved which both moved the same way; `decay`, the weight
+    decay that `got` applied beyond `want`'s, estimated over the elements
+    moved alike. An Adam move is about lr times the sign of its gradient
+    whatever the gradient's size, so two moves alike differ by the decays'
+    lr * wd * p: the estimate is -sum(r p) / (lr sum(p^2)), r the moves'
+    difference."""
+    moved = same = 0
+    num = den = 0.0
+    for p, a, b in zip(before, got, want):
+        da, db = a - p, b - p
+        nz = (da != 0) | (db != 0)
+        alike = nz & (np.sign(da) == np.sign(db))
+        moved += int(nz.sum())
+        same += int(alike.sum())
+        r = (da - db)[alike].astype(np.float64)
+        q = p[alike].astype(np.float64)
+        num += float((r * q).sum())
+        den += float((q * q).sum())
+    return {"agree": same / max(moved, 1),
+            "decay": -num / (lr * den) if den else 0.0}
+
+
+def relative_gap(got: Sequence[np.ndarray], want: Sequence[np.ndarray]
+                 ) -> float:
+    """|got - want| / |want| over all the leaves together (the Frobenius
+    norm of the concatenation)."""
+    num = sum(float(np.sum((a.astype(np.float64) - b) ** 2))
+              for a, b in zip(got, want))
+    den = sum(float(np.sum(b.astype(np.float64) ** 2)) for b in want)
+    return (num / den) ** 0.5 if den else float(num > 0)

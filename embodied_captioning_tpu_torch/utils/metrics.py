@@ -11,15 +11,16 @@ numpy, so the two give equal floats on equal inputs).
 - COCO-style detection AP (101-point interpolation) over padded
   `Detections`.
 
-One difference: `evaluate_detections` widens bf16 boxes to float32
-before scoring, where the JAX package's numpy computes a bf16 box's area
-in bf16 (ROADMAP C.25).
+bf16 boxes are scored as the JAX package's numpy (ml_dtypes) scores
+them: `evaluate_detections` widens them to float32 (exactly) and notes
+that they were bf16, and `_iou_matrix` rounds each coordinate difference
+of two bf16 operands to bf16, where numpy's dtypes stay bf16.
 """
 
 from __future__ import annotations
 
 from collections import Counter
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -178,12 +179,29 @@ def mean_pairwise_cosine(embeddings: np.ndarray) -> float:
 # detection AP
 # ---------------------------------------------------------------------------
 
-def _iou_matrix(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    area_a = np.maximum(a[:, 2] - a[:, 0], 0) * np.maximum(a[:, 3] - a[:, 1], 0)
-    area_b = np.maximum(b[:, 2] - b[:, 0], 0) * np.maximum(b[:, 3] - b[:, 1], 0)
+def _round_bf16(x: np.ndarray) -> np.ndarray:
+    """float32 values rounded to bf16 (to nearest even), as float32."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _iou_matrix(a: np.ndarray, b: np.ndarray, a_bf16: bool = False,
+                b_bf16: bool = False) -> np.ndarray:
+    """IoU of XYXY boxes a [A, 4] and b [B, 4] in the dtypes of the JAX
+    package's numpy where a or b held bf16 values (`a_bf16`, `b_bf16`):
+    the difference of two bf16 operands rounds to bf16 (ml_dtypes, as
+    torch, computes it in float32 and rounds); `np.maximum(bf16, 0)`, and
+    anything with a float32 operand, is float32."""
+    def diff(x, y, bf16):
+        return _round_bf16(x - y) if bf16 else x - y
+
+    area_a = (np.maximum(diff(a[:, 2], a[:, 0], a_bf16), 0)
+              * np.maximum(diff(a[:, 3], a[:, 1], a_bf16), 0))
+    area_b = (np.maximum(diff(b[:, 2], b[:, 0], b_bf16), 0)
+              * np.maximum(diff(b[:, 3], b[:, 1], b_bf16), 0))
     lt = np.maximum(a[:, None, :2], b[None, :, :2])
     rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
-    wh = np.maximum(rb - lt, 0)
+    wh = np.maximum(diff(rb, lt, a_bf16 and b_bf16), 0)
     inter = wh[..., 0] * wh[..., 1]
     union = area_a[:, None] + area_b[None] - inter
     return np.where(union > 0, inter / union, 0.0)
@@ -196,11 +214,13 @@ def average_precision(pred_boxes: List[np.ndarray],
                       gt_classes: List[np.ndarray],
                       num_classes: int,
                       iou_thresholds: Sequence[float] = (0.5,),
+                      pred_bf16: bool = False, gt_bf16: bool = False,
                       ) -> Dict[str, float]:
     """COCO-style AP, 101-point interpolation, averaged over classes and
     IoU thresholds. Returns {"map": ..., "map_per_class": [...]} — parity
     axis with torchmetrics MAP(class_metrics=True)
-    (ref: pipelines.py:372,519-545)."""
+    (ref: pipelines.py:372,519-545). `pred_bf16`, `gt_bf16`: the boxes
+    held bf16 values (see `_iou_matrix`)."""
     aps = np.zeros((len(iou_thresholds), num_classes))
     valid_cls = np.zeros(num_classes, bool)
     for ti, thr in enumerate(iou_thresholds):
@@ -216,7 +236,7 @@ def average_precision(pred_boxes: List[np.ndarray],
                     continue
                 order = np.argsort(-ps[sel_p])
                 boxes_p = pb[sel_p][order]
-                iou = (_iou_matrix(boxes_p, gb[sel_g])
+                iou = (_iou_matrix(boxes_p, gb[sel_g], pred_bf16, gt_bf16)
                        if sel_g.sum() else np.zeros((len(boxes_p), 0)))
                 taken = np.zeros(iou.shape[1], bool)
                 for bi in range(len(boxes_p)):
@@ -256,29 +276,42 @@ def average_precision(pred_boxes: List[np.ndarray],
     }
 
 
-def _host(t) -> np.ndarray:
-    """A tensor (bf16 widened to float32, exactly) or array as numpy."""
+def _host(t) -> Tuple[np.ndarray, bool]:
+    """A tensor or array as numpy (bf16 widened to float32, exactly) and
+    whether it was bf16."""
     if isinstance(t, torch.Tensor):
         t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-    return np.asarray(t)
+        if t.dtype == torch.bfloat16:
+            return t.float().numpy(), True
+        return t.numpy(), False
+    a = np.asarray(t)
+    if a.dtype.name == "bfloat16":
+        return a.astype(np.float32), True
+    return a, False
 
 
 def evaluate_detections(preds, gts, num_classes: int,
                         iou_thresholds=(0.5,)) -> Dict[str, float]:
     """`average_precision` over lists of padded `Detections` (one frame
-    each, tensors on any device)."""
+    each, tensors on any device); bf16 boxes are scored as the JAX
+    package's numpy scores them (see `_iou_matrix`)."""
     def unpack(d):
-        v = _host(d.valid).astype(bool)
-        return _host(d.boxes)[v], _host(d.scores)[v], _host(d.classes)[v]
+        v = _host(d.valid)[0].astype(bool)
+        boxes, bf16 = _host(d.boxes)
+        return (boxes[v], _host(d.scores)[0][v], _host(d.classes)[0][v],
+                bf16)
 
     pb, ps, pc, gb, gc = [], [], [], [], []
+    pred_bf16 = gt_bf16 = False
     for p, g in zip(preds, gts):
-        b, s, c = unpack(p)
+        b, s, c, bf16 = unpack(p)
         pb.append(b)
         ps.append(s)
         pc.append(c)
-        b2, _, c2 = unpack(g)
+        pred_bf16 |= bf16
+        b2, _, c2, bf16 = unpack(g)
         gb.append(b2)
         gc.append(c2)
-    return average_precision(pb, ps, pc, gb, gc, num_classes, iou_thresholds)
+        gt_bf16 |= bf16
+    return average_precision(pb, ps, pc, gb, gc, num_classes, iou_thresholds,
+                             pred_bf16, gt_bf16)

@@ -57,7 +57,10 @@ def test_scan_covers_every_subpackage_and_the_smoke_script():
                 "train/captioner_train.py", "labeling/datasets.py",
                 "finetune_captioner.py", "utils/metrics.py",
                 "ops/augment.py", "selfcheck_training.py",
-                "selfcheck_detector.py"):
+                "selfcheck_detector.py", "labeling/pseudolabeler.py",
+                "labeling/pseudocaptioner.py", "labeling/caption_datasets.py",
+                "train/pipelines.py", "run_pseudolabeler.py",
+                "pseudocaption.py", "train_detector.py"):
         assert pkg + rel in scanned, rel
     assert "chip_smoke.py" in scanned
     # every directory of the package that holds Python files is scanned

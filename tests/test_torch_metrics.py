@@ -147,3 +147,113 @@ def test_evaluate_detections_equals_jax(seed):
     assert got["map"] == want["map"] and got["map"] > 0
     np.testing.assert_array_equal(got["map_per_class"],
                                   want["map_per_class"])
+
+
+# ---------------------------------------------------------------------------
+# bf16 boxes (ROADMAP C.25)
+# ---------------------------------------------------------------------------
+
+def _bf16(x: np.ndarray) -> np.ndarray:
+    return jnp.asarray(x, jnp.bfloat16).__array__()
+
+
+def _flip_mask(p, g) -> np.ndarray:
+    """Pairs (row i of p with row i of g) whose IoU falls on the other side
+    of 0.5 once the bf16 boxes are widened to float32 before scoring."""
+    def diag(a):
+        return np.concatenate([np.diagonal(JM._iou_matrix(a[i:i + 100],
+                                                          g[i:i + 100]))
+                               for i in range(0, len(g), 100)])
+
+    return (diag(p) >= 0.5) != (diag(p.astype(np.float32)) >= 0.5)
+
+
+def _flips(p, g) -> int:
+    return int(_flip_mask(p, g).sum()) if len(g) else 0
+
+
+def _near_half(seed: int, n: int):
+    """n ground-truth boxes (float32) and bf16 predictions that cover about
+    half of each, at coordinates up to 1200 where a bf16 box's width
+    rounds by up to 4 pixels: a third of the pairs (drawn from 200 n
+    candidates) sit where that rounding moves the IoU across 0.5."""
+    rng = np.random.default_rng(seed)
+    m = 200 * n
+    x, y = rng.uniform(0, 900, m), rng.uniform(0, 900, m)
+    w, h = rng.uniform(40, 300, m), rng.uniform(40, 300, m)
+    g = np.stack([x, y, x + w, y + h], 1).astype(np.float32)
+    frac = 0.5 + rng.uniform(-0.004, 0.004, m)
+    p = np.stack([x + rng.uniform(-1, 1, m), y, x + frac * w, y + h], 1)
+    p = _bf16(p.astype(np.float32))
+    flip = _flip_mask(p, g)
+    pick = np.concatenate([np.nonzero(flip)[0][:n // 3],
+                           np.nonzero(~flip)[0]])[:n]
+    pick = rng.permutation(pick)
+    return p[pick], g[pick]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_iou_matrix_bf16_equals_jax(seed):
+    """bf16 against float32, and bf16 against bf16 (the corners' difference
+    rounds too): equal bits, and the cases that flip at 0.5 exist."""
+    p, g = _near_half(seed, 60)
+    assert _flips(p, g) == 20
+    for a, b in ((p, g), (p, _bf16(g)), (g, p)):
+        want = JM._iou_matrix(a, b)
+        got = TM._iou_matrix(a.astype(np.float32), b.astype(np.float32),
+                             a.dtype.name == "bfloat16",
+                             b.dtype.name == "bfloat16")
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_evaluate_detections_bf16_boxes_equals_jax(seed):
+    """C.25: the detector's bf16 boxes against float32 ground truth, IoUs
+    within one bf16 rounding of 0.5: the port's mAP equals the JAX
+    package's exactly, where widening the boxes to float32 first (the
+    port before C.25 was closed) gives another mAP."""
+    frames, per, cap = 12, 5, 8
+    p, g = _near_half(100 + seed, frames * per)
+    rng = np.random.default_rng(seed)
+    cls = rng.integers(0, 3, frames * per).astype(np.int32)
+    scores = rng.permutation(frames * per).astype(np.float32) / (
+        frames * per)
+    jp, jg, tp, tg = [], [], [], []
+    for f in range(frames):
+        sl = slice(f * per, (f + 1) * per)
+        valid = np.zeros(cap, bool)
+        valid[:per] = True
+
+        def pad(x):
+            out = np.zeros((cap,) + x.shape[1:], x.dtype)
+            out[:per] = x
+            return out
+
+        pred = dict(boxes=pad(p[sl]), scores=pad(scores[sl]),
+                    classes=pad(cls[sl]), valid=valid,
+                    logits=np.zeros((cap, 3), np.float32))
+        gt = dict(boxes=pad(g[sl]), scores=valid.astype(np.float32),
+                  classes=pad(cls[sl]), valid=valid,
+                  logits=np.zeros((cap, 3), np.float32))
+        jp.append(JDet(**{k: jnp.asarray(v) for k, v in pred.items()}))
+        jg.append(JDet(**{k: jnp.asarray(v) for k, v in gt.items()}))
+        tpred = {k: torch.from_numpy(np.asarray(v, np.float32)
+                                     if k == "boxes" else v)
+                 for k, v in pred.items()}
+        tpred["boxes"] = tpred["boxes"].to(torch.bfloat16)
+        tp.append(TDet(**tpred))
+        tg.append(TDet(**{k: torch.from_numpy(v) for k, v in gt.items()}))
+    assert np.asarray(jp[0].boxes).dtype.name == "bfloat16"
+    want = JM.evaluate_detections(jp, jg, 3)
+    got = TM.evaluate_detections(tp, tg, 3)
+    assert got["map"] == want["map"]
+    np.testing.assert_array_equal(got["map_per_class"],
+                                  want["map_per_class"])
+    widened = TM.average_precision(
+        [p[f * per:(f + 1) * per].astype(np.float32) for f in range(frames)],
+        [scores[f * per:(f + 1) * per] for f in range(frames)],
+        [cls[f * per:(f + 1) * per] for f in range(frames)],
+        [g[f * per:(f + 1) * per] for f in range(frames)],
+        [cls[f * per:(f + 1) * per] for f in range(frames)], 3)
+    assert _flips(p, g) == 20 and widened["map"] != want["map"]

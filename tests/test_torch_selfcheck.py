@@ -44,6 +44,9 @@ from embodied_captioning_tpu_torch.config import SentenceEncoderConfig as TSeCfg
 from embodied_captioning_tpu_torch.models import captioner as TCap
 from embodied_captioning_tpu_torch.models import detector as TDET
 from embodied_captioning_tpu_torch.models import sbert as TSB
+from embodied_captioning_tpu_torch.ops.detections import (
+    Detections as TDet,
+)
 from embodied_captioning_tpu_torch.params import from_jax, load_pickle
 from embodied_captioning_tpu_torch.train.optim import tree_leaves
 from torch_parity import (
@@ -492,13 +495,13 @@ def test_device_train_with_augmentation_and_ema():
 def det_entry(det_corpus, tmp_path_factory):
     """The JAX script and the port's entry point on the JAX script's cache
     files, 2 steps with host augmentation (the same numpy draws on both
-    sides), calibration and the saved artifact, the detector's weights the
-    JAX package's seeded ones on both sides."""
+    sides), calibration, the flip merge and the saved artifact, the
+    detector's weights the JAX package's seeded ones on both sides."""
     root = det_corpus["root"]
     out = tmp_path_factory.mktemp("det_entry")
     argv = ["--preset", "tiny", "--steps", "2", "--batch", "4",
             "--eval-scenes", "1", "--eval-ep-steps", "8", "--augment",
-            "--augment-crop", "--calibrate",
+            "--augment-crop", "--calibrate", "--tta",
             "--train-cache", str(root / "train.npz"),
             "--eval-cache", str(root / "eval.npz")]
     params = JDET.init_detector(jax.random.PRNGKey(0),
@@ -518,11 +521,95 @@ def test_detector_entry_point_line_matches_jax(det_entry):
     assert det_entry["rc"] == 0 and det_entry["jrc"] is None
     _same_keys_and_types(got, want)
     for k in ("seed", "eval_sha", "frames", "steps", "map50_after_ema",
-              "map50_after_tta", "map50_after_ema_tta"):
+              "map50_after_tta", "map50_after_ema_tta",
+              "map50_served_int8_tta"):
         assert got[k] == want[k], k
     assert {"map50_affine", "map50_served_int8"} <= set(got)
+    assert isinstance(got["map50_after_tta"], float)
     assert abs(got["first_loss"] - want["first_loss"]) <= 2e-3 * abs(
         want["first_loss"]), (got["first_loss"], want["first_loss"])
+
+
+TTA_KEYS = ("map50_after_tta", "map50_after_ema_tta", "map50_served_int8_tta")
+
+
+@pytest.fixture(scope="module")
+def det_tta(det_corpus):
+    """Both scripts with `--device-train --ema 0.5 --tta --calibrate` for one
+    step, `forward_tta` handed the same detections on both sides: each
+    evaluation batch's ground truth at the detector's scale, every corner
+    moved by up to 3 pixels and rounded to bf16 (as the detector's boxes
+    are), a fifth of the classes changed, strays added, seeded scores. The
+    weights of a step from random are at mAP 0, so this holds what the TTA
+    evaluation does with detections: batches, the slot layout, the bf16
+    boxes' IoU (ROADMAP C.25), the three TTA keys."""
+    root = det_corpus["root"]
+    cfg = load_config("tiny").detector
+    frames = det_corpus["eval"]
+    rng = np.random.default_rng(5)
+    handed = []
+    for i in range(0, len(frames) - 4 + 1, 4):
+        gt = SD.batch_of(frames, range(i, i + 4), cfg.image_size, "cpu")[1]
+        boxes = gt.boxes.numpy() + rng.uniform(-3, 3, gt.boxes.shape)
+        valid = gt.valid.numpy()
+        stray = rng.random(valid.shape) < 0.2
+        boxes[stray] = rng.uniform(0, cfg.image_size * 0.6,
+                                   (int(stray.sum()), 4)) + [0, 0, 12, 12]
+        classes = np.where(rng.random(valid.shape) < 0.2,
+                           rng.integers(1, cfg.num_classes, valid.shape),
+                           gt.classes.numpy())
+        handed.append(dict(
+            boxes=boxes.astype(np.float32), classes=classes.astype(np.int32),
+            scores=rng.uniform(0.05, 1, valid.shape).astype(np.float32),
+            logits=np.zeros(valid.shape + (cfg.num_classes,), np.float32),
+            valid=valid | stray))
+
+    def fake(jax_side):
+        calls = [0]
+
+        def forward_tta(params, images, cfg_, with_masks=True):
+            d = handed[calls[0] % len(handed)]
+            calls[0] += 1
+            if jax_side:
+                d = {k: jnp.asarray(v) for k, v in d.items()}
+                return JDet(**dict(d, boxes=d["boxes"].astype(jnp.bfloat16)))
+            d = {k: torch.from_numpy(v) for k, v in d.items()}
+            return TDet(**dict(d, boxes=d["boxes"].to(torch.bfloat16)))
+
+        return forward_tta, calls
+
+    argv = ["--preset", "tiny", "--steps", "1", "--batch", "4",
+            "--eval-scenes", "1", "--eval-ep-steps", "8", "--device-train",
+            "--ema", "0.5", "--tta", "--calibrate",
+            "--train-cache", str(root / "train.npz"),
+            "--eval-cache", str(root / "eval.npz")]
+    params = JDET.init_detector(jax.random.PRNGKey(0),
+                                jload_config("tiny").detector)
+    jfwd, jcalls = fake(True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JDET, "forward_tta", jfwd)
+        jrc, jline = _run_main(det_corpus["mod"].main, argv, True)
+    tfwd, tcalls = fake(False)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TDET, "forward_tta", tfwd)
+        mp.setattr(TDET, "init_detector",
+                   lambda g, cfg, dev: from_jax(params, dev))
+        rc, line = _run_main(SD.main, argv, False)
+    return dict(rc=rc, line=line, jrc=jrc, jline=jline, calls=tcalls[0],
+                jcalls=jcalls[0], batches=len(handed))
+
+
+def test_detector_entry_point_tta_map_equals_jax(det_tta):
+    """The three TTA keys equal the JAX script's and read above 0; each
+    evaluation went through `forward_tta` batch by batch, as many times on
+    both sides."""
+    got, want = det_tta["line"], det_tta["jline"]
+    assert det_tta["rc"] == 0 and det_tta["jrc"] is None
+    _same_keys_and_types(got, want)
+    for k in TTA_KEYS:
+        assert got[k] == want[k] > 0, (k, got[k], want[k])
+    assert det_tta["calls"] == det_tta["jcalls"] == 3 * det_tta["batches"]
+    assert got["map50_after_ema"] == want["map50_after_ema"]
 
 
 def test_detector_artifact_loads_in_both_packages(det_entry):
@@ -545,15 +632,18 @@ def test_detector_artifact_loads_in_both_packages(det_entry):
     assert det.boxes.shape == (1, cfg.max_detections, 4)
 
 
-@pytest.mark.parametrize("flag", [["--tta"], ["--eval-wide", "4"],
+@pytest.mark.parametrize("flag", [["--tta", "--eval-wide", "4"],
+                                  ["--eval-wide", "4"],
                                   ["--eval-serving"], ["--ckpt", "x.pkl"],
                                   ["--affine-finetune", "5"],
                                   ["--pack-masks"],
                                   ["--eval-wide-cache", "w.npz"]])
 def test_unported_flags_exit_2_naming_their_roadmap_item(flag, capsys):
+    """`--tta` is ported (A.14): beside an unported flag, only that flag's
+    item is named."""
     assert SD.main(flag + ["--device", "cpu"]) == 2
     err = capsys.readouterr().err
-    assert "ROADMAP A.14" in err if flag == ["--tta"] else "ROADMAP A.15" in err
+    assert "ROADMAP A.15" in err and "A.14" not in err
 
 
 def test_detector_entry_point_needs_a_card_or_cpu(monkeypatch):

@@ -570,6 +570,133 @@ def probe_template_cosines(port_seeds=(0, 1, 2, 3)) -> list:
     return rows
 
 
+def probe_update_gaps(store: str = "") -> list:
+    """What the teacher-student steps did against the JAX package's
+    (`train/optim.update_gaps`, `relative_gap`; test_torch_pipelines.py's
+    limits come from these rows): two steps of each class and head, on the
+    port as it is and on ports made wrong on purpose (a decay of 0.01, the
+    optimizer's state reset every step, the gradient negated); with a
+    `store` directory (written here when missing) also one `run_round` of
+    each pipeline."""
+    import glob
+    import os
+
+    import test_torch_pipelines as P
+    from embodied_captioning_tpu.config import load_config as jload_config
+    from embodied_captioning_tpu.models import detector as JD
+    from embodied_captioning_tpu.perception import Perceiver as JPer
+    from embodied_captioning_tpu.train import pipelines as JP
+    from embodied_captioning_tpu_torch.config import load_config
+    from embodied_captioning_tpu_torch.models import detector as TD
+    from embodied_captioning_tpu_torch.params import from_jax
+    from embodied_captioning_tpu_torch.train import optim as TO
+    from embodied_captioning_tpu_torch.train import pipelines as TP
+
+    def gaps(before, jts, tts):
+        g = TO.update_gaps(before, P._leaves(tts.student),
+                           P._leaves(jts.student), P.LR)
+        (jc, jmu, jnu), (tc, tmu, tnu) = P._adam_state(jts), P._adam_state(
+            tts)
+        mom = max(TO.relative_gap(tmu, jmu), TO.relative_gap(tnu, jnu))
+        return dict(agree=round(g["agree"], 5),
+                    decay=float(f"{g['decay']:.3e}"),
+                    moments=float(f"{mom:.3e}"), count=(tc, jc))
+
+    faults = {"none": None, "decay_0.01": ("WEIGHT_DECAY", 0.01),
+              "reset_state": ("adam_update", P._reset(TP.adam_update)),
+              "negated_gradient": ("adam_update",
+                                   P._negated(TP.adam_update))}
+    jper = JPer(jload_config("tiny"))
+    rows = []
+    with torch_threads(2):
+        for cls, head in (("TeacherStudent", "ce"),
+                          ("TeacherStudent", "focal"),
+                          ("OnlineTeacherStudent", "ce"),
+                          ("OnlineTeacherStudent", "focal")):
+            for name, fault in faults.items():
+                saved = fault and getattr(TP, fault[0])
+                if fault:
+                    setattr(TP, fault[0], fault[1])
+                try:
+                    jts, tts = P._pair(cls, head, jper)
+                    before = P._leaves(tts.student)
+                    row = dict(cls=cls, head=head, fault=name)
+                    for i, batch in enumerate((P._batch(), P._batch(
+                            rng=np.random.default_rng(1)))):
+                        jts.training_step(batch)
+                        tts.training_step(batch)
+                        row[f"step{i + 1}"] = gaps(before, jts, tts)
+                finally:
+                    if fault:
+                        setattr(TP, fault[0], saved)
+                rows.append(row)
+        if not store:
+            return rows
+        if not os.path.exists(store):
+            jax_store(store)
+            for f in glob.glob(os.path.join(store, "*",
+                                            "*modality_bbs_id_*.npz")):
+                d = np.load(f, allow_pickle=True)["arr_0"].item()
+                inst = dict(d["instances"])
+                inst["boxes"] = np.asarray(inst["boxes"], np.float32) + 0.25
+                np.savez_compressed(
+                    f.replace("modality_bbs_id_3", "modality_bbsgt_id_4"),
+                    np.array({"instances": inst}, dtype=object))
+        for name in ("Pipeline", "OnlinePipeline", "GTPipeline",
+                     "SWAPipeline"):
+            kw = dict(consensus="soft", head="focal")
+            if name == "SWAPipeline":
+                kw["snapshot_every"] = 1
+            jpipe = getattr(JP, name)(jload_config(
+                "tiny", overrides=STORE_OVERRIDES), **kw)
+            jlogs = jpipe.run_round(store)
+            params = jax.tree_util.tree_map(np.asarray, JD.init_detector(
+                jax.random.split(jax.random.PRNGKey(0))[0],
+                jpipe.cfg.detector))
+            real = TD.init_detector
+            TD.init_detector = lambda g, cfg, dev: from_jax(params, dev)
+            try:
+                tpipe = getattr(TP, name)(
+                    load_config("tiny", overrides=STORE_OVERRIDES),
+                    device="cpu", perceiver=P._port_perceiver(
+                        jper, STORE_OVERRIDES), **kw)
+            finally:
+                TD.init_detector = real
+            tlogs = tpipe.run_round(store)
+            rows.append(dict(pipeline=name, steps=len(jlogs), **gaps(
+                P._leaves(params), jpipe.ts, tpipe.ts), loss=[
+                    {k: float(f"{abs(t[k] - j[k]) / max(abs(j[k]), 1e-4):.2e}")
+                     for k in j} for t, j in zip(tlogs, jlogs)]))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# a small store of the JAX package's exploration loop
+# ---------------------------------------------------------------------------
+
+# tiny settings of the labeling tests' stores: 64^2 frames, detector
+# threshold 0 so that the random-weight detector yields detections
+STORE_OVERRIDES = [
+    "runtime.num_envs=2", "sensors.height=64", "sensors.width=64",
+    "sim.num_objects=6", "sim.scene_size=8.0", "map.voxel_size=0.2",
+    "detector.score_threshold=0.0"]
+
+
+def jax_store(root: str, steps: int = 4, overrides=STORE_OVERRIDES):
+    """`steps` steps of the JAX package's `randombaseline` generate (2 envs)
+    written to the npz store at `root`; returns the JAX config."""
+    import embodied_captioning_tpu.agents.baselines  # noqa: F401
+    from embodied_captioning_tpu.agents.registry import get_trainer
+    from embodied_captioning_tpu.config import load_config
+
+    jcfg = load_config("tiny", overrides=list(overrides) + [
+        f"runtime.obs_dir={root}"])
+    tr = get_trainer("randombaseline")(jcfg)
+    tr.generate(steps)
+    tr.envs.close()
+    return jcfg
+
+
 if __name__ == "__main__":
     import sys
     from pathlib import Path
@@ -601,6 +728,10 @@ if __name__ == "__main__":
     elif what == "template-cosines":
         for row in probe_template_cosines():
             print(row)
+    elif what == "update-gaps":
+        for row in probe_update_gaps(sys.argv[2] if len(sys.argv) > 2
+                                     else ""):
+            print(row)
     elif what == "generate-scan":
         rows = probe_generate_scan()
         for row in rows:
@@ -610,4 +741,5 @@ if __name__ == "__main__":
     else:
         sys.exit("usage: python tests/torch_parity.py render | rollout-scan "
                  "| rollout-scan-blocks | beam | generate-scan | grad-chaos "
-                 "| preprocess-diff | preprocess-rounding | template-cosines")
+                 "| preprocess-diff | preprocess-rounding | template-cosines "
+                 "| update-gaps [STORE_DIR]")
