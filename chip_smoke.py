@@ -4,8 +4,9 @@ caption-generation modes, exploration entry point (`generate`), PPO
 training entry point (`train`), captioner fine-tune
 (`finetune_captioner`), learning self-checks (`selfcheck_training`,
 `selfcheck_detector`), pseudo-labeler (`run_pseudolabeler`),
-pseudo-captioner (`pseudocaption`) and teacher-student detector pipeline
-(`train_detector`) on one NVIDIA GPU.
+pseudo-captioner (`pseudocaption`), teacher-student detector pipeline
+(`train_detector`) and the query detector family (with
+`export_serving_artifact`) on one NVIDIA GPU.
 
 Phases, each of which must pass:
   1. build the hand-written Hopper kernels from the sources in the checkout;
@@ -15,7 +16,9 @@ Phases, each of which must pass:
      (torch.profiler over its timing loop), and the least time the card
      could take (bound). Flash attention at head dims 32, 64, 128 and T =
      1, 16, 65, 257 (and 640 at D = 128, the streaming kernel), causal and
-     with valid_len < T; the decode MLP at 1, 16, 17 and 64 rows with int8
+     with valid_len < T, and at head dims 8 and 16 (the query detector's)
+     at T = 1, 16, 64, 65, 257 the same ways, twice for equal bits, timed
+     at the query decoder's shapes [16, 8, 64, 16] and [16, 8, 64, 32]; the decode MLP at 1, 16, 17 and 64 rows with int8
      and bf16 weights, each run twice for equal bits; the decode
      self-attention at a cache of 30 (positions 29 and 14) and of 1024
      (position 1023: the tiled kernel), each run twice for equal bits,
@@ -181,7 +184,25 @@ Phases, each of which must pass:
      one round on SUBSET_ENVS envs of the store: labeling time, ms a
      step, peak memory; then one round each of the online, gt and swa
      pipelines at the tiny preset on a store written on the card; (e)
-     `selfcheck_detector --tta` on a short run at the tiny preset.
+     `selfcheck_detector --tta` on a short run at the tiny preset;
+ 13. drive the query (Mask2Former-class) detector family: (a) at QCFG
+     (64^2, head dim 8) on the card against the CPU: every decoder point's
+     logits, the set loss and every leaf's gradient within limits from the
+     CPU's spread, one AdamW step held by what it did (`update_gaps`),
+     the cost matrices (TF32 products caught), the Hungarian solver's
+     matches on the card's costs all equal; (b) one timed `perceive` batch
+     of phase 3's frames with the query detector at the large preset
+     (1024^2, head dim 32): the launches, device busy and idle share, the
+     detections matched against the twins' route; one timed training step
+     at batch 4 (the host solver, the costs' copy and the wait for the
+     device apart; peak memory); (c) the serving rung shortened:
+     `selfcheck_detector --device-train --pack-masks --ckpt ... --tta
+     --save` with the query family at 256^2 (head dim 16), a second call
+     resuming from the checkpoint, `export_serving_artifact` on the card
+     (its tree equal to the CPU export's), and `perceive` on the exported
+     int8 detector; (d) `run_pseudolabeler` with a query detector, and
+     `train_detector` refusing a query student without masks, as the JAX
+     package's pipelines do.
 
 Float32 products and convolutions run without TF32 so the comparisons see
 the kernels' own error. Prints the card's name and power limit, frames/s
@@ -640,6 +661,7 @@ def kernel_checks(K, QZ, dev) -> dict:
         **library(lambda: torch.nn.functional.scaled_dot_product_attention(
             q6, k6, v6)))]
     del q6, k6, v6
+    rows["flash_attention"]["cases"] += query_flash_cases(K, rn)
 
     # decode self-attention: cases a-c (self_attention_cases) ---------------
     cases = self_attention_cases(K, dev)
@@ -758,6 +780,62 @@ def kernel_checks(K, QZ, dev) -> dict:
         **library(two_matmuls, 100))
     log_rows(rows)
     return rows
+
+
+# the query detector's self-attention: 8 heads of fpn_dim / 8 over its 64
+# queries, a perceive batch of FRAMES frames (head dim 16 at the serving
+# rung's fpn_dim 128, 32 at the large preset's 256)
+QUERY_HEADS = 8
+QUERY_T = 64
+
+
+def query_flash_cases(K, rn) -> list:
+    """Flash attention at the head dims the query detector adds, 8 and 16
+    (the tile zero-padded to the mma's k-extent of 16 at 8): against the
+    plain version at T = 1, 16, 64, 65 and 257, causal and with valid_len
+    < T, each run twice for equal bits; then timed at the query decoder's
+    shapes [FRAMES, 8, 64, D] for D = 16 and 32 beside SDPA and the
+    bound."""
+    for d in (8, 16):
+        for tt in (1, 16, QUERY_T, 65, 257):
+            for causal, vl in ((False, None), (True, None),
+                               (False, max(1, tt - 5)),
+                               (True, max(1, tt - 5))):
+                if tt == 1 and vl is not None:
+                    continue
+                qs, ks, vs = rn(2, 4, tt, d), rn(2, 4, tt, d), rn(2, 4, tt, d)
+                n = vl or tt
+                got = K.flash_attention(qs, ks, vs, causal, vl)[:, :, :n]
+                check_close(f"flash_attention [2,4,{tt},{d}] causal={causal} "
+                            f"valid_len={vl}", got,
+                            K.flash_attention_plain(qs, ks, vs, causal,
+                                                    vl)[:, :, :n], 2e-2)
+                again = K.flash_attention(qs, ks, vs, causal, vl)[:, :, :n]
+                if not torch.equal(got, again):
+                    raise AssertionError(f"flash_attention D={d} T={tt}: two "
+                                         f"runs differ")
+    cases = []
+    for d in (16, 32):
+        shape = (FRAMES, QUERY_HEADS, QUERY_T, d)
+        q, k, v = rn(*shape), rn(*shape), rn(*shape)
+        err = check_close(f"flash_attention {list(shape)} (query decoder)",
+                          K.flash_attention(q, k, v),
+                          K.flash_attention_plain(q, k, v), 2e-2)
+        fb, ff = bound_ms(4 * nbytes(q), 4 * math.prod(shape) * QUERY_T)
+        cases.append(dict(
+            shape=list(shape), what="query decoder self-attention",
+            replaces=TPU_KERNELS + "flash_attention.py:147", max_abs_err=err,
+            **kernel_ms(lambda: K.flash_attention(q, k, v)),
+            plain_ms=time_ms(lambda: K.flash_attention_plain(q, k, v), 5, 1),
+            bound_ms=fb, bound_by=ff,
+            **library(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v))))
+        c = cases[-1]
+        log(f"  flash_attention {list(shape)}: {c['device_us']:.2f} us on "
+            f"the device ({c['ms'] * 1e3:.2f} us a call), SDPA "
+            f"{c['library_device_us']:.2f} us, bound {fb * 1e3:.2f} us "
+            f"({ff}), plain {c['plain_ms'] * 1e3:.1f} us")
+    return cases
 
 
 def log_rows(rows: dict) -> None:
@@ -2989,6 +3067,17 @@ def leaf_paths(tree, path: str = "") -> list:
     return [path]
 
 
+def numpy_leaves(tree, path: str = "") -> list:
+    """(dotted name, array) of a numpy tree's leaves, dicts in key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in numpy_leaves(tree[k], f"{path}.{k}" if path else k)]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in numpy_leaves(v, f"{path}[{i}]")]
+    return [(path, np.asarray(tree))]
+
+
 def finetune_batch(cfg, n: int, seed: int, dev) -> list:
     """n uint8 crops at the ViT's input size, tokens BOS .. EOS of lengths
     6-30 padded with PAD, object ids in pairs (the triplet loss's
@@ -3523,6 +3612,12 @@ def detector_step_full_width(dev, smi: str, preset: str) -> dict:
 def run_entry(main, argv: list) -> tuple:
     """An entry point's `main(argv)` in this process, its output echoed:
     (return code, its last line as JSON)."""
+    return run_entry_text(main, argv)[:2]
+
+
+def run_entry_text(main, argv: list) -> tuple:
+    """`run_entry`, and the whole output: (return code, last line as JSON,
+    output)."""
     import contextlib
     import io
 
@@ -3532,7 +3627,7 @@ def run_entry(main, argv: list) -> tuple:
     text = buf.getvalue()
     for line in text.strip().splitlines():
         log("    | " + line[:400])
-    return rc, json.loads(text.strip().splitlines()[-1])
+    return rc, json.loads(text.strip().splitlines()[-1]), text
 
 
 def captioner_selfcheck(dev, smi: str, tmp: str) -> dict:
@@ -4397,6 +4492,538 @@ def selfcheck_detector_tta(dev, smi: str) -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the query (Mask2Former-class) detector family
+# ---------------------------------------------------------------------------
+
+# 13a: tests/test_query_detector.py's QCFG (64^2, fpn_dim 64: head dim 8, 16
+# queries, 3 decoder layers) with the rung's one-to-many aux matching
+QCFG = dict(image_size=64, backbone_width=16, fpn_dim=64, family="query",
+            num_queries=16, query_layers=3, max_detections=8,
+            score_threshold=0.1, query_aux_topk=3)
+# 13b: the large preset with the query head, as the JAX package's scale
+# test builds it (tests/test_query_large_shapes.py): 1024^2, the R50-class
+# bottleneck FPN P3-P6 at 256, 64 queries, 6 layers, head dim 32; score
+# threshold 0 so that the random-weight detector keeps detections
+QUERY_LARGE = ["detector.family=query", "detector.norm=gn",
+               "detector.score_threshold=0.0"]
+QUERY_STEP_BATCH = 4           # 13b: the timed training step's batch
+# 13b: the share of the twins' route's detections the kernel route matches
+# (same class, IoU >= 0.5); the decoder amplifies last-bit differences
+# through its attention masks (ROADMAP C.29)
+QUERY_MIN_MATCHED = 0.75
+# 13a: one AdamW step card against CPU (`update_gaps`, `relative_gap`):
+# (moved alike at least, |decay estimate| at most, moments at most).
+# Read on an H100 80GB HBM3 at 700 W (PERF.md): moved alike 0.96007,
+# decay -4.65e-4, moments 0.170 (the gradients part within their spread
+# limits: the decoder's attention masks flip under last-bit changes,
+# ROADMAP C.29); a step on the negated gradient 0.19345, -3.86e-3, 1.99
+QUERY_UPDATE = (0.9, 2e-3, 0.35)
+# 13a: the valid cost entries card against CPU, over the largest of them
+# (both from the CPU's logits: the products' order and the card's
+# sigmoid, log and softmax). Read on an H100 80GB HBM3 at 700 W
+# (PERF.md): 1.30e-7; with TF32 products 5.30e-5
+QUERY_COST_GAP = 3e-6
+# 13c: the serving rung (scripts/rungs_r5_small.sh, query-serving), its
+# depth cut to 2 training and 2 eval scenes and RUNG_STEPS steps, then a
+# call that resumes from the checkpoint and runs to RUNG_STEPS_RESUMED
+RUNG = ["--split", "scenes", "--batch", "16", "--device-train", "--augment",
+        "--augment-crop", "--lr-schedule", "cosine", "--ema", "0.999",
+        "--tta", "--pack-masks", "--episodes", "2", "--eval-scenes", "2",
+        "--eval-ep-steps", "8", "--seed", "0", "sensors.height=1280",
+        "sensors.width=1280", "detector.image_size=256",
+        "detector.family=query", "detector.query_aux_topk=3"]
+RUNG_STEPS, RUNG_STEPS_RESUMED, RUNG_CKPT_EVERY = 6, 10, 3
+
+
+def _spread_limit(err: float, ref: float, spread: float, rel: float
+                  ) -> tuple:
+    lim = max(rel * ref, 3 * spread)
+    return err <= lim, (err / lim if lim > 0 else
+                        (0.0 if err == 0 else math.inf))
+
+
+def query_card_vs_cpu(dev, smi: str) -> None:
+    """13a: the query detector at QCFG on the card (the flash kernel at
+    head dim 8, the LayerNorm kernels, cuDNN) and on the CPU (their plain
+    versions), same weights and batch (2 frames, 8 ground-truth boxes with
+    masks): every supervision point's class and mask logits, the set loss
+    and every leaf's gradient, each within the larger of a share of its
+    norm (1e-2 for the logits, 1e-4 for the loss, 5e-2 for a gradient)
+    and 3x its CPU spread (DET_SPREAD_DRAWS moves of the CPU's parameters
+    by 1e-4 of themselves); one AdamW step (the pipelines' clip 1 and
+    decay 1e-4) held by what it did (`train/optim.update_gaps`,
+    `relative_gap`: the share of elements moved alike, the decay applied
+    beyond the CPU's, Adam's moments) within QUERY_UPDATE, a step on the
+    negated gradient failing them; the cost matrices from the CPU's
+    logits within QUERY_COST_GAP of the CPU's (the same with TF32
+    products beyond it), and the Hungarian solver's matched queries on
+    the card's costs equal to those on the CPU's."""
+    from embodied_captioning_tpu_torch.config import DetectorConfig
+    from embodied_captioning_tpu_torch.models import query_detector as TQ
+    from embodied_captioning_tpu_torch.models.detector import init_detector
+    from embodied_captioning_tpu_torch.selfcheck_detector import (
+        loss_and_grads)
+    from embodied_captioning_tpu_torch.train.optim import (
+        adam_init, adam_update, relative_gap, tree_leaves, tree_map,
+        update_gaps)
+
+    cfg = DetectorConfig(**QCFG)
+    params = init_detector(torch.Generator().manual_seed(5), cfg, "cpu")
+    names = leaf_paths(params)
+    images, gt = detector_batch(cfg, 2, 8, 0, "cpu")
+
+    def moved(seed):
+        gen = torch.Generator().manual_seed(seed)
+        return tree_map(lambda x: x * (1 + 1e-4 * torch.randn(
+            x.shape, generator=gen)), params)
+
+    @torch.no_grad()
+    def decode(p, where):
+        return [[x.float().cpu() for x in pr] for pr in TQ._decode(
+            to_device(p, where), images.to(where).float() / 255.0, cfg)]
+
+    def grads(p, where):
+        g, loss, _ = loss_and_grads(to_device(p, where), images.to(where),
+                                    gt.to(where), cfg, "ce")
+        return [x.float().cpu() for x in tree_leaves(g)], float(loss)
+
+    dec_cpu, (g_cpu, l_cpu) = decode(params, "cpu"), grads(params, "cpu")
+    dec_spread = [[0.0, 0.0] for _ in dec_cpu]
+    g_spread, l_spread = [0.0] * len(g_cpu), 0.0
+    for seed in range(1, DET_SPREAD_DRAWS + 1):
+        mp = moved(seed)
+        for li, pr in enumerate(decode(mp, "cpu")):
+            for k in range(2):
+                dec_spread[li][k] = max(dec_spread[li][k], (
+                    pr[k] - dec_cpu[li][k]).norm().item())
+        gm, lm = grads(mp, "cpu")
+        g_spread = [max(s, (a - b).norm().item())
+                    for s, a, b in zip(g_spread, gm, g_cpu)]
+        l_spread = max(l_spread, abs(lm - l_cpu))
+    dec_card, (g_card, l_card) = decode(params, dev), grads(params, dev)
+    bad, worst_dec, worst_leaf = [], 0.0, 0.0
+    for li in range(len(dec_cpu)):
+        for k, what in enumerate(("class", "mask")):
+            ok, r = _spread_limit((dec_card[li][k] - dec_cpu[li][k]).norm()
+                                  .item(), dec_cpu[li][k].norm().item(),
+                                  dec_spread[li][k], 1e-2)
+            worst_dec = max(worst_dec, r)
+            if not ok:
+                bad.append((f"decoder point {li} {what} logits", r))
+    ok, r_loss = _spread_limit(abs(l_card - l_cpu), abs(l_cpu), l_spread,
+                               1e-4)
+    if not ok:
+        bad.append(("loss", l_card, l_cpu, l_spread))
+    for n, a, b, sp in zip(names, g_card, g_cpu, g_spread):
+        ok, r = _spread_limit((a - b).norm().item(), b.norm().item(), sp,
+                              5e-2)
+        worst_leaf = max(worst_leaf, r)
+        if not ok:
+            bad.append((n, r))
+        if bool((b != 0).any()) and not (bool((a != 0).any())
+                                         and bool(torch.isfinite(a).all())):
+            bad.append((n, "zero or non-finite on the card"))
+    def adamw_step(where, sign=1.0):
+        p = to_device(params, where)
+        g, _, _ = loss_and_grads(p, images.to(where), gt.to(where), cfg, "ce")
+        p2, st = adam_update(p, adam_init(p), tree_map(lambda x: sign * x, g),
+                             DET_LR, 1.0, weight_decay=1e-4)
+        return st.count, *([x.cpu().numpy() for x in tree_leaves(t)]
+                           for t in (p2, st.mu, st.nu))
+
+    def update_read(card, ref):
+        gaps = update_gaps(before, card[1], ref[1], DET_LR)
+        mom = max(relative_gap(card[2], ref[2]), relative_gap(card[3],
+                                                              ref[3]))
+        agree_lim, decay_lim, mom_lim = QUERY_UPDATE
+        ok = (card[0] == ref[0] == 1 and gaps["agree"] >= agree_lim
+              and abs(gaps["decay"]) <= decay_lim and mom <= mom_lim)
+        return ok, (f"moved alike {gaps['agree']:.5f}, decay "
+                    f"{gaps['decay']:+.2e}, moments {mom:.2e}")
+
+    before = [x.numpy() for x in tree_leaves(params)]
+    step_cpu = adamw_step("cpu")
+    ok_step, step_read = update_read(adamw_step(dev), step_cpu)
+    caught, neg_read = update_read(adamw_step(dev, -1.0), step_cpu)
+    if not ok_step:
+        bad.append(("one AdamW step", step_read))
+    if caught:
+        bad.append(("a step on the negated gradient passed", neg_read))
+
+    with torch.no_grad():
+        preds = TQ._decode(params, images.float() / 255.0, cfg)
+        gmask = TQ.gt_masks(gt.masks, *preds[0][1].shape[2:])
+
+        def costs_on(w):
+            return [TQ._costs(c.to(w), m.to(w), gt.classes.to(w),
+                              gt.valid.to(w), gmask.to(w))[0]
+                    for c, m in preds]
+
+        costs = {"cpu": costs_on("cpu"), str(dev): costs_on(dev)}
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = costs_on(dev)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    valid = gt.valid[:, None, :]
+
+    def gap(got):
+        return max(((a.cpu() - b).abs()[valid.expand_as(b)].max()
+                    / b.abs()[valid.expand_as(b)].max()).item()
+                   for a, b in zip(got, costs["cpu"]))
+
+    cost_gap, tf32_gap = gap(costs[str(dev)]), gap(tf32)
+    if cost_gap > QUERY_COST_GAP:
+        bad.append(("cost matrices", cost_gap))
+    if tf32_gap <= QUERY_COST_GAP:
+        bad.append(("TF32 cost matrices passed", tf32_gap))
+    m_cpu, m_card = TQ.match(costs["cpu"]), TQ.match(costs[str(dev)])
+    agree = int((m_cpu == m_card).sum())
+    if agree != m_cpu.size:
+        bad.append(("Hungarian matches", agree, m_cpu.size))
+    log(f"  query detector card ({smi}) vs CPU (QCFG: 64^2, fpn_dim 64, 16 "
+        f"queries, 3 layers, aux top-3; 2 frames, 8 boxes): decoder worst "
+        f"{worst_dec:.3f} of its limit over {len(dec_cpu)} points; loss "
+        f"card {l_card:.5f} CPU {l_cpu:.5f} (spread {l_spread:.2e}, "
+        f"{r_loss:.3f} of its limit); worst of {len(names)} leaves "
+        f"{worst_leaf:.3f} of its limit; one AdamW step: {step_read} "
+        f"(limits {QUERY_UPDATE}; on the negated gradient {neg_read}); "
+        f"valid costs {cost_gap:.2e} of their largest apart (limit "
+        f"{QUERY_COST_GAP:.0e}; with TF32 products {tf32_gap:.2e}); "
+        f"Hungarian matches on the card's costs equal the CPU's on {agree} "
+        f"of {m_cpu.size}")
+    if bad:
+        raise AssertionError(f"query card vs CPU: {bad[:8]}")
+
+
+def matched_share(got, want) -> tuple:
+    """(matched, total): `want`'s valid detections with a valid detection
+    of `got` of the same class at IoU >= 0.5."""
+    from embodied_captioning_tpu_torch.ops.detections import pairwise_iou
+
+    hit = total = 0
+    for b in range(want.boxes.shape[0]):
+        wv, gv = want.valid[b].bool(), got.valid[b].bool()
+        iou = pairwise_iou(want.boxes[b].float(), got.boxes[b].float())
+        same = want.classes[b][:, None] == got.classes[b][None, :]
+        ok = (iou >= 0.5) & same & gv[None, :] & wv[:, None]
+        hit += int(ok.any(1).sum())
+        total += int(wv.sum())
+    return hit, total
+
+
+def query_perception(dev, detector_overrides: list):
+    """`per_cfg(detector_overrides)` and random weights from a generator
+    seeded 0 (the captioner and sentence encoder int8)."""
+    from embodied_captioning_tpu_torch.models.captioner import init_captioner
+    from embodied_captioning_tpu_torch.models.detector import init_detector
+    from embodied_captioning_tpu_torch.models.quantize import quantize_params
+    from embodied_captioning_tpu_torch.models.sbert import (
+        init_sentence_encoder)
+    from embodied_captioning_tpu_torch.params import PerceptionParams
+
+    cfg = per_cfg(detector_overrides)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = PerceptionParams(
+        detector=init_detector(g, cfg.detector, dev),
+        captioner=quantize_params(init_captioner(g, cfg.captioner, dev)),
+        sbert=quantize_params(init_sentence_encoder(g, cfg.sentence_encoder,
+                                                    dev)))
+    return cfg, params
+
+
+def timed_perceive(what: str, params, frames, cfg, smi: str) -> dict:
+    """A warm-up `perceive` batch, then one timed with the kernels'
+    launches counted (flash attention and LayerNorm must launch), its
+    outputs checked (shapes, finite values), and one under the profiler
+    (device busy and idle share)."""
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch.perception import perceive
+
+    perceive(params, frames, cfg)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = perceive(params, frames, cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(K.launches)
+    d, n = res.detections, cfg.detector.max_detections
+    paste = cfg.detector.paste_size or cfg.detector.image_size
+    e = frames.shape[0]
+    if (tuple(d.boxes.shape) != (e, n, 4)
+            or tuple(d.masks.shape) != (e, n, paste, paste)
+            or not all(bool(torch.isfinite(getattr(d, k).float()).all())
+                       for k in ("boxes", "scores", "masks", "embeddings"))
+            or not bool(torch.isfinite(res.caption_logprobs).all())):
+        raise AssertionError(f"{what}: outputs {d.boxes.shape} "
+                             f"{d.masks.shape}")
+    if counts["flash_attention"] <= 0 or counts["layernorm"] <= 0:
+        raise AssertionError(f"{what}: flash or LayerNorm not launched: "
+                             f"{counts}")
+    log(f"  {what} on {smi}: {dt * 1e3:.1f} ms a batch of {e} frames "
+        f"({e / dt:.2f} frames/s), {int(d.valid.sum())} valid detections; "
+        f"launches {counts}")
+    busy = profile_run(what, lambda: perceive(params, frames, cfg), dt * 1e6,
+                       top=8)
+    return dict(res=res, ms=dt * 1e3, counts=counts, busy_us=busy)
+
+
+def query_full_width(frames, dev, smi: str) -> dict:
+    """13b: one timed `perceive` batch of FRAMES phase-3 frames (1280^2)
+    with the query detector at the large preset (random seeded weights):
+    launches, device busy and idle share, and the share of the detections
+    of the twins' route (`plain_kernels`) it matches; then one timed
+    training step of that detector at batch QUERY_STEP_BATCH on frames of
+    the port's simulator (a warm-up and DET_STEPS timed steps): ms a
+    step, the host solver's ms a step, peak memory, device busy and idle
+    share. Returns the perception weights for 13c."""
+    import gc
+
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch.config import load_config
+    from embodied_captioning_tpu_torch.models import query_detector as TQ
+    from embodied_captioning_tpu_torch.models.detector import init_detector
+    from embodied_captioning_tpu_torch.perception import perceive
+    from embodied_captioning_tpu_torch.selfcheck_detector import (
+        batch_of, collect, train_step)
+    from embodied_captioning_tpu_torch.train.optim import adam_init
+
+    cfg, params = query_perception(dev, QUERY_LARGE)
+    dc = cfg.detector
+    log(f"  query detector: {dc.block} blocks, {dc.norm} norm, "
+        f"{dc.image_size}^2, FPN strides {dc.fpn_strides} at {dc.fpn_dim}, "
+        f"{dc.num_queries} queries, {dc.query_layers} layers, head dim "
+        f"{dc.fpn_dim // 8}")
+    run = timed_perceive("one perceive batch, query detector (large preset)",
+                         params, frames, cfg, smi)
+    with plain_kernels(K):
+        plain = perceive(params, frames, cfg)
+    hit, total = matched_share(run["res"].detections, plain.detections)
+    log(f"  kernel route vs the twins' route: {hit} of {total} detections "
+        f"matched (class, IoU >= 0.5; limit {QUERY_MIN_MATCHED})")
+    if total == 0 or hit < QUERY_MIN_MATCHED * total:
+        raise AssertionError(f"query perceive: matched {hit} of {total}")
+    per = params._replace(detector=None)
+    del params, plain, run["res"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    tcfg = load_config("large", overrides=QUERY_LARGE)
+    data = collect(tcfg, 2, QUERY_STEP_BATCH // 2, 0,
+                   np.random.default_rng(0), dev)
+    images, gt = batch_of(data, range(QUERY_STEP_BATCH), dc.image_size, dev)
+    state = [init_detector(torch.Generator(device=dev).manual_seed(0), dc,
+                           dev)]
+    state.append(adam_init(state[0]))
+    wait, copy, solver = [], [], []
+    match, hungarian = TQ.match, TQ.hungarian_batch
+
+    def timed_hungarian(c):
+        t0 = time.perf_counter()
+        out = hungarian(c)
+        solver.append(time.perf_counter() - t0)
+        return out
+
+    def timed_match(costs):
+        # the wait for the device's forward pass and cost products, then
+        # the costs' copy to the host and the solver, each on its own
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = match(costs)
+        wait.append(t1 - t0)
+        copy.append(time.perf_counter() - t1)
+        return out
+
+    def step():
+        state[0], state[1], loss = train_step(state[0], state[1], images, gt,
+                                              dc, "ce", lambda c: DET_LR)
+        return loss
+
+    TQ.match, TQ.hungarian_batch = timed_match, timed_hungarian
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        for x in (wait, copy, solver):
+            x.clear()
+        K.reset_launches()
+        times, losses = [], []
+        for _ in range(DET_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step()))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts = dict(K.launches)
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = sorted(times)[len(times) // 2] * 1e3
+
+        def step_median(xs):
+            # each step matches once
+            return sorted(xs)[len(xs) // 2] * 1e3
+
+        solver_ms, wait_ms = step_median(solver), step_median(wait)
+        copy_ms = step_median(copy) - solver_ms
+        log(f"  query detector train step (large preset), batch "
+            f"{QUERY_STEP_BATCH}, ce head, aux top-{dc.query_aux_topk}: "
+            f"{ms:.1f} ms a step (median of {DET_STEPS}: "
+            + ", ".join(f"{t * 1e3:.1f}" for t in times)
+            + f") on {smi}; host solver {solver_ms:.2f} ms a step, the "
+            f"costs' stack and copy to the host {copy_ms:.2f} ms, the wait "
+            f"for the device before them {wait_ms:.2f} ms; peak "
+            f"{peak / 2**30:.2f} GiB; losses "
+            + " ".join(f"{x:.4f}" for x in losses) + f"; launches {counts}")
+        if (not all(math.isfinite(x) for x in losses)
+                or counts["layernorm_bwd"] <= 0):
+            raise AssertionError(f"query step failed: {losses} {counts}")
+        busy = profile_run("one query detector train step (large preset)",
+                           step, ms * 1e3, top=10)
+    finally:
+        TQ.match, TQ.hungarian_batch = match, hungarian
+    del state, images, gt, data
+    torch.cuda.empty_cache()
+    return dict(counts=run["counts"], perceive_ms=run["ms"],
+                perceive_busy_us=run["busy_us"], step_ms=ms,
+                solver_ms=solver_ms, copy_ms=copy_ms, wait_ms=wait_ms,
+                peak_bytes=peak, step_busy_us=busy,
+                per=per, cfg=cfg)
+
+
+def query_rung(frames, per, dev, smi: str, tmp: str) -> dict:
+    """13c: the serving rung, shortened (RUNG): `selfcheck_detector` with
+    the rung's flags (device-side training on bit-packed masks, the
+    checkpoint every RUNG_CKPT_EVERY steps, the flip merge, the saved
+    artifact) for RUNG_STEPS steps; a second call resumes from the
+    checkpoint and runs to RUNG_STEPS_RESUMED (its output says so); the
+    port's `export_serving_artifact` of the saved artifact; then
+    `perceive` over the FRAMES phase-3 frames with the exported int8
+    detector (`load_detector_artifact`) and 13b's captioner; then with a
+    query detector at the default width (fpn_dim 128, 256^2: the flash
+    kernel at head dim 16), random seeded weights."""
+    from embodied_captioning_tpu_torch import export_serving_artifact as EX
+    from embodied_captioning_tpu_torch import selfcheck_detector as SD
+    from embodied_captioning_tpu_torch.config import (
+        DetectorConfig, merge, to_dict)
+    from embodied_captioning_tpu_torch.models.detector import init_detector
+    from embodied_captioning_tpu_torch.params import (
+        load_detector_artifact, load_pickle)
+
+    ck, save = os.path.join(tmp, "rung_ckpt.pkl"), os.path.join(tmp,
+                                                                "rung.pkl")
+    argv = RUNG + ["--ckpt", ck, "--ckpt-every", str(RUNG_CKPT_EVERY),
+                   "--save", save, "--device", str(dev),
+                   "--train-cache", os.path.join(tmp, "rung_train.npz"),
+                   "--eval-cache", os.path.join(tmp, "rung_eval.npz")]
+    t0 = time.perf_counter()
+    rc, line, text = run_entry_text(SD.main, argv + ["--steps",
+                                                     str(RUNG_STEPS)])
+    t1 = time.perf_counter()
+    if rc != 0 or f"checkpoint @ step {RUNG_STEPS}" not in text:
+        raise AssertionError(f"rung: {rc} {line}")
+    rc, line2, text = run_entry_text(SD.main, argv + [
+        "--steps", str(RUNG_STEPS_RESUMED)])
+    t2 = time.perf_counter()
+    if (rc != 0 or f"resumed from {ck} at step {RUNG_STEPS}" not in text
+            or not math.isfinite(line2.get("last_loss") or math.nan)):
+        raise AssertionError(f"rung resume: {rc} {line2}")
+    log(f"  selfcheck_detector, the query-serving rung shortened, on {smi}: "
+        f"{t1 - t0:.1f} s for {RUNG_STEPS} steps (corpora collected), "
+        f"{t2 - t1:.1f} s resumed at {RUNG_STEPS} to "
+        f"{RUNG_STEPS_RESUMED}; map50_after {line2['map50_after']}, "
+        f"map50_after_tta {line2['map50_after_tta']}, mask_iou "
+        f"{line2['mask_iou']}")
+    served = os.path.join(tmp, "served_query.pkl")
+    served_cpu = os.path.join(tmp, "served_query_cpu.pkl")
+    t0 = time.perf_counter()
+    rc, ex = run_entry(EX.main, [save, "--out", served])
+    t1 = time.perf_counter()
+    rc_cpu, _ = run_entry(EX.main, [save, "--out", served_cpu, "--device",
+                                    "cpu"])
+    dp, dcfg = load_detector_artifact(served, dev)
+    if rc != 0 or rc_cpu != 0 or dcfg["family"] != "query":
+        raise AssertionError(f"export: {rc} {rc_cpu} {ex} "
+                             f"{dcfg.get('family')}")
+    # the card's export against the CPU's: the same tree, equal bits
+    # (int8 rounding of w / scale, both divisions correctly rounded)
+    card_tree, cpu_tree = load_pickle(served), load_pickle(served_cpu)
+    leaves = numpy_leaves(card_tree["served"])
+    want = numpy_leaves(cpu_tree["served"])
+    differ = [k for (k, a), (kw, b) in zip(leaves, want) if not (
+        k == kw and a.dtype == b.dtype and a.shape == b.shape
+        and np.array_equal(a, b))]
+    if len(leaves) != len(want):
+        differ.append(("leaves", len(leaves), len(want)))
+    log(f"  export_serving_artifact on the card: {(t1 - t0) * 1e3:.1f} ms, "
+        f"{ex['mb']} MB; {len(leaves) - len(differ)} of {len(leaves)} "
+        f"leaves equal to the CPU export's bit for bit")
+    if differ or card_tree["serving_cfg"] != cpu_tree["serving_cfg"]:
+        raise AssertionError(f"export card vs CPU: {differ[:8]}")
+    cfg = merge(per_cfg(), {"detector": dcfg})
+    run = timed_perceive("one perceive batch, exported int8 query detector "
+                         f"({dcfg['image_size']}^2, head dim "
+                         f"{dcfg['fpn_dim'] // 8})",
+                         per._replace(detector=dp), frames, cfg, smi)
+    # the rung runs the tiny preset's detector (fpn_dim 32: head dim 4, the
+    # plain attention); the default detector width, fpn_dim 128, gives the
+    # flash kernel's head dim 16
+    dc16 = DetectorConfig(family="query", score_threshold=0.0)
+    cfg16 = merge(per_cfg(), {"detector": to_dict(dc16)})
+    run16 = timed_perceive(
+        f"one perceive batch, query detector at fpn_dim {dc16.fpn_dim} "
+        f"({dc16.image_size}^2, head dim {dc16.fpn_dim // 8})",
+        per._replace(detector=init_detector(torch.Generator(
+            device=dev).manual_seed(0), dc16, dev)), frames, cfg16, smi)
+    return dict(line=line2, export=ex, counts=run["counts"],
+                perceive_ms=run["ms"], counts16=run16["counts"],
+                perceive16_ms=run16["ms"])
+
+
+def per_cfg(detector_overrides=()):
+    """The serving configuration of phase 3 (the large preset, SLOTS
+    caption slots a frame, FRAMES envs), the detector's fields set by
+    `detector_overrides`."""
+    from embodied_captioning_tpu_torch.config import load_config
+
+    return load_config("large", overrides=list(detector_overrides) + [
+        f"runtime.caption_slots_per_frame={SLOTS}",
+        "runtime.caption_invalid_slots=true", f"runtime.num_envs={FRAMES}"])
+
+
+def query_labeling(dev, smi: str, tmp: str) -> dict:
+    """13d: `run_pseudolabeler` with a query detector (tiny preset) on a
+    store the port's `generate` writes on the card; then `train_detector
+    --pipeline online --head ce` with a query student, which its set loss
+    refuses as the JAX package's does (the pipelines hand the student no
+    masks)."""
+    from embodied_captioning_tpu_torch import run_pseudolabeler as RPL
+    from embodied_captioning_tpu_torch import train_detector as TDR
+
+    store = tiny_store(os.path.join(tmp, "query_obs"), dev)
+    over = TINY_STORE + ["detector.family=query"]
+    rc, line = run_entry(RPL.main, [store] + over + [
+        "--out", os.path.join(tmp, "query_pl"), "--consensus", "vanilla",
+        "--device", str(dev)])
+    if rc != 0 or line.get("frames", 0) <= 0:
+        raise AssertionError(f"run_pseudolabeler (query): {line}")
+    try:
+        run_entry(TDR.main, ["--obs-dir", store, "--pipeline", "online",
+                             "--head", "ce", "--device", str(dev)] + over)
+    except ValueError as exc:
+        refused = str(exc)
+    else:
+        raise AssertionError("train_detector trained a query student "
+                             "without masks")
+    if "gt.masks required" not in refused:
+        raise AssertionError(f"train_detector (query): {refused}")
+    log(f"  run_pseudolabeler (query detector, tiny) on {smi}: {line}; "
+        f"train_detector with a query student: refused ({refused})")
+    return line
+
+
 def card_name() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -4514,6 +5141,7 @@ def main() -> int:
             # the full-width perception state, frames and voxel maps of
             # phases 3-9 are not needed past here: free them for the
             # large preset's training state
+            frames13 = res["frames"]  # phase 13's perceive batch
             del setup, res, routes
             loop.pop("one_step")
             torch.cuda.empty_cache()
@@ -4545,6 +5173,17 @@ def main() -> int:
                 train_detector_full_width(store, tmp, dev, smi)
             selfcheck_detector_tta(dev, smi)
             log(f"  phase 12 in {time.perf_counter() - t12:.1f} s")
+            torch.cuda.empty_cache()
+            log("[13] the query (Mask2Former-class) detector family "
+                "(perceive, selfcheck_detector --pack-masks --ckpt, "
+                "export_serving_artifact, run_pseudolabeler)")
+            t13 = time.perf_counter()
+            query_card_vs_cpu(dev, smi)
+            qry = query_full_width(frames13, dev, smi)
+            with tempfile.TemporaryDirectory(prefix="ecap_query_") as tmp:
+                query_rung(frames13, qry.pop("per"), dev, smi, tmp)
+                query_labeling(dev, smi, tmp)
+            log(f"  phase 13 in {time.perf_counter() - t13:.1f} s")
     except Exception:
         traceback.print_exc()
         return 1
@@ -4560,7 +5199,8 @@ def main() -> int:
     # train steps with remat off; launches_learning: over phase 11's two
     # self-checks at the tiny preset (11c and 11d), collection, training
     # and evaluation; launches_labeling: over phase 12b's timed `predict`
-    # (LABEL_FRAMES frames of phase 8's store)
+    # (LABEL_FRAMES frames of phase 8's store); launches_query: over phase
+    # 13b's timed perceive batch with the query detector (large preset)
     kernels = []
     for n, r in rows.items():
         if loop["counts"][n] > 0:
@@ -4577,7 +5217,8 @@ def main() -> int:
                             + train["fused"]["counts"][n]),
             launches_finetune=ft["plain"]["counts"][n],
             launches_learning=cap["counts"][n] + det["counts"][n],
-            launches_labeling=lab["counts"][n], **r))
+            launches_labeling=lab["counts"][n],
+            launches_query=qry["counts"][n], **r))
     if any(k["launches"] <= 0 for k in kernels):
         print(f"chip_smoke: a kernel was never launched: {kernels}",
               file=sys.stderr)

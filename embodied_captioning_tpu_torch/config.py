@@ -4,8 +4,10 @@ tree, field for field, with the same presets, YAML overlays and
 alike and `to_dict` of the two trees is equal.
 
 A few fields select paths the port does not have; the modules that would
-read them refuse other values (the detector `family` and `stem_s2d`) or
-say what they do instead where the field is declared.
+read them refuse other values (the detector's `stem_s2d`) or say what they
+do instead where the field is declared. The detector `family` selects the
+rcnn stack or the query (Mask2Former-class) set predictor, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -138,7 +140,9 @@ class SentenceEncoderConfig:
 
 @dataclass(frozen=True)
 class DetectorConfig:
-    """FPN + RPN + ROI instance segmenter (the rcnn family)."""
+    """Instance segmenter: FPN + RPN + ROI heads (the rcnn family) or, with
+    `family="query"`, the Mask2Former-class set predictor over the same
+    backbone and FPN (`models/query_detector.py`)."""
 
     image_size: int = 256
     backbone_width: int = 64
@@ -163,8 +167,10 @@ class DetectorConfig:
     approx_topk: bool = False
     stem_s2d: bool = False  # the port has the direct stem only
     dtype: str = "bfloat16"
-    family: str = "rcnn"  # the port has the rcnn family only
-    # query-family settings (not ported)
+    family: str = "rcnn"  # rcnn | query
+    # query family: object queries, masked-attention decoder layers, the
+    # no-object class weight, and the one-to-many matching of the aux
+    # layers (each ground truth's k lowest-cost queries; 0: Hungarian)
     num_queries: int = 64
     query_layers: int = 6
     no_object_weight: float = 0.1

@@ -51,6 +51,12 @@
 //    the waits and the K/V re-reads. At T=640 one 16-warp flash_head per SM
 //    beats two 8-warp flash_stream blocks; one 8-warp flash_head per SM
 //    loses to both.
+//  - Head dims 8 and 16 (the query detector's decoder: fpn_dim / 8 heads):
+//    the mma k-extent is 16, so a head of 8 is computed 16 wide -- the
+//    upper 8 columns of the K and V tiles are zero-filled in shared memory
+//    and those of the q fragments are zero, so the scores are unchanged and
+//    the extra output columns (zero) are not stored. D = 16 needs no
+//    padding: one k-step for QK^T and two n-steps of 8 for PV.
 #include <algorithm>
 
 #include "mma.cuh"
@@ -65,6 +71,12 @@ constexpr int kStages = 3;       // flash_stream's cp.async ring depth
 constexpr int kHeadSmem2 = 110 * 1024;
 constexpr int kHeadSmem1 = 200 * 1024;
 
+// the width a head of D is computed at: the mma k-extent, 16, at least
+template <int D>
+__host__ __device__ constexpr int padded() {
+  return D < 16 ? 16 : D;
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -77,15 +89,16 @@ __device__ __forceinline__ float ex2(float x) {
 // the quad after pass 1), and the f32 output accumulator.
 template <int D>
 struct RowTile {
-  uint32_t qf[D / 16][4];
-  float acc[D / 8][4];
+  static constexpr int DP = padded<D>();
+  uint32_t qf[DP / 16][4];
+  float acc[DP / 8][4];
   float m[2], l[2];
   int row[2];
 
   __device__ __forceinline__ void init(int r0) {
     const int g = (threadIdx.x & 31) >> 2;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 #pragma unroll
@@ -110,7 +123,7 @@ struct RowTile {
   }
 
   // One 64-key tile at key k0 of K (and V) rows in shared memory (row
-  // stride D + 8). Keys at or beyond `kend` and, if causal, beyond a row
+  // stride DP + 8). Keys at or beyond `kend` and, if causal, beyond a row
   // are masked; only the 16-key steps below kend are computed. Pass 1
   // updates the running max and denominator; pass 2 adds bf16(p) V with p
   // normalised before the rounding.
@@ -119,7 +132,7 @@ struct RowTile {
                                        const __nv_bfloat16* vt, int k0,
                                        int kend, bool causal,
                                        float scale_log2) {
-    constexpr int LD = D + 8;
+    constexpr int LD = DP + 8;
     const int lane = threadIdx.x & 31, tq = lane & 3;
     const int nlive = min(kBK, kend - k0);
 
@@ -129,7 +142,7 @@ struct RowTile {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DP / 16; ++kk) {
 #pragma unroll
       for (int nj = 0; nj < kBK / 16; ++nj) {
         if (nj * 16 >= nlive) continue;
@@ -190,7 +203,7 @@ struct RowTile {
                                ecap::pack_bf16(p[1][0], p[1][1]),
                                ecap::pack_bf16(p[1][2], p[1][3])};
 #pragma unroll
-        for (int dj = 0; dj < D / 16; ++dj) {
+        for (int dj = 0; dj < DP / 16; ++dj) {
           uint32_t b[4];
           ecap::ldmatrix_x4_trans(
               b, vt + (nj * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
@@ -202,7 +215,7 @@ struct RowTile {
     }
   }
 
-  // bf16 rows of o below t
+  // bf16 rows of o below t (the first D columns)
   __device__ __forceinline__ void store(__nv_bfloat16* o, int t) const {
     const int tq = threadIdx.x & 3;
 #pragma unroll
@@ -217,18 +230,19 @@ struct RowTile {
   }
 };
 
-// rows [0, n) x D bf16 of `src` into smem rows of D + 8, rows [n, np)
-// zero-filled; 16-byte cp.async copies
+// rows [0, n) x D bf16 of `src` into smem rows of DP + 8, rows [n, np)
+// and columns [D, DP) zero-filled; 16-byte cp.async copies
 template <int D>
 __device__ __forceinline__ void stage(__nv_bfloat16* dst,
                                       const __nv_bfloat16* src, int n, int np,
                                       int nthreads) {
-  constexpr int VEC = D / 8;
+  constexpr int DP = padded<D>(), VEC = DP / 8;
   for (int c = threadIdx.x; c < np * VEC; c += nthreads) {
     const int r = c / VEC, col = (c % VEC) * 8;
-    const bool live = r < n;
-    ecap::cp_async16(dst + r * (D + 8) + col,
-                     src + static_cast<size_t>(live ? r : 0) * D + col, live);
+    const bool live = r < n && col < D;
+    ecap::cp_async16(dst + r * (DP + 8) + col,
+                     src + (live ? static_cast<size_t>(r) * D + col : 0),
+                     live);
   }
 }
 
@@ -243,7 +257,7 @@ flash_head(const __nv_bfloat16* __restrict__ q,
            const __nv_bfloat16* __restrict__ v,
            __nv_bfloat16* __restrict__ o, int t, int causal, int valid_len,
            float scale_log2) {
-  constexpr int LD = D + 8;
+  constexpr int DP = padded<D>(), LD = DP + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int kend = min(t, valid_len);
   const int kp = (kend + 15) & ~15;  // keys staged, zero-filled past kend
@@ -263,15 +277,15 @@ flash_head(const __nv_bfloat16* __restrict__ q,
   for (int r0 = warp * 16; r0 < t; r0 += WARPS * 16) {
     rt.init(r0);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DP / 16; ++kk)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = r0 + g + 8 * (i & 1);
+        const int col = kk * 16 + 8 * (i >> 1) + 2 * tq;
         rt.qf[kk][i] =
-            r < t ? *reinterpret_cast<const uint32_t*>(
-                        q + base + static_cast<size_t>(r) * D + kk * 16 +
-                        8 * (i >> 1) + 2 * tq)
-                  : 0u;
+            r < t && col < D ? *reinterpret_cast<const uint32_t*>(
+                                   q + base + static_cast<size_t>(r) * D + col)
+                             : 0u;
       }
     const int kstop = causal ? min(kend, r0 + 16) : kend;
     for (int k0 = 0; k0 < kstop; k0 += kBK)
@@ -298,7 +312,7 @@ flash_stream(const __nv_bfloat16* __restrict__ q,
              __nv_bfloat16* __restrict__ o, int t, int causal, int valid_len,
              float scale_log2) {
   constexpr int BQ = kStreamWarps * 16;
-  constexpr int LD = D + 8;
+  constexpr int DP = padded<D>(), LD = DP + 8;
   constexpr int NT = kStreamWarps * 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -341,7 +355,7 @@ flash_stream(const __nv_bfloat16* __restrict__ q,
     ecap::cp_async_commit();
     if (i == 0) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < DP / 16; ++kk)
         ecap::ldmatrix_x4(rt.qf[kk], qs + (warp * 16 + (lane & 15)) * LD +
                                          kk * 16 + (lane >> 4) * 8);
     }
@@ -362,7 +376,7 @@ flash_stream(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 __host__ __device__ constexpr int stream_smem() {
-  return (kStreamWarps * 16 + 2 * kStages * kBK) * (D + 8) * 2;
+  return (kStreamWarps * 16 + 2 * kStages * kBK) * (padded<D>() + 8) * 2;
 }
 
 template <int D>
@@ -390,7 +404,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   auto* ob = static_cast<__nv_bfloat16*>(o);
   const float sl2 = scale * 1.4426950408889634f;  // exp(x) = ex2(x log2 e)
   const int kp = (std::min(t, valid_len) + 15) & ~15;
-  const int head_smem = 2 * kp * (D + 8) * 2;
+  const int head_smem = 2 * kp * (padded<D>() + 8) * 2;
   if (head_smem <= kHeadSmem2) {
     flash_head<D, 8><<<bh, 8 * 32, head_smem, stream>>>(
         qb, kb, vb, ob, t, causal, valid_len, sl2);
@@ -416,6 +430,8 @@ extern "C" int ecap_flash_attention(const void* q, const void* k,
                                     float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 8: return launch<8>(q, k, v, o, bh, t, causal, valid_len, sm_scale, s);
+    case 16: return launch<16>(q, k, v, o, bh, t, causal, valid_len, sm_scale, s);
     case 32: return launch<32>(q, k, v, o, bh, t, causal, valid_len, sm_scale, s);
     case 64: return launch<64>(q, k, v, o, bh, t, causal, valid_len, sm_scale, s);
     case 128: return launch<128>(q, k, v, o, bh, t, causal, valid_len, sm_scale, s);

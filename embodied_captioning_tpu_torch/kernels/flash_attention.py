@@ -21,6 +21,9 @@ import torch
 from . import _lib
 
 NEG_INF = -1e30
+# head dims with a kernel instance (8 and 16: the query detector's decoder,
+# computed 16 wide on the tensor cores)
+HEAD_DIMS = (8, 16, 32, 64, 128)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -50,7 +53,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False,
                     valid_len: Optional[int] = None) -> torch.Tensor:
-    """q, k, v contiguous bf16 [B, H, T, D] (D in 32, 64, 128) -> bf16
+    """q, k, v contiguous bf16 [B, H, T, D] (D in `HEAD_DIMS`) -> bf16
     [B, H, T, D]. Any T; keys at index >= `valid_len` are masked. Raises
     where autograd records and an input needs a gradient."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -63,8 +66,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, t, d = q.shape
     for name, x in (("q", q), ("k", k), ("v", v)):
         _lib.check(x, name, (torch.bfloat16,), (b, h, t, d))
-    if d not in (32, 64, 128):
-        raise ValueError(f"flash_attention supports head dims 32/64/128, "
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention supports head dims {HEAD_DIMS}, "
                          f"got {d}")
     vl = t if valid_len is None else int(valid_len)
     if not 1 <= vl <= t:

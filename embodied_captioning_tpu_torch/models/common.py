@@ -9,7 +9,8 @@ plain dicts of tensors in the JAX package's layouts.
 Every LayerNorm runs through the LayerNorm kernel (`layernorm`).
 
 The attention paths:
-  - uncached self-attention without a mask: the flash kernel, except where
+  - uncached self-attention without a mask at a head dim the flash kernel
+    has an instance for (`flash_attention_fits`): the flash kernel, except where
     autograd records and an input needs a gradient (training): the flash
     kernel has no backward, as the TPU kernel has none, so those calls take
     the plain path below, the attention the JAX package's `train_step`
@@ -22,7 +23,8 @@ The attention paths:
     (`decode_route`), and the route of separate calls elsewhere, as the
     JAX package's dispatchers fall back to XLA;
   - everything else (masked, multi-token cached, cross over a feature
-    map, or heads or caches the decode attention kernels do not take):
+    map, or heads or caches the flash and decode attention kernels do not
+    take):
     plain tensor ops with bf16 scores and bf16 probabilities, as the JAX
     fallback path.
 """
@@ -44,10 +46,19 @@ from ..kernels.decode_attention import (
     cross_attention_fits, cross_block_fits, mlp_fits, self_attention_fits,
     self_block_fits,
 )
+from ..kernels.flash_attention import HEAD_DIMS
 from .quantize import QuantizedArray, QuantizedKV, maybe_dequant, quantize_kv
 
 BERT_LN_EPS = 1e-12  # HF BertConfig.layer_norm_eps
 NEG_INF = -1e30
+
+
+def flash_attention_fits(d: int) -> bool:
+    """The flash kernel has an instance for head dim `d` (each a multiple
+    of 8: the JAX package's dispatcher sends other head dims to XLA
+    attention, as `mha` sends them to the plain attention). Every
+    sequence length stays on the kernel."""
+    return d in HEAD_DIMS
 
 
 def _records_grad(*ts: torch.Tensor) -> bool:
@@ -180,6 +191,14 @@ class KVCache(NamedTuple):
             index=0)
 
 
+def sinusoidal_positions(t: int, dim: int, device=None) -> torch.Tensor:
+    """[t, 2 * (dim // 2)] float32: sin then cos of pos / 10000^(2i/dim)."""
+    pos = torch.arange(t, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(torch.tensor(10000.0, device=device), 2 * i / dim)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
 def causal_mask(t: int, device=None) -> torch.Tensor:
     """[1, 1, T, T] lower-triangular attend mask."""
     return torch.tril(torch.ones(t, t, dtype=torch.bool, device=device)
@@ -292,7 +311,8 @@ def mha(p: dict, x: torch.Tensor, heads: int,
                 causal if mask is None else (mask & causal))
         return dense(p["o"], out.to(compute_dtype), compute_dtype), cache
 
-    if kv is None and mask is None and not _records_grad(q, k, v):
+    if (kv is None and mask is None and not _records_grad(q, k, v)
+            and flash_attention_fits(q.shape[-1])):
         out = flash_attention(
             q.transpose(1, 2).to(compute_dtype).contiguous(),
             k.transpose(1, 2).to(compute_dtype).contiguous(),

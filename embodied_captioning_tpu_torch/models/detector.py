@@ -3,7 +3,10 @@ blocks, GroupNorm or affine norm) + FPN + RPN + ROI box and mask heads,
 with fixed-size outputs (`max_detections` slots and a validity mask);
 the training loss (`detector_loss`, five ROI classification heads) and
 the serving-prep helpers (`reinit_heads`, `fold_affine`,
-`calibrate_affine`).
+`calibrate_affine`). `init_detector`, `forward` (hence `forward_tta`),
+`detector_loss` and `reinit_heads` dispatch to the query family
+(`models/query_detector.py`) where `cfg.family == "query"`; the rcnn-only
+paths refuse it with the JAX package's messages.
 
 Feature maps are NHWC; convolutions run in cuDNN on channels-last views
 (the JAX package left them to XLA). Conv kernels are OIHW (the bridge
@@ -116,51 +119,20 @@ def conv_init(g, k: int, c_in: int, c_out: int, device) -> dict:
             "b": torch.zeros(c_out, device=device)}
 
 
-def _gn_init(c: int, device) -> dict:
+def gn_init(c: int, device) -> dict:
     return {"g": torch.ones(c, device=device),
             "b": torch.zeros(c, device=device)}
 
 
 def init_detector(g: torch.Generator, cfg: DetectorConfig, device) -> dict:
-    if cfg.family != "rcnn":
-        raise ValueError("the port has the rcnn detector family only")
-    w = cfg.backbone_width
-    bottleneck = cfg.block == "bottleneck"
-    mids = [w, 2 * w, 4 * w, 8 * w]
-    widths = [m * (4 if bottleneck else 1) for m in mids]
-    params = {"stem": conv_init(g, 3, 3, w, device),
-              "stem_gn": _gn_init(w, device)}
-    stages, c_in = [], w
-    for si, depth in enumerate(cfg.backbone_depths):
-        c_out, mid = widths[si], mids[si]
-        blocks = []
-        for bi in range(depth):
-            b_in = c_in if bi == 0 else c_out
-            if bottleneck:
-                blocks.append({
-                    "c1": conv_init(g, 1, b_in, mid, device),
-                    "g1": _gn_init(mid, device),
-                    "c2": conv_init(g, 3, mid, mid, device),
-                    "g2": _gn_init(mid, device),
-                    "c3": conv_init(g, 1, mid, c_out, device),
-                    "g3": _gn_init(c_out, device),
-                    "sc": (conv_init(g, 1, b_in, c_out, device)
-                           if bi == 0 else None)})
-            else:
-                blocks.append({
-                    "c1": conv_init(g, 3, b_in, c_out, device),
-                    "g1": _gn_init(c_out, device),
-                    "c2": conv_init(g, 3, c_out, c_out, device),
-                    "g2": _gn_init(c_out, device),
-                    "sc": (conv_init(g, 1, b_in, c_out, device)
-                           if bi == 0 and c_in != c_out else None)})
-        stages.append(blocks)
-        c_in = c_out
-    params["stages"] = stages
+    """Random weights of the config's family, drawn from `g`: the backbone
+    and FPN, then the family's heads."""
+    if cfg.family == "query":
+        from .query_detector import init_query_detector
+
+        return init_query_detector(g, cfg, device)
+    params = init_backbone(g, cfg, device)
     d = cfg.fpn_dim
-    fpn_widths = widths[cfg.min_level:]
-    params["fpn_lat"] = [conv_init(g, 1, c, d, device) for c in fpn_widths]
-    params["fpn_out"] = [conv_init(g, 3, d, d, device) for _ in fpn_widths]
     params["rpn_conv"] = conv_init(g, 3, d, d, device)
     params["rpn_obj"] = conv_init(g, 1, d, NUM_ANCHORS, device)
     params["rpn_box"] = conv_init(g, 1, d, NUM_ANCHORS * 4, device)
@@ -173,8 +145,50 @@ def init_detector(g: torch.Generator, cfg: DetectorConfig, device) -> dict:
     params["proj_fc"] = dense_init(g, 1024, 512, device)
     params["proj_out"] = dense_init(g, 512, 128, device)
     params["mask_convs"] = [conv_init(g, 3, d, d, device) for _ in range(4)]
-    params["mask_gns"] = [_gn_init(d, device) for _ in range(4)]
+    params["mask_gns"] = [gn_init(d, device) for _ in range(4)]
     params["mask_out"] = conv_init(g, 1, d, cfg.num_classes, device)
+    return params
+
+
+def init_backbone(g: torch.Generator, cfg: DetectorConfig, device) -> dict:
+    """The stem, residual stages and FPN both families share."""
+    w = cfg.backbone_width
+    bottleneck = cfg.block == "bottleneck"
+    mids = [w, 2 * w, 4 * w, 8 * w]
+    widths = [m * (4 if bottleneck else 1) for m in mids]
+    params = {"stem": conv_init(g, 3, 3, w, device),
+              "stem_gn": gn_init(w, device)}
+    stages, c_in = [], w
+    for si, depth in enumerate(cfg.backbone_depths):
+        c_out, mid = widths[si], mids[si]
+        blocks = []
+        for bi in range(depth):
+            b_in = c_in if bi == 0 else c_out
+            if bottleneck:
+                blocks.append({
+                    "c1": conv_init(g, 1, b_in, mid, device),
+                    "g1": gn_init(mid, device),
+                    "c2": conv_init(g, 3, mid, mid, device),
+                    "g2": gn_init(mid, device),
+                    "c3": conv_init(g, 1, mid, c_out, device),
+                    "g3": gn_init(c_out, device),
+                    "sc": (conv_init(g, 1, b_in, c_out, device)
+                           if bi == 0 else None)})
+            else:
+                blocks.append({
+                    "c1": conv_init(g, 3, b_in, c_out, device),
+                    "g1": gn_init(c_out, device),
+                    "c2": conv_init(g, 3, c_out, c_out, device),
+                    "g2": gn_init(c_out, device),
+                    "sc": (conv_init(g, 1, b_in, c_out, device)
+                           if bi == 0 and c_in != c_out else None)})
+        stages.append(blocks)
+        c_in = c_out
+    params["stages"] = stages
+    d = cfg.fpn_dim
+    fpn_widths = widths[cfg.min_level:]
+    params["fpn_lat"] = [conv_init(g, 1, c, d, device) for c in fpn_widths]
+    params["fpn_out"] = [conv_init(g, 3, d, d, device) for _ in fpn_widths]
     return params
 
 
@@ -426,8 +440,10 @@ def forward(params: dict, images: torch.Tensor, cfg: DetectorConfig,
     """uint8 (or float on the 0..255 scale) [B, S, S, 3] -> Detections with
     `max_detections` slots per frame and ROI masks [B, N, m, m] (zeros
     without `with_masks`)."""
-    if cfg.family != "rcnn":
-        raise ValueError("the port has the rcnn detector family only")
+    if cfg.family == "query":
+        from .query_detector import forward_query
+
+        return forward_query(params, images, cfg, with_masks=with_masks)
     inter = _intermediates(params, images.float() / 255.0, cfg)
     props, pvalid, p2 = inter.proposals, inter.proposal_valid, inter.fpn[0]
     cls_logits, box_deltas = inter.class_logits, inter.box_deltas
@@ -530,8 +546,10 @@ def forward_mc(params: dict, images: torch.Tensor, cfg: DetectorConfig,
     The masks are drawn from `generator`, or handed in as `dropout_keep`
     (bool [samples, B, P, 1024]): jax.random and torch never draw the
     same numbers."""
-    if cfg.family != "rcnn":
-        raise ValueError("forward_mc supports the rcnn family only")
+    if cfg.family == "query":
+        raise ValueError("forward_mc supports the rcnn family only (the "
+                         "reference's MC-dropout wraps its Mask R-CNN "
+                         "predictor, not Mask2Former)")
     images = images.float() / 255.0
     fpn = backbone_fpn(params, images, cfg)
     obj, deltas = _rpn_head(params, fpn)
@@ -610,9 +628,12 @@ def detector_loss(params: dict, images_u8: torch.Tensor, gt: Detections,
     on positives. ROI head: proposals above 0.5 IoU are foreground; the
     class loss normalised over foreground and background apart; box
     targets (weights 10, 10, 5, 5) and the mask BCE (ground-truth masks
-    roi-aligned into each proposal at `mask_size`) on foreground."""
-    if cfg.family != "rcnn":
-        raise ValueError("the port has the rcnn detector family only")
+    roi-aligned into each proposal at `mask_size`) on foreground. The query
+    family's set loss where `cfg.family == "query"`."""
+    if cfg.family == "query":
+        from .query_detector import query_detector_loss
+
+        return query_detector_loss(params, images_u8, gt, cfg, head=head)
     images = images_u8.float() / 255.0
     inter = _intermediates(params, images, cfg, gt.boxes, gt.valid,
                            dropout_rate, dropout_keep, generator)
@@ -717,9 +738,12 @@ def reinit_heads(params: dict, generator: torch.Generator,
                  cfg: DetectorConfig) -> dict:
     """Fresh classification, box and mask output heads (the JAX package's
     scales; the numbers come from `generator`); every other leaf is the
-    same tensor as in `params`."""
-    if cfg.family != "rcnn":
-        raise ValueError("the port has the rcnn detector family only")
+    same tensor as in `params`. The query family: its class and
+    mask-embedding heads."""
+    if cfg.family == "query":
+        from .query_detector import reinit_query_heads
+
+        return reinit_query_heads(params, generator, cfg)
     dev = params["cls"]["w"].device
     out = dict(params)
     out["cls"] = dense_init(generator, 1024, cfg.num_classes + 1, dev,
@@ -746,7 +770,7 @@ def fold_affine(params: dict, cfg: DetectorConfig) -> dict:
     no data statistics. Runs before `quantize_params`."""
     if cfg.norm != "affine":
         raise ValueError("fold_affine requires norm='affine'")
-    if cfg.family != "rcnn":
+    if cfg.family == "query":
         raise ValueError("fold_affine supports the rcnn family only")
 
     def fold(c: dict, g: dict):
@@ -810,7 +834,7 @@ def calibrate_affine(params: dict, image_batches, cfg: DetectorConfig,
     `fold_affine` and `quantize_params`."""
     import numpy as np
 
-    if cfg.family != "rcnn":
+    if cfg.family == "query":
         raise ValueError("calibrate_affine supports the rcnn family only")
     if cfg.norm != "gn":
         raise ValueError("calibrate_affine converts gn-trained params")

@@ -40,7 +40,10 @@ def quantize_array(w: torch.Tensor, axis: int = -1) -> QuantizedArray:
     axis = axis % w.dim()
     red = tuple(i for i in range(w.dim()) if i != axis)
     amax = torch.amax(w.abs(), dim=red, keepdim=True)
-    scale = torch.clamp(amax, min=1e-8) / 127.0
+    # divided by a tensor on w's device: a CUDA division by a host scalar
+    # multiplies by its rounded reciprocal, and the scales would differ
+    # from the CPU's (and the JAX package's) in the last bit
+    scale = torch.clamp(amax, min=1e-8) / amax.new_tensor(127.0)
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return QuantizedArray(q, scale.reshape(-1).to(torch.float32))
 

@@ -7,12 +7,14 @@ exception: 4-D convolution kernels named "w" arrive HWIO and are stored
 OIHW, the layout `torch.nn.functional.conv2d` takes. For an int8 conv
 kernel the scale stays per output channel, now axis 0. `to_numpy` turns
 them back, so a pickled numpy tree (a `policy.pkl` checkpoint) written by
-either package loads in the other.
+either package loads in the other; a tree with int8 leaves is written
+with `dump_tree`, which names them as the JAX package's `QuantizedArray`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import pickle
 from typing import Any, NamedTuple, Tuple
 
@@ -73,24 +75,64 @@ def from_jax(tree: Any, device="cuda") -> Any:
     return walk(tree, "")
 
 
+class NumpyQuantized(NamedTuple):
+    """An int8 leaf of a numpy tree (q int8, scale float32 per output
+    channel): `dump_tree` pickles it under the name of the JAX package's
+    `QuantizedArray`, and `from_jax` reads it as one."""
+
+    q: np.ndarray
+    scale: np.ndarray
+
+
 def to_numpy(tree: Any) -> Any:
-    """The inverse of `from_jax` for float trees (nested dicts and lists
-    of tensors, None kept): numpy arrays, 4-D kernels named "w" back to
-    HWIO."""
+    """The inverse of `from_jax` (nested dicts and lists of tensors, None
+    kept): numpy arrays, 4-D kernels named "w" back to HWIO, int8 leaves
+    as `NumpyQuantized`."""
+
+    def array(t: torch.Tensor, name: str) -> np.ndarray:
+        t = t.detach()
+        if name == "w" and t.dim() == 4:
+            t = t.permute(2, 3, 1, 0)
+        return t.cpu().contiguous().numpy()
 
     def walk(node: Any, name: str) -> Any:
         if node is None:
             return None
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, QuantizedArray):
+            return NumpyQuantized(array(node.q, name),
+                                  node.scale.detach().cpu().numpy())
         if isinstance(node, (list, tuple)):
             return [walk(v, "") for v in node]
-        t = node.detach()
-        if name == "w" and t.dim() == 4:
-            t = t.permute(2, 3, 1, 0)
-        return t.cpu().contiguous().numpy()
+        return array(node, name)
 
     return walk(tree, "")
+
+
+class _TreePickler(pickle._Pickler):
+    """Pickles `NumpyQuantized` under the JAX package's class name, so the
+    JAX package's readers (a plain `pickle.load`) rebuild its
+    `QuantizedArray`, and `load_pickle` its stand-in: the class is named,
+    not imported."""
+
+    def save_global(self, obj, name=None):
+        if obj is NumpyQuantized:
+            self.save("embodied_captioning_tpu.models.quantize")
+            self.save("QuantizedArray")
+            self.write(pickle.STACK_GLOBAL)
+            self.memoize(obj)
+            return
+        super().save_global(obj, name)
+
+
+def dump_tree(obj: Any, path: str) -> None:
+    """Pickle a tree of numpy arrays (and `NumpyQuantized` leaves) to
+    `path` (written to a temporary file, then moved into place)."""
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as fh:
+        _TreePickler(fh, protocol=4).dump(obj)
+    os.replace(tmp, path)
 
 
 def load_pickle(path: str) -> Any:
@@ -154,19 +196,18 @@ def map_state_from_jax(state: Any, device="cuda"):
 
 def load_detector_artifact(path: str, device="cuda"
                            ) -> Tuple[dict, dict]:
-    """Read a serving artifact (`det_serving_256.pkl`): returns (served
-    detector params on `device`, serving config as a dict of the port's
-    `DetectorConfig` fields). Query-family settings, the compute type
-    and the approximate top-k switch are dropped: the port serves the
-    rcnn family in bf16 and its proposal top-k is always exact."""
+    """Read a serving artifact (`det_serving_256.pkl`, or the output of
+    `export_serving_artifact`): returns (served detector params on
+    `device`, serving config as a dict of the port's `DetectorConfig`
+    fields), of either family. The compute type and the approximate
+    top-k switch are dropped: the port serves in bf16 and its proposal
+    top-k is always exact."""
     artifact = load_pickle(path)
     cfg = dict(artifact["serving_cfg"])
-    if cfg.get("family", "rcnn") != "rcnn" or cfg.get("stem_s2d", False):
-        raise ValueError("the port serves the rcnn family with the direct "
-                         "stem only")
+    if cfg.get("stem_s2d", False):
+        raise ValueError("the port serves the direct stem only")
     known = {f.name for f in dataclasses.fields(DetectorConfig)} - {
-        "approx_topk", "dtype", "num_queries", "query_layers",
-        "no_object_weight", "query_aux_topk"}
+        "approx_topk", "dtype"}
     cfg = {k: v for k, v in cfg.items() if k in known}
     return from_jax(artifact["served"], device), cfg
 

@@ -1,6 +1,7 @@
-"""Detector learning self-check: train the FPN/RPN/ROI detector on
-simulator ground truth and measure its mAP, on the GPU (or on the CPU with
---device cpu).
+"""Detector learning self-check: train the detector (the FPN/RPN/ROI
+stack, or with `detector.family=query` the Mask2Former-class set
+predictor) on simulator ground truth and measure its mAP, on the GPU (or
+on the CPU with --device cpu).
 
 The counterpart of the JAX package's `scripts/selfcheck_detector.py`, with
 its arguments (and `--device`) and its JSON line. Frames of labelled
@@ -11,7 +12,10 @@ warmup-cosine step size), on host batches (optionally flipped, jittered
 and zoom-cropped with numpy draws, the JAX script's) or with
 `--device-train` on a corpus kept on the device and augmented there
 (`ops/augment`, drawn from a `torch.Generator`), with an optional EMA of
-the weights. It reports mAP@50 on unseen scenes before and after, on
+the weights; there `--pack-masks` keeps the corpus's masks bit-packed on
+the device (unpacked after each batch's gather, exact) and `--ckpt`
+writes a checkpoint every `--ckpt-every` steps and resumes from it when
+the file exists. It reports mAP@50 on unseen scenes before and after, on
 training frames, and the mask IoU of matched detections; `--tta` adds
 the unseen-scene mAP of the horizontal-flip merge (`forward_tta`);
 `--calibrate` adds the frozen-affine artifact and its folded int8 serving
@@ -21,15 +25,16 @@ start from a seeded `torch.Generator` (numbers differ from jax.random);
 the walks and batch order are numpy draws, the same in both packages.
 
 Flags of the JAX script whose modules are not ported exit with code 2:
-`--eval-wide`, `--eval-wide-cache`, `--eval-serving`, `--ckpt`,
-`--affine-finetune`, `--pack-masks` (ROADMAP A.15).
+`--eval-wide`, `--eval-wide-cache`, `--eval-serving`,
+`--affine-finetune` (ROADMAP A.15).
 
 Usage:
   python -m embodied_captioning_tpu_torch.selfcheck_detector \\
       [--preset tiny] [--steps 300] [--episodes 6] [--head ce] \\
       [--device-train [--augment [--augment-crop]] [--ema D] \\
-       [--scan-steps K]] [--tta] [--calibrate] [--save art.pkl] \\
-      [--device cpu] [key.path=value ...]
+       [--scan-steps K] [--pack-masks] [--ckpt c.pkl [--ckpt-every N]]] \\
+      [--tta] [--calibrate] [--save art.pkl] [--device cpu] \\
+      [key.path=value ...]
 """
 
 from __future__ import annotations
@@ -133,6 +138,56 @@ def corpus_checksum(frames: Sequence[Frame]) -> str:
         h.update(np.ascontiguousarray(np.asarray(det["boxes"], np.float32)))
         h.update(np.ascontiguousarray(np.asarray(det["valid"])))
     return h.hexdigest()[:16]
+
+
+def pack_masks(masks: np.ndarray) -> np.ndarray:
+    """uint8 {0, 1} masks [..., S] -> bits [..., S/8], the first pixel in
+    the lowest bit (the JAX script's host bit-pack)."""
+    return np.packbits(np.asarray(masks, np.uint8), axis=-1,
+                       bitorder="little")
+
+
+def unpack_masks(packed: torch.Tensor) -> torch.Tensor:
+    """The inverse of `pack_masks`, on the tensor's device: uint8 [..., S]."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    return bits.reshape(*packed.shape[:-1], packed.shape[-1] * 8)
+
+
+def save_checkpoint(path: str, step: int, params: dict, ema_params: dict,
+                    opt, rng, generator: Optional[torch.Generator]) -> None:
+    """The training state after `step` steps as numpy trees (the weights in
+    the JAX package's layout): weights, their EMA, Adam's count and
+    moments, the augmentation generator's and the batch draws' states.
+    Written to a temporary file, then moved into place."""
+    from .params import dump_tree, to_numpy
+
+    state = {"step": step, "params": to_numpy(params),
+             "ema": to_numpy(ema_params),
+             "opt_state": {"count": opt.count, "mu": to_numpy(opt.mu),
+                           "nu": to_numpy(opt.nu)},
+             "generator": (None if generator is None
+                           else generator.get_state().numpy()),
+             "rng_state": rng.bit_generator.state}
+    dump_tree(state, path)
+
+
+def load_checkpoint(path: str, device, rng,
+                    generator: Optional[torch.Generator]):
+    """(params, EMA params, optimizer state, step) of `save_checkpoint`'s
+    file; the batch draws and the generator continue from their saved
+    states."""
+    from .params import from_jax, load_pickle
+    from .train.optim import AdamState
+
+    ck = load_pickle(path)
+    opt = ck["opt_state"]
+    if generator is not None and ck["generator"] is not None:
+        generator.set_state(torch.from_numpy(ck["generator"]))
+    rng.bit_generator.state = ck["rng_state"]
+    return (from_jax(ck["params"], device), from_jax(ck["ema"], device),
+            AdamState(int(opt["count"]), from_jax(opt["mu"], device),
+                      from_jax(opt["nu"], device)), int(ck["step"]))
 
 
 def stack_detections(dets: Sequence[Dict[str, np.ndarray]], device):
@@ -239,14 +294,18 @@ def train(params: dict, frames: Sequence[Frame], dcfg, steps: int,
           augment: bool = False, augment_crop: bool = False,
           device_train: bool = False, ema: float = 0.0, scan_steps: int = 1,
           generator: Optional[torch.Generator] = None,
-          log: Callable[[str], None] = print):
+          log: Callable[[str], None] = print, packed: bool = False,
+          ckpt: Optional[str] = None, ckpt_every: int = 0):
     """The JAX script's two training loops. Host: per step, a batch drawn
     without replacement by `rng`, augmented on the host (`batch_of`); the
     loss read back every step. `device_train`: the corpus on the device
-    once; gathers, `ops.augment` (draws from `generator`) and the step
-    there, with an EMA of the weights at decay `ema` (> 0); the loss read
-    back only at the log points, every `scan_steps` steps at most.
-    Returns (params, EMA params, {step: loss} of the read-backs)."""
+    once (with `packed`, its masks bit-packed, unpacked after each gather);
+    gathers, `ops.augment` (draws from `generator`) and the step there,
+    with an EMA of the weights at decay `ema` (> 0); the loss read back
+    only at the log points, every `scan_steps` steps at most; with `ckpt`,
+    resumed from that checkpoint where it exists and one written when a
+    step group crosses a multiple of `ckpt_every`. Returns (params, EMA
+    params, {step: loss} of the read-backs)."""
     from .ops.augment import augment_batch
     from .train.optim import adam_init, tree_map
 
@@ -267,8 +326,14 @@ def train(params: dict, frames: Sequence[Frame], dcfg, steps: int,
         return params, ema_params, read
 
     data_rgb = torch.from_numpy(np.stack([f[0] for f in frames])).to(device)
-    data_det = stack_detections([f[1] for f in frames], device)
+    data_det = stack_detections(
+        [dict(f[1], masks=pack_masks(f[1]["masks"])) if packed else f[1]
+         for f in frames], device)
     k_scan, s = max(1, scan_steps), 0
+    if ckpt and os.path.exists(ckpt):
+        params, ema_params, opt, s = load_checkpoint(ckpt, device, rng,
+                                                     generator)
+        log(f"[selfcheck-det] resumed from {ckpt} at step {s}")
     while s < steps:
         k = min(k_scan, steps - s)
         idxs = torch.from_numpy(np.stack([
@@ -279,6 +344,8 @@ def train(params: dict, frames: Sequence[Frame], dcfg, steps: int,
             images = data_rgb[idxs[i]]
             gt = data_det.replace(**{f: getattr(data_det, f)[idxs[i]]
                                      for f in FIELDS})
+            if packed:
+                gt = gt.replace(masks=unpack_masks(gt.masks))
             if augment:
                 images, gt = augment_batch(generator, images, gt,
                                            crop=augment_crop)
@@ -293,6 +360,10 @@ def train(params: dict, frames: Sequence[Frame], dcfg, steps: int,
             vals = torch.stack(losses).cpu().tolist()  # the read-back
             read.update({s + i: v for i, v in enumerate(vals)})
             log(f"  step {s + k - 1}: loss={vals[-1]:.3f}")
+        if ckpt and ckpt_every and s // ckpt_every != (s + k) // ckpt_every:
+            save_checkpoint(ckpt, s + k, params, ema_params, opt, rng,
+                            generator)
+            log(f"[selfcheck-det] checkpoint @ step {s + k}")
         s += k
     return params, ema_params, read
 
@@ -368,9 +439,7 @@ UNPORTED = (("eval_wide", "--eval-wide (the wide eval corpus)", "A.15"),
              "A.15"),
             ("eval_serving", "--eval-serving (the approximate top-k serving "
              "evaluation)", "A.15"),
-            ("ckpt", "--ckpt needs utils/checkpoint.py", "A.15"),
-            ("affine_finetune", "--affine-finetune", "A.15"),
-            ("pack_masks", "--pack-masks", "A.15"))
+            ("affine_finetune", "--affine-finetune", "A.15"))
 
 
 def main(argv=None) -> int:
@@ -416,10 +485,20 @@ def main(argv=None) -> int:
                     help="calibrate the GroupNorm weights to a frozen "
                          "affine norm; report its mAP and that of the "
                          "folded int8 serving form")
-    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt", default=None,
+                    help="--device-train: checkpoint pickle of the port's "
+                         "training state (weights, EMA, Adam state, torch "
+                         "generator and numpy draw states) written every "
+                         "--ckpt-every steps, and resumed from when the "
+                         "file exists. It resumes within the port only: a "
+                         "JAX script's checkpoint does not resume here (the "
+                         "random streams differ)")
     ap.add_argument("--ckpt-every", type=int, default=4000)
     ap.add_argument("--affine-finetune", type=int, default=0)
-    ap.add_argument("--pack-masks", action="store_true")
+    ap.add_argument("--pack-masks", action="store_true",
+                    help="--device-train: keep the corpus's masks bit-packed "
+                         "on the device (8x smaller), unpacked after each "
+                         "batch's gather (exact)")
     ap.add_argument("--scan-steps", type=int, default=1,
                     help="--device-train: train steps between two loss "
                          "read-backs at most")
@@ -505,8 +584,11 @@ def main(argv=None) -> int:
         device_train=args.device_train, ema=args.ema,
         scan_steps=args.scan_steps,
         generator=torch.Generator(device=dev).manual_seed(args.seed + 7),
-        log=lambda m: print(m, flush=True))
-    first, last = losses[min(losses)], losses[max(losses)]
+        log=lambda m: print(m, flush=True), packed=args.pack_masks,
+        ckpt=args.ckpt, ckpt_every=args.ckpt_every)
+    # a run resumed at its last step reads back no loss
+    first = losses[min(losses)] if losses else None
+    last = losses[max(losses)] if losses else None
     map_after = eval_map(params, test_frames, eval_cfg, args.batch, dev)
     with_ema = args.device_train and args.ema > 0
     map_ema = (eval_map(ema_params, test_frames, eval_cfg, args.batch, dev)
@@ -572,7 +654,8 @@ def main(argv=None) -> int:
         "eval_sha": (corpus_checksum(test_frames)
                      if args.split == "scenes" else None),
         "frames": len(train_frames), "steps": args.steps,
-        "first_loss": round(first, 3), "last_loss": round(last, 3),
+        "first_loss": None if first is None else round(first, 3),
+        "last_loss": None if last is None else round(last, 3),
         "map50_before": round(map_before, 4),
         "map50_after": round(map_after, 4),
         "map50_train": round(map_train, 4),

@@ -238,12 +238,17 @@ def test_proposals_take_the_ground_truth_and_carry_no_gradient(base):
 
 
 def test_detector_loss_refuses_the_query_family(base):
-    """The port has the rcnn family only, as its `forward`."""
+    """The query family's set loss (tests/test_torch_query_detector.py)
+    refuses what the JAX package's refuses, with its messages: a head
+    other than ce, and ground truth without masks."""
     cfg = dataclasses.replace(TCfg.tiny(), family="query")
-    with pytest.raises(ValueError):
-        TD.detector_loss(from_jax(base["params"], "cpu"),
-                         torch.from_numpy(base["images"]),
-                         _port_gt(base["gt"], True), cfg)
+    qp = TD.init_detector(torch.Generator().manual_seed(0), cfg, "cpu")
+    with pytest.raises(ValueError, match="head='ce'"):
+        TD.detector_loss(qp, torch.from_numpy(base["images"]),
+                         _port_gt(base["gt"], True), cfg, head="focal")
+    with pytest.raises(ValueError, match="gt.masks required"):
+        TD.detector_loss(qp, torch.from_numpy(base["images"]),
+                         _port_gt(base["gt"], False), cfg)
 
 
 def test_max_pool_gradient_at_ties_matches_jax():
@@ -367,9 +372,13 @@ def test_reinit_heads_structure_and_scales(base):
         assert not torch.equal(w, tp[k]["w"]) and not got[k]["b"].any()
     again = TD.reinit_heads(tp, torch.Generator().manual_seed(1), TCfg.tiny())
     assert torch.equal(again["cls"]["w"], got["cls"]["w"])
-    with pytest.raises(ValueError):
-        TD.reinit_heads(tp, torch.Generator(), dataclasses.replace(
-            TCfg.tiny(), family="query"))
+    # the query family's heads: class and mask embedding, the rest kept
+    qcfg = dataclasses.replace(TCfg.tiny(), family="query")
+    qp = TD.init_detector(torch.Generator().manual_seed(0), qcfg, "cpu")
+    qgot = TD.reinit_heads(qp, torch.Generator().manual_seed(1), qcfg)
+    for k in qp:
+        fresh = k in ("cls", "mask_fc1", "mask_fc2")
+        assert (qgot[k] is qp[k]) != fresh, k
 
 
 def test_project_features_matches_jax(base):

@@ -60,7 +60,9 @@ def test_scan_covers_every_subpackage_and_the_smoke_script():
                 "selfcheck_detector.py", "labeling/pseudolabeler.py",
                 "labeling/pseudocaptioner.py", "labeling/caption_datasets.py",
                 "train/pipelines.py", "run_pseudolabeler.py",
-                "pseudocaption.py", "train_detector.py"):
+                "pseudocaption.py", "train_detector.py",
+                "models/query_detector.py", "ops/assignment.py",
+                "export_serving_artifact.py"):
         assert pkg + rel in scanned, rel
     assert "chip_smoke.py" in scanned
     # every directory of the package that holds Python files is scanned

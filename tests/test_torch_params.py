@@ -81,7 +81,10 @@ def test_artifact_loads_like_the_jax_pickle():
     ref = from_jax(art["served"], "cpu")
     out, cfg = load_detector_artifact(str(ARTIFACT), "cpu")
     assert cfg["block"] == "bottleneck" and cfg["image_size"] == 256
-    assert "approx_topk" not in cfg and "num_queries" not in cfg
+    # the compute type and approximate top-k are dropped; the family and
+    # its query fields kept (the port serves both families)
+    assert "approx_topk" not in cfg and "dtype" not in cfg
+    assert cfg["family"] == "rcnn" and cfg["num_queries"] == 64
     ra, oa = ref["stages"][3][0]["c2"]["w"], out["stages"][3][0]["c2"]["w"]
     assert oa.q.shape == (512, 512, 3, 3)
     assert torch.equal(ra.q, oa.q) and torch.equal(ra.scale, oa.scale)

@@ -249,11 +249,21 @@ def test_forward_tta_contract_and_flip_equivariance(tta_pair):
 
 
 def test_forward_tta_refuses_the_query_family(tta_pair):
+    """The query family (ported since): `forward_tta` takes it, as the JAX
+    package's does (the flip merge of the query forward on the frames and
+    their mirror); `forward_mc` refuses it with the JAX package's
+    message."""
     qc = dataclasses.replace(tta_pair["tc"], family="query")
-    with pytest.raises(ValueError):
-        TD.forward_tta(tta_pair["tp"], torch.from_numpy(tta_pair["imgs"]), qc)
-    with pytest.raises(ValueError):
-        TD.forward_mc(tta_pair["tp"], torch.from_numpy(tta_pair["imgs"]), qc)
+    qp = TD.init_detector(torch.Generator().manual_seed(0), qc, "cpu")
+    imgs = torch.from_numpy(tta_pair["imgs"])
+    got = TD.forward_tta(qp, imgs, qc)
+    want = TD.merge_flipped(TD.forward(qp, imgs, qc),
+                            TD.forward(qp, torch.flip(imgs, dims=[2]), qc),
+                            qc)
+    for f in ("boxes", "classes", "scores", "logits", "valid", "masks"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    with pytest.raises(ValueError, match="rcnn family"):
+        TD.forward_mc(qp, imgs, qc)
 
 
 def _jax_mc_masks(key, samples: int, batch: int, proposals: int,

@@ -634,13 +634,14 @@ def test_detector_artifact_loads_in_both_packages(det_entry):
 
 @pytest.mark.parametrize("flag", [["--tta", "--eval-wide", "4"],
                                   ["--eval-wide", "4"],
-                                  ["--eval-serving"], ["--ckpt", "x.pkl"],
+                                  ["--eval-serving"],
+                                  ["--ckpt", "x.pkl", "--eval-serving"],
                                   ["--affine-finetune", "5"],
-                                  ["--pack-masks"],
+                                  ["--pack-masks", "--affine-finetune", "5"],
                                   ["--eval-wide-cache", "w.npz"]])
 def test_unported_flags_exit_2_naming_their_roadmap_item(flag, capsys):
-    """`--tta` is ported (A.14): beside an unported flag, only that flag's
-    item is named."""
+    """`--tta` is ported (A.14), `--ckpt` and `--pack-masks` too (A.15
+    step 1): beside an unported flag, only that flag's item is named."""
     assert SD.main(flag + ["--device", "cpu"]) == 2
     err = capsys.readouterr().err
     assert "ROADMAP A.15" in err and "A.14" not in err

@@ -671,6 +671,88 @@ def probe_update_gaps(store: str = "") -> list:
 
 
 # ---------------------------------------------------------------------------
+# the query detector's decoder and set loss (ROADMAP C.29)
+# ---------------------------------------------------------------------------
+
+QUERY_QCFG = dict(image_size=64, backbone_width=16, fpn_dim=64,
+                  family="query", num_queries=16, query_layers=3,
+                  max_detections=8, score_threshold=0.1)
+
+
+def probe_query_chaos(aux_topks=(0, 3), moves=(1, 2, 3, 4)) -> list:
+    """At tests/test_query_detector.py's QCFG on the JAX package's seeded
+    weights: per supervision point, the port's distance from the JAX
+    decoder (kernel path) beside the JAX decoder's own spread under 1e-4
+    moves of the weights; per `query_aux_topk`, the loss gap and the
+    largest ratio of a leaf's gradient gap to its spread (the training
+    path)."""
+    import functools
+
+    import jax.numpy as jnp
+
+    from embodied_captioning_tpu.config import DetectorConfig as JCfg
+    from embodied_captioning_tpu.models import detector as JD
+    from embodied_captioning_tpu.models import query_detector as JQ
+    from embodied_captioning_tpu.ops.detections import Detections as JDet
+    from embodied_captioning_tpu_torch.config import DetectorConfig as TCfg
+    from embodied_captioning_tpu_torch.models import detector as TD
+    from embodied_captioning_tpu_torch.models import query_detector as TQ
+    from embodied_captioning_tpu_torch.ops.detections import (
+        Detections as TDet,
+    )
+    from embodied_captioning_tpu_torch.params import from_jax, to_numpy
+    from embodied_captioning_tpu_torch.train.optim import value_and_grad
+    from test_torch_query_detector import _gt_batch
+
+    rows = []
+    jc, tc = JCfg(**QUERY_QCFG), TCfg(**QUERY_QCFG)
+    p = JD.init_detector(jax.random.PRNGKey(0), jc)
+    imgs, gt = _gt_batch(np.random.default_rng(0), 2, 8, 64)
+    x = jnp.asarray(imgs, jnp.float32) / 255.0
+    with jax_kernel_path():
+        fn = jax.jit(functools.partial(JQ._decode, cfg=jc))
+        want = fn(p, x)
+        moved = [fn(perturbed(p, s), x) for s in moves]
+    with torch.no_grad():
+        got = TQ._decode(from_jax(p, "cpu"),
+                         torch.from_numpy(imgs).float() / 255.0, tc)
+    for li, (g, w) in enumerate(zip(got, want)):
+        err = float(np.linalg.norm(np32(g[1]) - np32(w[1])))
+        spread = max(float(np.linalg.norm(np32(m[li][1]) - np32(w[1])))
+                     for m in moved)
+        rows.append({"decoder point": li, "mask logits gap": err,
+                     "jax spread": spread})
+    for k in aux_topks:
+        jc, tc = (JCfg(**QUERY_QCFG, query_aux_topk=k),
+                  TCfg(**QUERY_QCFG, query_aux_topk=k))
+        p = JD.init_detector(jax.random.PRNGKey(1), jc)
+        imgs, gt = _gt_batch(np.random.default_rng(1), 4, 8, 64)
+        jgt = JDet(**{n: jnp.asarray(v) for n, v in gt.items()})
+        with jax_train_path():
+            vg = jax.jit(jax.value_and_grad(lambda q: JD.detector_loss(
+                q, jnp.asarray(imgs), jgt, jc)[0]))
+            loss, grads = vg(p)
+            mv = [vg(perturbed(p, s)) for s in moves]
+        tl, _, tg = value_and_grad(lambda q: TD.detector_loss(
+            q, torch.from_numpy(imgs),
+            TDet(**{n: torch.from_numpy(np.asarray(v))
+                    for n, v in gt.items()}), tc), from_jax(p, "cpu"))
+        want = [np32(g) for g in jax.tree_util.tree_leaves(grads)]
+        got = [np32(g) for g in jax.tree_util.tree_leaves(to_numpy(tg))]
+        ratios = []
+        for i, (g, w) in enumerate(zip(got, want)):
+            spread = max(float(np.linalg.norm(
+                np32(jax.tree_util.tree_leaves(m[1])[i]) - w)) for m in mv)
+            ratios.append(float(np.linalg.norm(g - w)) / max(spread, 1e-30))
+        rows.append({"aux_topk": k, "loss": float(loss),
+                     "loss gap": abs(float(tl) - float(loss)),
+                     "jax loss spread": max(abs(float(m[0]) - float(loss))
+                                            for m in mv),
+                     "largest gradient gap / spread": max(ratios)})
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # a small store of the JAX package's exploration loop
 # ---------------------------------------------------------------------------
 
@@ -732,6 +814,9 @@ if __name__ == "__main__":
         for row in probe_update_gaps(sys.argv[2] if len(sys.argv) > 2
                                      else ""):
             print(row)
+    elif what == "query-chaos":
+        for row in probe_query_chaos():
+            print(row)
     elif what == "generate-scan":
         rows = probe_generate_scan()
         for row in rows:
@@ -742,4 +827,4 @@ if __name__ == "__main__":
         sys.exit("usage: python tests/torch_parity.py render | rollout-scan "
                  "| rollout-scan-blocks | beam | generate-scan | grad-chaos "
                  "| preprocess-diff | preprocess-rounding | template-cosines "
-                 "| update-gaps [STORE_DIR]")
+                 "| update-gaps [STORE_DIR] | query-chaos")
