@@ -5,8 +5,10 @@ training entry point (`train`), captioner fine-tune
 (`finetune_captioner`), learning self-checks (`selfcheck_training`,
 `selfcheck_detector`), pseudo-labeler (`run_pseudolabeler`),
 pseudo-captioner (`pseudocaption`), teacher-student detector pipeline
-(`train_detector`) and the query detector family (with
-`export_serving_artifact`) on one NVIDIA GPU.
+(`train_detector`), the query detector family (with
+`export_serving_artifact`), the detector's serving evaluations
+(`eval_artifact`, the self-check's serving flags) and the BLIP-2, Florence
+and consensus-LM families on one NVIDIA GPU.
 
 Phases, each of which must pass:
   1. build the hand-written Hopper kernels from the sources in the checkout;
@@ -39,7 +41,10 @@ Phases, each of which must pass:
      sentence-encoder shapes split into its pieces beside F.layer_norm's;
      the self block at cache positions 0, 1 and 29 and the cross block,
      both with int8 and bf16 weights and (cross) K/V, at 1, 17 and 64 rows
-     and at the tiny preset's width, each run twice for equal bits, with
+     and at the tiny preset's width, and at phase 14's 16 rows (the self
+     block at caches of 62, positions 32, 33 and 61, and of 128, positions
+     1 and 127; the cross block over 257 keys), each run twice for equal
+     bits, with
      their device time per launch; `common.block` where the route takes
      only some fused kernels (96 wide with 2 heads, 64 with 16, and 768
      with 12 at a cache of 1024 positions, too long for the self block) and
@@ -202,7 +207,31 @@ Phases, each of which must pass:
      (its tree equal to the CPU export's), and `perceive` on the exported
      int8 detector; (d) `run_pseudolabeler` with a query detector, and
      `train_detector` refusing a query student without masks, as the JAX
-     package's pipelines do.
+     package's pipelines do;
+ 14. drive the detector's serving evaluations and the last three model
+     families: (a) `eval_artifact` on the committed artifact on the card
+     (its corpora rendered there: 8 / 2 / 2 scenes of 2 positions at
+     1280^2, written to caches) and on the CPU from those caches (equal
+     corpus shas, mAPs within 0.05), then `selfcheck_detector --eval-wide
+     2 --eval-serving --calibrate --affine-finetune 20 --tta` at the tiny
+     preset (every key present and finite); (b) BLIP-2 at `Blip2Config()`
+     (ViT-L/14 at 224^2, a 768-wide 6-layer Q-Former over 32 queries, a
+     768-wide 12-layer LM) with random seeded weights on 16 crops of phase
+     3's frames: flash at the Q-Former's [16, 12, 32, 64] against its twin
+     (timed beside SDPA and the bound), greedy `generate` timed with its
+     launches, device busy and idle share, its layout, and held
+     teacher-forced against the twins (its step logits against the twins'
+     decode of its tokens in bf16 ulps, a decode without the image prefix
+     shown to be caught; the plain path's `lm_logits` over the decoded
+     tokens; `lm_logits`, `itc_score`, `itm_score`, each with a control of
+     other crops that must fail); (c) Florence at `FlorenceConfig()` (a
+     cache of 128, cross-attention over 257 ViT tokens): `generate` in
+     both tasks, on the route of separate calls and with int8 weights
+     (int8 cross K/V), each timed and held teacher-forced against the
+     twins (the kernel route's decode of its tokens against the twins' in
+     ulps, a decode without BOS shown to be caught; `florence_logits`);
+     (d)
+     `ConsensusLM` at `LMConfig()`: scores card vs CPU, `choose` timed.
 
 Float32 products and convolutions run without TF32 so the comparisons see
 the kernels' own error. Prints the card's name and power limit, frames/s
@@ -942,18 +971,24 @@ def generation_kernel_checks(K, QZ, dev) -> dict:
                               + 2 * b * d * 2,
                               4 * 2 * b * d * d + 4 * b * h * dh * t)
             # a single crop, one past a row tile of 16 (speculative decoding
-            # runs 16 rows, beam search 64) and the tiny preset's width
-            for n, width, heads, tt in ((1, d, h, t), (17, d, h, t),
-                                        (4, 64, 2, 12)):
+            # runs 16 rows, beam search 64), the tiny preset's width, and
+            # phase 14's caches at its 16 crops: BLIP-2's LM (32 prefix
+            # positions + 30, decoded from position 32) and Florence's
+            # decoder (128 positions)
+            for n, width, heads, tt, poses in (
+                    (1, d, h, t, (0, 1, t - 1)), (17, d, h, t, (0, 1, t - 1)),
+                    (4, 64, 2, 12, (0, 1, 11)),
+                    (VLM_CROPS, d, h, 62, (32, 33, 61)),
+                    (VLM_CROPS, d, h, 128, (1, 127))):
                 g_n = 1.0 + rn(width, scale=0.1, dtype=torch.float32)
                 b_n = rn(width, scale=0.1, dtype=torch.float32)
                 xn = rn(n, width)
                 for w8 in (True, False):
                     wn, _ = weights("qkvo", w8, width)
-                    for pos in (0, 1, tt - 1):
+                    for pos in poses:
                         name = (f"decode_self_block "
                                 f"{'int8' if w8 else 'bf16'} [{n},{width}] "
-                                f"pos={pos}")
+                                f"cache {tt} pos={pos}")
                         errs[name] = self_case(name, xn, g_n, b_n, wn, heads,
                                                tt, pos)
             log("  decode_self_block: two runs give equal bits at every "
@@ -1022,10 +1057,13 @@ def generation_kernel_checks(K, QZ, dev) -> dict:
                         p_x, TC.layernorm(p_ln, x3), h,
                         kv_precomputed=ckv)[0], 100))
     # a single crop, one past a row tile of 16, the tiny preset's width
-    # (2 heads of 32 over 16 keys) and cross K/V too long for one block's
-    # shared memory (tiles of keys), every weight and K/V type
+    # (2 heads of 32 over 16 keys), cross K/V too long for one block's
+    # shared memory (tiles of keys) and Florence's 257 ViT tokens at phase
+    # 14's 16 crops (no multiple of 4: the tiled kernel, ROADMAP B.19),
+    # every weight and K/V type
     for n, width, heads, keys in ((1, d, h, nk), (17, d, h, nk),
-                                  (4, 64, 2, 16), (4, d, h, 2048)):
+                                  (4, 64, 2, 16), (4, d, h, 2048),
+                                  (VLM_CROPS, d, h, 257)):
         g_n = 1.0 + rn(width, scale=0.1, dtype=torch.float32)
         b_n = rn(width, scale=0.1, dtype=torch.float32)
         xn = rn(n, width)
@@ -1035,7 +1073,7 @@ def generation_kernel_checks(K, QZ, dev) -> dict:
                 kv, _ = cross_kv(n, heads, width, keys, kv8)
                 name = (f"decode_cross_block {'int8' if w8 else 'bf16'} "
                         f"weights {'int8' if kv8 else 'bf16'} K/V "
-                        f"[{n},{width}]")
+                        f"[{n},{width}] {keys} keys")
                 errs[name] = cross_case(name, xn, g_n, b_n, wn, heads, kv)
     log("  decode_cross_block: two runs give equal bits at every shape above")
     cross_busy, cross_launches = device_profile(
@@ -5024,6 +5062,517 @@ def query_labeling(dev, smi: str, tmp: str) -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the detector's serving evaluations, BLIP-2, Florence and the
+# consensus LM
+# ---------------------------------------------------------------------------
+
+# 14a: eval_artifact's corpora cut to size: its protocol corpus's fixed 8
+# scenes, 2 wide and 2 stress scenes, EVAL_EP_STEPS walk positions a scene
+# (the script's default 12), batches of EVAL_BATCH (whole batches only);
+# the CPU's evaluation of the 24 frames takes most of the phase's time
+EVAL_SCENES, EVAL_WIDE, EVAL_STRESS = 8, 2, 2
+EVAL_EP_STEPS = 2
+EVAL_BATCH = 4
+# the card's mAP against the CPU's on the same frames and weights: the
+# served int8 detector's bf16 boxes and scores (ROADMAP C.25) may move a
+# detection across IoU 0.5 or past another's score
+EVAL_MAP_ATOL = 0.05
+SERVING_STEPS = 100            # 14a: selfcheck_detector steps (12e's)
+SERVING_FT = 20                # 14a: --affine-finetune steps
+VLM_CROPS = 16                 # 14b-c: crops of phase 3's frames
+# 14b: the Q-Former's query self-attention at Blip2Config(): 12 heads of
+# 64 over its 32 queries (XLA attention in the JAX package, T < 64)
+QFORMER_FLASH = (VLM_CROPS, 12, 32, 64)
+# 14b: ITC / ITM scores (f32 of bf16 features after a 24-layer ViT and a
+# 6-layer Q-Former) through the kernels against the twins' route. Read on
+# an H100 (PERF.md, PR 16 B, D): ITC 9.4e-4 and 8.4e-4, ITM 2.2e-3 and
+# 1.3e-3; the twins' scores of other crops 0.188 (ITC) and 0.863 (ITM)
+# from the kernels' (D), which must stay above the limit
+SCORE_ATOL = 1e-2
+# 14b-c: the step logits of the kernel decode against the twins' decode of
+# the same tokens (teacher-forced, phase 3's measure: the chosen tokens'
+# log-probs in bf16 ulps of the row's largest |logit|) are held to
+# MAX_LOGPROB_ULPS (read: BLIP-2 2.017, Florence 2.013-2.051, PR 16 D); a
+# twins' decode whose cache lacks its first positions (BLIP-2's image
+# prefix, Florence's BOS) must read above it (read 284.7 and 90.0).
+# BLIP-2's full-sequence `lm_logits` (the ViT, Q-Former and a 44-position
+# prefix-LM pass, no decode kernel) through the kernels against the
+# twins' in the same measure (read 3.002, PR 16 D); the kernels' over
+# other crops must read above it
+LM_LOGITS_ULPS = 8.0
+LM_SETS = (["a red couch", "a red couch near the wall", "a green plant"],
+           ["a tv", "a black tv on a table", "a television", "a tv"],
+           ["a white toilet", "a bed", "a white toilet in a bathroom"],
+           ["a plant", "a small green plant", "a potted plant on a table",
+            "a brown table", "a plant"])
+LM_SCORE_ATOL = 1e-2           # 14d: mean log-probs, card vs CPU
+
+
+def serving_evals(dev, smi: str, tmp: str) -> dict:
+    """14a: `eval_artifact` on the committed artifact on the card, its
+    corpora rendered there and written to caches (EVAL_SCENES / EVAL_WIDE
+    / EVAL_STRESS scenes of EVAL_EP_STEPS positions; the raycast kernel
+    launched), then on the CPU from those caches: equal corpus shas, every
+    mAP within EVAL_MAP_ATOL; then `selfcheck_detector --eval-wide 2
+    --eval-serving --calibrate --affine-finetune SERVING_FT --tta` at the
+    tiny preset on the card: every key of those flags present, finite and
+    in [0, 1]."""
+    from embodied_captioning_tpu_torch import eval_artifact as EA
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch import selfcheck_detector as SD
+
+    caches = [os.path.join(tmp, f"{n}.npz")
+              for n in ("protocol", "wide", "stress")]
+    argv = ["--eval-cache", caches[0], "--wide", str(EVAL_WIDE),
+            "--wide-cache", caches[1], "--stress", str(EVAL_STRESS),
+            "--stress-cache", caches[2], "--eval-ep-steps",
+            str(EVAL_EP_STEPS), "--batch", str(EVAL_BATCH)]
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rc, card = run_entry(EA.main, argv + ["--device", str(dev)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(K.launches)
+    t0 = time.perf_counter()
+    rc_cpu, cpu = run_entry(EA.main, argv + ["--device", "cpu"])
+    dt_cpu = time.perf_counter() - t0
+    log(f"  eval_artifact (committed artifact, {EVAL_SCENES}/{EVAL_WIDE}/"
+        f"{EVAL_STRESS} scenes x {EVAL_EP_STEPS} positions at 1280^2) on "
+        f"{smi}: {dt:.1f} s with the render, {dt_cpu:.1f} s on the CPU "
+        f"from the caches; launches {counts}")
+    if rc != 0 or rc_cpu != 0 or counts["raycast_minargmin"] <= 0:
+        raise AssertionError(f"eval_artifact: rc {rc} / {rc_cpu}, "
+                             f"launches {counts}")
+    if card["corpora"] != cpu["corpora"] or list(card["results"]) != [
+            "protocol", "wide", "stress"]:
+        raise AssertionError(f"eval_artifact corpora: {card['corpora']} vs "
+                             f"{cpu['corpora']}")
+    worst = 0.0
+    for c, row in cpu["results"].items():
+        if list(card["results"][c]) != list(row):
+            raise AssertionError(f"eval_artifact {c}: {card['results'][c]}")
+        for v, m in row.items():
+            got = card["results"][c][v]
+            worst = max(worst, abs(got - m))
+            log(f"    {c}/{v}: card {got}, CPU {m}")
+    if worst > EVAL_MAP_ATOL:
+        raise AssertionError(f"eval_artifact mAP card vs CPU {worst} > "
+                             f"{EVAL_MAP_ATOL}")
+    log(f"  eval_artifact: corpora {card['corpora']}; mAP card vs CPU "
+        f"within {worst:.4f} (limit {EVAL_MAP_ATOL})")
+    t0 = time.perf_counter()
+    rc, line = run_entry(SD.main, [
+        "--steps", str(SERVING_STEPS), "--episodes", "2", "--eval-wide", "2",
+        "--eval-serving", "--calibrate", "--affine-finetune",
+        str(SERVING_FT), "--tta", "--device", str(dev)])
+    dt_sc = time.perf_counter() - t0
+    keys = ("map50_wide", "map50_wide_tta", "map50_serving_exact",
+            "map50_serving_approx", "map50_gn_int8", "map50_affine",
+            "map50_affine_ft", "map50_served_int8", "map50_served_int8_tta")
+    bad = [k for k in keys if not isinstance(line.get(k), float)
+           or not 0.0 <= line[k] <= 1.0]
+    if rc != 0 or bad or not isinstance(line.get("eval_wide_sha"), str):
+        raise AssertionError(f"selfcheck_detector serving flags: {bad} "
+                             f"{line}")
+    log(f"  selfcheck_detector --eval-wide 2 --eval-serving --calibrate "
+        f"--affine-finetune {SERVING_FT} --tta (tiny, {SERVING_STEPS} "
+        f"steps) on {smi}: {dt_sc:.1f} s; "
+        + ", ".join(f"{k} {line[k]}" for k in keys))
+    return dict(counts=counts, card=card, cpu=cpu, line=line)
+
+
+def require_launches(what: str, counts: dict, need: tuple) -> None:
+    missing = [n for n in need if counts[n] <= 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels not launched {missing}: "
+                             f"{counts}")
+
+
+def live_positions(tokens: torch.Tensor, first: int) -> torch.Tensor:
+    """[B, L-1-first] bool: decode steps from position `first` whose token
+    (at pos + 1) was chosen before the row finished (an EOS at or before
+    pos)."""
+    from embodied_captioning_tpu_torch.models.tokenizer import EOS_ID
+
+    eos = (tokens[:, first:-1] == EOS_ID).int()
+    done_before = torch.cumsum(eos, dim=1) > 0
+    return ~done_before
+
+
+def chosen_agree(logits: torch.Tensor, tokens: torch.Tensor, first: int
+                 ) -> tuple:
+    """(share, count) of the live decode steps from `first` whose argmax of
+    the teacher-forced `logits` [B, L, V] equals the token chosen there."""
+    live = live_positions(tokens, first)
+    pred = logits[:, first:-1].float().argmax(-1)
+    ok = (pred == tokens[:, first + 1:].long()) & live
+    n = int(live.sum())
+    return int(ok.sum()) / max(n, 1), n
+
+
+def qformer_flash_case(K, dev) -> dict:
+    """Flash attention at the Q-Former's query self-attention shape
+    QFORMER_FLASH against its plain version (twice for equal bits), timed
+    beside SDPA and the bound: a new shape for the kernel (the JAX package
+    sends T < 64 to XLA attention, ROADMAP C.9)."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    q, k, v = (torch.randn(*QFORMER_FLASH, generator=g, device=dev
+                           ).to(torch.bfloat16) for _ in range(3))
+    got = K.flash_attention(q, k, v)
+    err = check_close(f"flash_attention {list(QFORMER_FLASH)} (Q-Former "
+                      f"queries)", got, K.flash_attention_plain(q, k, v),
+                      2e-2)
+    if not torch.equal(got, K.flash_attention(q, k, v)):
+        raise AssertionError("flash_attention (Q-Former): two runs differ")
+    b, h, t, d = QFORMER_FLASH
+    fb, ff = bound_ms(4 * nbytes(q), 4 * b * h * t * t * d)
+    case = dict(
+        shape=list(QFORMER_FLASH), what="Q-Former query self-attention",
+        replaces=TPU_KERNELS + "flash_attention.py:147", max_abs_err=err,
+        **kernel_ms(lambda: K.flash_attention(q, k, v)),
+        plain_ms=time_ms(lambda: K.flash_attention_plain(q, k, v), 5, 1),
+        bound_ms=fb, bound_by=ff,
+        **library(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v)))
+    log(f"  flash_attention {list(QFORMER_FLASH)}: {case['device_us']:.2f} "
+        f"us on the device ({case['ms'] * 1e3:.2f} us a call), SDPA "
+        f"{case['library_device_us']:.2f} us, bound {fb * 1e3:.2f} us ({ff}),"
+        f" plain {case['plain_ms'] * 1e3:.1f} us")
+    return case
+
+
+def timed_generate(what: str, fn, need: tuple, smi: str) -> dict:
+    """A warm-up call of `fn`, then one timed with the kernels' launches
+    counted (every kernel in `need` launched), then one under the profiler
+    (device busy and idle share)."""
+    from embodied_captioning_tpu_torch import kernels as K
+
+    fn()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(K.launches)
+    require_launches(what, counts, need)
+    log(f"  {what} on {smi}: {dt * 1e3:.1f} ms a batch; launches {counts}")
+    busy = profile_run(what, fn, dt * 1e6, top=8)
+    return dict(out=out, ms=dt * 1e3, counts=counts, busy_us=busy)
+
+
+def logprob_ulps(kern: torch.Tensor, twin: torch.Tensor,
+                 tokens: torch.Tensor, first: int) -> dict:
+    """Phase 3's measure over the live decode steps from `first`: step
+    logits [B, S, V] (step s predicts tokens[:, first + s + 1]) of the
+    kernel route and of the twins, the chosen tokens' log-prob difference
+    in bf16 ulps of the twins' largest |logit| in the row: max and mean."""
+    live = live_positions(tokens, first)
+    nxt = tokens[:, first + 1:].long()[..., None]
+    kern, twin = kern.float(), twin.float()
+    lk = torch.log_softmax(kern, -1).gather(-1, nxt)[..., 0]
+    lt = torch.log_softmax(twin, -1).gather(-1, nxt)[..., 0]
+    ulp = torch.exp2(torch.floor(torch.log2(
+        twin.abs().amax(-1).clamp(min=1e-30))) - 7)
+    u = ((lk - lt).abs() / ulp)[live]
+    return dict(max=u.max().item(), mean=u.mean().item(), n=int(live.sum()))
+
+
+def blip2_forced_steps(params: dict, crops: torch.Tensor,
+                       tokens: torch.Tensor, cfg, prime: bool = True
+                       ) -> torch.Tensor:
+    """The decode steps of BLIP-2's `generate` fed `tokens` [B, L]
+    (teacher-forced) on the route in force (kernels or twins): the step
+    logits [B, L-1, V]. prime=False leaves the cache's Q prefix positions
+    unwritten (a decode that does not see the image: the control)."""
+    from embodied_captioning_tpu_torch.models import blip2 as B
+    from embodied_captioning_tpu_torch.models.common import (
+        KVCache, block, dense, layernorm)
+
+    prefix = B._lm_prefix(params, crops, cfg)
+    b, nq, _ = prefix.shape
+    length = tokens.shape[1]
+    hd = cfg.lm_width // cfg.lm_heads
+    caches = [KVCache.create(b, nq + length, cfg.lm_heads, hd, crops.device)
+              for _ in range(cfg.lm_layers)]
+    if prime:
+        x = (prefix.float() + params["lm_pos"][None, :nq]).to(torch.bfloat16)
+        for i, blk in enumerate(params["lm_blocks"]):
+            x, caches[i] = block(blk, x, cfg.lm_heads, cache=caches[i],
+                                 cache_block_causal=False)
+    else:
+        caches = [KVCache(c.k, c.v, nq) for c in caches]
+    out = []
+    for pos in range(length - 1):
+        x = (params["lm_tok_emb"][tokens[:, pos].long()][:, None]
+             + params["lm_pos"][nq + pos][None, None]).to(torch.bfloat16)
+        for i, blk in enumerate(params["lm_blocks"]):
+            x, caches[i] = block(blk, x, cfg.lm_heads, cache=caches[i])
+        out.append(dense(params["lm_head"],
+                         layernorm(params["lm_ln"], x))[:, 0])
+    return torch.stack(out, 1)
+
+
+def florence_forced_steps(params: dict, crops: torch.Tensor,
+                          tokens: torch.Tensor, cfg, decode_blocks: bool,
+                          prime: bool = True) -> torch.Tensor:
+    """The decode steps of Florence's `generate` fed `tokens` [B, L]
+    (teacher-forced) on the route in force: the step logits [B, L-2, V]
+    of positions 1..L-2. prime=False leaves the cache's position 0 (BOS)
+    unwritten (the control)."""
+    from embodied_captioning_tpu_torch.models import florence as F
+    from embodied_captioning_tpu_torch.models.common import (
+        KVCache, block, dense, layernorm, precompute_kv)
+
+    feats = F._encode(params, crops, cfg)
+    b, length = tokens.shape
+    hd = cfg.width // cfg.heads
+    caches = [KVCache.create(b, length, cfg.heads, hd, crops.device)
+              for _ in range(cfg.layers)]
+    cross_kvs = [precompute_kv(blk["xattn"], feats, cfg.heads)
+                 for blk in params["blocks"]]
+
+    def run_token(pos: int) -> torch.Tensor:
+        x = (params["tok_emb"][tokens[:, pos].long()][:, None]
+             + params["pos_emb"][pos][None, None]).to(torch.bfloat16)
+        for i, (blk, ckv) in enumerate(zip(params["blocks"], cross_kvs)):
+            x, caches[i] = block(blk, x, cfg.heads, cache=caches[i],
+                                 cross_kv=ckv, decode_blocks=decode_blocks)
+        return dense(params["head"], layernorm(params["ln"], x))[:, 0]
+
+    if prime:
+        run_token(0)
+    else:
+        caches = [KVCache(c.k, c.v, 1) for c in caches]
+    return torch.stack([run_token(pos) for pos in range(1, length - 1)], 1)
+
+
+@torch.no_grad()
+def blip2_full_width(K, frames, dev, smi: str) -> dict:
+    """14b: BLIP-2 at Blip2Config() (ViT-L/14 at 224^2, a 768-wide 6-layer
+    Q-Former over 32 queries, a 768-wide 12-layer LM) with random weights
+    from a generator seeded 0, on VLM_CROPS quadrant crops of phase 3's
+    frames: the Q-Former's flash shape against its twin; greedy `generate`
+    timed (launches, device busy and idle share), its layout (BOS first,
+    PAD after EOS, lengths), and held teacher-forced against the twins'
+    route: `generate`'s step logits against the twins' decode of its
+    tokens within MAX_LOGPROB_ULPS (the twins' decode without the image
+    prefix in its cache must fail that); the plain path's `lm_logits`
+    over the kernel path's tokens picks the same token on at least
+    MIN_ARGMAX_AGREE of the live steps, and the kernel path's within
+    LM_LOGITS_ULPS of it (the kernel path's over other crops must be
+    further off); `itc_score` and `itm_score` against the plain path's
+    within SCORE_ATOL (the plain path's scores of other crops must be
+    further off)."""
+    from embodied_captioning_tpu_torch.models import blip2 as B
+    from embodied_captioning_tpu_torch.models.tokenizer import (
+        EOS_ID, PAD_ID)
+
+    case = qformer_flash_case(K, dev)
+    cfg = B.Blip2Config()
+    params = B.init_blip2(torch.Generator(device=dev).manual_seed(0), cfg,
+                          dev)
+    crops = center_crops(frames[:VLM_CROPS // 4], cfg.vision.image_size)
+    run = timed_generate(
+        "BLIP-2 generate (16 crops, 32 + 30 cache positions)",
+        lambda: B.generate(params, crops, None, cfg, DECODE_LEN),
+        ("flash_attention", "layernorm", "fused_preprocess",
+         "decode_self_block", "decode_mlp"), smi)
+    toks, step_logits, lengths = run["out"]
+    t = toks.cpu()
+    after_eos = torch.cumsum((t == EOS_ID).int(), 1) - (t == EOS_ID).int()
+    if (tuple(toks.shape) != (VLM_CROPS, DECODE_LEN)
+            or not bool((t[:, 0] == 1).all())
+            or bool(((after_eos > 0) & (t != PAD_ID)).any())
+            or not torch.equal(lengths.cpu(), (t != PAD_ID).sum(1).int())
+            or not bool(torch.isfinite(step_logits.float()).all())):
+        raise AssertionError(f"BLIP-2 generate: layout {t[:2]} {lengths}")
+    rolled = crops.roll(1, 0)
+    with plain_kernels(K):
+        tf = B.lm_logits(params, crops, toks, cfg)
+        itc_p = B.itc_score(params, crops, toks, cfg)
+        itm_p = B.itm_score(params, crops, toks, cfg)
+        itc_o = B.itc_score(params, rolled, toks, cfg)
+        itm_o = B.itm_score(params, rolled, toks, cfg)
+        steps = logprob_ulps(step_logits, blip2_forced_steps(
+            params, crops, toks, cfg), toks, 0)
+        ctrl = logprob_ulps(step_logits, blip2_forced_steps(
+            params, crops, toks, cfg, prime=False), toks, 0)
+    agree, n = chosen_agree(tf, toks, 0)
+    lk = B.lm_logits(params, crops, toks, cfg)
+    ka, _ = chosen_agree(lk, toks, 0)
+    full = logprob_ulps(lk[:, :-1], tf[:, :-1], toks, 0)
+    full_c = logprob_ulps(B.lm_logits(params, rolled, toks, cfg)[:, :-1],
+                          tf[:, :-1], toks, 0)
+    err = (lk.float() - tf.float()).abs().max().item()
+    itc, itm = B.itc_score(params, crops, toks, cfg), B.itm_score(
+        params, crops, toks, cfg)
+    itc_e = (itc - itc_p).abs().max().item()
+    itm_e = (itm - itm_p).abs().max().item()
+    itc_c = (itc - itc_o).abs().max().item()
+    itm_c = (itm - itm_o).abs().max().item()
+    log(f"  BLIP-2 teacher-forced: generate's step logits against the "
+        f"twins' decode of its tokens {steps['max']:.3f} bf16 logit ulps, "
+        f"mean {steps['mean']:.3f}, over {steps['n']} live steps (limit "
+        f"{MAX_LOGPROB_ULPS}; the twins' decode without the image prefix "
+        f"{ctrl['max']:.3f}, mean {ctrl['mean']:.3f}); the twins' lm_logits "
+        f"pick the kernel decode's token on {agree:.4f} of {n} live steps "
+        f"(the kernels' lm_logits on {ka:.4f}); lm_logits kernels vs twins "
+        f"{full['max']:.3f} ulps, mean {full['mean']:.3f}, max_abs_err "
+        f"{err:.3e} (limit {LM_LOGITS_ULPS}; the kernels' over other crops "
+        f"{full_c['max']:.3f}); itc {itc_e:.3e}, itm {itm_e:.3e} (limit "
+        f"{SCORE_ATOL}; against the twins' scores of other crops "
+        f"{itc_c:.3e}, {itm_c:.3e})")
+    bad = [name for name, fail in (
+        ("step logits", steps["max"] > MAX_LOGPROB_ULPS),
+        ("the prefix-less control passed", ctrl["max"] <= MAX_LOGPROB_ULPS),
+        ("lm_logits agreement", agree < MIN_ARGMAX_AGREE
+         or ka < MIN_ARGMAX_AGREE),
+        ("lm_logits ulps", full["max"] > LM_LOGITS_ULPS
+         or not math.isfinite(err)),
+        ("the other crops' lm_logits passed", full_c["max"] <= LM_LOGITS_ULPS),
+        ("itc / itm", itc_e > SCORE_ATOL or itm_e > SCORE_ATOL),
+        ("the other crops' scores passed",
+         itc_c <= SCORE_ATOL or itm_c <= SCORE_ATOL)) if fail]
+    if bad:
+        raise AssertionError(f"BLIP-2 kernels vs twins: {bad}")
+    return dict(counts=run["counts"], ms=run["ms"], busy_us=run["busy_us"],
+                flash_case=case, agree=agree)
+
+
+@torch.no_grad()
+def florence_full_width(K, frames, dev, smi: str) -> dict:
+    """14c: Florence at FlorenceConfig() (ViT-L/14 at 224^2, a 768-wide
+    12-layer decoder with cross-attention over 257 ViT tokens, a cache of
+    128) with random weights from a generator seeded 0, on the crops of
+    14b: greedy `generate` in both tasks on the block route, the caption
+    task also on the route of separate calls and with int8 weights (int8
+    cross K/V), each timed with its launches; each held teacher-forced:
+    the twins' `florence_logits` over the kernel decode's tokens picks the
+    same token on at least MIN_ARGMAX_AGREE of the live steps, and the
+    kernel route's decode of those tokens against the twins' within
+    MAX_LOGPROB_ULPS (the twins' decode without BOS in its cache, on the
+    first run, must fail that)."""
+    from embodied_captioning_tpu_torch.models import florence as F
+    from embodied_captioning_tpu_torch.models.quantize import quantize_params
+
+    cfg = F.FlorenceConfig()
+    params = F.init_florence(torch.Generator(device=dev).manual_seed(0), cfg,
+                             dev)
+    qparams = quantize_params(params)
+    crops = center_crops(frames[:VLM_CROPS // 4], cfg.vision.image_size)
+    blocks = ("flash_attention", "layernorm", "fused_preprocess",
+              "decode_self_block", "decode_cross_block", "decode_mlp")
+    calls = ("flash_attention", "layernorm", "fused_preprocess",
+             "decode_self_attention", "decode_cross_attention", "decode_mlp")
+    counts = collections.Counter()
+    out, bad = {}, []
+    for name, p, task, route, need in (
+            ("caption", params, F.TASK_CAPTION, True, blocks),
+            ("od", params, F.TASK_OD, True, blocks),
+            ("caption, separate calls", params, F.TASK_CAPTION, False, calls),
+            ("od, int8", qparams, F.TASK_OD, True, blocks)):
+        run = timed_generate(
+            f"Florence generate {name} (16 crops, cache 128)",
+            lambda: F.generate(p, crops, cfg, task=task, decode_blocks=route),
+            need, smi)
+        toks, lengths = run["out"]
+        if (tuple(toks.shape) != (VLM_CROPS, cfg.max_seq)
+                or not bool((toks[:, 1] == cfg.task_offset + task).all())
+                or int(toks.max()) >= cfg.vocab_size):
+            raise AssertionError(f"Florence {name}: tokens {toks[:2]}")
+        kern = florence_forced_steps(p, crops, toks, cfg, route)
+        live = live_positions(toks, 1)
+        ka = int(((kern.float().argmax(-1) == toks[:, 2:].long())
+                  & live).sum()) / max(int(live.sum()), 1)
+        with plain_kernels(K):
+            tf = F.florence_logits(p, crops, toks, cfg)
+            steps = logprob_ulps(kern, florence_forced_steps(
+                p, crops, toks, cfg, route), toks, 1)
+            ctrl = None if out else logprob_ulps(kern, florence_forced_steps(
+                p, crops, toks, cfg, route, prime=False), toks, 1)
+        del kern
+        agree, n = chosen_agree(tf, toks, 1)
+        log(f"  Florence {name} teacher-forced: the kernel route's decode of "
+            f"the tokens against the twins' {steps['max']:.3f} bf16 logit "
+            f"ulps, mean {steps['mean']:.3f}, over {steps['n']} live steps "
+            f"(limit {MAX_LOGPROB_ULPS}"
+            + ("" if ctrl is None else
+               f"; the twins' decode without BOS {ctrl['max']:.3f}, mean "
+               f"{ctrl['mean']:.3f}")
+            + f"), its argmax the decoded token on {ka:.4f}; the twins' "
+            f"florence_logits pick the kernel decode's token on {agree:.4f} "
+            f"of {n} live steps")
+        if agree < MIN_ARGMAX_AGREE or steps["max"] > MAX_LOGPROB_ULPS:
+            bad.append(name)
+        if ctrl is not None and ctrl["max"] <= MAX_LOGPROB_ULPS:
+            bad.append(f"{name}: the control without BOS passed")
+        counts.update(run["counts"])
+        out[name] = dict(ms=run["ms"], busy_us=run["busy_us"], agree=agree,
+                         ulps=steps["max"])
+    if bad:
+        raise AssertionError(f"Florence kernels vs twins: {bad}")
+    return dict(counts=dict(counts), runs=out)
+
+
+@torch.no_grad()
+def consensus_lm_card_vs_cpu(dev, smi: str) -> dict:
+    """14d: `ConsensusLM` at LMConfig() (256 wide, 4 layers, a context of
+    256: float32 residual rows through the LayerNorm kernel) with random
+    weights from a generator seeded 0: each caption set's scores on the
+    card against the same weights on the CPU within LM_SCORE_ATOL, the
+    same pick where the best two scores are further apart than twice
+    that; `choose` timed, with its launches."""
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch.models import llm as L
+
+    cfg = L.LMConfig()
+    lm = L.ConsensusLM(cfg, seed=0, device=dev)
+    lm_cpu = L.ConsensusLM(cfg, params=to_device(lm.params, "cpu"),
+                           device="cpu")
+    lm.choose(LM_SETS[0])
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    picks = [lm.choose(s) for s in LM_SETS]
+    dt = time.perf_counter() - t0
+    counts = dict(K.launches)
+    require_launches("ConsensusLM", counts, ("layernorm",))
+    worst = 0.0
+    for s, pick in zip(LM_SETS, picks):
+        a, b = lm.scores(s), lm_cpu.scores(s)
+        worst = max(worst, float(np.abs(a - b).max()))
+        top = np.sort(b)[::-1]
+        if top[0] - top[1] > 2 * LM_SCORE_ATOL and \
+                pick != s[int(np.argmax(b))]:
+            raise AssertionError(f"ConsensusLM picks {pick} on the card, "
+                                 f"{s[int(np.argmax(b))]} on the CPU")
+    log(f"  ConsensusLM (LMConfig(), {len(LM_SETS)} caption sets) on {smi}: "
+        f"{dt * 1e3 / len(LM_SETS):.1f} ms a choose; scores card vs CPU "
+        f"max_abs_err {worst:.3e} (limit {LM_SCORE_ATOL}); launches {counts}")
+    if worst > LM_SCORE_ATOL:
+        raise AssertionError("ConsensusLM scores card vs CPU")
+    return dict(counts=counts, ms=dt * 1e3 / len(LM_SETS), err=worst)
+
+
+def phase14(K, frames, rows: dict, dev, smi: str, tmp: str) -> dict:
+    """Phase 14 in order, its Q-Former flash case added to the flash
+    attention row's cases; returns each path's launch counts."""
+    t14 = time.perf_counter()
+    ev = serving_evals(dev, smi, tmp)
+    torch.cuda.empty_cache()
+    b2 = blip2_full_width(K, frames, dev, smi)
+    rows["flash_attention"].setdefault("cases", []).append(b2["flash_case"])
+    torch.cuda.empty_cache()
+    fl = florence_full_width(K, frames, dev, smi)
+    torch.cuda.empty_cache()
+    lm = consensus_lm_card_vs_cpu(dev, smi)
+    log(f"  phase 14 in {time.perf_counter() - t14:.1f} s")
+    return dict(eval=ev["counts"], blip2=b2["counts"],
+                florence=fl["counts"], lm=lm["counts"])
+
+
 def card_name() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -5184,6 +5733,12 @@ def main() -> int:
                 query_rung(frames13, qry.pop("per"), dev, smi, tmp)
                 query_labeling(dev, smi, tmp)
             log(f"  phase 13 in {time.perf_counter() - t13:.1f} s")
+            torch.cuda.empty_cache()
+            log("[14] the detector's serving evaluations (eval_artifact, "
+                "selfcheck_detector --eval-wide --eval-serving "
+                "--affine-finetune), BLIP-2, Florence and the consensus LM")
+            with tempfile.TemporaryDirectory(prefix="ecap_vlm_") as tmp:
+                p14 = phase14(K, frames13, rows, dev, smi, tmp)
     except Exception:
         traceback.print_exc()
         return 1
@@ -5200,7 +5755,11 @@ def main() -> int:
     # self-checks at the tiny preset (11c and 11d), collection, training
     # and evaluation; launches_labeling: over phase 12b's timed `predict`
     # (LABEL_FRAMES frames of phase 8's store); launches_query: over phase
-    # 13b's timed perceive batch with the query detector (large preset)
+    # 13b's timed perceive batch with the query detector (large preset);
+    # launches_eval: over 14a's eval_artifact on the card (its corpora's
+    # render); launches_blip2: over 14b's timed BLIP-2 generate;
+    # launches_florence: over 14c's four timed Florence generates;
+    # launches_lm: over 14d's timed ConsensusLM choices
     kernels = []
     for n, r in rows.items():
         if loop["counts"][n] > 0:
@@ -5218,7 +5777,10 @@ def main() -> int:
             launches_finetune=ft["plain"]["counts"][n],
             launches_learning=cap["counts"][n] + det["counts"][n],
             launches_labeling=lab["counts"][n],
-            launches_query=qry["counts"][n], **r))
+            launches_query=qry["counts"][n],
+            launches_eval=p14["eval"][n], launches_blip2=p14["blip2"][n],
+            launches_florence=p14["florence"].get(n, 0),
+            launches_lm=p14["lm"][n], **r))
     if any(k["launches"] <= 0 for k in kernels):
         print(f"chip_smoke: a kernel was never launched: {kernels}",
               file=sys.stderr)

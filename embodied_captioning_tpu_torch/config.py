@@ -81,7 +81,7 @@ class TextDecoderConfig:
     pad_id: int = 0
     bos_id: int = 1
     eos_id: int = 2
-    moe_experts: int = 0  # mixture-of-experts MLPs (the port: dense only)
+    moe_experts: int = 0  # mixture-of-experts MLPs (the port refuses > 0)
 
 
 @dataclass(frozen=True)

@@ -12,9 +12,10 @@ filtering, a caption frequency table, then a consensus scorer:
                embeddings (`sbert.SentenceEncoder`)
   tfidf        tf-idf weighted frequency ranking, the document
                frequencies over every object's captions computed once
-  llm          an LLM's consensus (ROADMAP A.15: `models/llm.py` is not
-               ported); without a model it falls back to `sbert`, as the
-               JAX package does when no local model is configured
+  llm          a local Hugging Face causal LM prompted for the caption
+               that best describes the object (`llm_path`); without a
+               model at that path, or where it fails (no `transformers`),
+               it falls back to `sbert`, as the JAX package does
 
 Output: {"<episode>_<object id>": caption}.
 """
@@ -96,7 +97,8 @@ class PseudoCaptioner:
     """`consensus` over grouped captions with `method`. The sentence
     encoder defaults to seeded random weights (generator seed 0) on
     `device`, the perceiver (for clip / itc) likewise. `llm_path`: a local
-    LLM, which the port cannot run yet (ROADMAP A.15)."""
+    Hugging Face causal LM for the llm method (the JAX package reads it
+    from ECAP_LLM_PATH)."""
 
     def __init__(self, cfg=None, perceiver=None, sentence_encoder=None,
                  method: str = "sbert", device="cuda",
@@ -106,10 +108,7 @@ class PseudoCaptioner:
         self.sentence_encoder = sentence_encoder
         self.method = method
         self.device = device
-        if llm_path is not None:
-            raise NotImplementedError(
-                "the LLM consensus needs models/llm.py, not ported yet "
-                "(ROADMAP A.15)")
+        self.llm_path = llm_path
 
     # -- method implementations -------------------------------------------
     def _sbert_consensus(self, captions: List[str]) -> str:
@@ -169,9 +168,14 @@ class PseudoCaptioner:
         return captions[int(np.argmax(scores))]
 
     def _llm_consensus(self, captions: List[str]) -> str:
-        """No LLM is ported (ROADMAP A.15): the sbert centroid, the JAX
-        package's fallback without a local model."""
-        return self._sbert_consensus(captions)
+        """In-context LLM consensus with the local model at `llm_path`;
+        without one, or where it fails, the sbert centroid."""
+        if not self.llm_path or not os.path.exists(self.llm_path):
+            return self._sbert_consensus(captions)
+        try:
+            return _hf_llm_consensus(self.llm_path, captions)
+        except Exception:
+            return self._sbert_consensus(captions)
 
     # -- plumbing ----------------------------------------------------------
     def _get_sentence_encoder(self):
@@ -223,3 +227,32 @@ class PseudoCaptioner:
         with open(output_json, "w") as fh:
             json.dump(result, fh, indent=2)
         return result
+
+
+_HF_LLM_CACHE: Dict[str, Tuple] = {}
+
+
+def _hf_llm_consensus(model_path: str, captions: List[str]) -> str:
+    """Prompted consensus with a local Hugging Face causal LM: the captions
+    between <Caption> tags, 32 greedy new tokens, the text up to the first
+    closing tag (the first caption where that is empty). The model loads
+    once per path, in float32 on the CPU."""
+    from transformers import AutoModelForCausalLM, AutoTokenizer
+
+    if model_path not in _HF_LLM_CACHE:
+        _HF_LLM_CACHE[model_path] = (
+            AutoTokenizer.from_pretrained(model_path),
+            AutoModelForCausalLM.from_pretrained(
+                model_path, torch_dtype=torch.float32))
+    tok, model = _HF_LLM_CACHE[model_path]
+    listing = "\n".join(f"<Caption>{c}</Caption>" for c in captions)
+    prompt = (
+        "You are given multiple captions of the same object seen from "
+        "different viewpoints. Reply with the single caption that best "
+        "describes the object, between <Caption> tags.\n"
+        f"{listing}\n<Caption>")
+    inputs = tok(prompt, return_tensors="pt")
+    out = model.generate(**inputs, max_new_tokens=32, do_sample=False)
+    text = tok.decode(out[0][inputs["input_ids"].shape[1]:],
+                      skip_special_tokens=True)
+    return text.split("</Caption>")[0].strip() or captions[0]

@@ -23,13 +23,22 @@ import torch
 
 from ..config import CaptionerConfig
 from .common import (
-    KVCache, block, block_init, causal_mask, dense, dense_init, layernorm,
-    layernorm_init, precompute_kv, randn,
+    MOE_REFUSAL, KVCache, block, block_init, causal_mask, dense, dense_init,
+    layernorm, layernorm_init, precompute_kv, randn,
 )
 from .vit import encode_image, init_vit, run_blocks
 
 
+def check_text_config(cfg: CaptionerConfig) -> None:
+    """Refuse `text.moe_experts > 0`, which the JAX package builds as a
+    mixture-of-experts decoder and the port does not have yet."""
+    if cfg.text.moe_experts > 0:
+        raise ValueError(f"text.moe_experts={cfg.text.moe_experts}: "
+                         f"{MOE_REFUSAL}")
+
+
 def init_captioner(g: torch.Generator, cfg: CaptionerConfig, device) -> dict:
+    check_text_config(cfg)
     t = cfg.text
     return {
         "vision": init_vit(g, cfg.vision, device),

@@ -51,6 +51,8 @@ from .quantize import QuantizedArray, QuantizedKV, maybe_dequant, quantize_kv
 
 BERT_LN_EPS = 1e-12  # HF BertConfig.layer_norm_eps
 NEG_INF = -1e30
+MOE_REFUSAL = ("the port builds dense text blocks only: the "
+               "mixture-of-experts captioner is ROADMAP A.15 step 4")
 
 
 def flash_attention_fits(d: int) -> bool:
@@ -256,13 +258,17 @@ def mha(p: dict, x: torch.Tensor, heads: int,
         cache: Optional[KVCache] = None,
         compute_dtype=torch.bfloat16,
         kv_precomputed=None,
+        cache_block_causal: bool = True,
         ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Multi-head attention. x [B, Tq, D]; kv [B, Tk, Dkv] (cross source,
     default x); mask broadcastable to [B, H, Tq, Tk] (True = attend; Tk is
     the cache capacity for cached decoding); cache: cached self-attention,
     the Tq new positions are written at cache.index and query i sees keys
-    at positions <= index + i; kv_precomputed: (kt, v) or QuantizedKV from
-    `precompute_kv`. Returns (out [B, Tq, D], cache)."""
+    at positions <= index + i, or, with `cache_block_causal=False` (a
+    prefix-LM's priming pass), every position written so far (< index +
+    Tq; no decode kernel then, as in the JAX package); kv_precomputed:
+    (kt, v) or QuantizedKV from `precompute_kv`. Returns (out [B, Tq, D],
+    cache)."""
     b, tq = x.shape[:2]
     if kv_precomputed is not None:
         if cache is not None:
@@ -295,20 +301,23 @@ def mha(p: dict, x: torch.Tensor, heads: int,
             cache.k.dtype)
         cache.v[:, pos:pos + tq] = v.to(cache.v.dtype)
         cache = KVCache(cache.k, cache.v, pos + tq)
-        if (tq == 1 and mask is None
+        if (tq == 1 and mask is None and cache_block_causal
                 and self_attention_fits(q.shape[-1], cache.k.shape[-1])):
             out = decode_self_attention(q[:, 0].to(compute_dtype), cache.k,
                                         cache.v, pos)
             out = out.reshape(b, 1, -1)
         else:
-            # causal within the newly written block too
             key_pos = torch.arange(cache.k.shape[-1], device=x.device)
-            q_pos = pos + torch.arange(tq, device=x.device)
-            causal = key_pos[None, None, None, :] <= q_pos[None, None, :,
-                                                           None]
+            if cache_block_causal:
+                # causal within the newly written block too
+                q_pos = pos + torch.arange(tq, device=x.device)
+                seen = key_pos[None, None, None, :] <= q_pos[None, None, :,
+                                                             None]
+            else:
+                seen = key_pos[None, None, None, :] < pos + tq
             out = _attention_plain(
                 q.to(compute_dtype), cache.k, cache.v.permute(0, 2, 1, 3),
-                causal if mask is None else (mask & causal))
+                seen if mask is None else (mask & seen))
         return dense(p["o"], out.to(compute_dtype), compute_dtype), cache
 
     if (kv is None and mask is None and not _records_grad(q, k, v)
@@ -359,6 +368,7 @@ def block(p: dict, x: torch.Tensor, heads: int,
           cache: Optional[KVCache] = None, compute_dtype=torch.bfloat16,
           cross_kv=None, decode_blocks: bool = True,
           cross: Optional[torch.Tensor] = None,
+          cache_block_causal: bool = True,
           ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Pre-LN transformer block with an optional cross-attention sublayer,
     over precomputed K/V (`cross_kv`, the decode loop) or over a feature
@@ -370,7 +380,12 @@ def block(p: dict, x: torch.Tensor, heads: int,
     run as one block-kernel call each; without it they run as LayerNorm,
     projections and the decode attention kernels. A sublayer whose kernel
     does not take the shape runs as those separate calls
-    (`decode_route`)."""
+    (`decode_route`). `cache_block_causal` goes to the self-attention
+    (`mha`); the self block kernel runs only with it. A block with a
+    mixture-of-experts MLP ("moe") is refused."""
+    if "moe" in p:
+        raise ValueError(f"a block with a mixture-of-experts MLP ('moe'): "
+                         f"{MOE_REFUSAL}")
     one_token = (x.shape[1] == 1 and compute_dtype == torch.bfloat16
                  and x.dtype == torch.bfloat16)
     route = DecodeRoute(False, False, False)
@@ -380,13 +395,15 @@ def block(p: dict, x: torch.Tensor, heads: int,
                              0 if cache is None else cache.k.shape[-1],
                              decode_blocks)
     if "attn" in p:
-        if route.self_block and cache is not None and mask is None:
+        if (route.self_block and cache is not None and mask is None
+                and cache_block_causal):
             x, cache = _decode_self_block(p["attn"], p["ln1"], x, cache,
                                           heads)
         else:
             h, cache = mha(p["attn"], layernorm(p["ln1"], x), heads,
                            mask=mask, cache=cache,
-                           compute_dtype=compute_dtype)
+                           compute_dtype=compute_dtype,
+                           cache_block_causal=cache_block_causal)
             x = x + h
     if cross is not None and "xattn" in p:
         if "ln_kv" in p:

@@ -6,14 +6,15 @@ The counterpart of the JAX package's `scripts/pseudocaption.py`, with its
 arguments (and `--device`, `--llm-path`) and its JSON line. Captions come
 from the store's `bbs` and `bbsgt` payloads, grouped by (episode, object
 id). No crops are handed to the consensus, so `clip` and `itc` fall back
-to `sbert`, as in the JAX script; `llm` without `--llm-path` does too.
+to `sbert`, as in the JAX script; `llm` without a model at `--llm-path`
+(the JAX script's ECAP_LLM_PATH), or without `transformers`, does too.
 The sentence encoder's weights are the seeded random init (generator seed
-0). `--llm-path` exits 2: the LLM is not ported (ROADMAP A.15).
+0).
 
 Usage:
   python -m embodied_captioning_tpu_torch.pseudocaption EXP_PATH \\
       [--method sbert] [--out pseudo_captions.json] [--preset tiny] \\
-      [--device cpu] [key.path=value ...]
+      [--llm-path DIR] [--device cpu] [key.path=value ...]
 
 Prints one JSON line: objects, method, out.
 """
@@ -35,15 +36,12 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="pseudo_captions.json")
     ap.add_argument("--preset", default="tiny")
     ap.add_argument("--llm-path", default=None,
-                    help="a local LLM for the llm method (not ported)")
+                    help="a local Hugging Face causal LM for the llm "
+                         "method (sbert without one)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args(argv)
 
-    if args.llm_path is not None:
-        print("pseudocaption: the LLM consensus needs models/llm.py, not "
-              "ported yet (ROADMAP A.15)", file=sys.stderr)
-        return 2
     if torch.device(args.device).type == "cuda" and \
             not torch.cuda.is_available():
         print("pseudocaption: no CUDA device (pass --device cpu to run on "
@@ -60,7 +58,8 @@ def main(argv=None) -> int:
     groups = group_captions(records)
     print(f"[pseudocaption] {len(records)} captions over "
           f"{len(groups)} objects", flush=True)
-    pc = PseudoCaptioner(cfg, method=args.method, device=args.device)
+    pc = PseudoCaptioner(cfg, method=args.method, device=args.device,
+                         llm_path=args.llm_path)
     result = pc.consensus(groups)
     with open(args.out, "w") as fh:
         json.dump(result, fh, indent=2)

@@ -18,23 +18,28 @@ writes a checkpoint every `--ckpt-every` steps and resumes from it when
 the file exists. It reports mAP@50 on unseen scenes before and after, on
 training frames, and the mask IoU of matched detections; `--tta` adds
 the unseen-scene mAP of the horizontal-flip merge (`forward_tta`);
-`--calibrate` adds the frozen-affine artifact and its folded int8 serving
-form (with `--tta`, also its merge), `--save` writes the artifact as numpy trees in the JAX package's
-layout. Weights
-start from a seeded `torch.Generator` (numbers differ from jax.random);
-the walks and batch order are numpy draws, the same in both packages.
-
-Flags of the JAX script whose modules are not ported exit with code 2:
-`--eval-wide`, `--eval-wide-cache`, `--eval-serving`,
-`--affine-finetune` (ROADMAP A.15).
+`--eval-wide N` adds a second unseen-scene corpus of N scenes from
+`--eval-wide-seed` (cached in `--eval-wide-cache`), evaluated on the same
+weights; `--eval-serving` adds the serving inference settings (1024
+pre-NMS proposals, 128 kept) on the better of the raw and EMA weights,
+float and int8 (the port's proposal top-k is exact, so its "approx" mAP
+is the exact one, as the JAX package's is off the TPU); `--calibrate`
+adds the frozen-affine artifact and its folded int8 serving form (with
+`--tta`, also its merge), with `--affine-finetune N` after N steps of
+training under the frozen affine norm (served where they score at least
+as well); `--save` writes the artifact as numpy trees in the JAX
+package's layout. Weights start from a seeded `torch.Generator` (numbers
+differ from jax.random); the walks and batch order are numpy draws, the
+same in both packages.
 
 Usage:
   python -m embodied_captioning_tpu_torch.selfcheck_detector \\
       [--preset tiny] [--steps 300] [--episodes 6] [--head ce] \\
       [--device-train [--augment [--augment-crop]] [--ema D] \\
        [--scan-steps K] [--pack-masks] [--ckpt c.pkl [--ckpt-every N]]] \\
-      [--tta] [--calibrate] [--save art.pkl] [--device cpu] \\
-      [key.path=value ...]
+      [--tta] [--eval-wide N [--eval-wide-seed S] [--eval-wide-cache w.npz]] \\
+      [--eval-serving] [--calibrate [--affine-finetune N]] \\
+      [--save art.pkl] [--device cpu] [key.path=value ...]
 """
 
 from __future__ import annotations
@@ -368,6 +373,34 @@ def train(params: dict, frames: Sequence[Frame], dcfg, steps: int,
     return params, ema_params, read
 
 
+def affine_finetune(params: dict, frames: Sequence[Frame], dcfg, steps: int,
+                    batch: int, lr: float, head: str, rng, device,
+                    augment: bool = False, augment_crop: bool = False,
+                    log: Callable[[str], None] = print):
+    """`steps` steps of the detector under the frozen affine norm, from
+    calibrated weights: clip-by-global-norm(5) then Adam on a warmup-cosine
+    schedule from 0 to lr / 10 (warmup min(50, steps // 5)) and down to
+    lr / 200, each batch drawn without replacement by `rng` (after the
+    main loop's draws) and augmented on the host as the main loop's.
+    Returns (params, the losses [steps])."""
+    from .train.optim import adam_init, warmup_cosine_decay_schedule
+
+    aff_cfg = dataclasses.replace(dcfg, norm="affine")
+    sched = warmup_cosine_decay_schedule(0.0, lr / 10, min(50, steps // 5),
+                                         steps, lr / 200)
+    opt, losses = adam_init(params), []
+    for s in range(steps):
+        idx = rng.choice(len(frames), batch, replace=False)
+        images, gt = batch_of(frames, idx, dcfg.image_size, device, rng,
+                              augment, augment_crop)
+        params, opt, loss = train_step(params, opt, images, gt, aff_cfg,
+                                       head, sched)
+        losses.append(loss)
+        if s % 100 == 0:
+            log(f"  [affine-ft] step {s}: loss={float(loss):.3f}")
+    return params, torch.stack(losses).cpu().tolist() if losses else []
+
+
 def eval_map(params: dict, frames: Sequence[Frame], cfg_, batch: int,
              device, tta: bool = False) -> float:
     """mAP@50 of `forward` (no masks) over whole batches of `frames`; of
@@ -433,15 +466,6 @@ def eval_mask_iou(params: dict, frames: Sequence[Frame], dcfg, batch: int,
     return (tot / cnt if cnt else 0.0), cnt
 
 
-# flags of the JAX script that need modules not ported yet
-UNPORTED = (("eval_wide", "--eval-wide (the wide eval corpus)", "A.15"),
-            ("eval_wide_cache", "--eval-wide-cache (the wide eval corpus)",
-             "A.15"),
-            ("eval_serving", "--eval-serving (the approximate top-k serving "
-             "evaluation)", "A.15"),
-            ("affine_finetune", "--affine-finetune", "A.15"))
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="tiny")
@@ -477,10 +501,19 @@ def main(argv=None) -> int:
     ap.add_argument("--eval-cache", default=None,
                     help="npz of the eval corpus: collected and saved on "
                          "first use, loaded afterwards")
-    ap.add_argument("--eval-wide", type=int, default=0)
-    ap.add_argument("--eval-wide-seed", type=int, default=100000)
-    ap.add_argument("--eval-wide-cache", default=None)
-    ap.add_argument("--eval-serving", action="store_true")
+    ap.add_argument("--eval-wide", type=int, default=0,
+                    help="scenes of a second, wider unseen-scene eval "
+                         "corpus evaluated on the same weights (0: off)")
+    ap.add_argument("--eval-wide-seed", type=int, default=100000,
+                    help="scene-seed origin of the wide corpus, above any "
+                         "training seed (asserted)")
+    ap.add_argument("--eval-wide-cache", default=None,
+                    help="npz of the wide corpus (like --eval-cache)")
+    ap.add_argument("--eval-serving", action="store_true",
+                    help="also report the unseen-scene mAP under the "
+                         "serving settings (1024 pre-NMS proposals, 128 "
+                         "kept), float and int8, on the better of the raw "
+                         "and EMA weights")
     ap.add_argument("--calibrate", action="store_true",
                     help="calibrate the GroupNorm weights to a frozen "
                          "affine norm; report its mAP and that of the "
@@ -494,7 +527,10 @@ def main(argv=None) -> int:
                          "JAX script's checkpoint does not resume here (the "
                          "random streams differ)")
     ap.add_argument("--ckpt-every", type=int, default=4000)
-    ap.add_argument("--affine-finetune", type=int, default=0)
+    ap.add_argument("--affine-finetune", type=int, default=0,
+                    help="with --calibrate: N training steps under the "
+                         "frozen affine norm; the fine-tuned weights are "
+                         "served where they score at least as well")
     ap.add_argument("--pack-masks", action="store_true",
                     help="--device-train: keep the corpus's masks bit-packed "
                          "on the device (8x smaller), unpacked after each "
@@ -512,11 +548,6 @@ def main(argv=None) -> int:
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args(argv)
 
-    for name, what, item in UNPORTED:
-        if getattr(args, name):
-            print(f"selfcheck_detector: {what}, not ported yet (ROADMAP "
-                  f"{item})", file=sys.stderr)
-            return 2
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         print("selfcheck_detector: no CUDA device (pass --device cpu to "
@@ -532,6 +563,7 @@ def main(argv=None) -> int:
     cfg = load_config(args.preset, overrides=list(args.overrides))
     rng = np.random.default_rng(args.seed)
     t0 = time.time()
+    wide_frames = None
     if args.split == "scenes":
         if args.train_cache and os.path.exists(args.train_cache):
             train_frames = load_corpus(args.train_cache)
@@ -553,6 +585,25 @@ def main(argv=None) -> int:
                 save_corpus(args.eval_cache, test_frames)
         print(f"[selfcheck-det] eval corpus {len(test_frames)} frames, "
               f"sha {corpus_checksum(test_frames)}", flush=True)
+        if args.eval_wide > 0:
+            # leak guard: training scene seeds reach at most episodes +
+            # eval_scenes (after the skip remap); the wide block starts
+            # above that and clears the primary block
+            assert args.eval_wide_seed > args.episodes + args.eval_scenes, \
+                "--eval-wide-seed inside the training seed range"
+            assert (args.eval_wide_seed >= args.eval_seed + args.eval_scenes
+                    or args.eval_wide_seed + args.eval_wide <= args.eval_seed)
+            if args.eval_wide_cache and os.path.exists(args.eval_wide_cache):
+                wide_frames = load_corpus(args.eval_wide_cache)
+            else:
+                wide_frames = collect(
+                    cfg, args.eval_wide, args.eval_ep_steps,
+                    args.eval_wide_seed,
+                    np.random.default_rng(args.eval_wide_seed), dev)
+                if args.eval_wide_cache:
+                    save_corpus(args.eval_wide_cache, wide_frames)
+            print(f"[selfcheck-det] wide eval corpus {len(wide_frames)} "
+                  f"frames, sha {corpus_checksum(wide_frames)}", flush=True)
     else:  # held-out frames of the same scenes
         all_frames = collect(cfg, args.episodes, 20, 0, rng, dev)
         order = rng.permutation(len(all_frames))
@@ -598,10 +649,36 @@ def main(argv=None) -> int:
     map_ema_tta = (eval_map(ema_params, test_frames, eval_cfg, args.batch,
                             dev, tta=True)
                    if args.tta and map_ema is not None else None)
+    wide = {}
+    if wide_frames is not None:
+        wide["map50_wide"] = round(eval_map(params, wide_frames, eval_cfg,
+                                            args.batch, dev), 4)
+        if with_ema:
+            wide["map50_wide_ema"] = round(eval_map(
+                ema_params, wide_frames, eval_cfg, args.batch, dev), 4)
+        if args.tta:
+            wide["map50_wide_tta"] = round(eval_map(
+                params, wide_frames, eval_cfg, args.batch, dev, tta=True), 4)
+            if with_ema:
+                wide["map50_wide_ema_tta"] = round(eval_map(
+                    ema_params, wide_frames, eval_cfg, args.batch, dev,
+                    tta=True), 4)
+        wide["eval_wide_sha"] = corpus_checksum(wide_frames)
     # serve the better of the raw and EMA weights on this corpus
     best_p = (ema_params if (map_ema is not None and map_ema >= map_after)
               else params)
     serving = {}
+    if args.eval_serving:
+        s_cfg = dataclasses.replace(eval_cfg, pre_nms_topk=1024,
+                                    num_proposals=128)
+        serving["map50_serving_exact"] = round(
+            eval_map(best_p, test_frames, s_cfg, args.batch, dev), 4)
+        # the port's proposal top-k is exact: the JAX script's approximate
+        # top-k setting evaluates the same proposals
+        serving["map50_serving_approx"] = serving["map50_serving_exact"]
+        serving["map50_gn_int8"] = round(eval_map(
+            quantize_params(best_p, min_size=64), test_frames, s_cfg,
+            args.batch, dev), 4)
     affine_art = None
     if args.calibrate:
         calib = [batch_of(train_frames, range(i, i + args.batch),
@@ -612,6 +689,15 @@ def main(argv=None) -> int:
         aff_cfg = dataclasses.replace(eval_cfg, norm="affine")
         serving["map50_affine"] = round(
             eval_map(affine_art, test_frames, aff_cfg, args.batch, dev), 4)
+        if args.affine_finetune > 0:
+            aft, _ = affine_finetune(
+                affine_art, train_frames, dcfg, args.affine_finetune,
+                args.batch, args.lr, args.head, rng, dev, args.augment,
+                args.augment_crop, log=lambda m: print(m, flush=True))
+            m_ft = eval_map(aft, test_frames, aff_cfg, args.batch, dev)
+            serving["map50_affine_ft"] = round(m_ft, 4)
+            if m_ft >= serving["map50_affine"]:
+                affine_art = aft  # serve the fine-tuned affine weights
         served_cfg = dataclasses.replace(aff_cfg, pre_nms_topk=1024,
                                          num_proposals=128, approx_topk=True)
         served = quantize_params(DET.fold_affine(affine_art, served_cfg),
@@ -662,6 +748,7 @@ def main(argv=None) -> int:
         "mask_iou": round(float(mask_iou), 4),
         "mask_matched": mask_n,
         "train_seconds": round(time.time() - t0, 1),
+        **wide,
         **serving,
     }))
     return 0

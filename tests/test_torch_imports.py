@@ -62,7 +62,8 @@ def test_scan_covers_every_subpackage_and_the_smoke_script():
                 "train/pipelines.py", "run_pseudolabeler.py",
                 "pseudocaption.py", "train_detector.py",
                 "models/query_detector.py", "ops/assignment.py",
-                "export_serving_artifact.py"):
+                "export_serving_artifact.py", "eval_artifact.py",
+                "models/llm.py", "models/blip2.py", "models/florence.py"):
         assert pkg + rel in scanned, rel
     assert "chip_smoke.py" in scanned
     # every directory of the package that holds Python files is scanned

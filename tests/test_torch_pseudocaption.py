@@ -149,7 +149,8 @@ def test_sbert_tfidf_and_llm_consensus_equal_jax(encoder, seed):
 
 def test_cases_of_the_jax_tests_on_the_port():
     """tests/test_labeling.py's pseudo-captioner case on the port's own
-    seeded encoder; an LLM path is refused, naming ROADMAP A.15."""
+    seeded encoder; an LLM path with no model at it gives the same picks
+    (the sbert fallback, as in the JAX package)."""
     cfg = load_config("tiny")
     groups = {(0, 1): ["a red couch", "a red couch", "a green plant"],
               (0, 2): ["a tv"]}
@@ -157,9 +158,9 @@ def test_cases_of_the_jax_tests_on_the_port():
         out = TPC.PseudoCaptioner(cfg, method=method,
                                   device="cpu").consensus(groups)
         assert out == {"0_1": "a red couch", "0_2": "a tv"}, method
-    with pytest.raises(NotImplementedError, match="A.15"):
-        TPC.PseudoCaptioner(cfg, method="llm", device="cpu",
-                            llm_path="/nonexistent")
+    out = TPC.PseudoCaptioner(cfg, method="llm", device="cpu",
+                              llm_path="/nonexistent").consensus(groups)
+    assert out == {"0_1": "a red couch", "0_2": "a tv"}
 
 
 @pytest.fixture(scope="module")
@@ -374,9 +375,19 @@ def test_entry_point_matches_jax_script(store, encoder, method, tmp_path):
 
 
 def test_entry_point_refuses_an_llm_path_and_needs_a_card_or_cpu(
-        store, monkeypatch, capsys):
-    assert pseudocaption.main([store, "--method", "llm", "--llm-path",
-                               "/x", "--device", "cpu"]) == 2
-    assert "ROADMAP A.15" in capsys.readouterr().err
+        store, monkeypatch, tmp_path):
+    """`--llm-path` is taken now (test_torch_llm.py holds the model's
+    consensus): with no model at the path, the llm method writes the sbert
+    method's pseudo-captions. Without --device it asks for the card. The
+    name is the one the test had while `--llm-path` exited 2."""
+    outs = {}
+    for method, extra in (("llm", ["--llm-path", str(tmp_path / "x")]),
+                          ("sbert", [])):
+        out = tmp_path / f"{method}.json"
+        assert pseudocaption.main([store, "--method", method, "--out",
+                                   str(out), "--device", "cpu"]
+                                  + extra + STORE_OVERRIDES) == 0
+        outs[method] = json.loads(out.read_text())
+    assert outs["llm"] == outs["sbert"] and outs["sbert"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert pseudocaption.main([store]) == 2
