@@ -145,7 +145,8 @@ Phases, each of which must pass:
      preset at the fine-tune's batch of 8 with `remat` off and then on (ms
      a step, peak memory, LayerNorm forward and backward launches, device
      busy and idle share under the profiler); then `finetune_captioner`
-     at the large preset on the store phase 8 wrote: its JSON line and
+     at the large preset on 4 env directories of the store phase 8 wrote
+     (FT_STORE_ENVS): its JSON line and
      its pickle read back;
  11. drive the two learning self-checks: (a) `detector_loss` at the tiny
      preset on the card against the CPU for the five ROI heads with masks
@@ -231,7 +232,26 @@ Phases, each of which must pass:
      twins (the kernel route's decode of its tokens against the twins' in
      ulps, a decode without BOS shown to be caught; `florence_logits`);
      (d)
-     `ConsensusLM` at `LMConfig()`: scores card vs CPU, `choose` timed.
+     `ConsensusLM` at `LMConfig()`: scores card vs CPU, `choose` timed;
+ 15. drive the parallel layer under a world-1 NCCL process group: (a)
+     `moe_mlp` at 8 experts, top-2, 768 x 3072, at decode rows [64, 1] and
+     training rows [8, 77]: the card's bf16 expert products against
+     float32 ones, twice for equal bits, the routing card vs CPU on the
+     same probabilities; (b) the large preset's captioner with 8 experts
+     a text block (int8, the gate float): greedy `generate` on 64 crops of
+     phase 3's frames timed (launches: every text block on the self
+     block, never on the decode MLP; device busy and idle share; peak
+     memory) and held teacher-forced against the plain path with each
+     path's own routing and with the kernel path's routing handed over
+     (phase 3's gates); the gradients of one batch of 8 (the routed
+     experts' non-zero, the others zero) and two timed `train_step`s;
+     (c) `myppo` beside `goalexplorationbaseline-v0` at phase 9's
+     configuration (fused, 2 updates): parameters equal bit for bit after
+     each update, its resume state; `run_exp --trainer myppo --mode
+     train` at tiny; the SIGTERM path at tiny; (d) `perceive_sharded`
+     against `perceive` bit for bit, `pipeline_vit_features` and
+     `vit_features_seqparallel` against `vit_features` at ViT-L, and
+     expert-parallel `moe_mlp` against the plain call.
 
 Float32 products and convolutions run without TF32 so the comparisons see
 the kernels' own error. Prints the card's name and power limit, frames/s
@@ -1759,21 +1779,26 @@ def center_crops(frames: torch.Tensor, size: int) -> torch.Tensor:
 
 
 @torch.no_grad()
-def teacher_forced(cp, crops, ccfg, K) -> dict:
+def teacher_forced(cp, crops, ccfg, K, tape=None) -> dict:
     """Greedy-decode `crops` through the kernels, then feed those tokens to
     the plain path step by step; compare the plain path's argmax and
     chosen-token log-probs with the kernel path's, and the ViT global
     embeddings of both. The log-prob difference is returned in bf16 ulps
-    of the largest |logit| of its row."""
+    of the largest |logit| of its row. With a `RoutingTape`, the kernel
+    path's MoE routing is recorded and handed to the plain path."""
+    import contextlib
+
     from embodied_captioning_tpu_torch.models import captioner as CAP
     from embodied_captioning_tpu_torch.models.common import KVCache
     from embodied_captioning_tpu_torch.models.vit import encode_image
 
-    tokens, lp_k, lengths = CAP.generate(cp, crops, ccfg)
+    with tape.record() if tape else contextlib.nullcontext():
+        tokens, lp_k, lengths = CAP.generate(cp, crops, ccfg)
     _, g_k = encode_image(cp["vision"], crops, ccfg.vision)
     t = ccfg.text
     b, L = tokens.shape
-    with plain_kernels(K):
+    with plain_kernels(K), (tape.replay() if tape
+                            else contextlib.nullcontext()):
         pooled, g_p = encode_image(cp["vision"], crops, ccfg.vision)
         hd = t.width // t.heads
         tc = [KVCache.create(b, L, t.heads, hd, crops.device)
@@ -1804,7 +1829,9 @@ def teacher_forced(cp, crops, ccfg, K) -> dict:
     img_cos = torch.nn.functional.cosine_similarity(g_k, g_p, dim=-1)
     return dict(agree=agree / max(n, 1), n=n, lp_err=lp_err,
                 lp_ulps=lp_ulps, mean_ulps=ulps_sum / max(n, 1),
-                img_cos=img_cos.min().item())
+                img_cos=img_cos.min().item(),
+                flips=tape.flips if tape else 0,
+                routed=tape.tokens if tape else 0)
 
 
 def serving_perception(dev) -> tuple:
@@ -3092,6 +3119,10 @@ FT_BATCH = 8                   # the fine-tune script's default batch
 FT_STEPS = 3                   # timed train steps after a warm-up step
 FT_LR = 1e-3                   # phase 10a's step (2 lr bounds a sign flip)
 FT_TRIPLET = 0.1               # the fine-tune script's triplet weight
+# 10c: env dirs of phase 8's store the entry point reads (on the whole
+# store, collecting its 183 pairs took 106 s of a 135 s run on an H100
+# 80GB HBM3 at 700 W)
+FT_STORE_ENVS = 4
 
 
 def leaf_paths(tree, path: str = "") -> list:
@@ -3341,8 +3372,9 @@ def finetune_full_width(dev, smi: str) -> dict:
 
 def finetune_entry_point(store: str, shapes: list) -> dict:
     """`finetune_captioner` (python -m embodied_captioning_tpu_torch.
-    finetune_captioner) at the large preset on the store that phase 8's
-    `generate` wrote, in process on the card, with its defaults (1 epoch,
+    finetune_captioner) at the large preset on FT_STORE_ENVS env
+    directories of the store that phase 8's `generate` wrote, in process
+    on the card, with its defaults (1 epoch,
     batch 8, lr 1e-4, triplet weight 0.1) and the repository's
     pseudo_captions.json ({}: the captions come from the store): its JSON
     line (pairs, steps = pairs // 8, finite losses) and the pickle read
@@ -3358,12 +3390,13 @@ def finetune_entry_point(store: str, shapes: list) -> dict:
 
     with tempfile.TemporaryDirectory(prefix="ecap_finetune_") as d:
         save = os.path.join(d, "captioner_finetuned.pkl")
+        sub = subset_store(store, d, FT_STORE_ENVS)
         buf = io.StringIO()
         K.reset_launches()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = finetune_captioner.main([
-                store, "--preset", "large", "--save", save,
+                sub, "--preset", "large", "--save", save,
                 "--pseudo-captions", str(REPO / "pseudo_captions.json")])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
@@ -3376,7 +3409,8 @@ def finetune_entry_point(store: str, shapes: list) -> dict:
         dt_load = time.perf_counter() - t0
     log("  " + "; ".join(x for x in printed[:-1]
                          if x.startswith("[finetune]")))
-    log(f"  finetune_captioner on phase 8's store: rc {rc}, {line}; "
+    log(f"  finetune_captioner on {FT_STORE_ENVS} envs of phase 8's store: "
+        f"rc {rc}, {line}; "
         f"{dt:.1f} s in all; the pickle {size / 2**30:.2f} GiB, read back "
         f"in {dt_load:.1f} s; launches {({k: v for k, v in counts.items() if v})}")
     ok = (rc == 0 and line.get("pairs", 0) > 0
@@ -3808,9 +3842,12 @@ def free_running_on_trained_weights(K, cap: dict, dev, smi: str) -> None:
 # ---------------------------------------------------------------------------
 
 LABEL_PRESET = "large"         # 12b-d: the entry points' preset
-LABEL_FRAMES = 32              # 12b: frames of phase 8's store labelled
+# 12b: frames of phase 8's store labelled (16, 2 env dirs and
+# FT_STORE_ENVS keep the whole script well inside its 1200 s; the gates
+# do not depend on them)
+LABEL_FRAMES = 16
 LABEL_BATCH = 8                # run_pseudolabeler's default batch
-SUBSET_ENVS = 4                # 12b's subprocess, 12d: env dirs of the store
+SUBSET_ENVS = 2                # 12b's subprocess, 12d: env dirs of the store
 CLIP_OBJECTS = 16              # 12c: objects scored by _clip_consensus
 TS_LR = 1e-4                   # TeacherStudent's default step size
 # 12a: (moved alike at least, |decay estimate| at most, moments at most)
@@ -5573,6 +5610,502 @@ def phase14(K, frames, rows: dict, dev, smi: str, tmp: str) -> dict:
                 florence=fl["counts"], lm=lm["counts"])
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the parallel layer (MoE captioner, myppo, perceive_sharded,
+# pipeline and ring attention, the checkpoint manager)
+# ---------------------------------------------------------------------------
+
+MOE_EXPERTS = 8                # 15a-b: experts a MoE text block
+MOE_SHAPES = ((ROWS, 1), (8, 77))  # 15a: decode rows, training rows
+# 15a: bf16 expert products against float32 ones on the same routing, the
+# largest error over the largest |output| (one bf16 rounding of each
+# product's operands and of the combine's: ~2**-8 relative each)
+MOE_BF16_REL = 2e-2
+MOE_LEAVES = ("fc_w", "fc_b", "proj_w", "proj_b")
+MOE_TRAIN_BATCH = 8            # 15b: the fine-tune's batch
+MOE_TRAIN_STEPS = 2
+DDPPO_UPDATES = 2              # 15c: updates of the full-width trainers
+# 15d: vit_features_seqparallel and pipeline_vit_features against
+# vit_features at ViT-L (24 blocks on a bf16 stream): the JAX tests'
+# elementwise limits (test_seq_parallel 3e-2 + 3e-2 |x|,
+# test_pipeline_vit_features 0.05 + 0.05 |x|) were set at 2 and 8 blocks;
+# at 24 the port's own vit_features moves some elements past them when
+# only the batch is split into microbatches (0.094 of |x| <= 4.3 on the
+# CPU at 4 crops, 1 element of 1.05M past 0.05), so they are held on
+# SP_SHARE of the elements, with the correlation bar of
+# test_pipeline_vit_features
+SP_SHARE = 0.999
+SP_CORR = 0.9999
+
+
+class RoutingTape:
+    """Records the dispatch and combine of every `moe._route_group` call
+    of one run (`record`), then hands them in order to the calls of
+    another (`replay`), counting the tokens whose own routing there would
+    have differed: the plain path decodes teacher-forced with the kernel
+    path's routing, so a routing flip near a tie (a discrete jump, not a
+    kernel's error) stays out of the ulp comparison."""
+
+    def __init__(self):
+        self.calls, self.flips, self.tokens = [], 0, 0
+
+    def _patched(self, fn):
+        import contextlib
+
+        from embodied_captioning_tpu_torch.parallel import moe as MOE
+
+        @contextlib.contextmanager
+        def ctx():
+            orig = MOE._route_group
+            MOE._route_group = lambda *a: fn(orig, *a)
+            try:
+                yield self
+            finally:
+                MOE._route_group = orig
+        return ctx()
+
+    def record(self):
+        def rec(orig, *a):
+            out = orig(*a)
+            self.calls.append(out)
+            return out
+        return self._patched(rec)
+
+    def replay(self):
+        it = iter(list(self.calls))
+
+        def rep(orig, *a):
+            disp, comb = next(it)
+            own = orig(*a)[0]
+            # the experts a token takes (not its slots, which a flip
+            # before it in the queue moves too)
+            self.flips += int((own.sum(-1) != disp.sum(-1)).any(-1).sum())
+            self.tokens += disp.shape[0] * disp.shape[1]
+            return disp, comb
+        return self._patched(rep)
+
+
+def moe_layer_checks(dev, smi: str) -> None:
+    """15a: `moe_mlp` at E=MOE_EXPERTS, top-2, width 768, hidden 3072 (the
+    large preset's text MLP) at decode rows and training rows: the card's
+    bf16 expert products against the float32 ones on the card within
+    MOE_BF16_REL of the largest output, twice for equal bits, the routing
+    of the card's gate probabilities on the card equal to the CPU's, ms a
+    call beside the float32 path's."""
+    from embodied_captioning_tpu_torch.parallel import moe as MOE
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    p = MOE.moe_init(g, 768, 3072, MOE_EXPERTS, dev)
+    for b, t in MOE_SHAPES:
+        x = torch.randn(b, t, 768, generator=g, device=dev).to(torch.bfloat16)
+        got, probs = MOE.moe_mlp(p, x, return_gate_probs=True)
+        if not torch.equal(got, MOE.moe_mlp(p, x)):
+            raise AssertionError(f"moe_mlp {[b, t]}: two runs differ")
+        f32 = MOE.moe_mlp(p, x, expert_dtype=torch.float32)
+        err = (got.float() - f32.float()).abs().max().item()
+        scale = f32.float().abs().max().item()
+        n = b * t
+        cap = MOE.capacity(2, n, MOE_EXPERTS, 1.25)
+        d_card, c_card = MOE._route_group(probs[None], 2, cap)
+        d_cpu, c_cpu = MOE._route_group(probs[None].cpu(), 2, cap)
+        same = (torch.equal(d_card.cpu(), d_cpu)
+                and torch.equal(c_card.cpu(), c_cpu))
+        kept = int(d_card.sum().item())
+        ms = time_ms(lambda: MOE.moe_mlp(p, x), 10, 2)
+        ms32 = time_ms(lambda: MOE.moe_mlp(p, x, expert_dtype=torch.float32),
+                       10, 2)
+        log(f"  moe_mlp [{b}, {t}, 768] E={MOE_EXPERTS} top-2 capacity "
+            f"{cap}: bf16 against float32 products {err:.3e} (largest "
+            f"|output| {scale:.3f}, limit {MOE_BF16_REL} of it); routing "
+            f"card == CPU {same}; {kept} of {2 * n} routes kept; "
+            f"{ms * 1e3:.1f} us a call (float32 products {ms32 * 1e3:.1f}) "
+            f"on {smi}")
+        if not same or err > MOE_BF16_REL * scale or not math.isfinite(err):
+            raise AssertionError(f"moe_mlp {[b, t]} failed")
+
+
+def _moe_captioner_cfg():
+    import dataclasses
+
+    from embodied_captioning_tpu_torch.config import CaptionerConfig
+
+    c = CaptionerConfig.large()
+    return dataclasses.replace(c, text=dataclasses.replace(
+        c.text, moe_experts=MOE_EXPERTS))
+
+
+@torch.no_grad()
+def moe_generate_full_width(K, frames, dev, smi: str) -> dict:
+    """15b: the large preset's captioner with MOE_EXPERTS experts in each
+    of its 12 text blocks, random weights from a generator seeded 0,
+    int8 (quantize_params; the 768 x 8 gate stays float): greedy
+    `generate` on 64 quadrant crops of phase 3's frames, timed with its
+    launches (each text block's self-attention on the self block, its MLP
+    never on the decode MLP: per step 24 self blocks, 12 cross blocks, 12
+    decode MLPs), device busy and idle share, peak memory; then held
+    teacher-forced against the plain path as phase 3 is: with each path
+    routing on its own (argmax agreement and ViT cosine), and with the
+    kernel path's routing handed to the plain path (phase 3's whole gate,
+    MAX_LOGPROB_ULPS included)."""
+    from embodied_captioning_tpu_torch.models import captioner as CAP
+    from embodied_captioning_tpu_torch.models.captioner import init_captioner
+    from embodied_captioning_tpu_torch.models.quantize import (
+        QuantizedArray, quantize_params)
+
+    ccfg = _moe_captioner_cfg()
+    cp = quantize_params(init_captioner(
+        torch.Generator(device=dev).manual_seed(0), ccfg, dev))
+    moe0 = cp["text_blocks"][0]["moe"]
+    if isinstance(moe0["gate"]["w"], QuantizedArray) or any(
+            isinstance(moe0[k], QuantizedArray) for k in MOE_LEAVES):
+        raise AssertionError("the MoE leaves were quantized")
+    crops = center_crops(frames[:ROWS // 4], ccfg.vision.image_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = timed_generate(
+        f"MoE captioner generate ({ROWS} crops, large preset, "
+        f"{MOE_EXPERTS} experts)", lambda: CAP.generate(cp, crops, ccfg),
+        ("flash_attention", "layernorm", "fused_preprocess",
+         "decode_self_block", "decode_cross_block", "decode_mlp"), smi)
+    peak = torch.cuda.max_memory_allocated()
+    c = run["counts"]
+    t = ccfg.text
+    steps = c["decode_cross_block"] // t.cross_layers
+    if (c["decode_mlp"] != steps * t.cross_layers
+            or c["decode_self_block"] != steps * (t.layers + t.cross_layers)
+            or c["decode_cross_block"] != steps * t.cross_layers
+            or c["decode_self_attention"] or c["decode_cross_attention"]):
+        raise AssertionError(f"MoE generate's decode launches {c}")
+    free = teacher_forced(cp, crops, ccfg, K)
+    handed = teacher_forced(cp, crops, ccfg, K, tape=RoutingTape())
+    log(f"  MoE generate: {steps} decode steps, {run['ms']:.1f} ms a batch, "
+        f"peak device memory {peak / 2**30:.2f} GiB on {smi}; teacher-forced "
+        f"against the plain path, routing free: argmax agreement "
+        f"{free['agree']:.4f} of {free['n']} (limit {MIN_ARGMAX_AGREE}), "
+        f"log-prob {free['lp_ulps']:.3f} ulps, mean {free['mean_ulps']:.3f}; "
+        f"routing handed: agreement {handed['agree']:.4f}, log-prob "
+        f"{handed['lp_ulps']:.3f} ulps (limit {MAX_LOGPROB_ULPS}), mean "
+        f"{handed['mean_ulps']:.3f}, {handed['flips']} of "
+        f"{handed['routed']} token routings the plain path would have "
+        f"taken otherwise; ViT cosine min {handed['img_cos']:.7f} (limit "
+        f"{MIN_IMG_COSINE})")
+    if (free["agree"] < MIN_ARGMAX_AGREE or free["img_cos"] <= MIN_IMG_COSINE
+            or handed["agree"] < MIN_ARGMAX_AGREE
+            or handed["lp_ulps"] > MAX_LOGPROB_ULPS
+            or handed["img_cos"] <= MIN_IMG_COSINE):
+        raise AssertionError("MoE captioner: kernel path vs plain path")
+    return dict(counts=c, ms=run["ms"], busy_us=run["busy_us"],
+                peak_bytes=peak, steps=steps, free=free, handed=handed)
+
+
+def moe_train_full_width(dev, smi: str) -> dict:
+    """15b: the same MoE captioner (float) at the fine-tune's batch: the
+    gradients of one batch (each text block's experts that took a token
+    have non-zero, finite gradients, the others zero; the gate's non-zero),
+    then MOE_TRAIN_STEPS timed `train_step`s: finite losses, every expert
+    leaf moved, the LayerNorm forward and backward and the preprocess
+    launched, ms a step, peak memory. An expert that took only tokens at
+    padding positions (no loss reads them) gets a zero gradient too."""
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch.models.captioner import init_captioner
+    from embodied_captioning_tpu_torch.train import captioner_train as TT
+
+    ccfg = _moe_captioner_cfg()
+    params = init_captioner(torch.Generator(device=dev).manual_seed(0), ccfg,
+                            dev)
+    batch = finetune_batch(ccfg, MOE_TRAIN_BATCH, 3, dev)
+    tape = RoutingTape()
+    with tape.record():
+        grads, loss, _ = TT.loss_and_grads(params, *batch, ccfg, FT_TRIPLET)
+    routed, graded = [], []
+    for i, (disp, _) in enumerate(tape.calls):
+        took = disp.sum(dim=(0, 1, 3)) > 0                 # [E]
+        gm = grads["text_blocks"][i]["moe"]
+        nz = torch.stack([gm["fc_w"][e].abs().sum() > 0
+                          for e in range(MOE_EXPERTS)])
+        if (bool((nz & ~took).any()) or int(nz.sum()) < 2
+                or not bool(torch.isfinite(gm["fc_w"]).all())
+                or not bool(gm["gate"]["w"].abs().sum() > 0)):
+            raise AssertionError(f"MoE gradients of text block {i}: routed "
+                                 f"{took.tolist()}, non-zero {nz.tolist()}")
+        routed.append(int(took.sum()))
+        graded.append(int(nz.sum()))
+    state = TT.create_train_state(params)
+    before = [state.params["text_blocks"][0]["moe"][k].clone()
+              for k in MOE_LEAVES]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    times, losses = [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, aux = TT.train_step(state, *batch, ccfg,
+                                   triplet_weight=FT_TRIPLET)
+        losses.append(float(aux["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = dict(K.launches)
+    peak = torch.cuda.max_memory_allocated()
+    moved = [not torch.equal(a, state.params["text_blocks"][0]["moe"][k])
+             for a, k in zip(before, MOE_LEAVES)]
+    log(f"  MoE train_step, large preset, batch {MOE_TRAIN_BATCH}: "
+        + ", ".join(f"{x * 1e3:.1f}" for x in times) + f" ms a step on {smi};"
+        f" peak device memory {peak / 2**30:.2f} GiB; losses "
+        + " ".join(f"{x:.4f}" for x in losses) + f" (first gradient's loss "
+        f"{float(loss):.4f}); experts routed a text block {routed}, with "
+        f"a non-zero gradient {graded}; "
+        f"launches {({k: v for k, v in counts.items() if v})}")
+    if (not all(math.isfinite(x) for x in losses) or not all(moved)):
+        raise AssertionError(f"MoE train_step: {losses} {moved}")
+    require_launches("MoE train_step", counts,
+                     ("layernorm", "layernorm_bwd", "fused_preprocess"))
+    return dict(counts=counts, ms=times[-1] * 1e3, peak_bytes=peak)
+
+
+def myppo_full_width(serving: tuple, dev, smi: str, tmp: str) -> dict:
+    """15c, under the world-1 NCCL group: `goalexplorationbaseline-v0` and
+    `myppo` trained side by side at phase 9's configuration (the serving
+    perception, 16 envs of seeded scenes at 1280^2, windows of
+    TRAIN_WINDOW steps, fused), DDPPO_UPDATES updates of TRAIN_DECISIONS
+    decisions: the parameters after each update equal bit for bit, the
+    launches, ms an update; the resume state under ddppo/ at the last
+    update index, restored equal; then `run_exp --trainer myppo --mode
+    train` at the tiny preset in process, and the SIGTERM path at tiny
+    (stops after one update, resume state written, ECAP_REQUEUE_CMD run,
+    a fresh trainer resumes at the index)."""
+    import contextlib
+    import io
+    import signal
+
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch import run_exp
+    from embodied_captioning_tpu_torch.agents.ddppo import (
+        DistributedPPOTrainer)
+    from embodied_captioning_tpu_torch.agents.goal_exploration import (
+        GoalExplorationTrainer)
+    from embodied_captioning_tpu_torch.agents.ppo import tree_leaves
+    from embodied_captioning_tpu_torch.config import apply_dotlist, load_config
+    from embodied_captioning_tpu_torch.perception import Perceiver
+    from embodied_captioning_tpu_torch.utils.checkpoint import (
+        CheckpointManager)
+
+    scfg, params, _ = serving
+    snaps, out = {}, {}
+    for name, cls in (("v0", GoalExplorationTrainer),
+                      ("myppo", DistributedPPOTrainer)):
+        cfg = apply_dotlist(scfg, [
+            "sim.scene_seed=100", f"ppo.num_global_steps={TRAIN_WINDOW}",
+            f"runtime.checkpoint_dir={tmp}/{name}"])
+        tr = cls(cfg, device=dev, perceiver=Perceiver(cfg, params=params,
+                                                      device=dev))
+        snaps[name] = []
+        update = tr._ppo_update
+
+        def recorded(rollout, _u=update, _s=snaps[name]):
+            state, m = _u(rollout)
+            _s.append([x.clone() for x in tree_leaves(state.params)])
+            return state, m
+
+        tr._ppo_update = recorded
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        tr.train(DDPPO_UPDATES, TRAIN_DECISIONS, fused=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out[name] = dict(counts=dict(K.launches),
+                         ms=dt / DDPPO_UPDATES * 1e3)
+        log(f"  {name} train (fused): {DDPPO_UPDATES} updates x "
+            f"{TRAIN_DECISIONS} decisions x {TRAIN_WINDOW} steps x "
+            f"{tr.envs.num_envs} envs, {dt / DDPPO_UPDATES * 1e3:.1f} ms an "
+            f"update on {smi}; launches {out[name]['counts']}")
+        if name == "myppo":
+            mgr = CheckpointManager(f"{tmp}/myppo/ddppo")
+            back = mgr.restore(tr.ppo_state)
+            if (mgr.latest_step() != DDPPO_UPDATES
+                    or tr._update_idx != DDPPO_UPDATES or not all(
+                        torch.equal(a, b) if torch.is_tensor(a) else a == b
+                        for a, b in zip(tree_leaves(back),
+                                        tree_leaves(tr.ppo_state)))):
+                raise AssertionError("myppo's resume state")
+        tr.envs.close()
+        del tr
+        torch.cuda.empty_cache()
+    same = [all(torch.equal(a, b) for a, b in zip(x, y))
+            for x, y in zip(snaps["v0"], snaps["myppo"])]
+    log(f"  myppo against goalexplorationbaseline-v0, parameters equal bit "
+        f"for bit after each update: {same}")
+    if len(same) != DDPPO_UPDATES or not all(same):
+        raise AssertionError("myppo's updates differ from v0's")
+    require_launches("myppo train", out["myppo"]["counts"], (
+        "raycast_minargmin", "fused_preprocess", "flash_attention",
+        "layernorm", "decode_self_block", "decode_cross_block",
+        "decode_mlp"))
+
+    tiny = ["--trainer", "myppo", "--mode", "train", "--preset", "tiny",
+            "--steps", "2", "ppo.num_global_steps=2"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run_exp.main(tiny + [f"runtime.checkpoint_dir={tmp}/run_exp"])
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log(f"  run_exp --trainer myppo --mode train (tiny) on the card: rc {rc}"
+        f", {line}")
+    if rc != 0 or line["updates"] != 2 or CheckpointManager(
+            f"{tmp}/run_exp/ddppo").latest_step() != 2:
+        raise AssertionError("run_exp --trainer myppo failed")
+
+    cfg = load_config("tiny", overrides=[
+        "runtime.num_envs=4", "ppo.num_global_steps=1",
+        f"runtime.checkpoint_dir={tmp}/sigterm"])
+    marker = f"{tmp}/requeued"
+    old_handler = signal.getsignal(signal.SIGTERM)
+    os.environ["ECAP_REQUEUE_CMD"] = f"touch {marker}"
+    try:
+        tr = DistributedPPOTrainer(cfg, with_perception=False, device=dev)
+        os.kill(os.getpid(), signal.SIGTERM)
+        metrics = tr.train(50, 2)
+        idx = tr._update_idx
+        saved = tr.ckpt_mgr.latest_step()
+        tr.envs.close()
+        tr2 = DistributedPPOTrainer(cfg, with_perception=False, device=dev)
+        resumed = tr2._update_idx
+        tr2.envs.close()
+    finally:
+        os.environ.pop("ECAP_REQUEUE_CMD", None)
+        signal.signal(signal.SIGTERM, old_handler)
+    log(f"  myppo SIGTERM (tiny): stopped after {len(metrics)} update(s) at "
+        f"index {idx}, resume state at {saved}, requeue command run "
+        f"{os.path.exists(marker)}, a fresh trainer resumed at {resumed}")
+    if not (len(metrics) == 1 and idx == saved == resumed == 1
+            and os.path.exists(marker)):
+        raise AssertionError("myppo's SIGTERM path")
+    return dict(counts=out["myppo"]["counts"], ms=out["myppo"]["ms"],
+                v0_ms=out["v0"]["ms"])
+
+
+@torch.no_grad()
+def parallel_world_one(serving: tuple, frames, dev, smi: str) -> dict:
+    """15d, at world size 1 on NCCL: `perceive_sharded` against `perceive`
+    on phase 3's frames at the serving configuration, bit for bit;
+    `pipeline_vit_features` (1 stage, 4 microbatches) and
+    `vit_features_seqparallel` against `vit_features` at ViT-L on 64 crops
+    (the pipeline also bit for bit against `vit_features` of each
+    microbatch); expert-parallel `moe_mlp` against the plain call."""
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch.models.vit import vit_features
+    from embodied_captioning_tpu_torch.ops.image import preprocess_for_vit
+    from embodied_captioning_tpu_torch.parallel import moe as MOE
+    from embodied_captioning_tpu_torch.parallel.mesh import make_mesh
+    from embodied_captioning_tpu_torch.parallel.pipeline import (
+        pipeline_vit_features)
+    from embodied_captioning_tpu_torch.parallel.sequence import (
+        vit_features_seqparallel)
+    from embodied_captioning_tpu_torch.perception import (
+        perceive, perceive_sharded)
+
+    cfg, params, _ = serving
+    want = perceive(params, frames, cfg)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    got = perceive_sharded(params, frames, cfg, make_mesh((1,), ("data",)))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(K.launches)
+    fields = ("boxes", "classes", "scores", "valid", "masks", "embeddings")
+    same = all(torch.equal(getattr(got.detections, f),
+                           getattr(want.detections, f)) for f in fields) and \
+        all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
+    log(f"  perceive_sharded ({frames.shape[0]} frames, data axis 1): "
+        f"{ms:.1f} ms on {smi}; equal to perceive bit for bit: {same}")
+    if not same:
+        raise AssertionError("perceive_sharded differs from perceive")
+
+    vision, vcfg = params.captioner["vision"], cfg.captioner.vision
+    crops = center_crops(frames[:ROWS // 4], vcfg.image_size)
+    toks = preprocess_for_vit(crops, vcfg.image_size, vcfg.patch_size)
+    whole = vit_features(vision, toks, vcfg).float()
+    per_mb = torch.cat([vit_features(vision, t, vcfg)
+                        for t in toks.chunk(4)]).float()
+    t0 = time.perf_counter()
+    pipe = pipeline_vit_features(vision, toks, vcfg,
+                                 make_mesh((1,), ("pipe",)), microbatches=4)
+    torch.cuda.synchronize()
+    pipe_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    seq = vit_features_seqparallel(vision, toks, vcfg,
+                                   make_mesh((1,), ("seq",)))
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    spread = (per_mb - whole).abs().max().item()
+    rows = {}
+    for name, x, tol in (("pipeline_vit_features", pipe.float(), 0.05),
+                         ("vit_features_seqparallel", seq.float(), 3e-2)):
+        err = (x - whole).abs()
+        share = (err <= tol + tol * whole.abs()).float().mean().item()
+        corr = float(np.corrcoef(x.cpu().numpy().ravel(),
+                                 whole.cpu().numpy().ravel())[0, 1])
+        rows[name] = dict(max_err=err.max().item(), share=share, corr=corr)
+    pipe_exact = torch.equal(pipe.float(), per_mb)
+    log(f"  ViT-L on {crops.shape[0]} crops: vit_features of 4 microbatches "
+        f"against the whole batch {spread:.4f}; pipeline_vit_features "
+        f"{pipe_ms:.1f} ms, equal to the microbatches' bit for bit "
+        f"{pipe_exact}; vit_features_seqparallel {seq_ms:.1f} ms; against "
+        f"the whole batch: " + "; ".join(
+            f"{n} max {r['max_err']:.4f}, within the JAX test's limit "
+            f"{r['share']:.6f} of elements, corr {r['corr']:.7f}"
+            for n, r in rows.items()) + f" (limits {SP_SHARE}, {SP_CORR})"
+        f" on {smi}")
+    if not pipe_exact or any(r["share"] < SP_SHARE or r["corr"] < SP_CORR
+                             for r in rows.values()):
+        raise AssertionError("pipeline / sequence-parallel ViT-L")
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    p = MOE.moe_init(g, 768, 3072, MOE_EXPERTS, dev)
+    x = torch.randn(ROWS, 1, 768, generator=g, device=dev).to(torch.bfloat16)
+    group = torch.distributed.group.WORLD
+    ep = MOE.moe_mlp(MOE.shard_experts(p, group), x, group=group)
+    if not torch.equal(ep, MOE.moe_mlp(p, x)):
+        raise AssertionError("expert-parallel moe_mlp (world 1)")
+    log("  expert-parallel moe_mlp (world 1) equal to the plain call")
+    return dict(counts=counts, ms=ms)
+
+
+def phase15(K, frames, dev, smi: str, tmp: str) -> dict:
+    """Phase 15 in order under a world-1 NCCL process group (a file://
+    store in `tmp`), destroyed at the end; returns each path's launch
+    counts and readings."""
+    import torch.distributed as dist
+
+    t15 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store",
+                            world_size=1, rank=0)
+    try:
+        moe_layer_checks(dev, smi)
+        gen = moe_generate_full_width(K, frames, dev, smi)
+        torch.cuda.empty_cache()
+        train = moe_train_full_width(dev, smi)
+        torch.cuda.empty_cache()
+        serving = serving_perception(dev)
+        ppo = myppo_full_width(serving, dev, smi, tmp)
+        torch.cuda.empty_cache()
+        par = parallel_world_one(serving, frames, dev, smi)
+        del serving
+    finally:
+        dist.destroy_process_group()
+    counts = dict(moe=gen["counts"], moe_train=train["counts"],
+                  myppo=ppo["counts"], parallel=par["counts"])
+    log("  phase 15 launches by kernel: " + json.dumps(
+        {n: {k: c[n] for k, c in counts.items()} for n in gen["counts"]}))
+    missing = [n for n in gen["counts"]
+               if n not in ("decode_self_attention", "decode_cross_attention")
+               and not any(c[n] for c in counts.values())]
+    if missing:
+        raise AssertionError(f"phase 15 launched no {missing}")
+    log(f"  phase 15 in {time.perf_counter() - t15:.1f} s")
+    return dict(counts=counts, gen=gen, train=train, ppo=ppo, par=par)
+
+
 def card_name() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -5739,6 +6272,12 @@ def main() -> int:
                 "--affine-finetune), BLIP-2, Florence and the consensus LM")
             with tempfile.TemporaryDirectory(prefix="ecap_vlm_") as tmp:
                 p14 = phase14(K, frames13, rows, dev, smi, tmp)
+            torch.cuda.empty_cache()
+            log("[15] the parallel layer: the mixture-of-experts captioner, "
+                "myppo, perceive_sharded, pipeline and ring attention, the "
+                "checkpoint manager (a world-1 NCCL group)")
+            with tempfile.TemporaryDirectory(prefix="ecap_parallel_") as tmp:
+                p15 = phase15(K, frames13, dev, smi, tmp)["counts"]
     except Exception:
         traceback.print_exc()
         return 1
@@ -5759,7 +6298,10 @@ def main() -> int:
     # launches_eval: over 14a's eval_artifact on the card (its corpora's
     # render); launches_blip2: over 14b's timed BLIP-2 generate;
     # launches_florence: over 14c's four timed Florence generates;
-    # launches_lm: over 14d's timed ConsensusLM choices
+    # launches_lm: over 14d's timed ConsensusLM choices; launches_moe: over
+    # 15b's timed MoE generate; launches_moe_train: over 15b's timed MoE
+    # train steps; launches_myppo: over 15c's full-width myppo train;
+    # launches_parallel: over 15d's perceive_sharded
     kernels = []
     for n, r in rows.items():
         if loop["counts"][n] > 0:
@@ -5780,7 +6322,10 @@ def main() -> int:
             launches_query=qry["counts"][n],
             launches_eval=p14["eval"][n], launches_blip2=p14["blip2"][n],
             launches_florence=p14["florence"].get(n, 0),
-            launches_lm=p14["lm"][n], **r))
+            launches_lm=p14["lm"][n], launches_moe=p15["moe"][n],
+            launches_moe_train=p15["moe_train"][n],
+            launches_myppo=p15["myppo"][n],
+            launches_parallel=p15["parallel"][n], **r))
     if any(k["launches"] <= 0 for k in kernels):
         print(f"chip_smoke: a kernel was never launched: {kernels}",
               file=sys.stderr)

@@ -84,7 +84,7 @@ class BaseTrainer:
     def __init__(self, cfg: ExperimentConfig, perceiver: Optional[Perceiver]
                  = None, with_perception: bool = True, device="cuda"):
         self.cfg = cfg
-        self.envs = VectorEnv(cfg, device=device)
+        self.envs = VectorEnv(cfg, device=device, env_ids=self._env_ids())
         self.perceiver = perceiver or (
             Perceiver(cfg, seed=cfg.runtime.seed, device=device)
             if with_perception else None)
@@ -93,6 +93,11 @@ class BaseTrainer:
         self.obs_dir = cfg.runtime.obs_dir
         self.saved_paths: List[str] = []
         self._step = 0
+
+    def _env_ids(self) -> Optional[List[int]]:
+        """The ids of the envs this process steps (None: all of
+        `runtime.num_envs`)."""
+        return None
 
     # -- policy interface (override per baseline) -------------------------
     def actions(self, obs) -> List[int]:

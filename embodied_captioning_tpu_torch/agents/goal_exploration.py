@@ -73,6 +73,8 @@ class GoalExplorationTrainer(_GoalDirectedTrainer):
     REWARD_MODE = "delta"  # per-window disagreement delta
 
     RNN_DIM = 256  # GRU hidden width (policy.init_gru)
+    # (first env, all envs) where this process steps some of the envs
+    _sample_rows = None
 
     def __init__(self, cfg: ExperimentConfig, **kw):
         super().__init__(cfg, **kw)
@@ -108,13 +110,15 @@ class GoalExplorationTrainer(_GoalDirectedTrainer):
         m, o = self._tensors(maps, orients)
         if self._rnn is None:
             a, raw, lp, v = policy_act(self.ppo_state.params, self._gen, m, o,
-                                       deterministic=deterministic)
+                                       deterministic=deterministic,
+                                       sample_rows=self._sample_rows)
             return _host(a), _host(raw), _host(lp), _host(v), None
         pre = self._rnn.copy()
         a, raw, lp, v, h = policy_act(
             self.ppo_state.params, self._gen, m, o,
             deterministic=deterministic,
-            rnn_state=torch.from_numpy(pre).to(self.device))
+            rnn_state=torch.from_numpy(pre).to(self.device),
+            sample_rows=self._sample_rows)
         self._rnn = _host(h)
         return _host(a), _host(raw), _host(lp), _host(v), pre
 
@@ -257,8 +261,7 @@ class GoalExplorationTrainer(_GoalDirectedTrainer):
                 last_v = _host(policy_forward(self.ppo_state.params, m, o,
                                               rnn).value)
                 rollout = self._prepare_rollout(storage.as_rollout(last_v))
-                self.ppo_state, metrics = ppo_update(self.ppo_state, rollout,
-                                                     self._gen, cfg.ppo)
+                self.ppo_state, metrics = self._ppo_update(rollout)
                 self.metrics_log.append({k: float(v)
                                          for k, v in metrics.items()})
             storage.after_update()
@@ -270,6 +273,10 @@ class GoalExplorationTrainer(_GoalDirectedTrainer):
     # -- hooks ---------------------------------------------------------------
     def _prepare_rollout(self, rollout):
         return rollout
+
+    def _ppo_update(self, rollout):
+        """One PPO update of the trainer's state: (new state, metrics)."""
+        return ppo_update(self.ppo_state, rollout, self._gen, self.cfg.ppo)
 
     def _after_update(self, update: int) -> bool:
         """Post-update bookkeeping; return True to stop training early."""

@@ -104,9 +104,19 @@ def policy_forward(params: dict, maps: torch.Tensor,
 
 
 def gaussian_sample(g: torch.Generator, mean: torch.Tensor,
-                    log_std: torch.Tensor) -> torch.Tensor:
-    noise = torch.randn(mean.shape, generator=g, dtype=torch.float32,
-                        device=mean.device)
+                    log_std: torch.Tensor, rows=None) -> torch.Tensor:
+    """mean + exp(log_std) * noise. With `rows` = (first, total), the
+    noise is drawn for `total` rows and rows [first, first + B) of it are
+    used: a rank holding some of the envs draws what one process holding
+    all of them would."""
+    if rows is None:
+        noise = torch.randn(mean.shape, generator=g, dtype=torch.float32,
+                            device=mean.device)
+    else:
+        first, total = rows
+        noise = torch.randn((total, *mean.shape[1:]), generator=g,
+                            dtype=torch.float32, device=mean.device
+                            )[first:first + mean.shape[0]]
     return mean + torch.exp(log_std) * noise
 
 
@@ -142,12 +152,12 @@ def categorical_entropy(logits: torch.Tensor) -> torch.Tensor:
 def act(params: dict, g: Optional[torch.Generator], maps: torch.Tensor,
         orientation: torch.Tensor, deterministic: bool = False,
         categorical: bool = False,
-        rnn_state: Optional[torch.Tensor] = None):
+        rnn_state: Optional[torch.Tensor] = None, sample_rows=None):
     """Choose an action: (action, raw_action, log_prob, value), and the new
     GRU state last when `rnn_state` is given. Gaussian actions are
     squashed to [0, 1]^2 by a sigmoid (a map goal); `raw_action` is the
     pre-squash value PPO evaluates. `g` may be None when
-    `deterministic`."""
+    `deterministic`; `sample_rows` goes to `gaussian_sample`."""
     out = policy_forward(params, maps, orientation, rnn_state)
     if categorical:
         a = (torch.argmax(out.mean, -1).to(torch.int32) if deterministic
@@ -155,8 +165,8 @@ def act(params: dict, g: Optional[torch.Generator], maps: torch.Tensor,
         lp = categorical_log_prob(a, out.mean)
         res = (a, a, lp, out.value)
     else:
-        raw = out.mean if deterministic else gaussian_sample(g, out.mean,
-                                                             out.log_std)
+        raw = out.mean if deterministic else gaussian_sample(
+            g, out.mean, out.log_std, sample_rows)
         lp = gaussian_log_prob(raw, out.mean, out.log_std)
         res = (torch.sigmoid(raw), raw, lp, out.value)
     return res + (out.rnn_state,) if rnn_state is not None else res

@@ -60,8 +60,15 @@ class Batch(NamedTuple):
     rnn_states: Optional[torch.Tensor]  # [N, D]
 
 
-def prepare_batch(rollout: Rollout, cfg: PPOConfig, device) -> Batch:
-    """GAE, advantage normalisation (population std) and flattening."""
+def normalise(advantages: torch.Tensor) -> torch.Tensor:
+    """Advantages less their mean over their std (population), + 1e-5."""
+    return ((advantages - advantages.mean())
+            / (advantages.std(correction=0) + 1e-5))
+
+
+def prepare_batch(rollout: Rollout, cfg: PPOConfig, device,
+                  normalise_fn=normalise) -> Batch:
+    """GAE, advantage normalisation (`normalise_fn`) and flattening."""
     t_len, e = rollout.rewards.shape
     n = t_len * e
 
@@ -71,8 +78,7 @@ def prepare_batch(rollout: Rollout, cfg: PPOConfig, device) -> Batch:
     returns, advantages = compute_gae(
         dev(rollout.rewards), dev(rollout.values), dev(rollout.masks),
         cfg.gamma, cfg.tau)
-    adv = ((advantages - advantages.mean())
-           / (advantages.std(correction=0) + 1e-5))
+    adv = normalise_fn(advantages)
 
     def flat(x):
         x = dev(x[:t_len])

@@ -81,7 +81,7 @@ class TextDecoderConfig:
     pad_id: int = 0
     bos_id: int = 1
     eos_id: int = 2
-    moe_experts: int = 0  # mixture-of-experts MLPs (the port refuses > 0)
+    moe_experts: int = 0  # > 0: mixture-of-experts MLPs in the text blocks
 
 
 @dataclass(frozen=True)

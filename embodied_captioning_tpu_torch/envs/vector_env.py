@@ -47,15 +47,20 @@ def _tensors(obj) -> List[torch.Tensor]:
 
 class VectorEnv:
     def __init__(self, cfg: ExperimentConfig,
-                 num_envs: Optional[int] = None, device="cuda"):
+                 num_envs: Optional[int] = None, device="cuda",
+                 env_ids: Optional[Sequence[int]] = None):
+        """`num_envs` envs (`runtime.num_envs` by default) with ids 0.., or
+        the envs `env_ids` (an env's id seeds its scenes and episodes)."""
         from .registry import make_env
 
         self.cfg = cfg
         self.device = torch.device(device)
-        n = num_envs or cfg.runtime.num_envs
+        if env_ids is None:
+            env_ids = range(num_envs or cfg.runtime.num_envs)
+        n = len(env_ids)
         self.envs: List[EmbodiedEnv] = [
             make_env(cfg.runtime.env_name, cfg, env_id=i, device=self.device)
-            for i in range(n)]
+            for i in env_ids]
         # one worker: env stepping is serialized with itself (envs are
         # stateful), but overlaps with the caller's readbacks and writes
         self._pool = ThreadPoolExecutor(max_workers=1,

@@ -92,14 +92,13 @@ def main(argv=None) -> int:
                            "--device cpu to run on the CPU)")
 
     from .config import load_config
-    from .models.captioner import check_text_config, init_captioner
+    from .models.captioner import init_captioner
     from .models.tokenizer import default_tokenizer
     from .params import to_numpy
     from .train.captioner_train import create_train_state, train_step
 
     cfg = load_config(args.preset, overrides=list(args.overrides))
     ccfg = cfg.captioner
-    check_text_config(ccfg)  # before the pairs are cropped
     tok = default_tokenizer(ccfg.text.vocab_size)
 
     pseudo = {}

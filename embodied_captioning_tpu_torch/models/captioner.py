@@ -23,24 +23,19 @@ import torch
 
 from ..config import CaptionerConfig
 from .common import (
-    MOE_REFUSAL, KVCache, block, block_init, causal_mask, dense, dense_init,
+    KVCache, block, block_init, causal_mask, dense, dense_init,
     layernorm, layernorm_init, precompute_kv, randn,
 )
 from .vit import encode_image, init_vit, run_blocks
 
 
-def check_text_config(cfg: CaptionerConfig) -> None:
-    """Refuse `text.moe_experts > 0`, which the JAX package builds as a
-    mixture-of-experts decoder and the port does not have yet."""
-    if cfg.text.moe_experts > 0:
-        raise ValueError(f"text.moe_experts={cfg.text.moe_experts}: "
-                         f"{MOE_REFUSAL}")
-
-
 def init_captioner(g: torch.Generator, cfg: CaptionerConfig, device) -> dict:
-    check_text_config(cfg)
+    """Random weights with the JAX `init_captioner`'s shapes and scales;
+    with `text.moe_experts > 0` every text block's MLP is replaced by a
+    mixture-of-experts layer ("moe", `parallel.moe.moe_init`), drawn after
+    the other weights (a dense captioner draws what it drew before)."""
     t = cfg.text
-    return {
+    params = {
         "vision": init_vit(g, cfg.vision, device),
         "tok_emb": randn(g, (t.vocab_size, t.width), device, 0.02),
         "pos_emb": randn(g, (t.context_length, t.width), device, 0.01),
@@ -55,6 +50,14 @@ def init_captioner(g: torch.Generator, cfg: CaptionerConfig, device) -> dict:
         "head": dense_init(g, t.width, t.vocab_size, device),
         "logit_scale": torch.tensor(2.659, device=device),
     }
+    if t.moe_experts > 0:
+        from ..parallel.moe import moe_init
+
+        for blk in params["text_blocks"]:
+            del blk["mlp"]
+            blk["moe"] = moe_init(g, t.width, int(t.width * t.mlp_ratio),
+                                  t.moe_experts, device)
+    return params
 
 
 # ---------------------------------------------------------------------------

@@ -51,8 +51,6 @@ from .quantize import QuantizedArray, QuantizedKV, maybe_dequant, quantize_kv
 
 BERT_LN_EPS = 1e-12  # HF BertConfig.layer_norm_eps
 NEG_INF = -1e30
-MOE_REFUSAL = ("the port builds dense text blocks only: the "
-               "mixture-of-experts captioner is ROADMAP A.15 step 4")
 
 
 def flash_attention_fits(d: int) -> bool:
@@ -382,18 +380,22 @@ def block(p: dict, x: torch.Tensor, heads: int,
     does not take the shape runs as those separate calls
     (`decode_route`). `cache_block_causal` goes to the self-attention
     (`mha`); the self block kernel runs only with it. A block with a
-    mixture-of-experts MLP ("moe") is refused."""
-    if "moe" in p:
-        raise ValueError(f"a block with a mixture-of-experts MLP ('moe'): "
-                         f"{MOE_REFUSAL}")
+    mixture-of-experts MLP ("moe" in place of "mlp", the MoE captioner's
+    text blocks) runs it as `parallel.moe.moe_mlp` (top-2, capped by the
+    expert count) after its attention sublayers, which take their kernels
+    as in any block; it never takes the decode-MLP kernel."""
+    moe = p.get("moe")
     one_token = (x.shape[1] == 1 and compute_dtype == torch.bfloat16
                  and x.dtype == torch.bfloat16)
     route = DecodeRoute(False, False, False)
     if one_token:
         route = decode_route(x.shape[0], x.shape[-1], heads,
-                             _out_width(p["mlp"]["fc"]["w"]),
+                             (moe["fc_w"].shape[-1] if moe is not None
+                              else _out_width(p["mlp"]["fc"]["w"])),
                              0 if cache is None else cache.k.shape[-1],
                              decode_blocks)
+        if moe is not None:
+            route = route._replace(mlp=False)
     if "attn" in p:
         if (route.self_block and cache is not None and mask is None
                 and cache_block_causal):
@@ -419,6 +421,13 @@ def block(p: dict, x: torch.Tensor, heads: int,
             h, _ = mha(p["xattn"], layernorm(p["ln_x"], x), heads,
                        compute_dtype=compute_dtype, kv_precomputed=cross_kv)
             x = x + h
+    if moe is not None:
+        from ..parallel.moe import moe_mlp  # moe.py imports this module
+
+        h = moe_mlp(moe, layernorm(p["ln2"], x),
+                    top_k=min(2, moe["gate"]["b"].shape[-1]),
+                    compute_dtype=compute_dtype)
+        return x + h, cache
     if cache is not None and route.mlp:
         return _decode_mlp_block(p["mlp"], p["ln2"], x), cache
     return x + mlp(p["mlp"], layernorm(p["ln2"], x), compute_dtype), cache

@@ -109,6 +109,38 @@ def perceive(params: PerceptionParams, images_u8: torch.Tensor,
     )
 
 
+def perceive_sharded(params: PerceptionParams, images_u8: torch.Tensor,
+                     cfg: ExperimentConfig, mesh, decode_blocks: bool = True
+                     ) -> FrameResult:
+    """Multi-device serving: the frame batch split over the mesh's "data"
+    axis, one contiguous block of frames a rank (params replicated). Each
+    rank runs `perceive` on its block and an all-gather assembles the
+    whole FrameResult on every rank. Caption slots are chosen per frame,
+    so the split keeps which slots are captioned. The batch must be
+    divisible by the "data" axis."""
+    from .parallel.mesh import (
+        all_gather_cat, axis_group, axis_rank, axis_size)
+
+    n = axis_size(mesh, "data")
+    assert images_u8.shape[0] % n == 0, (
+        f"batch {images_u8.shape[0]} not divisible by data axis {n}")
+    per, r = images_u8.shape[0] // n, axis_rank(mesh, "data")
+    local = perceive(params, images_u8[r * per:(r + 1) * per], cfg,
+                     decode_blocks)
+    group = axis_group(mesh, "data")
+    if group is None:
+        return local
+
+    def gather(x):
+        return None if x is None else all_gather_cat(x, group)
+
+    det = local.detections
+    det = det.replace(**{f: gather(getattr(det, f)) for f in (
+        "boxes", "classes", "scores", "logits", "valid", "masks",
+        "embeddings", "object_ids", "episode_ids")})
+    return FrameResult(det, *(gather(x) for x in local[1:]))
+
+
 class Perceiver:
     """Host-facing wrapper: owns params and the tokenizer; decodes caption
     strings on demand."""

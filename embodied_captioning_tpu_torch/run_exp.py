@@ -8,6 +8,9 @@ Usage:
   python -m embodied_captioning_tpu_torch.run_exp \
       --trainer goalexplorationbaseline-v0 --mode train --preset tiny \
       --steps 1 ppo.num_global_steps=2 [--device cpu] [key.path=value ...]
+  torchrun --nproc_per_node N -m embodied_captioning_tpu_torch.run_exp \
+      --trainer myppo --mode train ...   (one process per card; the
+      distributed PPO trainer splits runtime.num_envs over the N ranks)
 
 Prints one JSON line. generate: saved files, frames, seconds, frames/s
 and each env's reward; train: the number of PPO updates (`--steps`, 2 by
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -38,11 +42,6 @@ def main(argv=None) -> int:
     ap.add_argument("overrides", nargs="*", help="a.b.c=value overrides")
     args = ap.parse_args(argv)
 
-    if args.trainer == "myppo":
-        print("run_exp: the distributed PPO trainer 'myppo' needs the "
-              "parallel layer, which is not ported yet (ROADMAP A.15)",
-              file=sys.stderr)
-        return 2
     if torch.device(args.device).type == "cuda" and \
             not torch.cuda.is_available():
         print("run_exp: no CUDA device (pass --device cpu to run on the "
@@ -51,6 +50,11 @@ def main(argv=None) -> int:
 
     from .agents import get_trainer  # (importing fills the registry)
     from .config import load_config
+    from .parallel.mesh import initialize_distributed
+
+    # under torchrun: one process per device, joined into one group
+    initialize_distributed("env://", int(os.environ.get("WORLD_SIZE", 1)),
+                           int(os.environ.get("RANK", 0)))
 
     overrides = list(args.overrides)
     if args.obs_dir:

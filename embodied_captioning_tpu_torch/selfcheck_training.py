@@ -293,12 +293,11 @@ def main(argv=None) -> int:
         return 2
 
     from .config import load_config
-    from .models.captioner import check_text_config, init_captioner
+    from .models.captioner import init_captioner
     from .models.quantize import quantize_params
     from .models.tokenizer import default_tokenizer
 
     cfg = load_config(args.preset, overrides=list(args.overrides))
-    check_text_config(cfg.captioner)  # before the corpora are rendered
     t0 = time.time()
     if args.train_cache and os.path.exists(args.train_cache):
         z = np.load(args.train_cache, allow_pickle=False)

@@ -66,6 +66,23 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree: Any, path: tuple = ()) -> Any:
+    """fn(path, leaf) over a tree: path is the tuple of dict keys and list
+    or tuple positions down to the leaf; lists, tuples and NamedTuples
+    keep their types; None is an empty subtree."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        vals = [tree_map_with_path(fn, v, path + (i,))
+                for i, v in enumerate(tree)]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else \
+            type(tree)(vals)
+    return fn(path, tree)
+
+
 def value_and_grad(fn: Callable[[Any], Any], params: Any):
     """`jax.value_and_grad(fn, has_aux=True)(params)` on a tree of tensors:
     fn(params) -> (loss, aux); returns (loss, aux, gradients as a tree like

@@ -209,9 +209,13 @@ def test_run_exp_cli_on_cpu(tmp_path, capsys):
     assert all(np.isfinite(out["rewards"])) and len(out["rewards"]) == 2
     assert sum(len(f) for _, _, f in os.walk(tmp_path)) == 32
     # --mode train runs (tests/test_torch_trainers.py); the distributed
-    # PPO trainer is not ported
-    assert run_exp.main(["--trainer", "myppo"] + argv[2:4]) == 2
-    assert "ROADMAP A.15" in capsys.readouterr().err
+    # PPO trainer generates on the CPU too
+    obs = tmp_path / "myppo"
+    assert run_exp.main(["--trainer", "myppo"] + argv[2:8] + [
+        "--obs-dir", str(obs)] + argv[10:]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["saved_files"] == 4 * 2 * 4
+    assert sum(len(f) for _, _, f in os.walk(obs)) == 32
     if not torch.cuda.is_available():
         # the default device is the card
         assert run_exp.main(argv[:10] + argv[12:]) == 2

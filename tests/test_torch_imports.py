@@ -63,7 +63,10 @@ def test_scan_covers_every_subpackage_and_the_smoke_script():
                 "pseudocaption.py", "train_detector.py",
                 "models/query_detector.py", "ops/assignment.py",
                 "export_serving_artifact.py", "eval_artifact.py",
-                "models/llm.py", "models/blip2.py", "models/florence.py"):
+                "models/llm.py", "models/blip2.py", "models/florence.py",
+                "parallel/mesh.py", "parallel/moe.py",
+                "parallel/pipeline.py", "parallel/sequence.py",
+                "agents/ddppo.py", "utils/checkpoint.py"):
         assert pkg + rel in scanned, rel
     assert "chip_smoke.py" in scanned
     # every directory of the package that holds Python files is scanned

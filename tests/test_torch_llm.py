@@ -1,14 +1,16 @@
 """The consensus LM (`models/llm.py`), the attention arguments it and the
 BLIP-2 LM need (`common.mha` / `block`: `causal`, `cache_block_causal`),
 the LLM consensus of the pseudo-captioner (`_hf_llm_consensus`,
-`--llm-path`), and the refusal of the mixture-of-experts captioner
-(ROADMAP C.33), against the JAX package at tiny sizes on the CPU.
+`--llm-path`), and the calls that refused the mixture-of-experts
+captioner until ROADMAP C.33 was closed, against the JAX package at tiny
+sizes on the CPU.
 
 The JAX side runs with its kernels in interpret mode (`jax_kernel_path`)
 for inference and on its default path (`jax_train_path`) for gradients.
 """
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -48,7 +50,8 @@ def few_torch_threads():
 
 
 # ---------------------------------------------------------------------------
-# C.33: the mixture-of-experts captioner is refused
+# C.33 (handled): the calls that refused the mixture-of-experts captioner
+# build and run it (tests/test_torch_moe.py holds it to the JAX package)
 # ---------------------------------------------------------------------------
 
 def _moe_cfg() -> CaptionerConfig:
@@ -58,36 +61,64 @@ def _moe_cfg() -> CaptionerConfig:
 
 
 def test_init_captioner_refuses_moe_experts():
-    with pytest.raises(ValueError, match="A.15 step 4"):
-        TCap.init_captioner(torch.Generator().manual_seed(0), _moe_cfg(),
+    """`init_captioner` with `text.moe_experts=4` builds MoE text blocks
+    ("moe" in place of "mlp", 4 stacked experts); the multimodal blocks
+    keep their dense MLPs."""
+    p = TCap.init_captioner(torch.Generator().manual_seed(0), _moe_cfg(),
                             "cpu")
+    for blk in p["text_blocks"]:
+        assert "moe" in blk and "mlp" not in blk
+        assert blk["moe"]["fc_w"].shape == (4, 64, 256)
+        assert blk["moe"]["gate"]["w"].shape == (64, 4)
+    assert all("mlp" in blk for blk in p["mm_blocks"])
 
 
 def test_block_refuses_a_moe_key():
     """A JAX MoE captioner's text block (its "moe" key in place of "mlp")
-    handed through `from_jax` is refused by name, not by a missing key."""
+    handed through `from_jax` runs through the port's `block` and matches
+    the JAX package's block."""
     jcfg = JCapCfg.tiny()
     jcfg = dataclasses.replace(
         jcfg, text=dataclasses.replace(jcfg.text, moe_experts=4))
     jp = JCap.init_captioner(jax.random.PRNGKey(0), jcfg)
     blk = from_jax(jp["text_blocks"][0], "cpu")
     assert "moe" in blk
-    with pytest.raises(ValueError, match="A.15 step 4"):
-        TC.block(blk, torch.zeros(1, 3, 64, dtype=torch.bfloat16), 2)
+    x = np.random.default_rng(0).standard_normal((2, 3, 64)).astype(
+        np.float32)
+    with jax_train_path():
+        want = JC.block(jp["text_blocks"][0],
+                        jnp.asarray(x, jnp.bfloat16), 2)[0]
+    got = TC.block(blk, torch.from_numpy(x).to(torch.bfloat16), 2)[0]
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(np32(got), np32(want), atol=LOGIT_ATOL,
+                               rtol=0)
 
 
-def test_entry_points_refuse_moe_experts(tmp_path):
+def test_entry_points_refuse_moe_experts(tmp_path, capsys):
     """`init_perception` (every Perceiver), the captioner self-check and
-    the fine-tune refuse `captioner.text.moe_experts=4` before any
-    rendering or cropping."""
+    the fine-tune run with `captioner.text.moe_experts=4`."""
+    from test_torch_finetune import _write_store
+
+    from embodied_captioning_tpu_torch.utils import obs_store
+
     over = ["captioner.text.moe_experts=4"]
-    with pytest.raises(ValueError, match="A.15 step 4"):
-        init_perception(torch.Generator().manual_seed(0),
-                        load_config("tiny", overrides=over), "cpu")
-    with pytest.raises(ValueError, match="A.15 step 4"):
-        ST.main(["--device", "cpu"] + over)
-    with pytest.raises(ValueError, match="A.15 step 4"):
-        finetune_captioner.main([str(tmp_path), "--device", "cpu"] + over)
+    per = init_perception(torch.Generator().manual_seed(0),
+                          load_config("tiny", overrides=over), "cpu")
+    assert "moe" in per.captioner["text_blocks"][0]
+    assert ST.main(["--device", "cpu", "--steps", "2", "--batch", "4",
+                    "--train-crops", "24", "--train-scenes", "3",
+                    "--train-steps-per-scene", "6", "--test-crops", "6",
+                    "--eval-scenes", "1"] + over) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["train_crops"] == 24 and np.isfinite(line["last_loss"])
+    store = tmp_path / "obs"
+    _write_store(obs_store, str(store))
+    assert finetune_captioner.main([str(store), "--device", "cpu",
+                                    "--batch", "4", "--save",
+                                    str(tmp_path / "c.pkl")] + over) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["steps"] >= 1 and np.isfinite(line["last_loss"])
+    assert (tmp_path / "c.pkl").exists()
 
 
 # ---------------------------------------------------------------------------

@@ -230,7 +230,9 @@ def test_train_matches_jax_on_handed_decisions_and_frames(fused,
 # ---------------------------------------------------------------------------
 
 def test_registry_has_every_jax_trainer_but_myppo():
-    assert set(list_trainers()) == set(jlist()) - {"myppo"}
+    """Every JAX trainer, the distributed PPO trainer "myppo" included."""
+    assert set(list_trainers()) == set(jlist())
+    assert "myppo" in list_trainers()
     for name in ("goalexplorationbaseline-v0", "goalexplorationbaseline-v3",
                  "informative-trajectories-v0",
                  "randomgoalsbaselinecaptioner", "curiosity-v0"):
@@ -465,9 +467,15 @@ def test_run_exp_train_on_cpu(tmp_path, capsys):
     assert set(out["metrics"][0]) == {"loss", "action_loss", "value_loss",
                                       "entropy"}
     assert os.path.exists(tmp_path / "policy.pkl")
-    assert run_exp.main(["--trainer", "myppo", "--mode", "train",
-                         "--device", "cpu"]) == 2
-    assert "ROADMAP A.15" in capsys.readouterr().err
+    # the distributed PPO trainer runs on the CPU (world size 1: no
+    # process group), its resume state under ddppo/
+    dd = tmp_path / "myppo"
+    assert run_exp.main(["--trainer", "myppo"] + argv[2:-1] + [
+        f"runtime.checkpoint_dir={dd}", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["mode"] == "train" and out["updates"] == 1
+    assert all(np.isfinite(v) for v in out["metrics"][0].values())
+    assert os.listdir(dd / "ddppo") == ["1"]
     if not torch.cuda.is_available():
         # the default device is the card
         assert run_exp.main(argv) == 2
