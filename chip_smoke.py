@@ -159,7 +159,8 @@ Phases, each of which must pass:
      device time by kernel family; (c) `selfcheck_training` whole at the
      tiny preset with the JAX script's defaults and --speculative: its
      JSON line, held-out sbert_cosine > 0.8 with int8 within 0.01, the
-     launches of the run; then 20 steps at the large preset on 64 crops:
+     launches of the run; then LARGE_SELFCHECK_STEPS steps at the large
+     preset on 64 crops:
      step_ms_median, hbm_peak_gb; (d) `selfcheck_detector --steps 700
      --episodes 4` at the tiny preset: map50_train > 0.4, mask_iou > 0.5
      on more than 5 matched detections; (e) on the captioner (c) trained,
@@ -251,7 +252,19 @@ Phases, each of which must pass:
      train` at tiny; the SIGTERM path at tiny; (d) `perceive_sharded`
      against `perceive` bit for bit, `pipeline_vit_features` and
      `vit_features_seqparallel` against `vit_features` at ViT-L, and
-     expert-parallel `moe_mlp` against the plain call.
+     expert-parallel `moe_mlp` against the plain call;
+ 16. the tensor-parallel captioner and the replay path: (a) under a
+     world-1 NCCL group, the large preset's captioner with a (1, 1) mesh:
+     `forward` and one `train_step` at batch 8 on phase 3's crops equal
+     the mesh-less calls bit for bit; (b) two processes on the card in a
+     gloo group (NCCL refuses two ranks on a device), the captioner cut
+     over a (1, 2) mesh: the flash kernel at the local heads [8, 8, 257,
+     64] against its twin, the TP `forward` held to (a)'s by
+     `tests/test_tp.py`'s limits, one DP1 x TP2 `train_step` held to
+     (a)'s by its loss and `update_gaps`, ms a call, peak memory, host
+     copies and launches per rank; (c) `replay_exp --perceive --preset
+     large` on phase 8's store against `Perceiver.process` on the same
+     frames bit for bit, frames/s, and `Viz-v1`'s trajectory PNGs.
 
 Float32 products and convolutions run without TF32 so the comparisons see
 the kernels' own error. Prints the card's name and power limit, frames/s
@@ -3436,6 +3449,7 @@ def finetune_entry_point(store: str, shapes: list) -> dict:
 DET_HEADS = ("ce", "focal", "soft", "softfocal", "msefocal")
 DET_STEP_BATCH = 8             # the detector self-check's default batch
 DET_STEPS = 3                  # timed detector steps after a warm-up step
+LARGE_SELFCHECK_STEPS = 8      # 11c: the large preset's timed self-check
 DET_LR = 1e-3                  # the detector self-check's default lr
 DET_SPREAD_DRAWS = 4           # 11a: moves of the CPU's parameters
 SELF_CHECK_BAR = 0.8           # held-out sbert_cosine: the JAX script's bar
@@ -3709,7 +3723,8 @@ def captioner_selfcheck(dev, smi: str, tmp: str) -> dict:
     sbert_cosine > SELF_CHECK_BAR with int8_sbert_cosine within INT8_GAP of
     it (read with the port's own seeded captioner and sentence encoder),
     speculative decoding's exactness, and the launches of the whole run;
-    then a timed run at the large preset (20 steps on 64 crops). Returns
+    then a timed run at the large preset (LARGE_SELFCHECK_STEPS steps on
+    64 crops). Returns
     the tiny run's trained state and eval corpus (for 11e)."""
     from embodied_captioning_tpu_torch import kernels as K
     from embodied_captioning_tpu_torch import selfcheck_training as ST
@@ -3751,9 +3766,11 @@ def captioner_selfcheck(dev, smi: str, tmp: str) -> dict:
                              f"kernels not launched {missing}, {line}")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    rc_l, large = run_entry(ST.main, ["--preset", "large", "--steps", "20",
-                                      "--train-crops", "64"])
-    log(f"  captioner self-check, large preset, 20 steps on "
+    rc_l, large = run_entry(ST.main, [
+        "--preset", "large", "--steps", str(LARGE_SELFCHECK_STEPS),
+        "--train-crops", "64"])
+    log(f"  captioner self-check, large preset, {LARGE_SELFCHECK_STEPS} "
+        f"steps on "
         f"{large.get('train_crops')} crops, batch 16, on {smi}: "
         f"step_ms_median {large.get('step_ms_median')} ms, hbm_peak_gb "
         f"{large.get('hbm_peak_gb')} of {large.get('hbm_limit_gb')}, "
@@ -3842,10 +3859,10 @@ def free_running_on_trained_weights(K, cap: dict, dev, smi: str) -> None:
 # ---------------------------------------------------------------------------
 
 LABEL_PRESET = "large"         # 12b-d: the entry points' preset
-# 12b: frames of phase 8's store labelled (16, 2 env dirs and
+# 12b: frames of phase 8's store labelled (8, 2 env dirs and
 # FT_STORE_ENVS keep the whole script well inside its 1200 s; the gates
 # do not depend on them)
-LABEL_FRAMES = 16
+LABEL_FRAMES = 8
 LABEL_BATCH = 8                # run_pseudolabeler's default batch
 SUBSET_ENVS = 2                # 12b's subprocess, 12d: env dirs of the store
 CLIP_OBJECTS = 16              # 12c: objects scored by _clip_consensus
@@ -3858,7 +3875,7 @@ TS_LR = 1e-4                   # TeacherStudent's default step size
 # test_torch_pipelines.py holds the CPU to the JAX package at (0.99, 2e-3,
 # 0.02) and (0.95, -, 0.35); a reset state counts 1
 TS_UPDATE = ((0.97, 2e-3, 0.05), (0.95, None, 0.35))
-TTA_STEPS = 100                # 12e: training steps of the short run
+TTA_STEPS = 40                 # 12e: training steps of the short run
 MC_SAMPLES = 3                 # 12a: forward_mc's stochastic passes
 # 12a: the MC statistics' limit, test_torch_pseudolabel.py's against the
 # JAX package (bf16 box-head outputs an ulp apart, doubled by dropout)
@@ -5115,7 +5132,7 @@ EVAL_BATCH = 4
 # served int8 detector's bf16 boxes and scores (ROADMAP C.25) may move a
 # detection across IoU 0.5 or past another's score
 EVAL_MAP_ATOL = 0.05
-SERVING_STEPS = 100            # 14a: selfcheck_detector steps (12e's)
+SERVING_STEPS = TTA_STEPS      # 14a: selfcheck_detector steps (12e's)
 SERVING_FT = 20                # 14a: --affine-finetune steps
 VLM_CROPS = 16                 # 14b-c: crops of phase 3's frames
 # 14b: the Q-Former's query self-attention at Blip2Config(): 12 heads of
@@ -6106,6 +6123,391 @@ def phase15(K, frames, dev, smi: str, tmp: str) -> dict:
     return dict(counts=counts, gen=gen, train=train, ppo=ppo, par=par)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the tensor-parallel captioner (forward and the DP x TP train
+# step) and the replay path (Viz-v0, Viz-v1, replay_exp)
+# ---------------------------------------------------------------------------
+
+TP_PRESET = "large"            # 16a-b: the captioner's preset
+TP_BATCH = 8                   # 16a-b: the fine-tune's batch
+TP_SEED = 16                   # 16a-b: the captioner's seeded weights
+TP_LR = 1e-4                   # train_step's default step size
+TP_RANKS = 2                   # 16b: the "model" axis, two processes a card
+# 16b against the one-process calls on the card, tests/test_torch_tp.py's
+# limits: tests/test_tp.py's on the forward (embeddings within rtol = atol
+# = 2e-2, logits correlation > 0.999, argmax agreement > 0.99 on the
+# confident half of the rows), the loss within 2e-2 relative, the update
+# by update_gaps: the decay estimate within 2e-3 (the CPU test's), moved
+# alike >= 0.96: 16b read 0.98072 on an H100 80GB HBM3 at 700 W (PERF.md
+# §6), the CPU test's 2 + 2 + 2 layers 0.990; the leaves whose gradient is
+# rounding noise at random weights move either way (the attention k
+# biases, whose gradient is 0 in exact arithmetic; the multimodal
+# cross-attention's q and k over near-equal pooled tokens), and the large
+# preset has more of them; the faults the CPU test's mutations showed read
+# 0.942 and 0.783
+TP_EMB_TOL = 2e-2
+TP_CORR = 0.999
+TP_ARGMAX = 0.99
+TP_LOSS_RTOL = 2e-2
+TP_AGREE, TP_DECAY_ATOL = 0.96, 2e-3
+TP_FLASH = (TP_BATCH, 8, 257, 64)   # ViT-L's 16 heads cut in two
+REPLAY_PRESET = "large"        # 16c: replay_exp --preset
+REPLAY_FRAMES = 500            # 16c: BASELINE.md configuration (2)
+# 16c: the seeded random detector finds no box at the large preset, so
+# SLOTS slots a frame are captioned valid or not (the serving
+# configuration's settings, `serving_perception`)
+REPLAY_OVERRIDES = (f"runtime.caption_slots_per_frame={SLOTS}",
+                    "runtime.caption_invalid_slots=true")
+VIZ_STEPS = 3                  # 16c: Viz-v1 steps after its reset
+
+
+def tp_world_one(frames, dev, smi: str, tmp: str) -> dict:
+    """16a, under a world-1 NCCL group: the large preset's captioner with a
+    (1, 1) mesh against the mesh-less calls, bit for bit: `forward` and
+    one `train_step` at TP_BATCH on phase 3's crops. Returns the
+    mesh-less forward's outputs and step (loss, leaves before and after)
+    on the host, for 16b."""
+    import torch.distributed as dist
+
+    from embodied_captioning_tpu_torch.config import CaptionerConfig
+    from embodied_captioning_tpu_torch.models import captioner as CAP
+    from embodied_captioning_tpu_torch.parallel.mesh import make_mesh
+    from embodied_captioning_tpu_torch.train import captioner_train as TT
+    from embodied_captioning_tpu_torch.train.optim import tree_leaves
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl16",
+                            world_size=1, rank=0)
+    try:
+        cfg = getattr(CaptionerConfig, TP_PRESET)()
+        params = CAP.init_captioner(
+            torch.Generator(device=dev).manual_seed(TP_SEED), cfg, dev)
+        # the quadrant crops of phase 3's first TP_BATCH / 4 frames
+        batch = [center_crops(frames[:TP_BATCH // 4], cfg.vision.image_size)
+                 ] + finetune_batch(cfg, TP_BATCH, 3, dev)[1:]
+        torch.save([t.cpu() for t in batch], f"{tmp}/tp_batch.pt")
+        mesh = make_mesh((1, 1))
+        with torch.no_grad():
+            f0 = CAP.forward(params, *batch[:2], cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f1 = CAP.forward(params, *batch[:2], cfg, mesh)
+            torch.cuda.synchronize()
+            fwd_ms = (time.perf_counter() - t0) * 1e3
+        kw = dict(lr=TP_LR, triplet_weight=FT_TRIPLET)
+        s0, a0 = TT.train_step(TT.create_train_state(params), *batch, cfg,
+                               **kw)
+        after = [t.cpu() for t in tree_leaves(s0.params)]
+        del s0
+        t0 = time.perf_counter()
+        s1, a1 = TT.train_step(TT.create_train_state(params), *batch, cfg,
+                               mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        same = dict(
+            forward=all(torch.equal(a, b) for a, b in zip(f0, f1)),
+            loss=all(torch.equal(a0[k], a1[k]) for k in a0),
+            params=all(torch.equal(a.cpu(), b) for a, b in zip(
+                tree_leaves(s1.params), after)))
+        log(f"  16a: {TP_PRESET} preset, batch {TP_BATCH}, a (1, 1) mesh "
+            f"against "
+            f"the mesh-less calls, equal bit for bit: {same}; forward "
+            f"{fwd_ms:.1f} ms, train_step {step_ms:.1f} ms (its first) on "
+            f"{smi}; loss {float(a0['loss']):.4f}")
+        if not all(same.values()):
+            raise AssertionError(f"16a: the (1, 1) mesh differs: {same}")
+        out = dict(forward=[t.float().cpu() for t in f0],
+                   loss=float(a0["loss"]),
+                   before=[t.cpu() for t in tree_leaves(params)],
+                   after=after, fwd_ms=fwd_ms, step_ms=step_ms)
+        del params, s1, f0, f1
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(rank: int, tmp: str, device: str) -> None:
+    """16b's process `rank` of TP_RANKS on the one card `device`, in a gloo
+    group over a file:// store: the large preset's captioner (TP_SEED) cut by
+    `shard_params` over a (1, TP_RANKS) mesh; the flash kernel at the
+    local head count against its twin; two TP `forward`s (the second
+    timed); two DP1 x TP2 `train_step`s (the first's updated leaves and
+    loss saved; the second timed). Saves its readings to
+    `tmp/tp_rank{rank}.pt`."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch.config import CaptionerConfig
+    from embodied_captioning_tpu_torch.models import captioner as CAP
+    from embodied_captioning_tpu_torch.parallel import mesh as M
+    from embodied_captioning_tpu_torch.train import captioner_train as TT
+    from embodied_captioning_tpu_torch.train.optim import (
+        tree_leaves, tree_map_with_path)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/tp_store",
+                            world_size=TP_RANKS, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        cfg = getattr(CaptionerConfig, TP_PRESET)()
+        mesh = M.make_mesh((1, TP_RANKS))
+        params = CAP.init_captioner(
+            torch.Generator(device=dev).manual_seed(TP_SEED), cfg, dev)
+        sp = M.shard_params(params, mesh)
+        del params
+        batch = [t.to(dev) for t in torch.load(f"{tmp}/tp_batch.pt")]
+        out = {}
+        g = torch.Generator(device=dev).manual_seed(rank)
+        q, k, v = (torch.randn(*TP_FLASH, generator=g, device=dev
+                               ).to(torch.bfloat16) for _ in range(3))
+        got = K.flash_attention(q, k, v)
+        out["flash_err"] = (got.float() - K.flash_attention_plain(
+            q, k, v).float()).abs().max().item()
+        out["flash_equal"] = torch.equal(got, K.flash_attention(q, k, v))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            CAP.forward(sp, *batch[:2], cfg, mesh)
+            torch.cuda.synchronize()
+            K.reset_launches()
+            M.reset_host_copies()
+            t0 = time.perf_counter()
+            fwd = CAP.forward(sp, *batch[:2], cfg, mesh)
+            torch.cuda.synchronize()
+        out["fwd_ms"] = (time.perf_counter() - t0) * 1e3
+        out["fwd_counts"] = dict(K.launches)
+        out["fwd_copies"] = dict(M.host_copies)
+        out["fwd_peak"] = torch.cuda.max_memory_allocated()
+        if rank == 0:
+            out["forward"] = [t.float().cpu() for t in fwd]
+        del fwd
+        kw = dict(lr=TP_LR, triplet_weight=FT_TRIPLET, mesh=mesh)
+        torch.cuda.reset_peak_memory_stats()
+        state, aux = TT.train_step(TT.create_train_state(sp), *batch, cfg,
+                                   **kw)
+        del sp
+        out["loss"] = float(aux["loss"])
+        out["leaves"] = [t.cpu() for t in tree_leaves(state.params)]
+        out["cut"] = CAP.tp_cut_leaves(state.params, cfg, mesh)
+        dims = tree_map_with_path(
+            lambda p, t: M.partition_spec_for(
+                "/".join(map(str, p)), t, True).index("model")
+            if "model" in M.partition_spec_for("/".join(map(str, p)), t,
+                                               True) else -1,
+            state.params)
+        out["dims"] = tree_leaves(dims)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        M.reset_host_copies()
+        t0 = time.perf_counter()
+        state, aux = TT.train_step(state, *batch, cfg, **kw)
+        torch.cuda.synchronize()
+        out["step_ms"] = (time.perf_counter() - t0) * 1e3
+        out["step_counts"] = dict(K.launches)
+        out["step_copies"] = dict(M.host_copies)
+        out["step_peak"] = torch.cuda.max_memory_allocated()
+        out["finite"] = bool(math.isfinite(float(aux["loss"])))
+        torch.save(out, f"{tmp}/tp_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_two_ranks(ref: dict, dev, tmp: str, smi: str) -> dict:
+    """16b: TP_RANKS processes on the one card (`tp_rank`, in a gloo group:
+    NCCL refuses two ranks on a device); their forward held to 16a's
+    one-process forward, their first step's loss and reassembled update
+    to 16a's step; readings printed per rank."""
+    import torch.multiprocessing as mp
+
+    from embodied_captioning_tpu_torch.train.optim import update_gaps
+
+    t0 = time.perf_counter()
+    mp.spawn(tp_rank, args=(tmp, str(dev)), nprocs=TP_RANKS, join=True)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(f"{tmp}/tp_rank{r}.pt") for r in range(TP_RANKS)]
+    for r, x in enumerate(ranks):
+        log(f"  16b rank {r}: forward {x['fwd_ms']:.1f} ms (16a's "
+            f"one-process forward {ref['fwd_ms']:.1f}), train_step "
+            f"{x['step_ms']:.1f} ms (its second; 16a's first step "
+            f"{ref['step_ms']:.1f}) on {smi}; peak device memory "
+            f"{x['fwd_peak'] / 2**30:.2f} GiB forward, "
+            f"{x['step_peak'] / 2**30:.2f} GiB the step; host copies "
+            f"forward {x['fwd_copies']}, a step {x['step_copies']}; flash "
+            f"at {list(TP_FLASH)} against its twin {x['flash_err']:.3e} "
+            f"(tolerance 2.0e-02), equal bits again {x['flash_equal']}; "
+            f"launches forward "
+            f"{({k: v for k, v in x['fwd_counts'].items() if v})}, a step "
+            f"{({k: v for k, v in x['step_counts'].items() if v})}")
+        require_launches(f"16b rank {r} forward", x["fwd_counts"],
+                         ("flash_attention", "layernorm",
+                          "fused_preprocess"))
+        require_launches(f"16b rank {r} train_step", x["step_counts"],
+                         ("layernorm", "layernorm_bwd", "fused_preprocess"))
+        if x["flash_err"] > 2e-2 or not x["flash_equal"] or not x["finite"]:
+            raise AssertionError(f"16b rank {r}: flash or loss")
+    logits, img, txt = ranks[0]["forward"]
+    want = ref["forward"]
+    emb = [(a - b).abs().max().item() for a, b in zip((img, txt), want[1:])]
+    emb_ok = all(torch.allclose(a, b, rtol=TP_EMB_TOL, atol=TP_EMB_TOL)
+                 for a, b in zip((img, txt), want[1:]))
+    a, b = logits.numpy().ravel(), want[0].numpy().ravel()
+    corr = float(np.corrcoef(a, b)[0, 1])
+    top2 = want[0].topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    confident = margin > margin.median()
+    agree = (logits.argmax(-1) == want[0].argmax(-1))[confident].float(
+        ).mean().item()
+    lerr = (logits - want[0]).abs().max().item()
+    rel = abs(ranks[0]["loss"] - ref["loss"]) / abs(ref["loss"])
+    got = []
+    for i, d in enumerate(ranks[0]["dims"]):
+        if ranks[0]["cut"][i]:
+            got.append(torch.cat([x["leaves"][i] for x in ranks], dim=d))
+        else:
+            got.append(ranks[0]["leaves"][i])
+    whole_equal = all(torch.equal(ranks[0]["leaves"][i], x["leaves"][i])
+                      for x in ranks[1:] for i, c in
+                      enumerate(ranks[0]["cut"]) if not c)
+    before = [t.numpy() for t in ref["before"]]
+    got = [t.float().numpy() for t in got]
+    after = [t.numpy() for t in ref["after"]]
+    gaps = update_gaps(before, got, after, TP_LR)
+    log(f"  16b against 16a's one-process calls: logits max "
+        f"{lerr:.4f}, correlation {corr:.7f} (> {TP_CORR}), argmax "
+        f"agreement on the confident half {agree:.4f} (> {TP_ARGMAX}); "
+        f"embeddings max {emb[0]:.3e} / {emb[1]:.3e} (within rtol = atol "
+        f"{TP_EMB_TOL}: {emb_ok}); loss {ranks[0]['loss']:.5f} against "
+        f"{ref['loss']:.5f} ({rel:.2e} relative, < {TP_LOSS_RTOL}); the "
+        f"update reassembled from {sum(ranks[0]['cut'])} cut leaves: moved "
+        f"alike {gaps['agree']:.5f} (>= {TP_AGREE}), decay "
+        f"{gaps['decay']:.2e} (within {TP_DECAY_ATOL}); whole leaves equal "
+        f"on both ranks {whole_equal}; the two processes {wall:.1f} s")
+    if not (emb_ok and corr > TP_CORR and agree > TP_ARGMAX
+            and rel < TP_LOSS_RTOL and gaps["agree"] >= TP_AGREE
+            and abs(gaps["decay"]) <= TP_DECAY_ATOL and whole_equal):
+        raise AssertionError("16b: the TP=2 captioner against one process")
+    counts = {n: ranks[0]["fwd_counts"][n] + ranks[0]["step_counts"][n]
+              for n in ranks[0]["fwd_counts"]}
+    return dict(counts=counts, ranks=ranks)
+
+
+def replay_full_width(store: str, tmp: str, dev, smi: str) -> dict:
+    """16c: `replay_exp --perceive --preset large` on phase 8's store (its
+    rgb frames, at most REPLAY_FRAMES) in batches of FRAMES: what its
+    `Perceiver.process` returned against `Perceiver.process` of a second
+    perceiver with the same seed on the same frames stacked by hand, bit
+    for bit (caption tokens, lengths, embeddings and every detection
+    field); then `Viz-v1` on the store's first episode for VIZ_STEPS
+    steps, its trajectory PNGs written."""
+    from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch import perception as PER
+    from embodied_captioning_tpu_torch import replay_exp
+    from embodied_captioning_tpu_torch.config import load_config
+    from embodied_captioning_tpu_torch.envs.registry import make_env
+    from embodied_captioning_tpu_torch.utils.obs_store import SampleLoader
+
+    seen = []
+    process = PER.Perceiver.process
+
+    def recorded(self, images):
+        res = process(self, images)
+        seen.append(res)
+        return res
+
+    PER.Perceiver.process = recorded
+    K.reset_launches()
+    try:
+        # the overrides beside the path: argparse takes the positionals
+        # in one run
+        rc, line = run_entry(replay_exp.main, [
+            store, *REPLAY_OVERRIDES, "--perceive", "--preset",
+            REPLAY_PRESET, "--batch", str(FRAMES), "--max-frames",
+            str(REPLAY_FRAMES), "--device", str(dev)])
+    finally:
+        PER.Perceiver.process = process
+    counts = dict(K.launches)
+    loader = SampleLoader(store)
+    frames = replay_exp.rgb_frames(loader, REPLAY_FRAMES)
+    per = PER.Perceiver(load_config(REPLAY_PRESET,
+                                    overrides=list(REPLAY_OVERRIDES)),
+                        device=dev)
+    same = len(seen) == -(-len(frames) // FRAMES)
+    fields = ("boxes", "classes", "scores", "valid", "masks", "embeddings")
+    for i, got in zip(range(0, len(frames), FRAMES), seen):
+        want = per.process(replay_exp.load_batch(loader,
+                                                 frames[i:i + FRAMES]))
+        same &= all(torch.equal(getattr(got.detections, f),
+                                getattr(want.detections, f))
+                    for f in fields)
+        same &= all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
+    n_det = sum(int(r.detections.valid.sum()) for r in seen)
+    n_tok = sum(int(r.caption_lengths.sum()) for r in seen)
+    log(f"  16c replay_exp --perceive --preset {REPLAY_PRESET} on phase 8's "
+        f"store: "
+        f"{line['frames']} frames ({len(loader.episodes)} episodes; "
+        f"BASELINE configuration (2) is {REPLAY_FRAMES}), "
+        f"{line['detections']} detections, {n_tok} caption tokens, "
+        f"{line['fps']} frames/s "
+        f"({line['seconds']} s, npz loads included) on {smi}; equal to "
+        f"Perceiver.process on the same frames bit for bit: {same}; "
+        f"launches {({k: v for k, v in counts.items() if v})}")
+    if (rc != 0 or not same or line["frames"] != len(frames)
+            or line["detections"] != n_det):
+        raise AssertionError("16c: replay_exp against Perceiver.process")
+    require_launches("16c replay_exp", counts,
+                     ("flash_attention", "layernorm", "fused_preprocess",
+                      "decode_self_block", "decode_cross_block",
+                      "decode_mlp"))
+    del per, seen
+    ep_dir = os.path.dirname(loader.get_path(
+        loader.episodes[0], loader.camera_of(loader.episodes[0], "rgb"),
+        "rgb", frames[0][2]))
+    out_dir = os.path.join(tmp, "viz_out")
+    cfg = load_config(REPLAY_PRESET, overrides=[
+        f"sim.replay_dir={ep_dir}", f"runtime.obs_dir={out_dir}"])
+    t0 = time.perf_counter()
+    env = make_env("Viz-v1", cfg, device=dev)
+    obs = env.reset()
+    for _ in range(VIZ_STEPS):
+        obs, _, done, _ = env.step(1)
+        if done:
+            break
+    viz_s = time.perf_counter() - t0
+    pngs = sorted(Path(out_dir, "viz").glob("trajectory_*.png"))
+    log(f"  16c Viz-v1 on {ep_dir}: {len(pngs)} trajectory PNGs "
+        f"({[p.name for p in pngs]}), trajectory cells "
+        f"{env._traj_cells}, pcd {obs['pcd'].shape}, rgb "
+        f"{tuple(obs['rgb'].shape)} on {obs['rgb'].device}; {viz_s:.1f} s")
+    if len(pngs) < 2 or any(p.read_bytes()[:8] != b"\x89PNG\r\n\x1a\n"
+                            for p in pngs):
+        raise AssertionError("16c: Viz-v1 wrote no trajectory PNGs")
+    return dict(counts=counts, fps=line["fps"])
+
+
+def phase16(K, frames, store: str, dev, smi: str, tmp: str) -> dict:
+    """Phase 16 in order; returns each path's launch counts."""
+    import gc
+
+    t16 = time.perf_counter()
+    ref = tp_world_one(frames, dev, smi, tmp)
+    tp = tp_two_ranks(ref, dev, tmp, smi)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep = replay_full_width(store, tmp, dev, smi)
+    counts = dict(tp=tp["counts"], replay=rep["counts"])
+    log("  phase 16 launches by kernel (16b: rank 0's timed forward and "
+        "step): " + json.dumps({n: {k: c[n] for k, c in counts.items()}
+                                for n in rep["counts"]}))
+    log(f"  phase 16 in {time.perf_counter() - t16:.1f} s")
+    return dict(counts=counts)
+
+
 def card_name() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -6158,6 +6560,11 @@ def main() -> int:
         return 2
     smi = card_name()
     log(smi)
+    t_run = time.perf_counter()
+
+    def stage(text: str) -> None:
+        log(f"{text} (at {time.perf_counter() - t_run:.1f} s)")
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -6167,7 +6574,7 @@ def main() -> int:
         t0 = time.perf_counter()
         K.build()
         log(f"[1] kernels built in {time.perf_counter() - t0:.1f} s")
-        log("[2] kernels vs plain versions at the main paths' shapes")
+        stage("[2] kernels vs plain versions at the main paths' shapes")
         setup = full_width_setup(dev)
         rows = kernel_checks(K, QZ, dev)
         rows.update(generation_kernel_checks(K, QZ, dev))
@@ -6178,21 +6585,21 @@ def main() -> int:
                                        camera_poses(setup["state"]),
                                        setup["cfg"]))
         rows.update(layernorm_bwd_checks(K, dev))
-        log("[3] perceive at full width")
+        stage("[3] perceive at full width")
         res = perceive_full_width(setup)
         log(f"perceive: {res['fps']:.2f} frames/s on {smi} "
             f"({FRAMES} frames x {BATCHES} batches in "
             f"{res['seconds']:.3f} s, {res['steps']} decode steps, "
             f"{res['valid_detections']} valid detections)")
         routes = decode_routes_in_turns(setup)
-        log("[4] the exploration loop at full width")
+        stage("[4] the exploration loop at full width")
         render_kernel_vs_plain(setup)
         loop = rollouts_full_width(setup, smi)
         fuse_card_vs_cpu(setup)
-        log("[5] tiny preset: card vs CPU")
+        stage("[5] tiny preset: card vs CPU")
         tiny_card_vs_cpu(dev)
         tiny_generate_card_vs_cpu(dev)
-        log("[6] device time of one full-width perceive batch on each "
+        stage("[6] device time of one full-width perceive batch on each "
             "decode route and of one rollout_fused step")
         from embodied_captioning_tpu_torch.perception import perceive
         for blocks, what in ((True, "block kernels"),
@@ -6209,13 +6616,13 @@ def main() -> int:
         route_counts, perceive_counts = routes["counts"], res["counts"]
         profile_run("one rollout_fused step", loop["one_step"],
                     sum(loop["per_step_ms"].values()) * 1e3)
-        log("[7] beam, sampled and speculative generation at full width")
+        stage("[7] beam, sampled and speculative generation at full width")
         generation_modes(setup, smi)
         import tempfile
         with tempfile.TemporaryDirectory(prefix="ecap_generate_") as store:
-            log("[8] the exploration entry point (generate) at full width")
+            stage("[8] the exploration entry point (generate) at full width")
             gen = generate_full_width(setup, smi, store)
-            log("[9] PPO training (train) at full width")
+            stage("[9] PPO training (train) at full width")
             ppo_card_vs_cpu(dev)
             train = train_full_width(setup, smi)
             ppo_update_reference_batch(dev, smi)
@@ -6227,11 +6634,11 @@ def main() -> int:
             del setup, res, routes
             loop.pop("one_step")
             torch.cuda.empty_cache()
-            log("[10] the captioner fine-tune (finetune_captioner)")
+            stage("[10] the captioner fine-tune (finetune_captioner)")
             finetune_card_vs_cpu(dev)
             ft = finetune_full_width(dev, smi)
             finetune_entry_point(store, ft["shapes"])
-            log("[11] the learning self-checks (selfcheck_training, "
+            stage("[11] the learning self-checks (selfcheck_training, "
                 "selfcheck_detector)")
             detector_card_vs_cpu(dev, smi)
             for preset in ("large", "base"):
@@ -6242,7 +6649,7 @@ def main() -> int:
                 free_running_on_trained_weights(K, cap, dev, smi)
             cap.pop("state")
             torch.cuda.empty_cache()
-            log("[12] pseudo-labeling, pseudo-captioning and the "
+            stage("[12] pseudo-labeling, pseudo-captioning and the "
                 "teacher-student pipeline (run_pseudolabeler, pseudocaption, "
                 "train_detector)")
             t12 = time.perf_counter()
@@ -6256,7 +6663,7 @@ def main() -> int:
             selfcheck_detector_tta(dev, smi)
             log(f"  phase 12 in {time.perf_counter() - t12:.1f} s")
             torch.cuda.empty_cache()
-            log("[13] the query (Mask2Former-class) detector family "
+            stage("[13] the query (Mask2Former-class) detector family "
                 "(perceive, selfcheck_detector --pack-masks --ckpt, "
                 "export_serving_artifact, run_pseudolabeler)")
             t13 = time.perf_counter()
@@ -6267,17 +6674,23 @@ def main() -> int:
                 query_labeling(dev, smi, tmp)
             log(f"  phase 13 in {time.perf_counter() - t13:.1f} s")
             torch.cuda.empty_cache()
-            log("[14] the detector's serving evaluations (eval_artifact, "
+            stage("[14] the detector's serving evaluations (eval_artifact, "
                 "selfcheck_detector --eval-wide --eval-serving "
                 "--affine-finetune), BLIP-2, Florence and the consensus LM")
             with tempfile.TemporaryDirectory(prefix="ecap_vlm_") as tmp:
                 p14 = phase14(K, frames13, rows, dev, smi, tmp)
             torch.cuda.empty_cache()
-            log("[15] the parallel layer: the mixture-of-experts captioner, "
+            stage("[15] the parallel layer: the mixture-of-experts captioner, "
                 "myppo, perceive_sharded, pipeline and ring attention, the "
                 "checkpoint manager (a world-1 NCCL group)")
             with tempfile.TemporaryDirectory(prefix="ecap_parallel_") as tmp:
                 p15 = phase15(K, frames13, dev, smi, tmp)["counts"]
+            torch.cuda.empty_cache()
+            stage("[16] the tensor-parallel captioner (a world-1 NCCL group, "
+                "then two processes on the card in a gloo group) and the "
+                "replay path (replay_exp --perceive, Viz-v1)")
+            with tempfile.TemporaryDirectory(prefix="ecap_tp_") as tmp:
+                p16 = phase16(K, frames13, store, dev, smi, tmp)["counts"]
     except Exception:
         traceback.print_exc()
         return 1
@@ -6301,7 +6714,9 @@ def main() -> int:
     # launches_lm: over 14d's timed ConsensusLM choices; launches_moe: over
     # 15b's timed MoE generate; launches_moe_train: over 15b's timed MoE
     # train steps; launches_myppo: over 15c's full-width myppo train;
-    # launches_parallel: over 15d's perceive_sharded
+    # launches_parallel: over 15d's perceive_sharded; launches_tp: over
+    # 16b's timed TP forward and train step on rank 0; launches_replay:
+    # over 16c's replay_exp --perceive
     kernels = []
     for n, r in rows.items():
         if loop["counts"][n] > 0:
@@ -6325,7 +6740,9 @@ def main() -> int:
             launches_lm=p14["lm"][n], launches_moe=p15["moe"][n],
             launches_moe_train=p15["moe_train"][n],
             launches_myppo=p15["myppo"][n],
-            launches_parallel=p15["parallel"][n], **r))
+            launches_parallel=p15["parallel"][n],
+            launches_tp=p16["tp"][n], launches_replay=p16["replay"][n],
+            **r))
     if any(k["launches"] <= 0 for k in kernels):
         print(f"chip_smoke: a kernel was never launched: {kernels}",
               file=sys.stderr)

@@ -42,7 +42,7 @@ class SensorConfig:
 class SimConfig:
     """Built-in raycast simulator."""
 
-    backend: str = "raycast"  # raycast | replay (the port: raycast only)
+    backend: str = "raycast"  # read by neither package; replay is Viz-v0/1
     scene_seed: int = 0
     scene_size: float = 12.0  # square room extent in meters
     num_objects: int = 12
@@ -50,7 +50,7 @@ class SimConfig:
     episode_steps: int = 300
     forward_step: float = 0.25
     turn_angle_deg: float = 10.0
-    replay_dir: Optional[str] = None  # recorded episodes (backend replay)
+    replay_dir: Optional[str] = None  # the npz store Viz-v0/v1 replay
     num_distractors: int = 0  # non-target clutter objects (class -1)
     interior_walls: int = 2   # occluding wall segments
     tex_boost: float = 0.0    # added texture contrast

@@ -13,18 +13,33 @@ Per decode step every self-attention and cross-attention sublayer runs as
 one block kernel and every MLP as the fused decode-MLP kernel; with
 `decode_blocks=False` the attention sublayers run as LayerNorm,
 projections and the decode self-/cross-attention kernels instead.
+
+Tensor parallelism: `forward` takes the mesh, whose "model" axis the
+leaves `parallel.mesh.shard_params` cut are cut over (Megatron column /
+row pairs in every block and the pooler, the vocabulary head by
+columns), and returns the gathered logits, as the JAX package's `forward`
+on sharded leaves returns global ones; the training loss reads the local
+columns (`local_forward`) and computes the cross-entropy vocabulary-
+parallel (`caption_nll`). Generation takes whole leaves (the JAX package
+runs no sharded `generate`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..config import CaptionerConfig
+from ..parallel.mesh import (
+    all_gather_cat, axis_group, axis_size, max_replicated,
+    partition_spec_for, replicate, sum_replicated,
+)
+from ..train.optim import tree_leaves, tree_map_with_path
 from .common import (
-    KVCache, block, block_init, causal_mask, dense, dense_init,
-    layernorm, layernorm_init, precompute_kv, randn,
+    TP, KVCache, block, block_init, causal_mask, dense, dense_init,
+    layernorm, layernorm_init, precompute_kv, randn, tp_group,
 )
 from .vit import encode_image, init_vit, run_blocks
 
@@ -64,44 +79,60 @@ def init_captioner(g: torch.Generator, cfg: CaptionerConfig, device) -> dict:
 # the training forward
 # ---------------------------------------------------------------------------
 
-def _text_tower(params: dict, tokens: torch.Tensor, cfg: CaptionerConfig
-                ) -> torch.Tensor:
+def _text_tp(cfg: CaptionerConfig, group) -> Optional[TP]:
+    t = cfg.text
+    return None if group is None else TP(group, int(t.width * t.mlp_ratio))
+
+
+def _text_tower(params: dict, tokens: torch.Tensor, cfg: CaptionerConfig,
+                group=None) -> torch.Tensor:
     """Tokens [B, T] -> unimodal text features [B, T, width] (bf16),
-    causal self-attention."""
+    causal self-attention; `group`: tensor-parallel over it."""
     t = tokens.shape[1]
     x = (params["tok_emb"][tokens.long()]
          + params["pos_emb"][None, :t]).to(torch.bfloat16)
     mask = causal_mask(t, tokens.device)
+    tp = _text_tp(cfg, group)
     for blk in params["text_blocks"]:
-        x, _ = block(blk, x, cfg.text.heads, mask=mask)
+        x, _ = block(blk, x, cfg.text.heads, mask=mask, tp=tp)
     return layernorm(params["ln_text"], x)
 
 
 def _mm_tower(params: dict, text_feats: torch.Tensor,
-              img_tokens: torch.Tensor, heads: int, remat: bool = False
-              ) -> torch.Tensor:
+              img_tokens: torch.Tensor, heads: int, remat: bool = False,
+              tp: Optional[TP] = None) -> torch.Tensor:
     """Text features [B, T, width] cross-attending the pooled image tokens
     -> multimodal features [B, T, width]; `remat` checkpoints each
-    block."""
+    block; `tp`: tensor-parallel."""
     mask = causal_mask(text_feats.shape[1], text_feats.device)
     x = run_blocks(lambda blk, h: block(blk, h, heads, mask=mask,
-                                        cross=img_tokens)[0],
+                                        cross=img_tokens, tp=tp)[0],
                    params["mm_blocks"], text_feats, remat)
     return layernorm(params["ln_mm"], x)
 
 
-def forward(params: dict, images_u8: torch.Tensor, tokens: torch.Tensor,
-            cfg: CaptionerConfig):
-    """Training forward of uint8 crops [B, H, W, 3] and tokens [B, T]:
-    (logits [B, T, V] bf16, image embedding [B, E] f32, text embedding
-    [B, E] f32), both embeddings L2-normalised; the text embedding is the
-    text feature at the last non-pad position."""
+def head_group(params: dict, group):
+    """`group` where the vocabulary head's columns were cut over it (the
+    token embedding holds the whole vocabulary), None where the head was
+    kept whole."""
+    if group is None:
+        return None
+    return tp_group(group, params["head"]["w"].shape[-1],
+                    params["tok_emb"].shape[0])
+
+
+def local_forward(params: dict, images_u8: torch.Tensor,
+                  tokens: torch.Tensor, cfg: CaptionerConfig, group=None):
+    """`forward` with this rank's columns of the logits where the head is
+    cut over `group` (the "model" axis's process group; see
+    `head_group`)."""
     pooled, img_emb = encode_image(params["vision"], images_u8, cfg.vision,
-                                   remat=cfg.remat)
-    text_feats = _text_tower(params, tokens, cfg)
+                                   remat=cfg.remat, group=group)
+    text_feats = _text_tower(params, tokens, cfg, group)
     mm = _mm_tower(params, text_feats, pooled, cfg.text.heads,
-                   remat=cfg.remat)
-    logits = dense(params["head"], mm)
+                   remat=cfg.remat, tp=_text_tp(cfg, group))
+    hg = head_group(params, group)
+    logits = dense(params["head"], replicate(mm, hg))
     lengths = (tokens != cfg.text.pad_id).sum(dim=1) - 1
     rows = torch.arange(tokens.shape[0], device=tokens.device)
     pooled_txt = text_feats[rows, lengths.clamp(min=0)]
@@ -109,6 +140,57 @@ def forward(params: dict, images_u8: torch.Tensor, tokens: torch.Tensor,
     txt_emb = txt_emb / torch.clamp(
         torch.linalg.norm(txt_emb, dim=-1, keepdim=True), min=1e-8)
     return logits, img_emb, txt_emb
+
+
+def forward(params: dict, images_u8: torch.Tensor, tokens: torch.Tensor,
+            cfg: CaptionerConfig, mesh=None):
+    """Training forward of uint8 crops [B, H, W, 3] and tokens [B, T]:
+    (logits [B, T, V] bf16, image embedding [B, E] f32, text embedding
+    [B, E] f32), both embeddings L2-normalised; the text embedding is the
+    text feature at the last non-pad position. With `mesh`, this rank's
+    leaves are its `shard_params` blocks: the forward runs
+    tensor-parallel over the "model" axis and the logits are gathered."""
+    group = axis_group(mesh, "model")
+    logits, img_emb, txt_emb = local_forward(params, images_u8, tokens, cfg,
+                                             group)
+    hg = head_group(params, group)
+    if hg is not None:
+        logits = all_gather_cat(logits.movedim(-1, 0).contiguous(), hg
+                                ).movedim(0, -1)
+    return logits, img_emb, txt_emb
+
+
+def caption_nll(logits: torch.Tensor, tokens: torch.Tensor,
+                cfg: CaptionerConfig, group=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Next-token negative log-likelihoods [B, T-1] (float32) and the
+    non-pad target mask. With `group`, `logits` are this rank's block of
+    the vocabulary's columns (`head_group`) and the softmax is
+    vocabulary-parallel: the max and the sum of exponentials reduced over
+    the group, the target's logit from the rank that owns its column."""
+    targets = tokens[:, 1:].long()
+    pred = logits[:, :-1]
+    mask = (targets != cfg.text.pad_id).float()
+    if group is None:
+        logp = torch.log_softmax(pred.float(), dim=-1)
+        return -torch.gather(logp, 2, targets[..., None])[..., 0], mask
+    pred = pred.float()
+    v = pred.shape[-1]
+    local = targets - dist.get_rank(group) * v
+    own = (local >= 0) & (local < v)
+    m = max_replicated(pred.amax(dim=-1), group)
+    z = sum_replicated(torch.exp(pred - m[..., None]).sum(dim=-1), group)
+    picked = torch.gather(pred, 2, local.clamp(0, v - 1)[..., None])[..., 0]
+    target = sum_replicated(torch.where(own, picked, 0.0), group)
+    return torch.log(z) - (target - m), mask
+
+
+def contrastive_loss(img_emb: torch.Tensor, txt_emb: torch.Tensor,
+                     logit_scale: torch.Tensor) -> torch.Tensor:
+    """The symmetric CLIP loss of matching image and text embeddings."""
+    sim = torch.exp(logit_scale) * img_emb @ txt_emb.T
+    return 0.5 * (-torch.log_softmax(sim, dim=1).diagonal().mean()
+                  - torch.log_softmax(sim, dim=0).diagonal().mean())
 
 
 def caption_losses(logits: torch.Tensor, img_emb: torch.Tensor,
@@ -120,17 +202,36 @@ def caption_losses(logits: torch.Tensor, img_emb: torch.Tensor,
     """The CoCa loss of `forward`'s outputs: caption_weight x next-token
     cross-entropy over non-pad targets + contrastive_weight x the
     symmetric CLIP loss. Returns (total, {"caption_ce", "contrastive"})."""
-    targets = tokens[:, 1:].long()
-    pred = logits[:, :-1]
-    mask = (targets != cfg.text.pad_id).float()
-    logp = torch.log_softmax(pred.float(), dim=-1)
-    nll = -torch.gather(logp, 2, targets[..., None])[..., 0]
+    nll, mask = caption_nll(logits, tokens, cfg)
     ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    sim = torch.exp(logit_scale) * img_emb @ txt_emb.T
-    con = 0.5 * (-torch.log_softmax(sim, dim=1).diagonal().mean()
-                 - torch.log_softmax(sim, dim=0).diagonal().mean())
+    con = contrastive_loss(img_emb, txt_emb, logit_scale)
     return caption_weight * ce + contrastive_weight * con, {
         "caption_ce": ce, "contrastive": con}
+
+
+def tp_cut_leaves(params: dict, cfg: CaptionerConfig, mesh) -> List[bool]:
+    """Per leaf of `params` (`tree_leaves` order): it is this rank's block
+    of a leaf `shard_params` cut over the mesh's "model" axis, judged by
+    its TP rule and its local width against the full width of the
+    configuration (the vocabulary for the head, the tower's MLP width for
+    an MLP, the tower's width for attention)."""
+    size = axis_size(mesh, "model")
+
+    def full(path: str) -> int:
+        if path.startswith("head/"):
+            return cfg.text.vocab_size
+        tower = cfg.vision if path.startswith("vision/") else cfg.text
+        if "mlp/" in path:
+            return int(tower.width * tower.mlp_ratio)
+        return tower.width
+
+    def cut(path, leaf):
+        s = "/".join(str(p) for p in path)
+        spec = partition_spec_for(s, leaf, True)
+        return size > 1 and any(a == "model" and leaf.shape[i] < full(s)
+                                for i, a in enumerate(spec))
+
+    return tree_leaves(tree_map_with_path(cut, params))
 
 
 def caption_loss(params: dict, images_u8: torch.Tensor, tokens: torch.Tensor,

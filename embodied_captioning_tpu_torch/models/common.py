@@ -27,6 +27,16 @@ The attention paths:
     take):
     plain tensor ops with bf16 scores and bf16 probabilities, as the JAX
     fallback path.
+
+Tensor parallelism (Megatron's column / row pairs over the leaves
+`parallel.mesh.shard_params` cuts): `mha`, `mlp` and `block` take the
+"model" axis's process group (`group`, or a `TP` for a block; None is one
+rank and computes what it computes without one). A column-parallel
+product (q/k/v, fc) takes its input through `replicate`, a row-parallel
+one (o, proj) sums its float32 partial products over the group before the
+replicated bias (`dense`'s `group`). A sublayer whose leaves were kept
+whole (a width that does not divide) runs replicated. Cached decoding is
+refused under a group: the decode kernels take whole widths.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from ..kernels.decode_attention import (
     self_block_fits,
 )
 from ..kernels.flash_attention import HEAD_DIMS
+from ..parallel.mesh import replicate, sum_replicated
 from .quantize import QuantizedArray, QuantizedKV, maybe_dequant, quantize_kv
 
 BERT_LN_EPS = 1e-12  # HF BertConfig.layer_norm_eps
@@ -136,16 +147,35 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return y.reshape(*lead, *y.shape[-2:])
 
 
-def dense(p: dict, x: torch.Tensor, compute_dtype=torch.bfloat16
-          ) -> torch.Tensor:
+def dense(p: dict, x: torch.Tensor, compute_dtype=torch.bfloat16,
+          group=None) -> torch.Tensor:
     """x @ w + b in `compute_dtype` with float32 accumulation; int8
-    weights are dequantized in bf16 first."""
+    weights are dequantized in bf16 first. With `group`, the row-parallel
+    form: w is this rank's block of rows and x its block of features; the
+    float32 partial products are summed over the group, then the
+    replicated bias is added once and the sum cast."""
     w = maybe_dequant(p["w"], compute_dtype)
     if compute_dtype == torch.float32:
         y = torch.matmul(x.float(), w)
     else:
         y = matmul_f32(x.to(compute_dtype), w)
-    return (y + p["b"]).to(compute_dtype)
+    return (sum_replicated(y, group) + p["b"]).to(compute_dtype)
+
+
+class TP(NamedTuple):
+    """A tower's tensor-parallel context: the "model" axis's process group
+    and the tower's full MLP width (the attention's full width is its
+    output projection's). A sublayer runs tensor-parallel where its local
+    leaves are narrower than the full width."""
+
+    group: object
+    mlp_hidden: int
+
+
+def tp_group(group, local: int, full: int):
+    """`group` where a sublayer's leaves hold `local` of a width of `full`
+    (cut over the group), None where they were kept whole."""
+    return group if group is not None and local < full else None
 
 
 def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5,
@@ -163,10 +193,14 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def mlp(p: dict, x: torch.Tensor, compute_dtype=torch.bfloat16
-        ) -> torch.Tensor:
+def mlp(p: dict, x: torch.Tensor, compute_dtype=torch.bfloat16,
+        group=None) -> torch.Tensor:
+    """proj(gelu_tanh(fc(x))); with `group`, fc column-parallel and proj
+    row-parallel over it."""
+    if group is not None:
+        x = replicate(x, group)
     return dense(p["proj"], gelu_tanh(dense(p["fc"], x, compute_dtype)),
-                 compute_dtype)
+                 compute_dtype, group)
 
 
 class KVCache(NamedTuple):
@@ -257,6 +291,7 @@ def mha(p: dict, x: torch.Tensor, heads: int,
         compute_dtype=torch.bfloat16,
         kv_precomputed=None,
         cache_block_causal: bool = True,
+        group=None,
         ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Multi-head attention. x [B, Tq, D]; kv [B, Tk, Dkv] (cross source,
     default x); mask broadcastable to [B, H, Tq, Tk] (True = attend; Tk is
@@ -265,9 +300,22 @@ def mha(p: dict, x: torch.Tensor, heads: int,
     at positions <= index + i, or, with `cache_block_causal=False` (a
     prefix-LM's priming pass), every position written so far (< index +
     Tq; no decode kernel then, as in the JAX package); kv_precomputed:
-    (kt, v) or QuantizedKV from `precompute_kv`. Returns (out [B, Tq, D],
+    (kt, v) or QuantizedKV from `precompute_kv`. With `group` (uncached
+    only) and q/k/v, o cut over it, this rank runs its heads (the local q
+    width over the head dim) and o row-parallel. Returns (out [B, Tq, D],
     cache)."""
     b, tq = x.shape[:2]
+    if group is not None:
+        if cache is not None or kv_precomputed is not None:
+            raise ValueError("cached decoding under tensor parallelism is "
+                             "not ported: the decode kernels take whole "
+                             "widths")
+        wo = p["o"]["w"]
+        group = tp_group(group, wo.shape[0], wo.shape[1])
+    if group is not None:
+        heads = _out_width(p["q"]["w"]) // (wo.shape[1] // heads)
+        x = replicate(x, group)
+        kv = None if kv is None else replicate(kv, group)
     if kv_precomputed is not None:
         if cache is not None:
             raise ValueError("kv_precomputed cannot be combined with a KV "
@@ -325,12 +373,12 @@ def mha(p: dict, x: torch.Tensor, heads: int,
             k.transpose(1, 2).to(compute_dtype).contiguous(),
             v.transpose(1, 2).to(compute_dtype).contiguous())
         out = out.transpose(1, 2).reshape(b, tq, -1)
-        return dense(p["o"], out, compute_dtype), None
+        return dense(p["o"], out, compute_dtype, group), None
 
     out = _attention_plain(q.to(compute_dtype),
                            k.to(compute_dtype).permute(0, 2, 3, 1),
                            v.to(compute_dtype).permute(0, 2, 1, 3), mask)
-    return dense(p["o"], out.to(compute_dtype), compute_dtype), None
+    return dense(p["o"], out.to(compute_dtype), compute_dtype, group), None
 
 
 class DecodeRoute(NamedTuple):
@@ -367,6 +415,7 @@ def block(p: dict, x: torch.Tensor, heads: int,
           cross_kv=None, decode_blocks: bool = True,
           cross: Optional[torch.Tensor] = None,
           cache_block_causal: bool = True,
+          tp: Optional[TP] = None,
           ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Pre-LN transformer block with an optional cross-attention sublayer,
     over precomputed K/V (`cross_kv`, the decode loop) or over a feature
@@ -383,8 +432,15 @@ def block(p: dict, x: torch.Tensor, heads: int,
     mixture-of-experts MLP ("moe" in place of "mlp", the MoE captioner's
     text blocks) runs it as `parallel.moe.moe_mlp` (top-2, capped by the
     expert count) after its attention sublayers, which take their kernels
-    as in any block; it never takes the decode-MLP kernel."""
+    as in any block; it never takes the decode-MLP kernel. With `tp`, each
+    sublayer whose leaves were cut runs tensor-parallel (`mha`, `mlp`),
+    the mixture-of-experts MLP replicated; cached decoding (the decode
+    kernels) is refused."""
     moe = p.get("moe")
+    if tp is not None and (cache is not None or cross_kv is not None):
+        raise ValueError("cached decoding under tensor parallelism is not "
+                         "ported: the decode kernels take whole widths")
+    group = None if tp is None else tp.group
     one_token = (x.shape[1] == 1 and compute_dtype == torch.bfloat16
                  and x.dtype == torch.bfloat16)
     route = DecodeRoute(False, False, False)
@@ -405,13 +461,14 @@ def block(p: dict, x: torch.Tensor, heads: int,
             h, cache = mha(p["attn"], layernorm(p["ln1"], x), heads,
                            mask=mask, cache=cache,
                            compute_dtype=compute_dtype,
-                           cache_block_causal=cache_block_causal)
+                           cache_block_causal=cache_block_causal,
+                           group=group)
             x = x + h
     if cross is not None and "xattn" in p:
         if "ln_kv" in p:
             cross = layernorm(p["ln_kv"], cross)
         h, _ = mha(p["xattn"], layernorm(p["ln_x"], x), heads, kv=cross,
-                   compute_dtype=compute_dtype)
+                   compute_dtype=compute_dtype, group=group)
         x = x + h
     elif cross_kv is not None and "xattn" in p:
         if route.cross_block:
@@ -430,7 +487,11 @@ def block(p: dict, x: torch.Tensor, heads: int,
         return x + h, cache
     if cache is not None and route.mlp:
         return _decode_mlp_block(p["mlp"], p["ln2"], x), cache
-    return x + mlp(p["mlp"], layernorm(p["ln2"], x), compute_dtype), cache
+    if tp is not None:
+        group = tp_group(group, _out_width(p["mlp"]["fc"]["w"]),
+                         tp.mlp_hidden)
+    return x + mlp(p["mlp"], layernorm(p["ln2"], x), compute_dtype,
+                   group), cache
 
 
 def _kernel_weight(w) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,7 +1,9 @@
 """Vision Transformer encoder with the CoCa attentional pooler. Blocks run
 in bf16 with float32 accumulation; self-attention goes through the flash
 kernel, or, where autograd records and needs its gradient, through the
-plain attention (`common.mha`)."""
+plain attention (`common.mha`). With the "model" axis's process group
+(`group`), the blocks and the pooler run tensor-parallel over the leaves
+`parallel.mesh.shard_params` cut (`common.TP`)."""
 
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import VitConfig
 from ..ops.image import preprocess_for_vit
 from .common import (
-    block, block_init, dense, dense_init, layernorm, layernorm_init, mha,
+    TP, block, block_init, dense, dense_init, layernorm, layernorm_init, mha,
     mha_init, randn,
 )
 
@@ -52,49 +54,55 @@ def run_blocks(fn: Callable, blocks: list, x: torch.Tensor,
 
 
 def vit_features(params: dict, patch_tokens: torch.Tensor, cfg: VitConfig,
-                 final_ln: bool = True, remat: bool = False) -> torch.Tensor:
+                 final_ln: bool = True, remat: bool = False,
+                 group=None) -> torch.Tensor:
     """Patch tokens [B, T, p*p*3] -> features [B, T+1, width] (bf16).
     `final_ln=False` skips ln_post (the CoCa-exact ordering applies it
-    after pooling). `remat` checkpoints each block (`run_blocks`)."""
+    after pooling). `remat` checkpoints each block (`run_blocks`).
+    `group`: the blocks run tensor-parallel over it."""
+    tp = (None if group is None
+          else TP(group, int(cfg.width * cfg.mlp_ratio)))
     x = dense(params["patch"], patch_tokens)
     b = x.shape[0]
     cls = params["cls"].expand(b, 1, cfg.width)
     x = (torch.cat([cls, x.float()], dim=1) + params["pos"][None]
          ).to(torch.bfloat16)
     x = layernorm(params["ln_pre"], x)
-    x = run_blocks(lambda blk, h: block(blk, h, cfg.heads)[0],
+    x = run_blocks(lambda blk, h: block(blk, h, cfg.heads, tp=tp)[0],
                    params["blocks"], x, remat)
     return layernorm(params["ln_post"], x) if final_ln else x
 
 
-def attentional_pool(params: dict, feats: torch.Tensor, pool_heads: int
-                     ) -> torch.Tensor:
+def attentional_pool(params: dict, feats: torch.Tensor, pool_heads: int,
+                     group=None) -> torch.Tensor:
     """Learned-query cross-attention pooling -> [B, pool_queries, width].
     Native ordering: attention then `pool_ln`. CoCa-exact ordering (when
     `pool_ln_q`/`pool_ln_k` are present): LayerNorm on queries and context
-    before attention, no output LayerNorm."""
+    before attention, no output LayerNorm. `group`: the attention runs
+    tensor-parallel over it."""
     b = feats.shape[0]
     if "pool_ln_q" in params:
         q1 = layernorm(params["pool_ln_q"], params["pool_q"])
         kv = layernorm(params["pool_ln_k"], feats)
         out, _ = mha(params["pool_attn"], q1[None].expand(b, *q1.shape),
-                     pool_heads, kv=kv)
+                     pool_heads, kv=kv, group=group)
         return out
     q = params["pool_q"][None].expand(b, *params["pool_q"].shape)
-    out, _ = mha(params["pool_attn"], q, pool_heads, kv=feats)
+    out, _ = mha(params["pool_attn"], q, pool_heads, kv=feats, group=group)
     return layernorm(params["pool_ln"], out)
 
 
 def encode_image(params: dict, images_u8: torch.Tensor, cfg: VitConfig,
-                 remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                 remat: bool = False, group=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """uint8 [B, H, W, 3] -> (pooled tokens [B, Q(-1), width] for the
     decoder, global embedding [B, embed_dim] L2-normalised). `remat`
-    checkpoints each ViT block."""
+    checkpoints each ViT block; `group`: tensor-parallel over it."""
     tokens = preprocess_for_vit(images_u8, cfg.image_size, cfg.patch_size)
     coca_exact = "pool_ln_q" in params
     feats = vit_features(params, tokens, cfg, final_ln=not coca_exact,
-                         remat=remat)
-    pooled = attentional_pool(params, feats, cfg.pool_heads)
+                         remat=remat, group=group)
+    pooled = attentional_pool(params, feats, cfg.pool_heads, group)
     if coca_exact:
         pooled = layernorm(params["ln_post"], pooled)
     g = dense(params["proj"], pooled[:, 0]).float()

@@ -11,14 +11,17 @@ receive) in the modules that need them.
 
 The multi-rank paths run at world size 2 on gloo process groups in the
 CPU tests and on NCCL on the card (one card holds one rank: NCCL refuses
-two ranks on one device).
+two ranks on one device). gloo takes CUDA tensors in `all_reduce` and
+`broadcast` only, so on a gloo group of ranks that share a card every
+other collective here moves a CUDA tensor through the host and back,
+counted in `host_copies`.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -103,6 +106,37 @@ def axis_group(mesh, axis: str):
 
 
 # ---------------------------------------------------------------------------
+# collectives that gloo refuses on CUDA tensors
+# ---------------------------------------------------------------------------
+
+# collectives that moved a CUDA tensor through the host, by helper name
+host_copies: Dict[str, int] = {}
+
+
+def reset_host_copies() -> None:
+    host_copies.clear()
+
+
+def _host_side(x: torch.Tensor, group, what: str) -> torch.Tensor:
+    """x as the group's backend takes it in a collective other than
+    all_reduce and broadcast: a host copy of a CUDA tensor on a gloo
+    group (counted), else x."""
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        host_copies[what] = host_copies.get(what, 0) + 1
+        return x.cpu()
+    return x
+
+
+def _reduced(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """x reduced over the group's ranks by `op`, on every rank: in float32
+    (float64 kept; gloo sums float32), then cast back to x's dtype."""
+    y = x.to(torch.float64 if x.dtype == torch.float64 else torch.float32,
+             copy=True)
+    dist.all_reduce(y, op=op, group=group)
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
 # differentiable collectives for replicated values (Megatron's f and g)
 # ---------------------------------------------------------------------------
 
@@ -113,11 +147,7 @@ class _SumReplicated(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        # gloo sums float32; a bf16 value is summed in float32 and rounded
-        y = x.to(torch.float64 if x.dtype == torch.float64
-                 else torch.float32, copy=True)
-        dist.all_reduce(y, group=group)
-        return y.to(x.dtype)
+        return _reduced(x, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -135,9 +165,23 @@ class _Replicate(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return _reduced(g, ctx.group), None
+
+
+class _GatherBatch(torch.autograd.Function):
+    """Forward: the group's blocks concatenated along dim 0 (each rank's
+    loss may read every block). Backward: this rank's block of the
+    cotangent summed over the group's ranks."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.rows = group, x.shape[0]
+        return all_gather_cat(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        return _reduced(g, ctx.group)[r * ctx.rows:(r + 1) * ctx.rows], None
 
 
 def sum_replicated(x: torch.Tensor, group) -> torch.Tensor:
@@ -152,6 +196,23 @@ def replicate(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _Replicate.apply(x, group)
 
 
+def gather_batch(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's blocks of a batch concatenated along dim 0 in rank
+    order, differentiably: the gradient of this rank's block is its block
+    of the cotangent summed over the group (x itself without a group).
+    The data axis's gather of embeddings for a loss over the global
+    batch."""
+    return x if group is None else _GatherBatch.apply(x, group)
+
+
+def max_replicated(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max over the group's ranks, on every rank (x itself
+    without a group); a constant to autograd, as a softmax's max is."""
+    if group is None:
+        return x
+    return _reduced(x.detach(), group, dist.ReduceOp.MAX)
+
+
 def ring_shift(x: torch.Tensor, group, step: int = 1) -> torch.Tensor:
     """The block of the rank `step` places back around the group's ring:
     each rank sends x to rank + step and receives from rank - step (x
@@ -162,13 +223,14 @@ def ring_shift(x: torch.Tensor, group, step: int = 1) -> torch.Tensor:
     r = dist.get_rank(group)
     dst = dist.get_global_rank(group, (r + step) % n)
     src = dist.get_global_rank(group, (r - step) % n)
-    raw = x.contiguous().reshape(-1).view(torch.uint8)
+    raw = _host_side(x.contiguous(), group, "ring_shift")
+    raw = raw.reshape(-1).view(torch.uint8)
     out = torch.empty_like(raw)
     for req in dist.batch_isend_irecv([
             dist.P2POp(dist.isend, raw, dst, group),
             dist.P2POp(dist.irecv, out, src, group)]):
         req.wait()
-    return out.view(x.dtype).reshape(x.shape)
+    return out.view(x.dtype).reshape(x.shape).to(x.device)
 
 
 def all_gather_cat(x: torch.Tensor, group) -> torch.Tensor:
@@ -177,12 +239,13 @@ def all_gather_cat(x: torch.Tensor, group) -> torch.Tensor:
     group)."""
     if group is None:
         return x
-    raw = x.contiguous()
+    raw = _host_side(x.contiguous(), group, "all_gather")
     scalar = raw.dim() == 0
     raw = (raw.reshape(1) if scalar else raw).view(torch.uint8)
     out = [torch.empty_like(raw) for _ in range(dist.get_world_size(group))]
     dist.all_gather(out, raw, group=group)
-    return torch.cat(out).view(x.dtype).reshape(-1, *x.shape[1:])
+    return torch.cat(out).view(x.dtype).reshape(-1, *x.shape[1:]).to(
+        x.device)
 
 
 # ---------------------------------------------------------------------------

@@ -111,9 +111,24 @@ def adam_init(params: Any) -> AdamState:
                      tree_map(torch.zeros_like, params))
 
 
-def clip_by_global_norm(grads: Any, max_norm: float) -> Any:
+def clip_by_global_norm(grads: Any, max_norm: float, group=None,
+                        cut: Optional[Sequence[bool]] = None) -> Any:
+    """`grads` scaled to a global norm of at most `max_norm`. With `group`
+    (tensor parallelism), the leaves `cut` marks (`tree_leaves` order) are
+    this rank's blocks of leaves cut over the group: their squares are
+    summed over it, and every other leaf, which each rank holds whole, is
+    counted once."""
     leaves = tree_leaves(grads)
-    norm = torch.sqrt(sum(torch.sum(torch.square(x)) for x in leaves))
+    if group is None:
+        norm = torch.sqrt(sum(torch.sum(torch.square(x)) for x in leaves))
+    else:
+        from ..parallel.mesh import sum_replicated
+
+        sq = [torch.sum(torch.square(x)) for x in leaves]
+        zero = torch.zeros((), dtype=sq[0].dtype, device=sq[0].device)
+        blocks = sum((s for s, c in zip(sq, cut) if c), zero)
+        whole = sum((s for s, c in zip(sq, cut) if not c), zero)
+        norm = torch.sqrt(sum_replicated(blocks, group) + whole)
     keep = norm < max_norm
     return tree_map(lambda t: torch.where(keep, t, (t / norm) * max_norm),
                     grads)
@@ -121,9 +136,13 @@ def clip_by_global_norm(grads: Any, max_norm: float) -> Any:
 
 def adam_update(params: Any, opt: AdamState, grads: Any, lr: float,
                 max_norm: float, eps: float = 1e-8,
-                weight_decay: float = 0.0):
-    """One step of the clip-then-Adam(W) chain: (new params, new state)."""
-    grads = clip_by_global_norm(grads, max_norm)
+                weight_decay: float = 0.0, group=None,
+                cut: Optional[Sequence[bool]] = None):
+    """One step of the clip-then-Adam(W) chain: (new params, new state).
+    `group` and `cut`: the global norm over a tree of tensor-parallel
+    blocks (`clip_by_global_norm`); the step itself is elementwise on the
+    local blocks."""
+    grads = clip_by_global_norm(grads, max_norm, group, cut)
     mu = tree_map(lambda g, m: (1 - ADAM_B1) * g + ADAM_B1 * m, grads, opt.mu)
     nu = tree_map(lambda g, v: (1 - ADAM_B2) * (g * g) + ADAM_B2 * v, grads,
                   opt.nu)

@@ -287,8 +287,7 @@ def test_sensor_caches_reset_per_episode(cfgs):
 
 def test_env_registry_equals_jax(cfgs):
     jcfg, cfg = cfgs
-    ported = set(JR.ENV_REGISTRY) - {"Viz-v0", "Viz-v1"}
-    assert set(R.ENV_REGISTRY) == ported
+    assert set(R.ENV_REGISTRY) == set(JR.ENV_REGISTRY)
     with pytest.raises(KeyError, match="unknown env"):
         R.make_env("nope", cfg)
     g, jg = (R.make_env("GymHabitatEnv-v2", cfg, device="cpu"),

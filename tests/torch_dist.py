@@ -1,4 +1,5 @@
-"""Rank workers for the port's multi-rank CPU tests.
+"""Rank workers for the port's multi-rank CPU tests (the parallel layer,
+myppo, the tensor-parallel captioner).
 
 `run(task, world, tmp, payload)` spawns `world` processes joined in a gloo
 process group over a file:// store under `tmp`, runs TASKS[task](rank,
@@ -233,4 +234,181 @@ def ddppo(rank: int, world: int, pl: Dict, tmp: str) -> Dict:
     return out
 
 
-TASKS: Dict[str, Callable] = {"parallel": parallel, "ddppo": ddppo}
+# ---------------------------------------------------------------------------
+# the tensor-parallel captioner (tests/test_torch_tp.py)
+# ---------------------------------------------------------------------------
+
+def _cap_cfg(d: Dict):
+    from embodied_captioning_tpu_torch.config import (
+        CaptionerConfig, TextDecoderConfig, VitConfig)
+
+    return CaptionerConfig(vision=VitConfig(**d["vision"]),
+                           text=TextDecoderConfig(**d["text"]),
+                           max_caption_len=d["max_caption_len"])
+
+
+def _tp_forward(case: Dict) -> Dict:
+    """The TP forward on `case["mesh"]` beside the mesh-less forward of
+    the whole leaves: both outputs, the local leaves' shapes and which of
+    them are cut blocks."""
+    from embodied_captioning_tpu_torch.models import captioner as CAP
+    from embodied_captioning_tpu_torch.parallel import mesh as M
+    from embodied_captioning_tpu_torch.train.optim import tree_leaves
+
+    cfg = _cap_cfg(case["cfg"])
+    mesh = M.make_mesh(tuple(case["mesh"]))
+    params = _tensors(case["params"])
+    imgs, toks = (torch.from_numpy(case[k]) for k in ("imgs", "toks"))
+    sp = M.shard_params(params, mesh)
+    with torch.no_grad():
+        want = CAP.forward(params, imgs, toks, cfg)
+        got = CAP.forward(sp, imgs, toks, cfg, mesh)
+    return dict(shapes=[tuple(t.shape) for t in tree_leaves(sp)],
+                cut=CAP.tp_cut_leaves(sp, cfg, mesh),
+                host_copies=dict(M.host_copies), got=_np(list(got)),
+                want=_np(list(want)))
+
+
+def _tp_train(case: Dict) -> Dict:
+    """One DP x TP `train_step` on `case["mesh"]`: the aux, and (first data
+    rank) the updated local leaves; every rank a checksum of each."""
+    from embodied_captioning_tpu_torch.models import captioner as CAP
+    from embodied_captioning_tpu_torch.parallel import mesh as M
+    from embodied_captioning_tpu_torch.train import captioner_train as TT
+    from embodied_captioning_tpu_torch.train.optim import tree_leaves
+
+    cfg = _cap_cfg(case["cfg"])
+    mesh = M.make_mesh(tuple(case["mesh"]))
+    sp = M.shard_params(_tensors(case["params"]), mesh)
+    batch = M.shard_batch(tuple(torch.from_numpy(case[k]) for k in (
+        "imgs", "toks", "obj", "valid")), mesh)
+    state, aux = TT.train_step(TT.create_train_state(sp), *batch, cfg,
+                               lr=case["lr"],
+                               triplet_weight=case["triplet"], mesh=mesh)
+    leaves = tree_leaves(state.params)
+    out = dict(aux={k: float(v) for k, v in aux.items()},
+               shapes=[tuple(t.shape) for t in leaves],
+               cut=CAP.tp_cut_leaves(sp, cfg, mesh),
+               sums=[float(t.double().sum()) for t in leaves],
+               finite=all(bool(torch.isfinite(t).all()) for t in leaves),
+               step=state.step, count=state.opt_state.count)
+    if M.axis_rank(mesh, "data") == 0:
+        out["leaves"] = _np(leaves)
+    return out
+
+
+def _tp_world_one(case: Dict) -> Dict:
+    """`forward` and `train_step` with a (1, 1) mesh against the mesh-less
+    calls: bit for bit."""
+    from embodied_captioning_tpu_torch.models import captioner as CAP
+    from embodied_captioning_tpu_torch.parallel import mesh as M
+    from embodied_captioning_tpu_torch.train import captioner_train as TT
+    from embodied_captioning_tpu_torch.train.optim import tree_leaves
+
+    cfg = _cap_cfg(case["cfg"])
+    mesh = M.make_mesh((1, 1))
+    params = _tensors(case["params"])
+    batch = tuple(torch.from_numpy(case[k]) for k in (
+        "imgs", "toks", "obj", "valid"))
+    with torch.no_grad():
+        f1 = CAP.forward(params, *batch[:2], cfg, mesh)
+        f0 = CAP.forward(params, *batch[:2], cfg)
+    kw = dict(lr=case["lr"], triplet_weight=case["triplet"])
+    s1, a1 = TT.train_step(TT.create_train_state(params), *batch, cfg,
+                           mesh=mesh, **kw)
+    s0, a0 = TT.train_step(TT.create_train_state(params), *batch, cfg, **kw)
+    return dict(
+        forward=all(torch.equal(a, b) for a, b in zip(f1, f0)),
+        aux=all(torch.equal(a1[k], a0[k]) for k in a0) and set(a1) == set(a0),
+        params=all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(s1.params), tree_leaves(s0.params))),
+        moments=all(torch.equal(a, b) for a, b in zip(
+            tree_leaves((s1.opt_state.mu, s1.opt_state.nu)),
+            tree_leaves((s0.opt_state.mu, s0.opt_state.nu)))))
+
+
+def _tp_units(rank: int, case: Dict) -> Dict:
+    """The vocabulary-parallel cross-entropy and its gradient against the
+    full one; the global norm of a cut tree against the whole tree's; the
+    differentiable batch gather; the max all-reduce; the refusal of cached
+    decoding under a TP context."""
+    from embodied_captioning_tpu_torch.config import CaptionerConfig
+    from embodied_captioning_tpu_torch.models import captioner as CAP
+    from embodied_captioning_tpu_torch.models.common import (
+        TP, KVCache, block)
+    from embodied_captioning_tpu_torch.parallel import mesh as M
+    from embodied_captioning_tpu_torch.train.optim import (
+        clip_by_global_norm, tree_leaves)
+
+    mesh = M.make_mesh((1, 2))
+    group = M.axis_group(mesh, "model")
+    cfg = CaptionerConfig.tiny()
+    out = {}
+
+    logits = torch.from_numpy(case["logits"]).requires_grad_(True)
+    toks = torch.from_numpy(case["ce_toks"])
+    v = logits.shape[-1] // 2
+    local = logits.detach()[..., rank * v:(rank + 1) * v].clone(
+        ).requires_grad_(True)
+    nll, mask = CAP.caption_nll(local, toks, cfg, group)
+    ce = (nll * mask).sum() / mask.sum()
+    ce.backward()
+    full, fmask = CAP.caption_nll(logits, toks, cfg)
+    fce = (full * fmask).sum() / fmask.sum()
+    fce.backward()
+    out["ce"] = dict(nll=_np(nll), full=_np(full), mask=_np(mask),
+                     grad=_np(local.grad),
+                     full_grad=_np(logits.grad[..., rank * v:(rank + 1) * v]))
+
+    tree = {k: torch.from_numpy(a) for k, a in case["norm_tree"].items()}
+    cut = {"head": True, "ln": False, "fc": True}
+    blocks = {k: (t[..., rank * (t.shape[-1] // 2):
+                    (rank + 1) * (t.shape[-1] // 2)].contiguous()
+                  if cut[k] else t) for k, t in tree.items()}
+    got = clip_by_global_norm(blocks, 1.0, group,
+                              [cut[k] for k in sorted(tree)])
+    want = clip_by_global_norm(tree, 1.0)
+    out["norm"] = dict(got={k: _np(t) for k, t in got.items()},
+                       want={k: _np(want[k][..., rank * (t.shape[-1] // 2):
+                                             (rank + 1) * (t.shape[-1] // 2)]
+                                     if cut[k] else want[k])
+                             for k, t in tree.items()})
+
+    x = torch.full((2, 3), float(rank + 1), requires_grad=True)
+    y = M.gather_batch(x, group)
+    (y * torch.arange(1.0, 5.0)[:, None]).sum().backward()
+    out["gather"] = dict(y=_np(y), grad=_np(x.grad))
+    out["max"] = _np(M.max_replicated(torch.tensor([rank, -rank, 3.0]),
+                                      group))
+
+    tp = TP(group, 4 * cfg.text.width)
+    blk = _tensors(case["block"])
+    xb = torch.zeros(2, 1, cfg.text.width, dtype=torch.bfloat16)
+    refusals = []
+    for kw in (dict(cache=KVCache.create(2, 4, 1, cfg.text.width, "cpu")),
+               dict(cross_kv=object())):
+        try:
+            block(blk, xb, cfg.text.heads, tp=tp, **kw)
+            refusals.append(None)
+        except ValueError as exc:
+            refusals.append(str(exc))
+    out["refusals"] = refusals
+    return out
+
+
+def tp(rank: int, world: int, pl: Dict, tmp: str) -> Dict:
+    out = {}
+    for name, case in pl.items():
+        if case["kind"] == "forward":
+            out[name] = _tp_forward(case)
+        elif case["kind"] == "train":
+            out[name] = _tp_train(case)
+        elif case["kind"] == "world_one":
+            out[name] = _tp_world_one(case)
+        else:
+            out[name] = _tp_units(rank, case)
+    return out
+
+
+TASKS: Dict[str, Callable] = {"parallel": parallel, "ddppo": ddppo,
+                              "tp": tp}
