@@ -7,8 +7,10 @@ training entry point (`train`), captioner fine-tune
 pseudo-captioner (`pseudocaption`), teacher-student detector pipeline
 (`train_detector`), the query detector family (with
 `export_serving_artifact`), the detector's serving evaluations
-(`eval_artifact`, the self-check's serving flags) and the BLIP-2, Florence
-and consensus-LM families on one NVIDIA GPU.
+(`eval_artifact`, the self-check's serving flags), the BLIP-2, Florence
+and consensus-LM families, the parallel layer, the replay path and the
+real-checkpoint path (`port_checkpoint`, `evaluate_finetuned_model`) on
+one NVIDIA GPU.
 
 Phases, each of which must pass:
   1. build the hand-written Hopper kernels from the sources in the checkout;
@@ -264,7 +266,27 @@ Phases, each of which must pass:
      (a)'s by its loss and `update_gaps`, ms a call, peak memory, host
      copies and launches per rank; (c) `replay_exp --perceive --preset
      large` on phase 8's store against `Perceiver.process` on the same
-     frames bit for bit, frames/s, and `Viz-v1`'s trajectory PNGs.
+     frames bit for bit, frames/s, and `Viz-v1`'s trajectory PNGs;
+ 17. the real-checkpoint path: (a) a coca_ViT-L-14-shaped state dict
+     (vision 1024 x 24 at patch 14, 256 pooled queries, text 768 x 12,
+     12 multimodal pairs, 49,408 ids) from the port's `build_torch_coca`
+     with seeded N(0, 0.02) weights, and a merges table of 48,894
+     distinct pairs, through `port_checkpoint coca` as a subprocess on
+     the card: the inferred configuration (24 alternating self-only and
+     cross-only multimodal blocks, BOS 49406, EOS 49407) and the replica
+     on the card teacher-forced beside the port's captioner
+     (teacher_forced_corr > 0.999); (b) `evaluate_finetuned_model
+     --ported-dir` on 32 boxes over frames of phase 8's store in batches
+     of 16: the CSV's rows and finite perplexities, the launches (24
+     self-attention sublayers a step on the self block, 12 on the cross
+     block, 36 MLPs on the decode MLP), peak memory, a batch's wall and
+     device time, the copy launches of its float32 leaves beside weights
+     cast once (equal tokens), and the batch held teacher-forced against
+     the twins (phase 3's limits); (c) a MiniLM-L6-shaped BERT checkpoint
+     in HF layout under `0.auto_model.` and a 30,522-token `vocab.txt`
+     through `port_checkpoint sbert` in process: a unit-norm embedding,
+     then the encoder's kernel route against the twins (embeddings,
+     every LayerNorm call's float32 rows, flash at MiniLM's heads).
 
 Float32 products and convolutions run without TF32 so the comparisons see
 the kernels' own error. Prints the card's name and power limit, frames/s
@@ -6508,6 +6530,432 @@ def phase16(K, frames, store: str, dev, smi: str, tmp: str) -> dict:
     return dict(counts=counts)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the real-checkpoint path (port_checkpoint coca and sbert,
+# evaluate_finetuned_model --ported-dir)
+# ---------------------------------------------------------------------------
+
+# 17a: open_clip's coca_ViT-L-14 shapes (its model config: vision 1024 x
+# 24 at patch 14 and 224^2, 256 pooled queries, text 768 x 12, 12
+# multimodal pairs, 49,408 ids; text.positional_embedding 77 rows, as its
+# text tower holds with embed_cls), weights N(0, 0.02) from a seeded
+# generator
+COCA_SHAPE = dict(v_width=1024, t_width=768, v_layers=24, t_layers=12,
+                  mm_pairs=12, patch=14, image=224, queries=256,
+                  vocab=49408, ctx=77)
+COCA_SEED, COCA_STD = 17, 0.02
+COCA_MERGES = 49408 - 514      # CLIP BPE's merges at 49,408 ids
+COCA_CORR = 0.999              # port_checkpoint's own bar (the JAX script's)
+EVAL_BOXES, EVAL_BATCH = 32, 16  # 17b: annotated boxes, --batch
+EVAL_FRAMES = 8                # 17b: store frames the boxes lie on
+# 17c: all-MiniLM-L6-v2's shapes (BERT: 384 wide, 6 layers, 12 heads,
+# intermediate 1536, 512 positions, 30,522 ids), N(0, 0.02) weights
+MINILM = dict(width=384, layers=6, inter=1536, positions=512, vocab=30522)
+MINILM_ROWS = 64               # 17c: sentences encoded on both routes
+MINILM_EMB_ATOL = 1e-4         # 17c: kernel route against the twins
+MINILM_FLASH = (MINILM_ROWS, 12, 64, 32)  # MiniLM's heads at 64 positions
+
+
+def write_coca_checkpoint(tmp: str, dev) -> tuple:
+    """17a's inputs: the replica built on the card at COCA_SHAPE, every
+    tensor drawn from N(0, COCA_STD) by a generator seeded COCA_SEED,
+    saved with `torch.save` (then freed); a merges `.txt.gz` of
+    COCA_MERGES distinct pairs of byte-unicode characters. Returns the
+    two paths."""
+    import gzip
+
+    from embodied_captioning_tpu_torch.models.tokenizer_artifacts import (
+        bytes_to_unicode)
+    from embodied_captioning_tpu_torch.tools.torch_replica import (
+        build_torch_coca, zero_state)
+
+    replica, _ = build_torch_coca(zero_state(**COCA_SHAPE), dev)
+    g = torch.Generator(device=dev).manual_seed(COCA_SEED)
+    with torch.no_grad():
+        for p in replica.parameters():
+            p.normal_(0.0, COCA_STD, generator=g)
+    ckpt = os.path.join(tmp, "coca_ViT-L-14.pt")
+    torch.save({k: v.cpu() for k, v in replica.state_dict().items()}, ckpt)
+    del replica
+    torch.cuda.empty_cache()
+    chars = list(bytes_to_unicode().values())
+    merges = [f"{a} {b}" for a in chars for b in chars][:COCA_MERGES]
+    bpe = os.path.join(tmp, "bpe_simple_vocab_16e6.txt.gz")
+    with gzip.open(bpe, "wb") as fh:
+        fh.write("\n".join(["#version: 0.2"] + merges).encode("utf-8"))
+    return ckpt, bpe
+
+
+def port_coca_subprocess(tmp: str, dev, smi: str) -> dict:
+    """17a: `python -m embodied_captioning_tpu_torch.port_checkpoint coca`
+    on the coca_ViT-L-14-shaped checkpoint, as a subprocess on the card:
+    the inferred configuration, the smoke caption, and the replica held
+    teacher-forced beside the port's captioner (`teacher_forced_corr` >
+    COCA_CORR). Returns the ported directory."""
+    t0 = time.perf_counter()
+    ckpt, bpe = write_coca_checkpoint(tmp, dev)
+    made = time.perf_counter() - t0
+    out_dir = os.path.join(tmp, "ported_coca")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "embodied_captioning_tpu_torch."
+         "port_checkpoint", "coca", "--checkpoint", ckpt, "--tokenizer",
+         bpe, "--out", out_dir, "--device", str(dev)],
+        cwd=str(REPO), capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    line = json.loads(lines[-1]) if proc.returncode == 0 and lines else {}
+    cfg, par = line.get("config", {}), line.get("parity", {})
+    log(f"  17a: a coca_ViT-L-14-shaped checkpoint ({os.path.getsize(ckpt) / 2**30:.2f} "
+        f"GiB, made and saved in {made:.1f} s) through port_checkpoint coca "
+        f"(subprocess) in {secs:.1f} s on {smi}, rc {proc.returncode}: "
+        f"config {cfg}; smoke caption {line.get('smoke_tokens')} tokens "
+        f"{line.get('smoke_caption', '')[:60]!r}; against the replica on the "
+        f"card: teacher_forced_corr {par.get('teacher_forced_corr')} (bar "
+        f"> {COCA_CORR}), argmax_agreement {par.get('argmax_agreement')}, "
+        f"max |delta| / std {par.get('max_abs_delta_over_std')}; replica "
+        f"missing {par.get('replica_missing')}, checkpoint unconsumed "
+        f"{par.get('checkpoint_unconsumed')}")
+    s = COCA_SHAPE
+    want = {"vision_width": s["v_width"], "vision_layers": s["v_layers"],
+            "image_size": s["image"], "vocab": s["vocab"],
+            "text_layers": s["t_layers"], "mm_blocks": 2 * s["mm_pairs"],
+            "bos": s["vocab"] - 2, "eos": s["vocab"] - 1}
+    if (proc.returncode != 0 or cfg != want
+            or not par.get("teacher_forced_corr", 0) > COCA_CORR
+            or par.get("replica_missing") or par.get(
+                "checkpoint_unconsumed")):
+        raise AssertionError(f"17a: port_checkpoint coca failed: "
+                             f"{proc.stderr[-3000:]}")
+    os.remove(ckpt)
+    return dict(out_dir=out_dir, seconds=secs, corr=par[
+        "teacher_forced_corr"], agree=par["argmax_agreement"])
+
+
+def eval_annotations(store: str, tmp: str) -> str:
+    """17b's annotations: EVAL_BOXES boxes (a seeded 15-45% of the frame a
+    side) over the first EVAL_FRAMES rgb frames of phase 8's store,
+    referenced as "exp:episode:camera:step"."""
+    from embodied_captioning_tpu_torch import replay_exp
+    from embodied_captioning_tpu_torch.utils.obs_store import SampleLoader
+
+    loader = SampleLoader(store)
+    frames = replay_exp.rgb_frames(loader, EVAL_FRAMES)
+    rng = np.random.default_rng(17)
+    anns = []
+    for i in range(EVAL_BOXES):
+        ep, cam, step = frames[i % len(frames)]
+        h, w = loader.get_sample(ep, cam, "rgb", step).data.shape[:2]
+        bw, bh = rng.uniform(0.15, 0.45) * w, rng.uniform(0.15, 0.45) * h
+        x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+        anns.append({"image": f"{store}:{ep}:{cam}:{step}",
+                     "box": [x1, y1, x1 + bw, y1 + bh],
+                     "caption": f"object {i}"})
+    path = os.path.join(tmp, "annotations.json")
+    with open(path, "w") as fh:
+        json.dump(anns, fh)
+    return path
+
+
+def kernel_weights_cast(params: dict) -> dict:
+    """The captioner tree with the leaves the decode kernels read
+    (`common._kernel_weight`: the self blocks' q, k, v, o, the cross
+    blocks' q, o, the MLPs' fc, proj) cast to bf16 once, the others as
+    they are: the kernels get the same bf16 weights as from float32
+    leaves cast on every call."""
+    def cast(blk: dict) -> dict:
+        blk = dict(blk)
+        for sub, names in (("attn", "qkvo"), ("xattn", "qo")):
+            if sub in blk:
+                blk[sub] = {n: (dict(p, w=p["w"].to(torch.bfloat16))
+                                if n in names else p)
+                            for n, p in blk[sub].items()}
+        blk["mlp"] = {n: dict(p, w=p["w"].to(torch.bfloat16))
+                      for n, p in blk["mlp"].items()}
+        return blk
+
+    return dict(params, text_blocks=[cast(b) for b in params["text_blocks"]],
+                mm_blocks=[cast(b) for b in params["mm_blocks"]])
+
+
+def copy_launches(fn) -> tuple:
+    """(launches, device ms) of the elementwise copy kernels (the float32
+    -> bf16 casts among them) in one traced call of `fn`."""
+    events = traced_calls(fn, 1)
+    cast = [e for e in events if "copy" in e.name]
+    return len(cast), sum(e.time_range.end - e.time_range.start
+                          for e in cast) / 1e3
+
+
+@torch.no_grad()
+def evaluate_ported_full_width(K, store: str, ported: str, tmp: str, dev,
+                               smi: str) -> dict:
+    """17b: `evaluate_finetuned_model --ported-dir` (in process, on the
+    card) on the annotations of `eval_annotations` in batches of
+    EVAL_BATCH: EVAL_BOXES CSV rows with finite perplexities, the
+    launches (the text tower's 12 and the 12 self-only multimodal blocks
+    on the self block, the 12 cross-only ones on the cross block, all 36
+    on the decode MLP, every step), peak memory; then the first batch
+    again: its captions those of the CSV, timed in turns (wall and
+    device) with its float32 leaves (cast on every kernel call) and with
+    the kernels' leaves cast once (equal tokens), the copy launches of
+    each, and held teacher-forced against the twins (phase 3's
+    limits)."""
+    import csv
+
+    from embodied_captioning_tpu_torch import evaluate_finetuned_model as EV
+    from embodied_captioning_tpu_torch.models import captioner as CAP
+    from embodied_captioning_tpu_torch.params import from_jax
+    from embodied_captioning_tpu_torch.tools.port import load_ported
+
+    anns_path = eval_annotations(store, tmp)
+    out_csv = os.path.join(tmp, "captions_eval.csv")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rc, line = run_entry(EV.main, [anns_path, "--ported-dir", ported,
+                                   "--batch", str(EVAL_BATCH), "--out",
+                                   out_csv, "--device", str(dev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(K.launches)
+    peak = torch.cuda.max_memory_allocated()
+    with open(out_csv, newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    ppl = np.asarray([float(r["perplexity"]) for r in rows])
+    params, cfg, tok = load_ported(ported)
+    params = from_jax(params, dev)
+    t = cfg.text
+    n_self, n_cross = t.layers + t.cross_layers // 2, t.cross_layers // 2
+    steps = counts["decode_self_block"] // n_self
+    batches = -(-EVAL_BOXES // EVAL_BATCH)
+    expect = dict(flash_attention=cfg.vision.layers * batches,
+                  fused_preprocess=batches, decode_self_block=n_self * steps,
+                  decode_cross_block=n_cross * steps,
+                  decode_mlp=(t.layers + t.cross_layers) * steps,
+                  decode_self_attention=0, decode_cross_attention=0,
+                  raycast_minargmin=0, layernorm_bwd=0)
+    log(f"  17b evaluate_finetuned_model --ported-dir on {EVAL_BOXES} boxes "
+        f"over {EVAL_FRAMES} frames of phase 8's store, batches of "
+        f"{EVAL_BATCH}: rc {rc}, {line}, {len(rows)} rows in {wall:.1f} s "
+        f"(loading the {os.path.getsize(os.path.join(ported, 'params.pkl')) / 2**30:.2f}"
+        f" GiB directory included) on {smi}; perplexity "
+        f"{ppl.min():.1f}-{ppl.max():.1f}; {steps} decode steps; launches "
+        f"{({k: v for k, v in counts.items() if v})}; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    got = {k: counts[k] for k in expect}
+    if (rc != 0 or line != {"rows": EVAL_BOXES, "out": out_csv}
+            or len(rows) != EVAL_BOXES or not np.isfinite(ppl).all()
+            or got != expect or steps < batches
+            or counts["layernorm"] < (2 * cfg.vision.layers + 1) * batches
+            + steps):
+        raise AssertionError(f"17b: evaluate_finetuned_model: {got} != "
+                             f"{expect} or rows / perplexities")
+    with open(anns_path) as fh:
+        anns = json.load(fh)[:EVAL_BATCH]
+    crops = EV.crop_batch(anns, cfg.vision.image_size, dev)
+    toks, _, _ = CAP.generate(params, crops, cfg)
+    same_csv = [tok.decode(r) for r in toks.cpu().numpy()] == [
+        r["proposed"] for r in rows[:EVAL_BATCH]]
+    cast = kernel_weights_cast(params)
+    toks_c, _, _ = CAP.generate(cast, crops, cfg)
+    # the float32 leaves and the kernels' leaves cast once, in turns
+    walls = {"float32": [], "cast once": []}
+    for name in ("float32", "cast once", "cast once", "float32"):
+        p = params if name == "float32" else cast
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, _, lengths = CAP.generate(p, crops, cfg)
+        torch.cuda.synchronize()
+        walls[name].append(round((time.perf_counter() - t0) * 1e3, 1))
+    ms, ms_c = (sum(walls[k]) / 2 for k in ("float32", "cast once"))
+    busy = profile_run(f"17b: one batch of {EVAL_BATCH} ported-CoCa crops",
+                       lambda: CAP.generate(params, crops, cfg), ms * 1e3,
+                       top=8)
+    busy_c = profile_run(f"17b: the same batch, the kernels' leaves cast "
+                         f"once", lambda: CAP.generate(cast, crops, cfg),
+                         ms_c * 1e3, top=4)
+    n_copy, copy_ms = copy_launches(lambda: CAP.generate(params, crops, cfg))
+    n_copy_c, copy_ms_c = copy_launches(lambda: CAP.generate(cast, crops,
+                                                             cfg))
+    del cast
+    forced = teacher_forced(params, crops, cfg, K)
+    log(f"  17b one batch again: captions those of the CSV {same_csv}; "
+        f"{int(lengths.sum())} tokens; in turns, wall ms float32 leaves "
+        f"{walls['float32']}, the kernels' leaves cast once "
+        f"{walls['cast once']} (tokens equal {torch.equal(toks, toks_c)}); "
+        f"device busy {busy / 1e3:.1f} ms and {busy_c / 1e3:.1f} ms; copy "
+        f"launches {n_copy} ({copy_ms:.2f} ms device) and {n_copy_c} "
+        f"({copy_ms_c:.2f} ms); teacher-forced against the twins: "
+        f"argmax agrees on {forced['agree']:.4f} of {forced['n']} live steps "
+        f"(limit {MIN_ARGMAX_AGREE}), chosen log-prob {forced['lp_ulps']:.3f}"
+        f" bf16 logit ulps, mean {forced['mean_ulps']:.3f} (limit "
+        f"{MAX_LOGPROB_ULPS}), ViT embedding cosine min "
+        f"{forced['img_cos']:.7f} (limit {MIN_IMG_COSINE})")
+    if (not same_csv or not torch.equal(toks, toks_c)
+            or forced["agree"] < MIN_ARGMAX_AGREE
+            or forced["lp_ulps"] > MAX_LOGPROB_ULPS
+            or forced["img_cos"] <= MIN_IMG_COSINE):
+        raise AssertionError("17b: the ported CoCa's decode against the "
+                             "CSV, the cast weights or the twins")
+    return dict(counts=counts, wall=wall, ms=ms, busy_us=busy, peak=peak,
+                ms_cast=ms_c, busy_cast_us=busy_c,
+                copies=(n_copy, copy_ms, n_copy_c, copy_ms_c),
+                agree=forced["agree"], ulps=forced["lp_ulps"])
+
+
+def minilm_state(g, width, layers, inter, positions, vocab,
+                 std: float = 0.02) -> dict:
+    """A BERT state dict in the HF key layout, weights N(0, std) from the
+    generator g (on the CPU), LayerNorms at 1 / 0."""
+    def w(*shape):
+        return torch.randn(*shape, generator=g) * std
+
+    sd = {"embeddings.word_embeddings.weight": w(vocab, width),
+          "embeddings.position_embeddings.weight": w(positions, width),
+          "embeddings.token_type_embeddings.weight": w(2, width),
+          "embeddings.LayerNorm.weight": torch.ones(width),
+          "embeddings.LayerNorm.bias": torch.zeros(width)}
+    for i in range(layers):
+        p = f"encoder.layer.{i}."
+        for name, o, n in (("attention.self.query", width, width),
+                           ("attention.self.key", width, width),
+                           ("attention.self.value", width, width),
+                           ("attention.output.dense", width, width),
+                           ("intermediate.dense", inter, width),
+                           ("output.dense", width, inter)):
+            sd[p + name + ".weight"] = w(o, n)
+            sd[p + name + ".bias"] = w(o)
+        for ln in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[p + ln + ".weight"] = torch.ones(width)
+            sd[p + ln + ".bias"] = torch.zeros(width)
+    return sd
+
+
+@torch.no_grad()
+def minilm_full_width(K, tmp: str, dev, smi: str) -> dict:
+    """17c: a MiniLM-L6-shaped BERT checkpoint in HF layout wrapped as
+    sentence-transformers' `0.auto_model.`, and a `vocab.txt` of 30,522
+    tokens, through `port_checkpoint sbert` (in process, on the card):
+    its configuration and a unit-norm embedding (within 1e-3). Then the
+    kernel route against the twins on the card: MINILM_ROWS sentences
+    encoded (embeddings within MINILM_EMB_ATOL), every LayerNorm call's
+    float32 rows of that encode through the kernel against its plain
+    version (phase 2's 1e-5), and flash at MiniLM's head shape
+    MINILM_FLASH against its twin (phase 2's 2e-2): the encoder's
+    attention takes the pad mask, so it runs plain attention, in both
+    packages."""
+    from embodied_captioning_tpu_torch import port_checkpoint as PC
+    from embodied_captioning_tpu_torch.models import common
+    from embodied_captioning_tpu_torch.models import sbert as SB
+    from embodied_captioning_tpu_torch.params import from_jax
+    from embodied_captioning_tpu_torch.tools.port import load_ported
+
+    g = torch.Generator().manual_seed(17)
+    sd = minilm_state(g, **MINILM)
+    ckpt = os.path.join(tmp, "minilm.bin")
+    torch.save({"0.auto_model." + k: v for k, v in sd.items()}, ckpt)
+    del sd
+    words = ("a red couch in the living room with plant bed table toilet "
+             "tv chair sofa near wall".split())
+    vocab = list(dict.fromkeys(
+        ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words
+        + [chr(c) for c in range(ord("a"), ord("z") + 1)]))
+    vocab += [f"##w{i}" if i % 3 else f"w{i}"
+              for i in range(MINILM["vocab"] - len(vocab))]
+    vpath = os.path.join(tmp, "vocab.txt")
+    with open(vpath, "w", encoding="utf-8") as fh:
+        fh.write("\n".join(vocab) + "\n")
+    out_dir = os.path.join(tmp, "ported_minilm")
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rc, line = run_entry(PC.main, ["sbert", "--checkpoint", ckpt,
+                                   "--tokenizer", vpath, "--out", out_dir,
+                                   "--device", str(dev)])
+    secs = time.perf_counter() - t0
+    counts = dict(K.launches)
+    norm = line.get("smoke_embedding_norm", 0.0)
+    params, cfg, tok = load_ported(out_dir)
+    params = from_jax(params, dev)
+    rng = np.random.default_rng(17)
+    sents = [" ".join(rng.choice(words, rng.integers(2, 12)))
+             for _ in range(MINILM_ROWS)]
+    ids = torch.from_numpy(tok.encode_batch(sents, cfg.max_len)).to(dev)
+    seen = []
+    kernel = common.layernorm_kernel
+
+    def recorded(x, g_, b_, eps, *a, **k):
+        seen.append((x, g_, b_, eps, a, k))
+        return kernel(x, g_, b_, eps, *a, **k)
+
+    common.layernorm_kernel = recorded
+    try:
+        K.reset_launches()
+        emb = SB.encode_tokens(params, ids, cfg)
+        torch.cuda.synchronize()
+        enc_counts = dict(K.launches)
+    finally:
+        common.layernorm_kernel = kernel
+    with plain_kernels(K):
+        twin = SB.encode_tokens(params, ids, cfg)
+    emb_err = (emb - twin).abs().max().item()
+    ln_err = max((K.layernorm(x, g_, b_, eps, *a, **k).float()
+                  - K.layernorm_plain(x, g_, b_, eps, *a, **k).float()
+                  ).abs().max().item() for x, g_, b_, eps, a, k in seen)
+    fg = torch.Generator(device=dev).manual_seed(17)
+    q, k_, v = (torch.randn(*MINILM_FLASH, generator=fg, device=dev
+                            ).to(torch.bfloat16) for _ in range(3))
+    flash_err = check_close(f"flash_attention {list(MINILM_FLASH)} "
+                            f"(MiniLM's heads)", K.flash_attention(q, k_, v),
+                            K.flash_attention_plain(q, k_, v), 2e-2)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        SB.encode_tokens(params, ids, cfg)
+    torch.cuda.synchronize()
+    enc_ms = (time.perf_counter() - t0) / 5 * 1e3
+    log(f"  17c port_checkpoint sbert (in process) in {secs:.1f} s on {smi}: "
+        f"rc {rc}, config {line.get('config')}, embedding norm {norm:.6f}, "
+        f"launches {({k: v for k, v in counts.items() if v})}; "
+        f"{MINILM_ROWS} sentences: {enc_ms:.2f} ms an encode, launches "
+        f"{({k: v for k, v in enc_counts.items() if v})}; against the twins "
+        f"on the card: embeddings max {emb_err:.3e} (limit "
+        f"{MINILM_EMB_ATOL}), the {len(seen)} LayerNorm calls' float32 rows "
+        f"{list(seen[0][0].shape)} max {ln_err:.3e} (limit 1e-5), flash at {list(MINILM_FLASH)} "
+        f"{flash_err:.3e}")
+    if (rc != 0 or line.get("config") != {
+            "width": MINILM["width"], "layers": MINILM["layers"],
+            "vocab": MINILM["vocab"], "post_ln": True}
+            or abs(norm - 1.0) > 1e-3 or emb_err > MINILM_EMB_ATOL
+            or ln_err > 1e-5 or len(seen) != 2 * cfg.layers + 1
+            or counts["layernorm"] <= 0 or enc_counts["layernorm"] !=
+            len(seen) or not torch.isfinite(emb).all()):
+        raise AssertionError("17c: port_checkpoint sbert or its kernel route")
+    return dict(counts=counts, seconds=secs, enc_ms=enc_ms, emb_err=emb_err,
+                ln_err=ln_err, flash_err=flash_err)
+
+
+def phase17(K, store: str, dev, smi: str, tmp: str) -> dict:
+    """Phase 17 in order; returns each path's launch counts."""
+    import gc
+
+    t17 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    coca = port_coca_subprocess(tmp, dev, smi)
+    ev = evaluate_ported_full_width(K, store, coca["out_dir"], tmp, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mini = minilm_full_width(K, tmp, dev, smi)
+    counts = dict(coca=ev["counts"], minilm=mini["counts"])
+    log("  phase 17 launches by kernel (17b: evaluate_finetuned_model; 17c: "
+        "port_checkpoint sbert): "
+        + json.dumps({n: {k: c[n] for k, c in counts.items()}
+                      for n in ev["counts"]}))
+    log(f"  phase 17 in {time.perf_counter() - t17:.1f} s")
+    return dict(counts=counts)
+
+
 def card_name() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -6691,6 +7139,11 @@ def main() -> int:
                 "replay path (replay_exp --perceive, Viz-v1)")
             with tempfile.TemporaryDirectory(prefix="ecap_tp_") as tmp:
                 p16 = phase16(K, frames13, store, dev, smi, tmp)["counts"]
+            torch.cuda.empty_cache()
+            stage("[17] the real-checkpoint path (port_checkpoint coca and "
+                "sbert, evaluate_finetuned_model --ported-dir)")
+            with tempfile.TemporaryDirectory(prefix="ecap_port_") as tmp:
+                p17 = phase17(K, store, dev, smi, tmp)["counts"]
     except Exception:
         traceback.print_exc()
         return 1
@@ -6716,7 +7169,9 @@ def main() -> int:
     # train steps; launches_myppo: over 15c's full-width myppo train;
     # launches_parallel: over 15d's perceive_sharded; launches_tp: over
     # 16b's timed TP forward and train step on rank 0; launches_replay:
-    # over 16c's replay_exp --perceive
+    # over 16c's replay_exp --perceive; launches_coca: over 17b's
+    # evaluate_finetuned_model on the ported CoCa; launches_minilm: over
+    # 17c's port_checkpoint sbert
     kernels = []
     for n, r in rows.items():
         if loop["counts"][n] > 0:
@@ -6742,6 +7197,7 @@ def main() -> int:
             launches_myppo=p15["myppo"][n],
             launches_parallel=p15["parallel"][n],
             launches_tp=p16["tp"][n], launches_replay=p16["replay"][n],
+            launches_coca=p17["coca"][n], launches_minilm=p17["minilm"][n],
             **r))
     if any(k["launches"] <= 0 for k in kernels):
         print(f"chip_smoke: a kernel was never launched: {kernels}",

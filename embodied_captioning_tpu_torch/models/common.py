@@ -81,7 +81,8 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [..., M, K] @ b [K, N] or [..., K, N] with float32 accumulation
     and a float32 result. bf16 products are exact in float32, so on the
     CPU the operands are widened; on the card cuBLAS multiplies the bf16
-    operands on the tensor cores and writes float32. Differentiable
+    operands on the tensor cores and writes float32 (two float32 operands
+    multiply as they are). Differentiable
     (`_MatmulF32`) where autograd records and an operand needs a
     gradient."""
     if _records_grad(a, b):
@@ -134,7 +135,8 @@ class _MatmulF32(torch.autograd.Function):
 
 
 def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    if a.device.type == "cpu":
+    if a.device.type == "cpu" or (a.dtype == torch.float32
+                                  and b.dtype == torch.float32):
         return torch.matmul(a.float(), b.float())
     if b.dim() == 2:
         lead = a.shape[:-1]
@@ -261,22 +263,24 @@ def _attention_plain(q: torch.Tensor, kt: torch.Tensor, v: torch.Tensor,
                      mask: Optional[torch.Tensor],
                      kt_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q [B,Tq,H,Dh] bf16, kt [B,H,Dh,Tk], v head-major [B,H,Tk,Dh] (bf16,
-    or int8 with kt_scale [B,H,Tk] and v_scale [B,H,Dh]) -> [B,Tq,H*Dh]
-    f32. bf16 scores, float32 max/denominator, bf16 probabilities,
-    normalisation after PV. The max is a constant to autograd, as the JAX
-    package's `stop_gradient` makes it."""
-    dh = q.shape[-1]
-    logits = matmul_f32(q.permute(0, 2, 1, 3), kt.to(torch.bfloat16))
-    logits = logits.to(torch.bfloat16).float() / math.sqrt(dh)
+    """q [B,Tq,H,Dh] in the compute dtype (bf16, or float32 for the
+    float32 sentence encoder), kt [B,H,Dh,Tk], v head-major [B,H,Tk,Dh]
+    (bf16 or float32, or int8 with kt_scale [B,H,Tk] and v_scale [B,H,Dh])
+    -> [B,Tq,H*Dh] f32. Scores and probabilities in q's dtype, float32
+    max/denominator, normalisation after PV, as the JAX package computes
+    them in its compute dtype. The max is a constant to autograd, as the
+    JAX package's `stop_gradient` makes it."""
+    dh, cdt = q.shape[-1], q.dtype
+    logits = matmul_f32(q.permute(0, 2, 1, 3), kt.to(cdt))
+    logits = logits.to(cdt).float() / math.sqrt(dh)
     if kt_scale is not None:
         logits = logits * kt_scale[:, :, None, :]
     if mask is not None:
         logits = torch.where(mask, logits, NEG_INF)
     m = logits.amax(dim=-1, keepdim=True).detach()
-    pexp = torch.exp(logits - m).to(torch.bfloat16)
+    pexp = torch.exp(logits - m).to(cdt)
     denom = pexp.float().sum(dim=-1)  # [B, H, Tq]
-    out = matmul_f32(pexp, v.to(torch.bfloat16))  # [B, H, Tq, Dh]
+    out = matmul_f32(pexp, v.to(cdt))  # [B, H, Tq, Dh]
     if v_scale is not None:
         out = out * v_scale[:, :, None, :]
     out = out / denom[..., None]

@@ -66,7 +66,11 @@ def test_scan_covers_every_subpackage_and_the_smoke_script():
                 "models/llm.py", "models/blip2.py", "models/florence.py",
                 "parallel/mesh.py", "parallel/moe.py",
                 "parallel/pipeline.py", "parallel/sequence.py",
-                "agents/ddppo.py", "utils/checkpoint.py"):
+                "agents/ddppo.py", "utils/checkpoint.py",
+                "utils/coco.py", "utils/extras.py",
+                "models/tokenizer_artifacts.py", "tools/convert_weights.py",
+                "tools/torch_replica.py", "tools/port.py",
+                "port_checkpoint.py", "evaluate_finetuned_model.py"):
         assert pkg + rel in scanned, rel
     assert "chip_smoke.py" in scanned
     # every directory of the package that holds Python files is scanned
