@@ -8,9 +8,11 @@ pseudo-captioner (`pseudocaption`), teacher-student detector pipeline
 (`train_detector`), the query detector family (with
 `export_serving_artifact`), the detector's serving evaluations
 (`eval_artifact`, the self-check's serving flags), the BLIP-2, Florence
-and consensus-LM families, the parallel layer, the replay path and the
-real-checkpoint path (`port_checkpoint`, `evaluate_finetuned_model`) on
-one NVIDIA GPU.
+and consensus-LM families, the parallel layer, the replay path, the
+real-checkpoint path (`port_checkpoint`, `evaluate_finetuned_model`), the
+quantized serving opt-ins and render modes, and the four learning loops
+(`selfcheck_loop`, `selfcheck_rl`, `selfcheck_cycle`,
+`selfcheck_teacher_student`) on one NVIDIA GPU.
 
 Phases, each of which must pass:
   1. build the hand-written Hopper kernels from the sources in the checkout;
@@ -146,10 +148,10 @@ Phases, each of which must pass:
      share a sign); one timed `train_step` at the large
      preset at the fine-tune's batch of 8 with `remat` off and then on (ms
      a step, peak memory, LayerNorm forward and backward launches, device
-     busy and idle share under the profiler); then `finetune_captioner`
+     busy and idle share under the profiler); (c) `finetune_captioner`
      at the large preset on 4 env directories of the store phase 8 wrote
-     (FT_STORE_ENVS): its JSON line and
-     its pickle read back;
+     (FT_STORE_ENVS): its JSON line and its pickle read back (run in
+     phase 19's lanes);
  11. drive the two learning self-checks: (a) `detector_loss` at the tiny
      preset on the card against the CPU for the five ROI heads with masks
      (the loss, its five parts and every leaf's gradient within limits set
@@ -165,7 +167,7 @@ Phases, each of which must pass:
      preset on 64 crops:
      step_ms_median, hbm_peak_gb; (d) `selfcheck_detector --steps 700
      --episodes 4` at the tiny preset: map50_train > 0.4, mask_iou > 0.5
-     on more than 5 matched detections; (e) on the captioner (c) trained,
+     on more than 5 matched detections (run in phase 19's lanes); (e) on the captioner (c) trained,
      free-running greedy decoding of the held-out crops through the
      kernels and through their plain versions, float and int8: equal
      tokens on at least 90% of rows, every sublayer on a fused kernel, and
@@ -186,14 +188,16 @@ Phases, each of which must pass:
      LABEL_FRAMES frames with the kernels' launches, every consensus of
      `CONSENSUS_REGISTRY` through its labeler class (the semantic-map
      labelers' integrate and raytrace timed apart), the re-captioning of
-     the raytraced instances, and `run_pseudolabeler` as a subprocess;
+     the raytraced instances, and `run_pseudolabeler` on SUBSET_ENVS envs
+     of the store (run in phase 19's lanes);
      (c) `pseudocaption` with sbert and tfidf through the entry point and
      `_clip_consensus` on crops from the store; (d) `train_detector` at
      the large preset (default pipeline, soft consensus, focal head) for
      one round on SUBSET_ENVS envs of the store: labeling time, ms a
      step, peak memory; then one round each of the online, gt and swa
      pipelines at the tiny preset on a store written on the card; (e)
-     `selfcheck_detector --tta` on a short run at the tiny preset;
+     `selfcheck_detector --tta` on a short run at the tiny preset (run in
+     phase 19's lanes);
  13. drive the query (Mask2Former-class) detector family: (a) at QCFG
      (64^2, head dim 8) on the card against the CPU: every decoder point's
      logits, the set loss and every leaf's gradient within limits from the
@@ -218,7 +222,7 @@ Phases, each of which must pass:
      1280^2, written to caches) and on the CPU from those caches (equal
      corpus shas, mAPs within 0.05), then `selfcheck_detector --eval-wide
      2 --eval-serving --calibrate --affine-finetune 20 --tta` at the tiny
-     preset (every key present and finite); (b) BLIP-2 at `Blip2Config()`
+     preset (every key present and finite; run in phase 19's lanes); (b) BLIP-2 at `Blip2Config()`
      (ViT-L/14 at 224^2, a 768-wide 6-layer Q-Former over 32 queries, a
      768-wide 12-layer LM) with random seeded weights on 16 crops of phase
      3's frames: flash at the Q-Former's [16, 12, 32, 64] against its twin
@@ -249,8 +253,8 @@ Phases, each of which must pass:
      (phase 3's gates); the gradients of one batch of 8 (the routed
      experts' non-zero, the others zero) and two timed `train_step`s;
      (c) `myppo` beside `goalexplorationbaseline-v0` at phase 9's
-     configuration (fused, 2 updates): parameters equal bit for bit after
-     each update, its resume state; `run_exp --trainer myppo --mode
+     configuration (fused, DDPPO_UPDATES updates): parameters equal bit
+     for bit after each update, its resume state; `run_exp --trainer myppo --mode
      train` at tiny; the SIGTERM path at tiny; (d) `perceive_sharded`
      against `perceive` bit for bit, `pipeline_vit_features` and
      `vit_features_seqparallel` against `vit_features` at ViT-L, and
@@ -272,7 +276,7 @@ Phases, each of which must pass:
      12 multimodal pairs, 49,408 ids) from the port's `build_torch_coca`
      with seeded N(0, 0.02) weights, and a merges table of 48,894
      distinct pairs, through `port_checkpoint coca` as a subprocess on
-     the card: the inferred configuration (24 alternating self-only and
+     the card (run in phase 19's lanes; (b) follows them): the inferred configuration (24 alternating self-only and
      cross-only multimodal blocks, BOS 49406, EOS 49407) and the replica
      on the card teacher-forced beside the port's captioner
      (teacher_forced_corr > 0.999); (b) `evaluate_finetuned_model
@@ -286,7 +290,38 @@ Phases, each of which must pass:
      in HF layout under `0.auto_model.` and a 30,522-token `vocab.txt`
      through `port_checkpoint sbert` in process: a unit-norm embedding,
      then the encoder's kernel route against the twins (embeddings,
-     every LayerNorm call's float32 rows, flash at MiniLM's heads).
+     every LayerNorm call's float32 rows, flash at MiniLM's heads);
+ 18. the serving opt-ins, the render modes and the s2d stem: (a)
+     `quantize.dense_w8a8` on the card against the CPU, bit for bit (the
+     first 512 rows: rows are independent), at the decode step's [64,
+     768] x [768, 768 / 3072 / 49,408] and the ViT's [64 * 257, 1024] x
+     [1024, 4096], timed beside `dense` on the same int8 weights; (b-c)
+     `perceive` on the serving tree and phase 3's frames with the default
+     opt-ins, `w8a8=True` and `int8_kv=False`, in turns: ms a batch,
+     device time, launches (under w8a8 the ViT's flash, the preprocess and
+     the standalone decode attentions a sublayer a step, none of the
+     fused decode kernels; bf16 K/V on the whole-block route), the w8a8
+     detections against the default route's (reported), each route's
+     decode teacher-forced against the twins on the same route (w8a8 to
+     its quantization step: MAX_LOGPROB_ULPS_W8A8); (d) the serving
+     tree's `quantization_ratio`; (e) every render mode at 16 envs x
+     1280^2 x 96 boxes through `render_batch_chunked`, equal bits to
+     "onehot" (culled at 160^2 tiles with K 48: overflow 0), and an
+     overflowing K (4) that must differ, with ms a render; (f)
+     `stem_s2d` on the served detector against the direct stem on the
+     16 frames: with its int8 stem (reported) and with the stem's weights
+     in float32 (boxes and valid flags equal);
+ 19. the entry points held by their output alone, each a subprocess on
+     the card (COUNTED: its launches counted), in lanes side by side
+     after every timed phase, so that no measured time shares the card
+     with them: 10c, 11d, 12b, 12e, 14a's self-check and 17a above, and
+     the four learning loops at the tiny preset with cut step counts
+     (LOOP_ARGS, TS_SCENES, TS_STEPS, TS_THRESHOLD): `selfcheck_loop` (8
+     envs), `selfcheck_rl`, `selfcheck_cycle`, and `selfcheck_detector
+     --save` (the teacher) then `selfcheck_teacher_student`; each run held
+     as its phase holds it, each loop's JSON line with the JAX script's
+     keys (LOOP_KEYS) and finite values, and `selfcheck_loop`'s
+     disagreement rewards not all zero; then 17b.
 
 Float32 products and convolutions run without TF32 so the comparisons see
 the kernels' own error. Prints the card's name and power limit, frames/s
@@ -364,6 +399,15 @@ MIN_ARGMAX_AGREE = 0.9
 # so chosen log-probs differ by a few bf16 ulps of the logits' magnitude
 # (0.03125 for |logit| in [4, 8)).
 MAX_LOGPROB_ULPS = 4.0
+# Under W8A8 (phase 18b) every product quantizes its input per token: a
+# last-bit difference in an activation can move its int8 level by one, a
+# step of amax / 127, which the products after carry. So its decode is
+# held to the quantization step, not to bf16 rounding: the same argmax
+# agreement, the chosen log-prob within 8 bf16 ulps and 1.0 on average,
+# the ViT embedding to a cosine of 0.999.
+MAX_LOGPROB_ULPS_W8A8 = 8.0
+MAX_MEAN_ULPS_W8A8 = 1.0
+MIN_IMG_COSINE_W8A8 = 0.999
 MIN_IMG_COSINE = 0.9999
 # equal tokens go through the same sentence encoder (no ported kernel)
 MIN_EMB_COSINE = 0.9999
@@ -1814,13 +1858,15 @@ def center_crops(frames: torch.Tensor, size: int) -> torch.Tensor:
 
 
 @torch.no_grad()
-def teacher_forced(cp, crops, ccfg, K, tape=None) -> dict:
+def teacher_forced(cp, crops, ccfg, K, tape=None, w8a8: bool = False,
+                   int8_kv: bool = True) -> dict:
     """Greedy-decode `crops` through the kernels, then feed those tokens to
     the plain path step by step; compare the plain path's argmax and
     chosen-token log-probs with the kernel path's, and the ViT global
     embeddings of both. The log-prob difference is returned in bf16 ulps
     of the largest |logit| of its row. With a `RoutingTape`, the kernel
-    path's MoE routing is recorded and handed to the plain path."""
+    path's MoE routing is recorded and handed to the plain path. `w8a8`
+    and `int8_kv` (the serving opt-ins) go to both paths alike."""
     import contextlib
 
     from embodied_captioning_tpu_torch.models import captioner as CAP
@@ -1828,19 +1874,21 @@ def teacher_forced(cp, crops, ccfg, K, tape=None) -> dict:
     from embodied_captioning_tpu_torch.models.vit import encode_image
 
     with tape.record() if tape else contextlib.nullcontext():
-        tokens, lp_k, lengths = CAP.generate(cp, crops, ccfg)
-    _, g_k = encode_image(cp["vision"], crops, ccfg.vision)
+        tokens, lp_k, lengths = CAP.generate(cp, crops, ccfg, w8a8=w8a8,
+                                             int8_kv=int8_kv)
+    _, g_k = encode_image(cp["vision"], crops, ccfg.vision, w8a8=w8a8)
     t = ccfg.text
     b, L = tokens.shape
     with plain_kernels(K), (tape.replay() if tape
                             else contextlib.nullcontext()):
-        pooled, g_p = encode_image(cp["vision"], crops, ccfg.vision)
+        pooled, g_p = encode_image(cp["vision"], crops, ccfg.vision,
+                                   w8a8=w8a8)
         hd = t.width // t.heads
         tc = [KVCache.create(b, L, t.heads, hd, crops.device)
               for _ in range(t.layers)]
         mc = [KVCache.create(b, L, t.heads, hd, crops.device)
               for _ in range(t.cross_layers)]
-        cross = CAP._cross_kvs(cp, pooled, t.heads)
+        cross = CAP._cross_kvs(cp, pooled, t.heads, w8a8, int8_kv)
         agree = n = 0
         lp_err = lp_ulps = ulps_sum = 0.0
         for pos in range(L - 1):
@@ -1848,7 +1896,7 @@ def teacher_forced(cp, crops, ccfg, K, tape=None) -> dict:
             if not bool(live.any()):
                 break
             logits, tc, mc = CAP._decode_step(cp, tokens[:, pos].long(), pos,
-                                              cross, tc, mc, ccfg)
+                                              cross, tc, mc, ccfg, w8a8=w8a8)
             logits = logits.float()
             nxt = tokens[:, pos + 1].long()
             lp = torch.log_softmax(logits, -1).gather(1, nxt[:, None])[:, 0]
@@ -3158,6 +3206,7 @@ FT_TRIPLET = 0.1               # the fine-tune script's triplet weight
 # store, collecting its 183 pairs took 106 s of a 135 s run on an H100
 # 80GB HBM3 at 700 W)
 FT_STORE_ENVS = 4
+FT_PICKLE = "captioner_finetuned.pkl"  # 10c's --save, in phase 19's lanes
 
 
 def leaf_paths(tree, path: str = "") -> list:
@@ -3405,50 +3454,27 @@ def finetune_full_width(dev, smi: str) -> dict:
     return out
 
 
-def finetune_entry_point(store: str, shapes: list) -> dict:
-    """`finetune_captioner` (python -m embodied_captioning_tpu_torch.
-    finetune_captioner) at the large preset on FT_STORE_ENVS env
-    directories of the store that phase 8's `generate` wrote, in process
-    on the card, with its defaults (1 epoch,
-    batch 8, lr 1e-4, triplet weight 0.1) and the repository's
-    pseudo_captions.json ({}: the captions come from the store): its JSON
-    line (pairs, steps = pairs // 8, finite losses) and the pickle read
-    back (numpy leaves of the init's shapes, all finite)."""
-    import contextlib
-    import io
-    import tempfile
-
-    from embodied_captioning_tpu_torch import finetune_captioner
-    from embodied_captioning_tpu_torch import kernels as K
+def finetune_entry_check(run: dict, save: str, shapes: list) -> dict:
+    """10c: `finetune_captioner` at the large preset on FT_STORE_ENVS env
+    directories of the store that phase 8's `generate` wrote (a run of
+    phase 19's lanes), with its defaults (1 epoch, batch 8, lr 1e-4,
+    triplet weight 0.1) and the repository's pseudo_captions.json ({}: the
+    captions come from the store): its JSON line (pairs, steps = pairs //
+    8, finite losses), the LayerNorm backward launched, and the pickle
+    read back (numpy leaves of the init's shapes, all finite)."""
     from embodied_captioning_tpu_torch.params import load_pickle
     from embodied_captioning_tpu_torch.train.optim import tree_leaves
 
-    with tempfile.TemporaryDirectory(prefix="ecap_finetune_") as d:
-        save = os.path.join(d, "captioner_finetuned.pkl")
-        sub = subset_store(store, d, FT_STORE_ENVS)
-        buf = io.StringIO()
-        K.reset_launches()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = finetune_captioner.main([
-                sub, "--preset", "large", "--save", save,
-                "--pseudo-captions", str(REPO / "pseudo_captions.json")])
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = dict(K.launches)
-        printed = buf.getvalue().strip().splitlines()
-        line = json.loads(printed[-1])
-        size = os.path.getsize(save) if os.path.exists(save) else 0
-        t0 = time.perf_counter()
-        tree = tree_leaves(load_pickle(save)) if size else []
-        dt_load = time.perf_counter() - t0
-    log("  " + "; ".join(x for x in printed[:-1]
-                         if x.startswith("[finetune]")))
-    log(f"  finetune_captioner on {FT_STORE_ENVS} envs of phase 8's store: "
-        f"rc {rc}, {line}; "
-        f"{dt:.1f} s in all; the pickle {size / 2**30:.2f} GiB, read back "
-        f"in {dt_load:.1f} s; launches {({k: v for k, v in counts.items() if v})}")
-    ok = (rc == 0 and line.get("pairs", 0) > 0
+    line, counts = run["line"], run["launches"]
+    size = os.path.getsize(save) if os.path.exists(save) else 0
+    t0 = time.perf_counter()
+    tree = tree_leaves(load_pickle(save)) if size else []
+    dt_load = time.perf_counter() - t0
+    log(f"  10c finetune_captioner on {FT_STORE_ENVS} envs of phase 8's "
+        f"store: {line}; {run['seconds']:.1f} s in all; the pickle "
+        f"{size / 2**30:.2f} GiB, read back in {dt_load:.1f} s; launches "
+        f"{({k: v for k, v in counts.items() if v})}")
+    ok = (line.get("pairs", 0) > 0
           and line["steps"] == line["pairs"] // FT_BATCH
           and line["steps"] > 0
           and all(math.isfinite(line[k]) for k in ("first_loss",
@@ -3457,10 +3483,11 @@ def finetune_entry_point(store: str, shapes: list) -> dict:
           and [tuple(x.shape) for x in tree] == shapes
           and all(isinstance(x, np.ndarray) and np.isfinite(x).all()
                   for x in tree)
-          and counts["layernorm_bwd"] > 0)
+          and counts.get("layernorm_bwd", 0) > 0)
     if not ok:
         raise AssertionError("finetune_captioner on the card failed")
-    return dict(line=line, seconds=dt, counts=counts)
+    os.remove(save)
+    return dict(line=line, seconds=run["seconds"], counts=counts)
 
 
 # ---------------------------------------------------------------------------
@@ -3476,6 +3503,7 @@ DET_LR = 1e-3                  # the detector self-check's default lr
 DET_SPREAD_DRAWS = 4           # 11a: moves of the CPU's parameters
 SELF_CHECK_BAR = 0.8           # held-out sbert_cosine: the JAX script's bar
 INT8_GAP = 0.01                # int8_sbert_cosine within this of it
+DET_SELFCHECK_ARGS = ["--steps", "700", "--episodes", "4"]  # 11d
 MAP50_TRAIN_BAR = 0.4          # the detector self-check's bars at 700 steps
 MASK_IOU_BAR = 0.5
 MASK_MATCHED_BAR = 5
@@ -3804,32 +3832,24 @@ def captioner_selfcheck(dev, smi: str, tmp: str) -> dict:
                 state=kept["state"], eval_cache=cache)
 
 
-def detector_selfcheck(smi: str) -> dict:
-    """11d: the detector self-check on the card at the tiny preset with
-    --steps 700 --episodes 4: its JSON line and the bars map50_train >
-    MAP50_TRAIN_BAR, mask_iou > MASK_IOU_BAR with mask_matched >
-    MASK_MATCHED_BAR."""
-    from embodied_captioning_tpu_torch import kernels as K
-    from embodied_captioning_tpu_torch import selfcheck_detector as SD
-
-    torch.cuda.synchronize()
-    K.reset_launches()
-    t0 = time.perf_counter()
-    rc, line = run_entry(SD.main, ["--steps", "700", "--episodes", "4"])
-    seconds = time.perf_counter() - t0
-    counts = dict(K.launches)
-    log(f"  detector self-check (tiny, 700 steps, 4 episodes) on {smi}: "
-        f"{seconds:.1f} s; map50_train {line.get('map50_train')} (bar > "
-        f"{MAP50_TRAIN_BAR}), mask_iou {line.get('mask_iou')} (bar > "
+def detector_selfcheck_check(run: dict, smi: str) -> dict:
+    """11d: `selfcheck_detector --steps 700 --episodes 4` at the tiny
+    preset (a run of phase 19's lanes): its JSON line and the bars
+    map50_train > MAP50_TRAIN_BAR, mask_iou > MASK_IOU_BAR with
+    mask_matched > MASK_MATCHED_BAR."""
+    line, counts = run["line"], run["launches"]
+    log(f"  11d detector self-check (tiny, 700 steps, 4 episodes) on {smi}: "
+        f"{run['seconds']:.1f} s; map50_train {line.get('map50_train')} "
+        f"(bar > {MAP50_TRAIN_BAR}), mask_iou {line.get('mask_iou')} (bar > "
         f"{MASK_IOU_BAR}) on {line.get('mask_matched')} matched (bar > "
         f"{MASK_MATCHED_BAR}), map50 unseen scenes {line.get('map50_before')}"
         f" -> {line.get('map50_after')}; launches "
         f"{({k: v for k, v in counts.items() if v})}")
-    if (rc != 0 or not line.get("map50_train", 0) > MAP50_TRAIN_BAR
+    if (not line.get("map50_train", 0) > MAP50_TRAIN_BAR
             or not line.get("mask_iou", 0) > MASK_IOU_BAR
             or not line.get("mask_matched", 0) > MASK_MATCHED_BAR):
         raise AssertionError(f"detector self-check failed: {line}")
-    return dict(line=line, counts=counts, seconds=seconds)
+    return dict(line=line, counts=counts, seconds=run["seconds"])
 
 
 def free_running_on_trained_weights(K, cap: dict, dev, smi: str) -> None:
@@ -4272,8 +4292,8 @@ def pseudolabel_full_width(store: str, tmp: str, dev, smi: str) -> dict:
     kernels' launches, then every consensus of CONSENSUS_REGISTRY through
     its labeler class on copies of those predictions (the semantic-map
     labelers' integrate and raytrace timed apart), the re-captioning of
-    the raytraced instances, and `run_pseudolabeler` as a subprocess on
-    SUBSET_ENVS envs of the store."""
+    the raytraced instances (`run_pseudolabeler` on SUBSET_ENVS envs of
+    the store runs in phase 19's lanes: `pseudolabel_cli_check`)."""
     from embodied_captioning_tpu_torch import kernels as K
     from embodied_captioning_tpu_torch.labeling.datasets import (
         EpisodeDetectionDataset)
@@ -4376,28 +4396,19 @@ def pseudolabel_full_width(store: str, tmp: str, dev, smi: str) -> dict:
                f"{row['recaption_s']:.2f} s" if "recaption_s" in row else ""))
         if not ok:
             raise AssertionError(f"consensus {name} failed: {row}")
-    sub = subset_store(store, tmp, SUBSET_ENVS)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "embodied_captioning_tpu_torch."
-         "run_pseudolabeler", sub, "--out", os.path.join(tmp, "pl_cli"),
-         "--preset", LABEL_PRESET, "--consensus", "semantic_map", "--device",
-         str(dev)],
-        cwd=str(REPO), capture_output=True, text=True, timeout=600)
-    cli_s = time.perf_counter() - t0
-    lines = proc.stdout.strip().splitlines()
-    log(f"  run_pseudolabeler (subprocess, {LABEL_PRESET} preset, "
-        f"{SUBSET_ENVS} envs of the store) in {cli_s:.1f} s, rc "
-        f"{proc.returncode}: "
-        + (lines[-1] if lines else proc.stderr[-2000:]))
-    line = json.loads(lines[-1]) if proc.returncode == 0 else {}
-    if proc.returncode != 0 or set(line) != {"frames", "instances", "files",
-                                             "out"} or line["files"] != \
-            line["frames"] or line["frames"] <= 0:
-        raise AssertionError(f"run_pseudolabeler failed: "
-                             f"{proc.stderr[-3000:]}")
     return dict(counts=counts, predict_s=predict_s, frames=len(preds),
-                rows=rows, cli=line, cli_s=cli_s, per=per, cfg=cfg)
+                rows=rows, per=per, cfg=cfg)
+
+
+def pseudolabel_cli_check(run: dict) -> None:
+    """12b's `run_pseudolabeler` on SUBSET_ENVS envs of the store (a run
+    of phase 19's lanes): its JSON line, a file for every frame."""
+    line = run["line"]
+    log(f"  12b run_pseudolabeler ({LABEL_PRESET} preset, {SUBSET_ENVS} envs "
+        f"of the store) in {run['seconds']:.1f} s: {line}")
+    if set(line) != {"frames", "instances", "files", "out"} or \
+            line["files"] != line["frames"] or line["frames"] <= 0:
+        raise AssertionError(f"run_pseudolabeler failed: {line}")
 
 
 def _one_batch(ds):
@@ -4585,25 +4596,23 @@ def tiny_store(path: str, dev) -> str:
     return path
 
 
-def selfcheck_detector_tta(dev, smi: str) -> dict:
-    """12e: `selfcheck_detector --tta` at the tiny preset on a short run
-    (TTA_STEPS steps, 2 episodes, phase 11d's seed 0): map50_after_tta
-    beside map50_after."""
-    from embodied_captioning_tpu_torch import selfcheck_detector as SD
+# 12e: `selfcheck_detector --tta` on a short run (phase 11d's seed 0)
+TTA_ARGS = ["--steps", str(TTA_STEPS), "--episodes", "2", "--tta"]
 
-    t0 = time.perf_counter()
-    rc, line = run_entry(SD.main, ["--steps", str(TTA_STEPS), "--episodes",
-                                   "2", "--tta", "--device", str(dev)])
-    dt = time.perf_counter() - t0
-    log(f"  selfcheck_detector --tta (tiny, {TTA_STEPS} steps, 2 episodes) "
-        f"on {smi}: {dt:.1f} s; map50_after {line.get('map50_after')}, "
-        f"map50_after_tta {line.get('map50_after_tta')}, "
-        f"map50_after_ema_tta {line.get('map50_after_ema_tta')}")
+
+def selfcheck_tta_check(run: dict, smi: str) -> None:
+    """12e: `selfcheck_detector --tta` at the tiny preset on a short run (a
+    run of phase 19's lanes): map50_after_tta beside map50_after."""
+    line = run["line"]
+    log(f"  12e selfcheck_detector --tta (tiny, {TTA_STEPS} steps, 2 "
+        f"episodes) on {smi}: {run['seconds']:.1f} s; map50_after "
+        f"{line.get('map50_after')}, map50_after_tta "
+        f"{line.get('map50_after_tta')}, map50_after_ema_tta "
+        f"{line.get('map50_after_ema_tta')}")
     tta = line.get("map50_after_tta")
-    if rc != 0 or not isinstance(tta, float) or not 0.0 <= tta <= 1.0 or \
+    if not isinstance(tta, float) or not 0.0 <= tta <= 1.0 or \
             "map50_after_ema_tta" not in line:
         raise AssertionError(f"selfcheck_detector --tta failed: {line}")
-    return line
 
 
 # ---------------------------------------------------------------------------
@@ -5190,13 +5199,10 @@ def serving_evals(dev, smi: str, tmp: str) -> dict:
     corpora rendered there and written to caches (EVAL_SCENES / EVAL_WIDE
     / EVAL_STRESS scenes of EVAL_EP_STEPS positions; the raycast kernel
     launched), then on the CPU from those caches: equal corpus shas, every
-    mAP within EVAL_MAP_ATOL; then `selfcheck_detector --eval-wide 2
-    --eval-serving --calibrate --affine-finetune SERVING_FT --tta` at the
-    tiny preset on the card: every key of those flags present, finite and
-    in [0, 1]."""
+    mAP within EVAL_MAP_ATOL (the self-check's serving flags run in phase
+    19's lanes: `serving_flags_check`)."""
     from embodied_captioning_tpu_torch import eval_artifact as EA
     from embodied_captioning_tpu_torch import kernels as K
-    from embodied_captioning_tpu_torch import selfcheck_detector as SD
 
     caches = [os.path.join(tmp, f"{n}.npz")
               for n in ("protocol", "wide", "stress")]
@@ -5237,25 +5243,33 @@ def serving_evals(dev, smi: str, tmp: str) -> dict:
                              f"{EVAL_MAP_ATOL}")
     log(f"  eval_artifact: corpora {card['corpora']}; mAP card vs CPU "
         f"within {worst:.4f} (limit {EVAL_MAP_ATOL})")
-    t0 = time.perf_counter()
-    rc, line = run_entry(SD.main, [
-        "--steps", str(SERVING_STEPS), "--episodes", "2", "--eval-wide", "2",
-        "--eval-serving", "--calibrate", "--affine-finetune",
-        str(SERVING_FT), "--tta", "--device", str(dev)])
-    dt_sc = time.perf_counter() - t0
-    keys = ("map50_wide", "map50_wide_tta", "map50_serving_exact",
-            "map50_serving_approx", "map50_gn_int8", "map50_affine",
-            "map50_affine_ft", "map50_served_int8", "map50_served_int8_tta")
-    bad = [k for k in keys if not isinstance(line.get(k), float)
+    return dict(counts=counts, card=card, cpu=cpu)
+
+
+# 14a: the self-check's serving flags at the tiny preset
+SERVING_ARGS = ["--steps", str(SERVING_STEPS), "--episodes", "2",
+                "--eval-wide", "2", "--eval-serving", "--calibrate",
+                "--affine-finetune", str(SERVING_FT), "--tta"]
+SERVING_KEYS = ("map50_wide", "map50_wide_tta", "map50_serving_exact",
+                "map50_serving_approx", "map50_gn_int8", "map50_affine",
+                "map50_affine_ft", "map50_served_int8",
+                "map50_served_int8_tta")
+
+
+def serving_flags_check(run: dict, smi: str) -> None:
+    """14a: `selfcheck_detector --eval-wide 2 --eval-serving --calibrate
+    --affine-finetune SERVING_FT --tta` at the tiny preset (a run of phase
+    19's lanes): every key of those flags present, finite and in [0, 1]."""
+    line = run["line"]
+    bad = [k for k in SERVING_KEYS if not isinstance(line.get(k), float)
            or not 0.0 <= line[k] <= 1.0]
-    if rc != 0 or bad or not isinstance(line.get("eval_wide_sha"), str):
+    if bad or not isinstance(line.get("eval_wide_sha"), str):
         raise AssertionError(f"selfcheck_detector serving flags: {bad} "
                              f"{line}")
-    log(f"  selfcheck_detector --eval-wide 2 --eval-serving --calibrate "
+    log(f"  14a selfcheck_detector --eval-wide 2 --eval-serving --calibrate "
         f"--affine-finetune {SERVING_FT} --tta (tiny, {SERVING_STEPS} "
-        f"steps) on {smi}: {dt_sc:.1f} s; "
-        + ", ".join(f"{k} {line[k]}" for k in keys))
-    return dict(counts=counts, card=card, cpu=cpu, line=line)
+        f"steps) on {smi}: {run['seconds']:.1f} s; "
+        + ", ".join(f"{k} {line[k]}" for k in SERVING_KEYS))
 
 
 def require_launches(what: str, counts: dict, need: tuple) -> None:
@@ -5663,7 +5677,7 @@ MOE_BF16_REL = 2e-2
 MOE_LEAVES = ("fc_w", "fc_b", "proj_w", "proj_b")
 MOE_TRAIN_BATCH = 8            # 15b: the fine-tune's batch
 MOE_TRAIN_STEPS = 2
-DDPPO_UPDATES = 2              # 15c: updates of the full-width trainers
+DDPPO_UPDATES = 1              # 15c: updates of the full-width trainers
 # 15d: vit_features_seqparallel and pipeline_vit_features against
 # vit_features at ViT-L (24 blocks on a bf16 stream): the JAX tests'
 # elementwise limits (test_seq_parallel 3e-2 + 3e-2 |x|,
@@ -6586,30 +6600,18 @@ def write_coca_checkpoint(tmp: str, dev) -> tuple:
     return ckpt, bpe
 
 
-def port_coca_subprocess(tmp: str, dev, smi: str) -> dict:
-    """17a: `python -m embodied_captioning_tpu_torch.port_checkpoint coca`
-    on the coca_ViT-L-14-shaped checkpoint, as a subprocess on the card:
-    the inferred configuration, the smoke caption, and the replica held
-    teacher-forced beside the port's captioner (`teacher_forced_corr` >
-    COCA_CORR). Returns the ported directory."""
-    t0 = time.perf_counter()
-    ckpt, bpe = write_coca_checkpoint(tmp, dev)
-    made = time.perf_counter() - t0
-    out_dir = os.path.join(tmp, "ported_coca")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "embodied_captioning_tpu_torch."
-         "port_checkpoint", "coca", "--checkpoint", ckpt, "--tokenizer",
-         bpe, "--out", out_dir, "--device", str(dev)],
-        cwd=str(REPO), capture_output=True, text=True, timeout=600)
-    secs = time.perf_counter() - t0
-    lines = proc.stdout.strip().splitlines()
-    line = json.loads(lines[-1]) if proc.returncode == 0 and lines else {}
+def port_coca_check(run: dict, coca: dict, smi: str) -> None:
+    """17a: `port_checkpoint coca` on the coca_ViT-L-14-shaped checkpoint
+    (a run of phase 19's lanes): the inferred configuration, the smoke
+    caption, and the replica held teacher-forced beside the port's
+    captioner (`teacher_forced_corr` > COCA_CORR)."""
+    line = run["line"]
     cfg, par = line.get("config", {}), line.get("parity", {})
-    log(f"  17a: a coca_ViT-L-14-shaped checkpoint ({os.path.getsize(ckpt) / 2**30:.2f} "
-        f"GiB, made and saved in {made:.1f} s) through port_checkpoint coca "
-        f"(subprocess) in {secs:.1f} s on {smi}, rc {proc.returncode}: "
-        f"config {cfg}; smoke caption {line.get('smoke_tokens')} tokens "
+    log(f"  17a: a coca_ViT-L-14-shaped checkpoint "
+        f"({os.path.getsize(coca['ckpt']) / 2**30:.2f} GiB, made and saved "
+        f"in {coca['made']:.1f} s) through port_checkpoint coca in "
+        f"{run['seconds']:.1f} s on {smi}: config {cfg}; smoke caption "
+        f"{line.get('smoke_tokens')} tokens "
         f"{line.get('smoke_caption', '')[:60]!r}; against the replica on the "
         f"card: teacher_forced_corr {par.get('teacher_forced_corr')} (bar "
         f"> {COCA_CORR}), argmax_agreement {par.get('argmax_agreement')}, "
@@ -6621,15 +6623,11 @@ def port_coca_subprocess(tmp: str, dev, smi: str) -> dict:
             "image_size": s["image"], "vocab": s["vocab"],
             "text_layers": s["t_layers"], "mm_blocks": 2 * s["mm_pairs"],
             "bos": s["vocab"] - 2, "eos": s["vocab"] - 1}
-    if (proc.returncode != 0 or cfg != want
-            or not par.get("teacher_forced_corr", 0) > COCA_CORR
+    if (cfg != want or not par.get("teacher_forced_corr", 0) > COCA_CORR
             or par.get("replica_missing") or par.get(
                 "checkpoint_unconsumed")):
-        raise AssertionError(f"17a: port_checkpoint coca failed: "
-                             f"{proc.stderr[-3000:]}")
-    os.remove(ckpt)
-    return dict(out_dir=out_dir, seconds=secs, corr=par[
-        "teacher_forced_corr"], agree=par["argmax_agreement"])
+        raise AssertionError(f"17a: port_checkpoint coca failed: {line}")
+    os.remove(coca["ckpt"])
 
 
 def eval_annotations(store: str, tmp: str) -> str:
@@ -6935,25 +6933,543 @@ def minilm_full_width(K, tmp: str, dev, smi: str) -> dict:
                 ln_err=ln_err, flash_err=flash_err)
 
 
-def phase17(K, store: str, dev, smi: str, tmp: str) -> dict:
-    """Phase 17 in order; returns each path's launch counts."""
+def phase17(K, dev, smi: str, tmp: str) -> dict:
+    """Phase 17's 17c, and 17a's checkpoint written for phase 19's lanes
+    (17b follows them: `phase17b`); returns 17c's launch counts and the
+    checkpoint's paths."""
     import gc
 
     t17 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    coca = port_coca_subprocess(tmp, dev, smi)
-    ev = evaluate_ported_full_width(K, store, coca["out_dir"], tmp, dev, smi)
+    t0 = time.perf_counter()
+    ckpt, bpe = write_coca_checkpoint(tmp, dev)
+    coca = dict(ckpt=ckpt, bpe=bpe, made=time.perf_counter() - t0,
+                out_dir=os.path.join(tmp, "ported_coca"))
     gc.collect()
     torch.cuda.empty_cache()
     mini = minilm_full_width(K, tmp, dev, smi)
-    counts = dict(coca=ev["counts"], minilm=mini["counts"])
-    log("  phase 17 launches by kernel (17b: evaluate_finetuned_model; 17c: "
-        "port_checkpoint sbert): "
-        + json.dumps({n: {k: c[n] for k, c in counts.items()}
-                      for n in ev["counts"]}))
-    log(f"  phase 17 in {time.perf_counter() - t17:.1f} s")
-    return dict(counts=counts)
+    log(f"  phase 17 (17c, 17a's checkpoint) in "
+        f"{time.perf_counter() - t17:.1f} s")
+    return dict(minilm=mini["counts"], coca=coca)
+
+
+def phase17b(K, store: str, ported: str, dev, smi: str, tmp: str) -> dict:
+    """17b on the directory 17a ported in phase 19's lanes; returns its
+    launch counts."""
+    t0 = time.perf_counter()
+    ev = evaluate_ported_full_width(K, store, ported, tmp, dev, smi)
+    log("  17b launches by kernel (evaluate_finetuned_model): "
+        + json.dumps(ev["counts"]))
+    log(f"  17b in {time.perf_counter() - t0:.1f} s")
+    return ev["counts"]
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the serving opt-ins, the render modes and the s2d stem
+# ---------------------------------------------------------------------------
+
+# (rows, in, out) of 18a: the decode step's q/k/v/o, its MLP and its
+# vocabulary head at the serving batch, and a ViT MLP product of a batch
+W8A8_SHAPES = ((ROWS, 768, 768), (ROWS, 768, 3072), (ROWS, 768, 49408),
+               (ROWS * 257, 1024, 4096))
+W8A8_CPU_ROWS = 512            # 18a: rows held against the CPU (row-wise)
+RENDER_MODES = ("onehot", "gather", "onehot16", "onehot+vr", "onehot+pk",
+                "gather+pk", "onehot16+pk", "onehot@160x48", "onehot@160x4")
+OVERFLOW_MODE = "onehot@160x4"  # 18e: K too small for a 160^2 tile
+INT8_OPS_PER_S = 1.979e15      # H100 SXM dense INT8 tensor-core peak
+
+
+def dense_w8a8_checks(dev, smi: str) -> dict:
+    """18a: `dense_w8a8` on the card against the CPU (the first
+    W8A8_CPU_ROWS rows: the activations' scales are per row and the int32
+    sums exact, so rows are independent), bit for bit, at W8A8_SHAPES;
+    each timed beside `common.dense` on the same int8 weights (bf16
+    dequant) and beside its bound."""
+    from embodied_captioning_tpu_torch.models.common import dense
+    from embodied_captioning_tpu_torch.models.quantize import (
+        QuantizedArray, dense_w8a8, quantize_array)
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    out = {}
+    for m, k, n in W8A8_SHAPES:
+        x = (torch.randn(m, k, generator=g, device=dev) * 2).bfloat16()
+        w = quantize_array(torch.randn(k, n, generator=g, device=dev) * 0.05)
+        p = {"w": w, "b": torch.zeros(n, device=dev)}
+        got = dense_w8a8(x, w)
+        r = min(m, W8A8_CPU_ROWS)
+        want = dense_w8a8(x[:r].cpu(), QuantizedArray(w.q.cpu(),
+                                                      w.scale.cpu()))
+        if not torch.equal(got[:r].cpu(), want):
+            raise AssertionError(f"18a: dense_w8a8 [{m}, {k}] x [{k}, {n}] "
+                                 f"card != CPU")
+        t8 = time_ms(lambda: dense_w8a8(x, w), iters=10)
+        td = time_ms(lambda: dense(p, x), iters=10)
+        d8 = device_us(lambda: dense_w8a8(x, w), iters=5)
+        dd = device_us(lambda: dense(p, x), iters=5)
+        bound = bound_ms(m * k * 2 + k * n + n * 4 + m * n * 4, 2 * m * k * n,
+                         INT8_OPS_PER_S)
+        log(f"  18a: dense_w8a8 [{m}, {k}] x [{k}, {n}] card = CPU bit for "
+            f"bit on {r} rows; {t8:.4f} ms ({d8:.1f} us device) against "
+            f"dense on the int8 weights {td:.4f} ms ({dd:.1f} us device); "
+            f"bound {bound[0] * 1e3:.2f} us ({bound[1]}) on {smi}")
+        out[f"{m}x{k}x{n}"] = dict(ms=t8, device_us=d8, dense_ms=td,
+                                   dense_device_us=dd, bound_ms=bound[0])
+    return out
+
+
+def w8a8_counts_ok(counts: dict, ccfg) -> int:
+    """The launches of one `perceive(w8a8=True)` batch: the ViT's flash and
+    the preprocess, the standalone decode attentions a sublayer a step,
+    none of the fused decode kernels (rows 5-7), no backward. Returns the
+    decode steps."""
+    n_self, n_cross = decoder_sublayers(ccfg)
+    steps = counts["decode_self_attention"] // n_self
+    expect = {"flash_attention": ccfg.vision.layers, "fused_preprocess": 1,
+              "decode_self_attention": n_self * steps,
+              "decode_cross_attention": n_cross * steps,
+              "decode_mlp": 0, "decode_self_block": 0,
+              "decode_cross_block": 0, "raycast_minargmin": 0,
+              "layernorm_bwd": 0}
+    got = {k: v for k, v in counts.items() if k != "layernorm"}
+    if got != expect or steps < 1 or counts["layernorm"] < steps:
+        raise AssertionError(f"18b: w8a8 launches {counts} != {expect}")
+    return steps
+
+
+def serving_optins(K, frames, dev, smi: str) -> dict:
+    """18b-d: `perceive` on the serving tree and phase 3's frames with the
+    default opt-ins, with `w8a8=True` and with `int8_kv=False`, in turns
+    (default, w8a8, bf16 K/V, then back): launches, ms a batch, device
+    time; each route's decode held teacher-forced against the plain twins
+    on the same route; the w8a8 detections against the default route's;
+    the serving tree's `quantization_ratio`."""
+    from embodied_captioning_tpu_torch.models.quantize import (
+        quantization_ratio)
+    from embodied_captioning_tpu_torch.perception import perceive
+
+    cfg, params, _ = serving_perception(dev)
+    ratio = quantization_ratio(params)
+    log(f"  18d: quantization_ratio of the serving tree {ratio:.6f} (int8 "
+        f"bytes over all, a float leaf counted 4 bytes an element)")
+    modes = (("default", {}), ("w8a8", dict(w8a8=True)),
+             ("bf16_kv", dict(int8_kv=False)))
+    for _, kw in modes:
+        perceive(params, frames, cfg, **kw)  # warm-up
+    torch.cuda.synchronize()
+    ms = {n: [] for n, _ in modes}
+    counts, outs = {}, {}
+    for name, kw in modes + modes[::-1]:
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = perceive(params, frames, cfg, **kw)
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3)
+        counts[name] = dict(K.launches)
+    steps = w8a8_counts_ok(counts["w8a8"], cfg.captioner)
+    n_self = decoder_sublayers(cfg.captioner)[0]
+    check_decode_counts(counts["bf16_kv"],
+                        counts["bf16_kv"]["decode_mlp"] // n_self, 1, True,
+                        cfg.captioner)
+    dev_us = {n: profile_run(
+        f"18b-c: one perceive batch, {n}",
+        lambda kw=kw: perceive(params, frames, cfg, **kw),
+        sum(ms[n]) / len(ms[n]) * 1e3, top=8) for n, kw in modes}
+    for name, _ in modes:
+        log(f"  18b-c: perceive {name}: {ms[name][0]:.1f} and "
+            f"{ms[name][1]:.1f} ms a batch of {FRAMES} frames, device "
+            f"{dev_us[name] / 1e3:.2f} ms; launches {counts[name]}")
+    da, db = outs["default"].detections, outs["w8a8"].detections
+    same_n = int((da.valid.sum(1) == db.valid.sum(1)).sum())
+    both = da.valid & db.valid
+    box = ((da.boxes.float() - db.boxes.float()).abs().amax(-1)[both]
+           .max().item() if bool(both.any()) else 0.0)
+    cls = (da.classes == db.classes)[both].float().mean().item()
+    log(f"  18b: w8a8 detections against the default route: valid counts "
+        f"equal on {same_n} of {FRAMES} frames, {int(both.sum())} slots "
+        f"valid in both: classes equal on {cls:.4f}, boxes max diff "
+        f"{box:.3f} px ({steps} decode steps)")
+    crops = center_crops(frames, cfg.captioner.vision.image_size)
+    forced = {}
+    for name, kw in modes[1:]:
+        f = teacher_forced(params.captioner, crops, cfg.captioner, K, **kw)
+        forced[name] = f
+        w8 = name == "w8a8"
+        ulps = MAX_LOGPROB_ULPS_W8A8 if w8 else MAX_LOGPROB_ULPS
+        mean = MAX_MEAN_ULPS_W8A8 if w8 else math.inf
+        cos = MIN_IMG_COSINE_W8A8 if w8 else MIN_IMG_COSINE
+        log(f"  18b-c: {name} teacher-forced against the twins on its route: "
+            f"argmax agrees on {f['agree']:.4f} of {f['n']} steps (limit "
+            f"{MIN_ARGMAX_AGREE}), chosen log-prob {f['lp_ulps']:.3f} bf16 "
+            f"ulps max (limit {ulps}), {f['mean_ulps']:.3f} mean (limit "
+            f"{mean}), ViT embedding cosine min {f['img_cos']:.7f} (limit "
+            f"{cos})")
+        if (f["agree"] < MIN_ARGMAX_AGREE or f["lp_ulps"] > ulps
+                or f["mean_ulps"] > mean or f["img_cos"] <= cos):
+            raise AssertionError(f"18b-c: {name} kernel path and twins "
+                                 f"disagree")
+    return dict(counts=counts, ms=ms, device_us=dev_us, ratio=ratio,
+                forced=forced)
+
+
+def render_modes_full_width(K, dev, smi: str) -> dict:
+    """18e: every render mode at 16 envs x 1280^2 x 96 boxes (the serving
+    scenes, seeds 100..): each mode's outputs against "onehot"'s (equal
+    bits for every mode with no overflowing tile), the culled modes'
+    overflow counts, ms a `render_batch_chunked` call a mode."""
+    from embodied_captioning_tpu_torch.config import ExperimentConfig
+    from embodied_captioning_tpu_torch.envs import device_loop as DL
+    from embodied_captioning_tpu_torch.envs import sim as S
+    from embodied_captioning_tpu_torch.ops.geometry import (
+        intrinsics_from_hfov)
+
+    cfg = ExperimentConfig.preset_config("large")
+    sims = [S.RaycastSim(cfg.sim, cfg.sensors, seed=100 + i, device=dev)
+            for i in range(FRAMES)]
+    scenes, state = DL.states_from_sims(sims)
+    poses = DL.camera_poses(state)
+    s = cfg.sensors
+    ref = None
+    out, launches = {}, collections.Counter()
+    for mode in RENDER_MODES:
+        def call(mode=mode):
+            return S.render_batch_chunked(scenes, poses, s.height, s.width,
+                                          s.hfov_deg, s.max_depth,
+                                          attr_mode=mode)
+        K.reset_launches()
+        got = call()
+        launches.update(K.launches)
+        torch.cuda.synchronize()
+        ms = time_ms(call, iters=2, warmup=0)
+        row = dict(ms=ms)
+        if ref is None:
+            ref = got
+        diff = sum(int((got[k] != ref[k]).reshape(FRAMES, s.height, s.width,
+                                                 -1).any(-1).sum())
+                   for k in ("depth", "instances", "classes"))
+        row["pixels_off"] = diff
+        base, tile, k = S._split_mode(mode)
+        if tile:
+            fx, fy, xc, yc = intrinsics_from_hfov(s.height, s.width,
+                                                  s.hfov_deg)
+            _, _, over = S._tile_candidates(
+                scenes, poses[:, :3, 3].float(), poses[:, :3, :3].float(),
+                fx, fy, xc, yc, s.height, s.width, tile, min(k, cfg.sim.max_boxes))
+            row["overflow"] = int(over.max())
+        equal = all(torch.equal(got[k], ref[k]) for k in ref)
+        log(f"  18e: render {mode}: {ms:.2f} ms for {FRAMES} x "
+            f"{s.height}^2 x {cfg.sim.max_boxes} boxes on {smi}; "
+            + ("equal to onehot bit for bit" if equal else
+               f"{diff} pixels of depth/instances/classes off onehot")
+            + (f", overflow {row['overflow']}" if tile else ""))
+        if mode == OVERFLOW_MODE:
+            if row["overflow"] <= 0 or equal:
+                raise AssertionError(f"18e: {mode} did not overflow")
+        elif not equal or row.get("overflow", 0):
+            raise AssertionError(f"18e: {mode} differs from onehot")
+        out[mode] = row
+    return dict(rows=out, counts=dict(launches))
+
+
+def stem_s2d_served(frames, dev, smi: str) -> None:
+    """18f: the served detector (the committed artifact, its int8 stem)
+    with `stem_s2d` against the direct stem on phase 3's 16 frames, and
+    the same with the stem's weights in float32 (as the s2d scatter
+    dequantizes them): the stem outputs and the detections."""
+    import dataclasses
+
+    from embodied_captioning_tpu_torch.config import ExperimentConfig, merge
+    from embodied_captioning_tpu_torch.models import detector as DET
+    from embodied_captioning_tpu_torch.models.quantize import QuantizedArray
+    from embodied_captioning_tpu_torch.ops.image import resize_bilinear
+    from embodied_captioning_tpu_torch.params import load_detector_artifact
+
+    params, det_cfg = load_detector_artifact(
+        str(REPO / "embodied_captioning_tpu/models/data/det_serving_256.pkl"),
+        dev)
+    dcfg = merge(ExperimentConfig.preset_config("large"),
+                 {"detector": det_cfg}).detector
+    size = dcfg.image_size
+    imgs = torch.clamp(resize_bilinear(frames.float(), size, size), 0, 255
+                       ).to(torch.uint8)
+    w = params["stem"]["w"]
+    wf = (w.q.float() * w.scale.float()[:, None, None, None]
+          if isinstance(w, QuantizedArray) else w.float())
+    for what, p in (("int8 stem", params),
+                    ("float32 stem", dict(params, stem=dict(
+                        params["stem"], w=wf)))):
+        x = imgs.float() / 255.0
+        a = DET.conv(p["stem"], x, 2)
+        b = DET._stem_s2d(p["stem"], x)
+        off = (a != b).float().mean().item()
+        da = DET.forward(p, imgs, dcfg, with_masks=False)
+        db = DET.forward(p, imgs, dataclasses.replace(dcfg, stem_s2d=True),
+                         with_masks=False)
+        frames_eq = int(((da.boxes == db.boxes).all(-1).all(-1)
+                         & (da.valid == db.valid).all(-1)).sum())
+        log(f"  18f: {what} ({'int8' if isinstance(p['stem']['w'], QuantizedArray) else 'float32'} "
+            f"leaf): s2d stem outputs off the direct stem's on {off:.3e} of "
+            f"them; boxes and valid flags equal on {frames_eq} of "
+            f"{imgs.shape[0]} frames on {smi}")
+        if what == "float32 stem" and frames_eq != imgs.shape[0]:
+            raise AssertionError("18f: the s2d stem moved the detections")
+
+
+def phase18(K, frames, dev, smi: str) -> dict:
+    """Phase 18 in order; returns the launch counts of its main paths."""
+    t18 = time.perf_counter()
+    dense_w8a8_checks(dev, smi)
+    opt = serving_optins(K, frames, dev, smi)
+    torch.cuda.empty_cache()
+    ren = render_modes_full_width(K, dev, smi)
+    torch.cuda.empty_cache()
+    stem_s2d_served(frames, dev, smi)
+    log(f"  phase 18 in {time.perf_counter() - t18:.1f} s")
+    return dict(w8a8=opt["counts"]["w8a8"], bf16_kv=opt["counts"]["bf16_kv"],
+                render=ren["counts"])
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the entry points held by their output alone, in lanes
+# ---------------------------------------------------------------------------
+
+# each loop's JSON keys, the JAX script's (scripts/selfcheck_*.py)
+LOOP_KEYS = {
+    "selfcheck_loop": {"preset", "loop_steps", "seconds", "loop_fps",
+                       "reward_mean_first_half", "reward_mean_second_half",
+                       "captioned_detections", "mapped_objects_per_env",
+                       "disagreement_rewards", "example_caption"},
+    "selfcheck_rl": {"eval_steps", "preset", "arms", "summary",
+                     "best_ppo_arm", "ppo_beats_random",
+                     "ppo_beats_frontier"},
+    "selfcheck_cycle": {"preset", "seeds", "triplet_weight", "explore_envs",
+                        "mean_consistency_delta", "mean_gt_cosine_delta",
+                        "all_positive", "coherent_and_accurate", "per_seed"},
+    "selfcheck_teacher_student": {
+        "teacher_map50", "eval_sha", "pool_frames", "teacher_detections",
+        "steps", "scenes", "generations", "student_vanilla_map50",
+        "student_soft_map50", "student_semantic_map_map50"},
+}
+CYCLE_SEED_KEYS = {"seed", "objects", "views", "consistency_before",
+                   "consistency_after", "consistency_delta",
+                   "gt_class_accuracy_before", "gt_class_accuracy_after",
+                   "gt_cosine_before", "gt_cosine_after", "example_pseudo",
+                   "example_before", "example_after"}
+RL_ROW_KEYS = {"disagreement_reward", "area_ratio_mean", "mapped_objects"}
+MAY_BE_NONE = {"example_caption", "example_pseudo"}
+# each loop's cut command (the JAX scripts' defaults: 400 detector and 300
+# captioner steps, 24 loop steps, 10 PPO updates of 8 decisions, 120 eval
+# steps, 48 explore and 200 fine-tune steps, 128 pool scenes and 12,000
+# student steps). The disagreement reward is the spread of each mapped
+# object's caption embeddings over its views: a trained captioner gives
+# every view of an object one caption on most envs, so `selfcheck_loop`
+# runs 8 envs. On the CPU at 150 / 60 steps and 24 loop steps, the JAX
+# script gave 6 envs of 8 a non-zero reward and the port 5; at the
+# defaults (400 / 300, 2 envs) both gave none.
+LOOP_ARGS = {
+    "selfcheck_loop": ["--det-steps", "150", "--cap-steps", "60",
+                       "--loop-steps", "24", "runtime.num_envs=8"],
+    "selfcheck_rl": ["--det-steps", "100", "--cap-steps", "40", "--seeds",
+                     "0", "--ppo-updates", "1", "--decisions-per-update",
+                     "2", "--eval-steps", "10"],
+    "selfcheck_cycle": ["--det-steps", "150", "--cap-steps", "60",
+                        "--seeds", "0", "--finetune-steps", "10",
+                        "--explore-steps", "32"],
+}
+# the teacher-student loop's pool, steps and the teacher's score threshold
+# (the JAX script's: 128 scenes, 12,000 steps, 0.5), and its teacher's
+# training (`selfcheck_detector --save`): a short teacher keeps few boxes
+# above 0.2, too few for the semantic-map consensus to label any; at 0 it
+# keeps every slot NMS keeps
+TS_SCENES = 4
+TS_STEPS = 30
+TS_THRESHOLD = 0.0
+TS_TEACHER_STEPS = 150
+# threads of each lane's process (8 host cores shared by the lanes)
+LANE_THREADS = "2"
+# a lane's command: the entry point's main(argv) with the kernel wrappers'
+# launch counts of the run printed after its own output
+COUNTED = (
+    "import importlib, json, sys\n"
+    "from embodied_captioning_tpu_torch import kernels as K\n"
+    "mod = importlib.import_module('embodied_captioning_tpu_torch.' "
+    "+ sys.argv[1])\n"
+    "K.reset_launches()\n"
+    "rc = mod.main(sys.argv[2:])\n"
+    "sys.stdout.flush()\n"
+    "print(json.dumps({'launches': dict(K.launches)}))\n"
+    "sys.exit(rc or 0)\n")
+
+
+def finite_json(x, key: str = "") -> bool:
+    """Every number in a JSON value finite; None only under MAY_BE_NONE."""
+    if x is None:
+        return key in MAY_BE_NONE
+    if isinstance(x, bool) or isinstance(x, str):
+        return True
+    if isinstance(x, (int, float)):
+        return math.isfinite(x)
+    if isinstance(x, dict):
+        return all(finite_json(v, k) for k, v in x.items())
+    return all(finite_json(v, key) for v in x)
+
+
+def run_counted(module: str, argv: list, timeout: int = 600) -> dict:
+    """`embodied_captioning_tpu_torch.<module>`'s main(argv) as a
+    subprocess on the card (COUNTED): rc, its last line as JSON (None where
+    it printed none), the launches, seconds, its output and errors."""
+    env = dict(os.environ, OMP_NUM_THREADS=LANE_THREADS)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-c", COUNTED, module]
+                              + argv, cwd=str(REPO), capture_output=True,
+                              text=True, timeout=timeout, env=env)
+        rc, out, err = proc.returncode, proc.stdout, proc.stderr
+    except subprocess.TimeoutExpired as exc:
+        rc, out, err = "timeout", str(exc.stdout or ""), str(exc.stderr
+                                                              or "")
+    lines = out.strip().splitlines()
+    launches, line = {}, None
+    if lines and lines[-1].startswith('{"launches"'):
+        launches = json.loads(lines.pop())["launches"]
+    if lines:
+        try:
+            line = json.loads(lines[-1])
+        except json.JSONDecodeError:
+            pass
+    return dict(rc=rc, line=line, launches=launches, lines=lines,
+                stderr=err, seconds=time.perf_counter() - t0)
+
+
+def run_lanes(lanes: dict) -> dict:
+    """Each lane, a list of (key, module, argv) run in turn (a lane stops
+    at its first failure), in a thread of its own, the lanes side by side:
+    {key: run_counted's result}, each run's output logged after all ended."""
+    import threading
+
+    runs: dict = {}
+
+    def lane(steps):
+        for key, module, argv in steps:
+            runs[key] = run_counted(module, argv)
+            if runs[key]["rc"] != 0:
+                break
+
+    threads = [threading.Thread(target=lane, args=(steps,))
+               for steps in lanes.values()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for steps in lanes.values():
+        for key, module, _ in steps:
+            if key not in runs:
+                continue
+            r = runs[key]
+            for line in r["lines"][:-1]:
+                log("    | " + line[:300])
+            log(f"  19 {key}: {module} in {r['seconds']:.1f} s, rc "
+                f"{r['rc']}: "
+                + (json.dumps(r["line"])[:1500] if r["line"] is not None
+                   else r["stderr"][-3000:]))
+    return runs
+
+
+def require_run(runs: dict, key: str) -> dict:
+    """The run `key` of the lanes, which must have ended with rc 0 and a
+    JSON line."""
+    r = runs.get(key)
+    if r is None:
+        raise AssertionError(f"19: {key} did not run (its lane stopped)")
+    if r["rc"] != 0 or r["line"] is None:
+        raise AssertionError(f"19: {key} failed (rc {r['rc']}): "
+                             f"{r['stderr'][-3000:]}")
+    return r
+
+
+def check_loops(runs: dict) -> None:
+    """Each loop's JSON line has the JAX script's keys and finite values;
+    `selfcheck_loop`'s disagreement rewards are not all zero."""
+    lines = {name: require_run(runs, name)["line"] for name in LOOP_KEYS}
+    for name, line in lines.items():
+        if set(line) != LOOP_KEYS[name] or not finite_json(line):
+            raise AssertionError(f"19: {name}'s JSON line: keys "
+                                 f"{sorted(set(line) ^ LOOP_KEYS[name])} "
+                                 f"differ or a value is not finite")
+    for row in lines["selfcheck_cycle"]["per_seed"]:
+        if set(row) != CYCLE_SEED_KEYS:
+            raise AssertionError(f"19: selfcheck_cycle seed line {row}")
+    for rows in lines["selfcheck_rl"]["arms"].values():
+        if any(not RL_ROW_KEYS <= set(r) for r in rows):
+            raise AssertionError("19: selfcheck_rl arm rows")
+    if not any(r > 0 for r in lines["selfcheck_loop"]["disagreement_rewards"]):
+        raise AssertionError("19: selfcheck_loop's disagreement rewards are "
+                             "all zero")
+
+
+def lane_commands(tmp: str, store: str, coca: dict) -> dict:
+    """Phase 19's lanes: {lane: [(key, module, argv), ...]}, their files
+    under `tmp`: 11d's detector self-check, the teacher-student loop after
+    its teacher's training, 12b's `run_pseudolabeler`, 12e's and 14a's
+    self-checks, 10c's `finetune_captioner`, 17a's `port_checkpoint coca`
+    (on `coca`'s checkpoint), and the other three loops."""
+    teacher = os.path.join(tmp, "teacher.pkl")
+    lanes = {
+        "11d": [("11d", "selfcheck_detector", DET_SELFCHECK_ARGS)],
+        "teacher_student": [
+            ("teacher", "selfcheck_detector", [
+                "--steps", str(TS_TEACHER_STEPS), "--episodes", "2",
+                "--save", teacher]),
+            ("selfcheck_teacher_student", "selfcheck_teacher_student", [
+                "--teacher", teacher, "--scenes", str(TS_SCENES), "--steps",
+                str(TS_STEPS), "--batch", "4", "--teacher-threshold",
+                str(TS_THRESHOLD), "--eval-cache",
+                os.path.join(tmp, "eval_corpus.npz")])],
+        "12b": [("12b", "run_pseudolabeler", [
+            subset_store(store, tmp, SUBSET_ENVS), "--out",
+            os.path.join(tmp, "pl_cli"), "--preset", LABEL_PRESET,
+            "--consensus", "semantic_map"])],
+        "12e_14a": [("12e", "selfcheck_detector", TTA_ARGS),
+                    ("14a", "selfcheck_detector", SERVING_ARGS)],
+        "10c": [("10c", "finetune_captioner", [
+            subset_store(store, tmp, FT_STORE_ENVS), "--preset", "large",
+            "--save", os.path.join(tmp, FT_PICKLE), "--pseudo-captions",
+            str(REPO / "pseudo_captions.json")])],
+        "17a": [("17a", "port_checkpoint", [
+            "coca", "--checkpoint", coca["ckpt"], "--tokenizer",
+            coca["bpe"], "--out", coca["out_dir"]])],
+    }
+    for name, argv in LOOP_ARGS.items():
+        extra = (["--workdir", os.path.join(tmp, "cycle")]
+                 if name == "selfcheck_cycle" else [])
+        lanes[name] = [(name, name, ["--preset", "tiny"] + argv + extra)]
+    return lanes
+
+
+def phase19(tmp: str, store: str, coca: dict, shapes: list,
+            smi: str) -> dict:
+    """The entry points that are held by their output and read for no
+    time, as subprocesses on the card (COUNTED) in lanes side by side
+    after every timed phase (`lane_commands`; 17b follows the lanes), each
+    run held as its phase held it, and the four loops' JSON lines
+    (`check_loops`). Returns 11d's run."""
+    t19 = time.perf_counter()
+    lanes = lane_commands(tmp, store, coca)
+    runs = run_lanes(lanes)
+    secs = time.perf_counter() - t19
+    det = detector_selfcheck_check(require_run(runs, "11d"), smi)
+    pseudolabel_cli_check(require_run(runs, "12b"))
+    selfcheck_tta_check(require_run(runs, "12e"), smi)
+    serving_flags_check(require_run(runs, "14a"), smi)
+    finetune_entry_check(require_run(runs, "10c"),
+                         os.path.join(tmp, FT_PICKLE), shapes)
+    port_coca_check(require_run(runs, "17a"), coca, smi)
+    require_run(runs, "teacher")
+    check_loops(runs)
+    log(f"  phase 19: {len(lanes)} lanes in {secs:.1f} s on {smi} (each "
+        f"run's seconds are under the load of the others)")
+    return dict(det=det)
 
 
 def card_name() -> str:
@@ -7085,7 +7601,6 @@ def main() -> int:
             stage("[10] the captioner fine-tune (finetune_captioner)")
             finetune_card_vs_cpu(dev)
             ft = finetune_full_width(dev, smi)
-            finetune_entry_point(store, ft["shapes"])
             stage("[11] the learning self-checks (selfcheck_training, "
                 "selfcheck_detector)")
             detector_card_vs_cpu(dev, smi)
@@ -7093,7 +7608,6 @@ def main() -> int:
                 detector_step_full_width(dev, smi, preset)
             with tempfile.TemporaryDirectory(prefix="ecap_selfcheck_") as tmp:
                 cap = captioner_selfcheck(dev, smi, tmp)
-                det = detector_selfcheck(smi)
                 free_running_on_trained_weights(K, cap, dev, smi)
             cap.pop("state")
             torch.cuda.empty_cache()
@@ -7108,7 +7622,6 @@ def main() -> int:
                 del lab["per"]
                 torch.cuda.empty_cache()
                 train_detector_full_width(store, tmp, dev, smi)
-            selfcheck_detector_tta(dev, smi)
             log(f"  phase 12 in {time.perf_counter() - t12:.1f} s")
             torch.cuda.empty_cache()
             stage("[13] the query (Mask2Former-class) detector family "
@@ -7122,9 +7635,8 @@ def main() -> int:
                 query_labeling(dev, smi, tmp)
             log(f"  phase 13 in {time.perf_counter() - t13:.1f} s")
             torch.cuda.empty_cache()
-            stage("[14] the detector's serving evaluations (eval_artifact, "
-                "selfcheck_detector --eval-wide --eval-serving "
-                "--affine-finetune), BLIP-2, Florence and the consensus LM")
+            stage("[14] the detector's serving evaluations (eval_artifact), "
+                "BLIP-2, Florence and the consensus LM")
             with tempfile.TemporaryDirectory(prefix="ecap_vlm_") as tmp:
                 p14 = phase14(K, frames13, rows, dev, smi, tmp)
             torch.cuda.empty_cache()
@@ -7140,10 +7652,27 @@ def main() -> int:
             with tempfile.TemporaryDirectory(prefix="ecap_tp_") as tmp:
                 p16 = phase16(K, frames13, store, dev, smi, tmp)["counts"]
             torch.cuda.empty_cache()
-            stage("[17] the real-checkpoint path (port_checkpoint coca and "
-                "sbert, evaluate_finetuned_model --ported-dir)")
-            with tempfile.TemporaryDirectory(prefix="ecap_port_") as tmp:
-                p17 = phase17(K, store, dev, smi, tmp)["counts"]
+            # phase 19's lanes and 17b work in `lanes` (17a's checkpoint
+            # and ported directory, the fine-tune's pickle, the stores)
+            with tempfile.TemporaryDirectory(prefix="ecap_lanes_") as lanes:
+                stage("[17] the real-checkpoint path (port_checkpoint sbert; "
+                      "port_checkpoint coca's checkpoint)")
+                p17 = phase17(K, dev, smi, lanes)
+                torch.cuda.empty_cache()
+                stage("[18] the serving opt-ins (dense_w8a8, perceive with "
+                      "w8a8 and with bf16 K/V, quantization_ratio), every "
+                      "render mode, the s2d stem")
+                p18 = phase18(K, frames13, dev, smi)
+                torch.cuda.empty_cache()
+                stage("[19] the entry points held by their output, in lanes "
+                      "side by side: 10c, 11d, 12b, 12e, 14a, 17a and the "
+                      "four learning loops")
+                det = phase19(lanes, store, p17["coca"], ft["shapes"],
+                              smi)["det"]
+                stage("[17b] evaluate_finetuned_model --ported-dir on 17a's "
+                      "directory")
+                p17["coca"] = phase17b(K, store, p17["coca"]["out_dir"], dev,
+                                       smi, lanes)
     except Exception:
         traceback.print_exc()
         return 1
@@ -7157,7 +7686,8 @@ def main() -> int:
     # launches_train: over phase 9's two timed train calls (unfused, then
     # fused); launches_finetune: over phase 10's FT_STEPS timed large-preset
     # train steps with remat off; launches_learning: over phase 11's two
-    # self-checks at the tiny preset (11c and 11d), collection, training
+    # self-checks at the tiny preset (11c in process, 11d in phase 19's
+    # lanes), collection, training
     # and evaluation; launches_labeling: over phase 12b's timed `predict`
     # (LABEL_FRAMES frames of phase 8's store); launches_query: over phase
     # 13b's timed perceive batch with the query detector (large preset);
@@ -7171,7 +7701,10 @@ def main() -> int:
     # 16b's timed TP forward and train step on rank 0; launches_replay:
     # over 16c's replay_exp --perceive; launches_coca: over 17b's
     # evaluate_finetuned_model on the ported CoCa; launches_minilm: over
-    # 17c's port_checkpoint sbert
+    # 17c's port_checkpoint sbert; launches_w8a8: over 18b's timed
+    # perceive(w8a8=True) batch; launches_bf16_kv: over 18b's timed
+    # perceive(int8_kv=False) batch; launches_render: over 18e's first
+    # render of each mode
     kernels = []
     for n, r in rows.items():
         if loop["counts"][n] > 0:
@@ -7187,7 +7720,7 @@ def main() -> int:
             launches_train=(train["unfused"]["counts"][n]
                             + train["fused"]["counts"][n]),
             launches_finetune=ft["plain"]["counts"][n],
-            launches_learning=cap["counts"][n] + det["counts"][n],
+            launches_learning=cap["counts"][n] + det["counts"].get(n, 0),
             launches_labeling=lab["counts"][n],
             launches_query=qry["counts"][n],
             launches_eval=p14["eval"][n], launches_blip2=p14["blip2"][n],
@@ -7198,6 +7731,8 @@ def main() -> int:
             launches_parallel=p15["parallel"][n],
             launches_tp=p16["tp"][n], launches_replay=p16["replay"][n],
             launches_coca=p17["coca"][n], launches_minilm=p17["minilm"][n],
+            launches_w8a8=p18["w8a8"][n], launches_bf16_kv=p18["bf16_kv"][n],
+            launches_render=p18["render"].get(n, 0),
             **r))
     if any(k["launches"] <= 0 for k in kernels):
         print(f"chip_smoke: a kernel was never launched: {kernels}",

@@ -82,11 +82,17 @@ class BaseTrainer:
     on `device`."""
 
     def __init__(self, cfg: ExperimentConfig, perceiver: Optional[Perceiver]
-                 = None, with_perception: bool = True, device="cuda"):
+                 = None, with_perception: bool = True, device="cuda",
+                 w8a8: bool = False, int8_kv: bool = True,
+                 render_mode: Optional[str] = None):
+        """`w8a8` and `int8_kv` go to the perceiver made here (a handed
+        `perceiver` keeps its own), `render_mode` to the envs' renders."""
         self.cfg = cfg
-        self.envs = VectorEnv(cfg, device=device, env_ids=self._env_ids())
+        self.envs = VectorEnv(cfg, device=device, env_ids=self._env_ids(),
+                              render_mode=render_mode)
         self.perceiver = perceiver or (
-            Perceiver(cfg, seed=cfg.runtime.seed, device=device)
+            Perceiver(cfg, seed=cfg.runtime.seed, device=device, w8a8=w8a8,
+                      int8_kv=int8_kv)
             if with_perception else None)
         self.id_alloc = IdAllocator()
         self.follower = SubGoalFollower(cfg.sim.turn_angle_deg)
@@ -264,7 +270,8 @@ class BaseTrainer:
                 "episode end mid-window: choose window | episode_steps")
         state1, maps1, _, collided = rollout_fused(
             self.perceiver.params, scenes, state0, maps0,
-            torch.from_numpy(plan), self.cfg)
+            torch.from_numpy(plan), self.cfg, w8a8=self.perceiver.w8a8,
+            int8_kv=self.perceiver.int8_kv)
         xs, zs, yaws = (t.cpu().numpy() for t in (state1.x, state1.z,
                                                    state1.yaw))
         last_hit = collided[-1].cpu().numpy()

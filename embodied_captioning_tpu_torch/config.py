@@ -4,8 +4,8 @@ tree, field for field, with the same presets, YAML overlays and
 alike and `to_dict` of the two trees is equal.
 
 A few fields select paths the port does not have; the modules that would
-read them refuse other values (the detector's `stem_s2d`) or say what they
-do instead where the field is declared. The detector `family` selects the
+read them say what they do instead where the field is declared. The
+detector `family` selects the
 rcnn stack or the query (Mask2Former-class) set predictor, as in the JAX
 package.
 """
@@ -165,7 +165,7 @@ class DetectorConfig:
     # approximate proposal top-k on the TPU; the port's top-k is exact, as
     # the JAX package's is off the TPU
     approx_topk: bool = False
-    stem_s2d: bool = False  # the port has the direct stem only
+    stem_s2d: bool = False  # the stem as space-to-depth(2) + a 2x2 conv
     dtype: str = "bfloat16"
     family: str = "rcnn"  # rcnn | query
     # query family: object queries, masked-attention decoder layers, the

@@ -126,7 +126,8 @@ def _render_scan(scenes: Scene, poses: torch.Tensor, cfg: ExperimentConfig
 @torch.no_grad()
 def rollout_perception(params: PerceptionParams, scenes: Scene,
                        state: LoopState, actions: torch.Tensor,
-                       cfg: ExperimentConfig):
+                       cfg: ExperimentConfig, w8a8: bool = False,
+                       int8_kv: bool = True):
     """K loop steps: step agents -> render -> perceive.
 
     Args:
@@ -139,7 +140,7 @@ def rollout_perception(params: PerceptionParams, scenes: Scene,
     for acts in actions:
         state = step_agents(scenes, state, acts, cfg.sim)
         rgb = _render_scan(scenes, camera_poses(state), cfg)["rgb"]
-        r = perceive(params, rgb, cfg)
+        r = perceive(params, rgb, cfg, w8a8=w8a8, int8_kv=int8_kv)
         d = r.detections
         checksum = (checksum + d.boxes.float().sum() + d.scores.sum()
                     + r.caption_tokens.sum() + d.embeddings.sum())
@@ -151,7 +152,8 @@ def rollout_perception(params: PerceptionParams, scenes: Scene,
 def rollout_fused(params: PerceptionParams, scenes: Scene, state: LoopState,
                   map_states: V.VoxelMapState, actions: torch.Tensor,
                   cfg: ExperimentConfig,
-                  timings: Optional[Dict[str, float]] = None):
+                  timings: Optional[Dict[str, float]] = None,
+                  w8a8: bool = False, int8_kv: bool = True):
     """K full loop steps: step -> render -> perceive -> voxel-fuse ->
     disagreement reward, with the per-env voxel maps ([E]-batched
     VoxelMapState) carried through and updated in place.
@@ -161,7 +163,8 @@ def rollout_fused(params: PerceptionParams, scenes: Scene, state: LoopState,
 
     With `timings` (a dict), the device is synchronised after each part
     of a step and the seconds are added under "step_render", "perceive"
-    and "fuse_reward"; without it nothing synchronises.
+    and "fuse_reward"; without it nothing synchronises. `w8a8` and
+    `int8_kv` go to `perceive`.
 
     Returns (state', map_states', rewards [K, E], collided [K, E]). The
     reward is the post-fusion disagreement sum times `ppo.reward_scale`
@@ -186,7 +189,8 @@ def rollout_fused(params: PerceptionParams, scenes: Scene, state: LoopState,
         obs = _render_scan(scenes, poses, cfg)
         rgb, depth = obs["rgb"], obs["depth"]
         lap("step_render")
-        det = perceive(params, rgb, cfg).detections
+        det = perceive(params, rgb, cfg, w8a8=w8a8,
+                       int8_kv=int8_kv).detections
         lap("perceive")
         mh, mw = det.masks.shape[-2:]
         if depth.shape[-1] != mw:  # the detector's paste raster

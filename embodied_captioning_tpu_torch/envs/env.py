@@ -42,8 +42,10 @@ class EmbodiedEnv:
     `device`."""
 
     def __init__(self, cfg: ExperimentConfig, env_id: int = 0,
-                 seed: Optional[int] = None, device="cuda"):
+                 seed: Optional[int] = None, device="cuda",
+                 render_mode: str = "onehot"):
         self.cfg = cfg
+        self.render_mode = render_mode
         self.env_id = env_id
         self.device = torch.device(device)
         self._seed = (seed if seed is not None
@@ -64,7 +66,8 @@ class EmbodiedEnv:
         self.step_count = 0
         self.sim = RaycastSim(self.cfg.sim, self.cfg.sensors,
                               seed=self._seed + self.episode_id,
-                              device=self.device)
+                              device=self.device,
+                              render_mode=self.render_mode)
         lower, _ = self.sim.bounds()
         self.map_state = V.create(self.cfg.map, lower,
                                   episode=self.episode_id, device=self.device)

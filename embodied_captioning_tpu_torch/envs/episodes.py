@@ -87,7 +87,7 @@ def apply_episode(env, spec: EpisodeSpec) -> None:
     env.episode_id = spec.episode_id
     env.step_count = 0
     env.sim = RaycastSim(env.cfg.sim, env.cfg.sensors, seed=spec.scene_seed,
-                         device=env.device)
+                         device=env.device, render_mode=env.render_mode)
     x, z = spec.start_position
     if not env.sim._blocked(x, z):
         env.sim.agent.x, env.sim.agent.z = x, z

@@ -6,7 +6,10 @@ Rendering is exact (no marching): slab-test every ray against every box,
 take the nearest hit, shade lambertian with a hash-noise texture. The
 visibility pass (nearest hit and its box index per ray) is the raycast
 kernel on the card and its plain version on the CPU; everything after it
-is the same tensor code on both.
+is the same tensor code on both. Every render mode of the JAX package is
+accepted (`render_batch`); the tile-culled one ("onehot@TxK") slab-tests
+each tile's candidate boxes in plain tensor ops, as the JAX package
+computes it outside any kernel.
 
 Geometry: +Y up, agent yaw about +Y, the camera looks down -Z (see
 ops/geometry.py). Scene generation is host-side numpy with
@@ -16,6 +19,7 @@ package.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -299,6 +303,149 @@ def ray_directions(poses: torch.Tensor, height: int, width: int,
     return origin, dirs, inv
 
 
+def _parse_cull(attr_mode: str):
+    """"onehot@160x48" -> ("onehot", 160, 48); no "@" -> (mode, 0, 0)."""
+    if "@" not in attr_mode:
+        return attr_mode, 0, 0
+    mode, spec = attr_mode.split("@", 1)
+    t, k = spec.split("x")
+    return mode, int(t), int(k)
+
+
+def resolve_attr_mode(mode: Optional[str], height: int, width: int) -> str:
+    """The render mode of a `height` x `width` sensor asked for `mode`
+    (the JAX package reads it from ECAP_RENDER_MODE): None is "onehot",
+    and a culled mode whose tile does not divide the image falls back to
+    its base."""
+    if mode is None:
+        return "onehot"
+    base, tile, _ = _parse_cull(mode)
+    if tile and (height % tile or width % tile):
+        return base
+    return mode
+
+
+_BASE_MODES = ("gather", "onehot", "onehot16")
+
+
+def _split_mode(attr_mode: str) -> Tuple[str, int, int]:
+    """(base mode, tile, K) of a render mode; tile 0 for the full slab
+    test. The "+vr" and "+pk" suffixes name the JAX package's two other
+    spellings of the visibility pass (a variadic (min, argmin) reduce and
+    its Pallas raycast kernel), which give the same bits as its
+    `argmin` / `min`: here every one of them is the raycast kernel."""
+    base, tile, k = _parse_cull(attr_mode)
+    if tile:
+        if base != "onehot":
+            raise ValueError("culling supports the onehot base mode only")
+        return base, tile, k
+    if base.endswith(("+vr", "+pk")):
+        base = base[:-3]
+    if base not in _BASE_MODES:
+        raise ValueError(f"unknown attr_mode {attr_mode!r}")
+    return base, 0, 0
+
+
+def _tile_candidates(scenes: Scene, origin: torch.Tensor, R: torch.Tensor,
+                     fx: float, fy: float, xc: float, yc: float,
+                     height: int, width: int, tile: int, k: int):
+    """Conservative per-tile candidate boxes for the culled render, per
+    env (the JAX package's `_tile_candidates` with a leading env axis).
+
+    Each AABB's 8 corners are projected to the screen; a box whose corners
+    all lie strictly in front of the camera gets the bbox of their
+    projections, padded by a pixel (a pixel whose ray hits the box lies
+    inside it); a box with a corner at or behind the camera plane is a
+    candidate for every tile. The corner rotation and the projection are
+    spelled as XLA's CPU compiler computes them (`rotate`, `fma`; ROADMAP
+    C.10), so the candidate sets are the JAX package's.
+
+    Returns (cand [E, T, K] int64: ascending box indices, padded with the
+    last box; cand_valid [E, T, K] bool; overflow [E] int64: the most
+    candidates a tile of the env dropped beyond K). overflow 0 makes the
+    culled render the full one, bit for bit."""
+    nb = scenes.box_min.shape[-2]
+    dev = scenes.box_min.device
+    th, tw = height // tile, width // tile
+    bit = torch.arange(3, device=dev)
+    sel = ((torch.arange(8, device=dev)[:, None] >> bit[None]) & 1) == 1
+    corners = torch.where(sel[None, None], scenes.box_max[:, :, None, :],
+                          scenes.box_min[:, :, None, :])      # [E, B, 8, 3]
+    # (corners - origin) @ R as XLA's dot sums it: rotate(v, R^T)
+    q = rotate(corners - origin[:, None, None, :], R.transpose(-1, -2))
+    z = q[..., 2]
+    front = (z < -1e-6).all(dim=-1)                           # [E, B]
+    zsafe = torch.clamp(z, max=-1e-6)
+    fxt, fyt, xct, yct = (torch.tensor(v, dtype=torch.float32, device=dev)
+                          for v in (fx, fy, xc, yc))
+    sx = fma(q[..., 0] / -zsafe, fxt, xct)
+    sy = fma(q[..., 1] / -zsafe, -fyt, yct)
+    pad = 1.0  # float32 projection rounding guard (px)
+    inf = torch.tensor(math.inf, device=dev)
+    bxmin = torch.where(front, sx.amin(-1) - pad, -inf)
+    bxmax = torch.where(front, sx.amax(-1) + pad, inf)
+    bymin = torch.where(front, sy.amin(-1) - pad, -inf)
+    bymax = torch.where(front, sy.amax(-1) + pad, inf)
+    tx0 = (torch.arange(tw, device=dev) * tile).float()[None, :, None]
+    ty0 = (torch.arange(th, device=dev) * tile).float()[None, :, None]
+    ox = (bxmax[:, None] >= tx0) & (bxmin[:, None] <= tx0 + tile - 1)
+    oy = (bymax[:, None] >= ty0) & (bymin[:, None] <= ty0 + tile - 1)
+    overlap = (oy[:, :, None, :] & ox[:, None, :, :]
+               & scenes.valid[:, None, None, :]).reshape(-1, th * tw, nb)
+    ids = torch.arange(nb, device=dev)
+    cand = torch.sort(torch.where(overlap, ids, nb), dim=-1).values[..., :k]
+    count = overlap.sum(dim=-1).amax(dim=-1)
+    overflow = torch.clamp(count - k, min=0)
+    return torch.clamp(cand, max=nb - 1), cand < nb, overflow
+
+
+def _culled_visibility(scenes: Scene, table: torch.Tensor,
+                       origin: torch.Tensor, R: torch.Tensor,
+                       inv: torch.Tensor, height: int, width: int,
+                       hfov_deg: float, tile: int, k: int):
+    """The culled visibility pass and attribute selection: each tile's
+    rays slab-tested against its K candidates only (batched over envs and
+    tiles), the nearest hit's attributes taken from the candidates' rows
+    of `table` [E, Bx, 11]. Returns (t_best [E, H, W], attrs [E, H, W,
+    11])."""
+    if height % tile or width % tile:
+        raise ValueError("image size must be divisible by the tile")
+    e, nb = table.shape[:2]
+    k = min(k, nb)
+    fx, fy, xc, yc = intrinsics_from_hfov(height, width, hfov_deg)
+    cand, cand_valid, _ = _tile_candidates(scenes, origin, R, fx, fy, xc,
+                                           yc, height, width, tile, k)
+    nth, ntw = height // tile, width // tile
+    rows = torch.arange(e, device=table.device)[:, None, None]
+    tab = table[rows, cand]                                 # [E, T, K, 11]
+    o = origin[:, None, None, :]
+    a_min = (scenes.box_min[rows, cand] - o)[:, :, None, None]
+    a_max = (scenes.box_max[rows, cand] - o)[:, :, None, None]
+    inv_t = inv.reshape(e, nth, tile, ntw, tile, 3).permute(
+        0, 1, 3, 2, 4, 5).reshape(e, nth * ntw, tile, tile, 1, 3)
+    t0, t1 = a_min * inv_t, a_max * inv_t         # [E, T, t, t, K, 3]
+    t_near = torch.minimum(t0, t1).amax(dim=-1)
+    t_far = torch.maximum(t0, t1).amin(dim=-1)
+    del t0, t1
+    hit = ((t_near <= t_far) & (t_far > 1e-4)
+           & cand_valid[:, :, None, None, :])
+    t_hit = torch.where(hit, torch.clamp(t_near, min=1e-4), torch.inf)
+    t_b = t_hit.amin(dim=-1)                                # [E, T, t, t]
+    # the first lowest candidate (all-miss: 0), as jnp.argmin
+    best = torch.where(t_hit == t_b[..., None],
+                       torch.arange(k, device=table.device), k).amin(-1)
+    best = torch.clamp(best, max=k - 1)
+    attrs = torch.gather(tab, 2, best.reshape(e, nth * ntw, -1, 1).expand(
+        -1, -1, -1, 11)).reshape(e, nth * ntw, tile, tile, 11)
+
+    def from_tiles(x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[4:]
+        x = x.reshape(e, nth, ntw, tile, tile, *c).transpose(2, 3)
+        return x.reshape(e, height, width, *c)
+
+    return from_tiles(t_b), from_tiles(attrs)
+
+
 @torch.no_grad()
 def render_batch(scenes: Scene, poses: torch.Tensor, height: int, width: int,
                  hfov_deg: float, max_depth: float = 15.0,
@@ -308,24 +455,44 @@ def render_batch(scenes: Scene, poses: torch.Tensor, height: int, width: int,
     Args:
       scenes: batched Scene ([E, ...] on every field).
       poses: [E, 4, 4] T_world_cam (the camera looks down -Z).
-      attr_mode: how the winning box's attributes reach each pixel.
-        "onehot" contracts a {0,1} [H*W, Bx] matrix with the [Bx, 11]
-        attribute table (exactly one non-zero float32 term per pixel, so
-        it equals "gather" bit for bit); "gather" indexes the table.
+      attr_mode: how the winning box's attributes reach each pixel, any
+        mode of the JAX package's `render`. "onehot" contracts a {0,1}
+        [H*W, Bx] matrix with the [Bx, 11] attribute table (exactly one
+        non-zero float32 term per pixel, so it equals "gather" bit for
+        bit); "onehot16" builds that matrix in bf16 (0 and 1 are exact)
+        and widens it before the product; "gather" indexes the table. A
+        "+vr" or "+pk" suffix names another spelling of the visibility
+        pass in the JAX package; here every mode's visibility is the
+        raycast kernel. "onehot@TxK" tests each TxT tile's rays against
+        its K candidate boxes only (`_tile_candidates`): the same bits
+        unless a tile has more than K candidates, where the K lowest
+        indices are kept, as in the JAX package.
 
     Returns dict: rgb [E, H, W, 3] uint8, depth [E, H, W] f32 meters
     (planar depth along the camera's -Z), instances [E, H, W] i32
     per-pixel instance id (-1 none), classes [E, H, W] i32 (-1 none).
     """
-    if attr_mode not in ("onehot", "gather"):
-        raise ValueError(f"unknown attr_mode {attr_mode!r}")
+    base, tile, cull_k = _split_mode(attr_mode)
     dev = poses.device
     origin, dirs, inv = ray_directions(poses, height, width, hfov_deg)
-    # visibility: nearest hit and its box per ray; the [H, W, Bx]
-    # hit-distance tensor exists only in the plain version
-    o = origin[:, None, :]
-    t_best, best = raycast_minargmin(scenes.box_min - o, scenes.box_max - o,
-                                     scenes.valid, inv)
+    table = None
+    if base != "gather":
+        table = torch.cat(
+            [scenes.box_min, scenes.box_max, scenes.albedo,
+             scenes.class_id[..., None].float(),
+             scenes.instance_id[..., None].float()], dim=-1)   # [E, Bx, 11]
+    attrs = None
+    if tile:
+        t_best, attrs = _culled_visibility(
+            scenes, table, origin, poses[:, :3, :3].float(), inv, height,
+            width, hfov_deg, tile, cull_k)
+    else:
+        # visibility: nearest hit and its box per ray; the [H, W, Bx]
+        # hit-distance tensor exists only in the plain version
+        o = origin[:, None, :]
+        t_best, best = raycast_minargmin(scenes.box_min - o,
+                                         scenes.box_max - o,
+                                         scenes.valid, inv)
     valid = torch.isfinite(t_best)
 
     # planar depth: dirs_cam has z = -1, so the distance along -Z is t
@@ -336,24 +503,23 @@ def render_batch(scenes: Scene, poses: torch.Tensor, height: int, width: int,
     # `origin + dirs * t` the same way, and floor(p_hit * 7) below is
     # sensitive to the last bit
     p_hit = fma(dirs, t_best[..., None], origin[:, None, None, :])
-    best = best.long()
-    if attr_mode == "onehot":
-        table = torch.cat(
-            [scenes.box_min, scenes.box_max, scenes.albedo,
-             scenes.class_id[..., None].float(),
-             scenes.instance_id[..., None].float()], dim=-1)   # [E, Bx, 11]
+    if attrs is None and base != "gather":
+        best = best.long()
         nb = table.shape[1]
         attrs = torch.empty(*best.shape, 11, device=dev)
         # one env at a time bounds the {0,1} matrix to H*W*Bx floats
         for i in range(best.shape[0]):
-            oh = (best[i].reshape(-1, 1)
-                  == torch.arange(nb, device=dev)).float()
+            oh = best[i].reshape(-1, 1) == torch.arange(nb, device=dev)
+            oh = (oh.to(torch.bfloat16).float() if base == "onehot16"
+                  else oh.float())
             attrs[i] = torch.matmul(oh, table[i]).reshape(height, width, 11)
+    if attrs is not None:
         bmin, bmax = attrs[..., 0:3], attrs[..., 3:6]
         albedo_px = attrs[..., 6:9]
         class_px = torch.round(attrs[..., 9]).to(torch.int32)
         inst_px = torch.round(attrs[..., 10]).to(torch.int32)
     else:
+        best = best.long()
         bmin = _gather_boxes(scenes.box_min, best)
         bmax = _gather_boxes(scenes.box_max, best)
         albedo_px = _gather_boxes(scenes.albedo, best)
@@ -387,10 +553,17 @@ def render_batch(scenes: Scene, poses: torch.Tensor, height: int, width: int,
 # (float32 rays, reciprocals and hit points with their float64
 # temporaries, the [H, W, 11] attribute table, shading temporaries), and
 # the {0,1} [H*W, Bx] product it builds for one env at a time (bool and
-# float32): what `render_batch_chunked` budgets for (16 envs at 1280^2
-# and 96 boxes take about 2/3 of this on an H100, chip_smoke.py phase 8)
+# float32, or bf16 then float32): what `render_batch_chunked` budgets for
+# (16 envs at 1280^2 and 96 boxes take about 2/3 of this on an H100,
+# chip_smoke.py phase 8). The culled mode holds, for every env of the
+# call at once, [tiles, tile^2, K] slab tests: two float32 [.., 3] hit
+# distances and their min / max temporaries, the near and far distances,
+# the hit masks and distances and the argmin's temporaries, per ray and
+# candidate
 RENDER_BYTES_PER_RAY = 256
 ONEHOT_BYTES_PER_RAY_BOX = 5
+ONEHOT16_BYTES_PER_RAY_BOX = 7
+CULL_BYTES_PER_RAY_CAND = 80
 
 
 def render_batch_chunked(scenes: Scene, poses: torch.Tensor, height: int,
@@ -401,12 +574,20 @@ def render_batch_chunked(scenes: Scene, poses: torch.Tensor, height: int,
     """`render_batch` in chunks of envs that bound device memory: the
     chunk is the largest divisor of the batch whose intermediates
     (RENDER_BYTES_PER_RAY per ray and env, plus one env's one-hot
-    product) fit `budget_bytes`, so every chunk has one shape."""
+    product, or each env's culled slab tests) fit `budget_bytes`, so
+    every chunk has one shape."""
+    base, tile, cull_k = _split_mode(attr_mode)
     n = poses.shape[0]
     rays = height * width
-    fixed = (rays * scenes.box_min.shape[-2] * ONEHOT_BYTES_PER_RAY_BOX
-             if attr_mode == "onehot" else 0)
-    cap = max(1, (budget_bytes - fixed) // (rays * RENDER_BYTES_PER_RAY))
+    nb = scenes.box_min.shape[-2]
+    per_ray = RENDER_BYTES_PER_RAY
+    fixed = 0
+    if tile:
+        per_ray += min(cull_k, nb) * CULL_BYTES_PER_RAY_CAND
+    elif base != "gather":
+        fixed = rays * nb * (ONEHOT16_BYTES_PER_RAY_BOX if base == "onehot16"
+                             else ONEHOT_BYTES_PER_RAY_BOX)
+    cap = max(1, (budget_bytes - fixed) // (rays * per_ray))
     if cap >= n:
         return render_batch(scenes, poses, height, width, hfov_deg,
                             max_depth, attr_mode)
@@ -484,12 +665,16 @@ class AgentState:
 
 class RaycastSim:
     """Host wrapper around one procedural scene: motion, collision,
-    traversability grid. The scene's tensors live on `device`."""
+    traversability grid. The scene's tensors live on `device`;
+    `render_mode` is the render mode of its observations, as
+    `resolve_attr_mode` gives it."""
 
     def __init__(self, sim_cfg: SimConfig, sensor_cfg: SensorConfig,
-                 seed: Optional[int] = None, device="cuda"):
+                 seed: Optional[int] = None, device="cuda",
+                 render_mode: str = "onehot"):
         self.cfg = sim_cfg
         self.sensors = sensor_cfg
+        self.render_mode = render_mode
         self.scene = generate_scene(sim_cfg, seed, device)
         self._scene_np = Scene(*(x.cpu().numpy() for x in self.scene))
         self.agent = self._spawn(np.random.default_rng(
@@ -552,7 +737,7 @@ class RaycastSim:
             self.scene.box_min.device)
         return render(self.scene, pose, self.sensors.height,
                       self.sensors.width, self.sensors.hfov_deg,
-                      self.sensors.max_depth)
+                      self.sensors.max_depth, self.render_mode)
 
     def gt_detections(self, obs: Dict[str, torch.Tensor],
                       max_instances: int = 16) -> Detections:

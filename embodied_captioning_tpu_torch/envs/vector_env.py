@@ -31,7 +31,9 @@ import torch
 
 from ..config import ExperimentConfig
 from .env import EmbodiedEnv
-from .sim import RaycastSim, Scene, render_batch_chunked
+from .sim import (
+    RaycastSim, Scene, render_batch_chunked, resolve_attr_mode,
+)
 
 
 def _tensors(obj) -> List[torch.Tensor]:
@@ -48,9 +50,12 @@ def _tensors(obj) -> List[torch.Tensor]:
 class VectorEnv:
     def __init__(self, cfg: ExperimentConfig,
                  num_envs: Optional[int] = None, device="cuda",
-                 env_ids: Optional[Sequence[int]] = None):
+                 env_ids: Optional[Sequence[int]] = None,
+                 render_mode: Optional[str] = None):
         """`num_envs` envs (`runtime.num_envs` by default) with ids 0.., or
-        the envs `env_ids` (an env's id seeds its scenes and episodes)."""
+        the envs `env_ids` (an env's id seeds its scenes and episodes).
+        `render_mode` is the mode asked for the renders, resolved once
+        here (`sim.resolve_attr_mode`) for every env."""
         from .registry import make_env
 
         self.cfg = cfg
@@ -58,8 +63,11 @@ class VectorEnv:
         if env_ids is None:
             env_ids = range(num_envs or cfg.runtime.num_envs)
         n = len(env_ids)
+        self.render_mode = resolve_attr_mode(
+            render_mode, cfg.sensors.height, cfg.sensors.width)
         self.envs: List[EmbodiedEnv] = [
-            make_env(cfg.runtime.env_name, cfg, env_id=i, device=self.device)
+            make_env(cfg.runtime.env_name, cfg, env_id=i, device=self.device,
+                     render_mode=self.render_mode)
             for i in env_ids]
         # one worker: env stepping is serialized with itself (envs are
         # stateful), but overlaps with the caller's readbacks and writes
@@ -182,7 +190,8 @@ class VectorEnv:
             poses = torch.stack([e.camera_pose() for e in self.envs])
             s = self.cfg.sensors
             out = render_batch_chunked(scenes, poses, s.height, s.width,
-                                       s.hfov_deg, s.max_depth)
+                                       s.hfov_deg, s.max_depth,
+                                       attr_mode=self.render_mode)
             rewards = np.asarray([r for r, _, _ in rdi], np.float32)
             dones = np.asarray([d for _, d, _ in rdi], bool)
             infos = [i for _, _, i in rdi]

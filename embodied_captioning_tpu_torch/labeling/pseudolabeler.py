@@ -373,7 +373,9 @@ class SemanticMapConsensusCaptioner(SemanticMapConsensusLabeler):
         eb = expand_boxes(torch.from_numpy(padded).to(dev), 0.2, h, w)
         crops = crop_and_resize(torch.as_tensor(image, device=dev).float(),
                                 eb, cfg.vision.image_size).to(torch.uint8)
-        toks, _, _ = generate(self.perceiver.params.captioner, crops, cfg)
+        toks, _, _ = generate(self.perceiver.params.captioner, crops, cfg,
+                              w8a8=self.perceiver.w8a8,
+                              int8_kv=self.perceiver.int8_kv)
         return [self.perceiver.tokenizer.decode(t)
                 for t in toks.cpu().numpy()[:k]]
 

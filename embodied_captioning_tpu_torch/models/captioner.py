@@ -12,7 +12,11 @@ the route the JAX package's `train_step` differentiates.
 Per decode step every self-attention and cross-attention sublayer runs as
 one block kernel and every MLP as the fused decode-MLP kernel; with
 `decode_blocks=False` the attention sublayers run as LayerNorm,
-projections and the decode self-/cross-attention kernels instead.
+projections and the decode self-/cross-attention kernels instead. Every
+`generate*` takes the serving opt-ins `w8a8` (int8 activations into
+every product with an int8 weight; the route of separate calls) and
+`int8_kv` (int8 cross-attention K/V of int8 projections), as
+`common.block` and `common.precompute_kv` read them.
 
 Tensor parallelism: `forward` takes the mesh, whose "model" axis the
 leaves `parallel.mesh.shard_params` cut are cut over (Megatron column /
@@ -249,7 +253,8 @@ def caption_loss(params: dict, images_u8: torch.Tensor, tokens: torch.Tensor,
 # KV-cached generation
 # ---------------------------------------------------------------------------
 
-def _cross_kvs(params: dict, pooled: torch.Tensor, heads: int):
+def _cross_kvs(params: dict, pooled: torch.Tensor, heads: int,
+               w8a8: bool = False, int8_kv: bool = True):
     """Cross-attention K/V of every multimodal block, computed once per
     generation (None for a block without cross-attention; `ln_kv` is
     applied first where present)."""
@@ -259,23 +264,23 @@ def _cross_kvs(params: dict, pooled: torch.Tensor, heads: int):
             out.append(None)
             continue
         src = layernorm(blk["ln_kv"], pooled) if "ln_kv" in blk else pooled
-        out.append(precompute_kv(blk["xattn"], src, heads))
+        out.append(precompute_kv(blk["xattn"], src, heads, w8a8, int8_kv))
     return out
 
 
 def _decode_step(params: dict, tok: torch.Tensor, pos: int, cross_kvs,
                  text_caches, mm_caches, cfg: CaptionerConfig,
-                 decode_blocks: bool = True):
+                 decode_blocks: bool = True, w8a8: bool = False):
     """One cached step: tok [B] -> (logits [B, V] bf16, caches)."""
     logits, tc, mc = _run_tokens(params, tok[:, None], pos, cross_kvs,
                                  text_caches, mm_caches, cfg,
-                                 cfg.text.cross_layers, decode_blocks)
+                                 cfg.text.cross_layers, decode_blocks, w8a8)
     return logits[:, 0], tc, mc
 
 
 def _run_tokens(params: dict, tokens: torch.Tensor, pos: int, cross_kvs,
                 text_caches, mm_caches, cfg: CaptionerConfig,
-                mm_layers: int, decode_blocks: bool):
+                mm_layers: int, decode_blocks: bool, w8a8: bool = False):
     """Cached pass of tokens [B, W] at positions pos .. pos + W - 1 through
     the text tower and the first `mm_layers` multimodal blocks (the others
     are skipped and their caches returned as they came):
@@ -286,7 +291,7 @@ def _run_tokens(params: dict, tokens: torch.Tensor, pos: int, cross_kvs,
     new_tc = []
     for blk, c in zip(params["text_blocks"], text_caches):
         x, c = block(blk, x, cfg.text.heads, cache=c,
-                     decode_blocks=decode_blocks)
+                     decode_blocks=decode_blocks, w8a8=w8a8)
         new_tc.append(c)
     x = layernorm(params["ln_text"], x)
     new_mc = []
@@ -294,10 +299,10 @@ def _run_tokens(params: dict, tokens: torch.Tensor, pos: int, cross_kvs,
                                           cross_kvs)):
         if i < mm_layers:
             x, c = block(blk, x, cfg.text.heads, cache=c, cross_kv=ckv,
-                         decode_blocks=decode_blocks)
+                         decode_blocks=decode_blocks, w8a8=w8a8)
         new_mc.append(c)
     x = layernorm(params["ln_mm"], x)
-    return dense(params["head"], x), new_tc, new_mc
+    return dense(params["head"], x, w8a8=w8a8), new_tc, new_mc
 
 
 def _filter_logits(logits: torch.Tensor, top_k: int, top_p: float,
@@ -347,7 +352,8 @@ def generate(params: dict, images_u8: torch.Tensor, cfg: CaptionerConfig,
              top_k: int = 0, top_p: float = 0.0, temperature: float = 0.0,
              full_logits: bool = False,
              generator: Optional[torch.Generator] = None,
-             decode_blocks: bool = True,
+             decode_blocks: bool = True, w8a8: bool = False,
+             int8_kv: bool = True,
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """KV-cached captioning of uint8 crops [B, H, W, 3]: greedy at
     temperature 0, else top-k / top-p / temperature sampling with
@@ -364,9 +370,10 @@ def generate(params: dict, images_u8: torch.Tensor, cfg: CaptionerConfig,
     b = images_u8.shape[0]
     t = cfg.text
     dev = images_u8.device
-    pooled, _ = encode_image(params["vision"], images_u8, cfg.vision)
+    pooled, _ = encode_image(params["vision"], images_u8, cfg.vision,
+                             w8a8=w8a8)
     tc, mc = _new_caches(cfg, b, max_len, dev)
-    cross_kvs = _cross_kvs(params, pooled, t.heads)
+    cross_kvs = _cross_kvs(params, pooled, t.heads, w8a8, int8_kv)
 
     tokens = torch.full((b, max_len), t.pad_id, dtype=torch.int32, device=dev)
     tokens[:, 0] = t.bos_id
@@ -382,7 +389,7 @@ def generate(params: dict, images_u8: torch.Tensor, cfg: CaptionerConfig,
     pos = 0
     while pos < max_len - 1 and (full_logits or not bool(finished.all())):
         logits, tc, mc = _decode_step(params, tok, pos, cross_kvs, tc, mc,
-                                      cfg, decode_blocks)
+                                      cfg, decode_blocks, w8a8)
         nxt = _sample(logits, generator, top_k, top_p, temperature)
         was_finished = finished
         nxt = torch.where(finished, t.pad_id, nxt)
@@ -404,7 +411,8 @@ def generate(params: dict, images_u8: torch.Tensor, cfg: CaptionerConfig,
 def generate_speculative(params: dict, images_u8: torch.Tensor,
                          cfg: CaptionerConfig, max_len: Optional[int] = None,
                          draft_len: int = 4, draft_layers: int = 1,
-                         decode_blocks: bool = True
+                         decode_blocks: bool = True, w8a8: bool = False,
+                         int8_kv: bool = True
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Self-speculative greedy decoding: the text tower plus the first
     `draft_layers` multimodal blocks propose `draft_len` tokens one at a
@@ -423,9 +431,10 @@ def generate_speculative(params: dict, images_u8: torch.Tensor,
     t = cfg.text
     w = draft_len
     dev = images_u8.device
-    pooled, _ = encode_image(params["vision"], images_u8, cfg.vision)
+    pooled, _ = encode_image(params["vision"], images_u8, cfg.vision,
+                             w8a8=w8a8)
     tc, mc = _new_caches(cfg, b, max_len + w + 1, dev)
-    cross_kvs = _cross_kvs(params, pooled, t.heads)
+    cross_kvs = _cross_kvs(params, pooled, t.heads, w8a8, int8_kv)
 
     def rewind(caches, index):
         return [KVCache(c.k, c.v, index) for c in caches]
@@ -443,14 +452,14 @@ def generate_speculative(params: dict, images_u8: torch.Tensor,
         for i in range(w):
             logits, dtc, _ = _run_tokens(params, tok[:, None], pos + i,
                                          cross_kvs, dtc, mc, cfg,
-                                         draft_layers, decode_blocks)
+                                         draft_layers, decode_blocks, w8a8)
             tok = torch.argmax(logits[:, 0].float(), dim=-1)
             drafts.append(tok)
         drafts = torch.stack(drafts, dim=1)                       # [B, W]
         # verify [cur, d0 .. d_{w-2}]: column j predicts position pos+1+j
         blk = torch.cat([cur[:, None], drafts[:, :-1]], dim=1)
         logits, tc, mc = _run_tokens(params, blk, pos, cross_kvs, tc, mc,
-                                     cfg, t.cross_layers, decode_blocks)
+                                     cfg, t.cross_layers, decode_blocks, w8a8)
         full_next = torch.argmax(logits.float(), dim=-1)          # [B, W]
         match = (full_next == drafts) | finished[:, None]
         acc_row = torch.cumprod(match.int(), dim=1).sum(dim=1)
@@ -482,7 +491,8 @@ def generate_speculative(params: dict, images_u8: torch.Tensor,
 def generate_beam(params: dict, images_u8: torch.Tensor,
                   cfg: CaptionerConfig, max_len: Optional[int] = None,
                   num_beams: int = 4, length_penalty: float = 1.0,
-                  decode_blocks: bool = True
+                  decode_blocks: bool = True, w8a8: bool = False,
+                  int8_kv: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam-search captioning. The batch is expanded B -> B * num_beams and
     the KV caches are re-gathered along it after each beam reshuffle;
@@ -494,11 +504,12 @@ def generate_beam(params: dict, images_u8: torch.Tensor,
     b = images_u8.shape[0]
     t = cfg.text
     dev = images_u8.device
-    pooled, _ = encode_image(params["vision"], images_u8, cfg.vision)
+    pooled, _ = encode_image(params["vision"], images_u8, cfg.vision,
+                             w8a8=w8a8)
     pooled = pooled.repeat_interleave(w, dim=0)
     bw = b * w
     tc, mc = _new_caches(cfg, bw, max_len, dev)
-    cross_kvs = _cross_kvs(params, pooled, t.heads)
+    cross_kvs = _cross_kvs(params, pooled, t.heads, w8a8, int8_kv)
 
     neg = -1e9
     # beam 0 live, the others dead at the start (identical prefixes)
@@ -516,7 +527,7 @@ def generate_beam(params: dict, images_u8: torch.Tensor,
     pos = 0
     while pos < max_len - 1 and not bool(finished.all()):
         logits, tc, mc = _decode_step(params, tok, pos, cross_kvs, tc, mc,
-                                      cfg, decode_blocks)
+                                      cfg, decode_blocks, w8a8)
         logp = torch.log_softmax(logits.float(), dim=-1)
         logp = torch.where(finished[:, None], pad_only, logp)
         cand = (scores[:, None] + logp).reshape(b, w * v)

@@ -8,6 +8,17 @@ plain dicts of tensors in the JAX package's layouts.
 
 Every LayerNorm runs through the LayerNorm kernel (`layernorm`).
 
+W8A8 serving (`w8a8=True`, an argument of `dense`, `mha`, `mlp`,
+`block` and `precompute_kv`, the JAX package's `ECAP_W8A8`): every
+product with an int8 weight quantizes its activations per token and runs
+int8 x int8 -> int32 (`quantize.dense_w8a8`); float weights multiply as
+before. The fused decode-block and decode-MLP kernels multiply bf16
+activations, so under `w8a8` a decode step takes the route of separate
+calls (`decode_route`), with the standalone decode attention kernels.
+`int8_kv` (`precompute_kv`, the JAX package's `ECAP_INT8_KV`) quantizes
+the cross-attention K/V of int8 projections (on by default; off, they
+stay bf16).
+
 The attention paths:
   - uncached self-attention without a mask at a head dim the flash kernel
     has an instance for (`flash_attention_fits`): the flash kernel, except where
@@ -58,7 +69,9 @@ from ..kernels.decode_attention import (
 )
 from ..kernels.flash_attention import HEAD_DIMS
 from ..parallel.mesh import replicate, sum_replicated
-from .quantize import QuantizedArray, QuantizedKV, maybe_dequant, quantize_kv
+from .quantize import (
+    QuantizedArray, QuantizedKV, dense_w8a8, maybe_dequant, quantize_kv,
+)
 
 BERT_LN_EPS = 1e-12  # HF BertConfig.layer_norm_eps
 NEG_INF = -1e30
@@ -149,13 +162,24 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return y.reshape(*lead, *y.shape[-2:])
 
 
+def _refuse_tp_w8a8(group, w8a8: bool) -> None:
+    if w8a8 and group is not None:
+        raise ValueError("w8a8 under tensor parallelism is not ported: "
+                         "dense_w8a8 quantizes whole rows, and a "
+                         "row-parallel product holds a block of them")
+
+
 def dense(p: dict, x: torch.Tensor, compute_dtype=torch.bfloat16,
-          group=None) -> torch.Tensor:
+          group=None, w8a8: bool = False) -> torch.Tensor:
     """x @ w + b in `compute_dtype` with float32 accumulation; int8
-    weights are dequantized in bf16 first. With `group`, the row-parallel
-    form: w is this rank's block of rows and x its block of features; the
-    float32 partial products are summed over the group, then the
-    replicated bias is added once and the sum cast."""
+    weights are dequantized in bf16 first, or with `w8a8` multiply int8
+    activations (`dense_w8a8`). With `group`, the row-parallel form: w is
+    this rank's block of rows and x its block of features; the float32
+    partial products are summed over the group, then the replicated bias
+    is added once and the sum cast (refused under `w8a8`)."""
+    _refuse_tp_w8a8(group, w8a8)
+    if w8a8 and isinstance(p["w"], QuantizedArray):
+        return (dense_w8a8(x, p["w"]) + p["b"]).to(compute_dtype)
     w = maybe_dequant(p["w"], compute_dtype)
     if compute_dtype == torch.float32:
         y = torch.matmul(x.float(), w)
@@ -196,13 +220,15 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(p: dict, x: torch.Tensor, compute_dtype=torch.bfloat16,
-        group=None) -> torch.Tensor:
+        group=None, w8a8: bool = False) -> torch.Tensor:
     """proj(gelu_tanh(fc(x))); with `group`, fc column-parallel and proj
     row-parallel over it."""
+    _refuse_tp_w8a8(group, w8a8)
     if group is not None:
         x = replicate(x, group)
-    return dense(p["proj"], gelu_tanh(dense(p["fc"], x, compute_dtype)),
-                 compute_dtype, group)
+    return dense(p["proj"], gelu_tanh(dense(p["fc"], x, compute_dtype,
+                                            w8a8=w8a8)),
+                 compute_dtype, group, w8a8)
 
 
 class KVCache(NamedTuple):
@@ -246,13 +272,16 @@ def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
     return x.reshape(b, t, heads, d // heads)
 
 
-def precompute_kv(p: dict, kv_src: torch.Tensor, heads: int):
+def precompute_kv(p: dict, kv_src: torch.Tensor, heads: int,
+                  w8a8: bool = False, int8_kv: bool = True):
     """Project cross-attention K/V once per generation: kt [B, H, Dh, K],
-    v head-major [B, H, K, Dh]. With int8 projection weights the K/V are
-    quantized to int8 as well (`QuantizedKV`)."""
-    kt = _split_heads(dense(p["k"], kv_src), heads).permute(0, 2, 3, 1)
-    v = _split_heads(dense(p["v"], kv_src), heads)
-    if isinstance(p["k"]["w"], QuantizedArray):
+    v head-major [B, H, K, Dh] (bf16). With int8 projection weights and
+    `int8_kv` the K/V are quantized to int8 as well (`QuantizedKV`);
+    `w8a8` goes to the projections (`dense`)."""
+    kt = _split_heads(dense(p["k"], kv_src, w8a8=w8a8),
+                      heads).permute(0, 2, 3, 1)
+    v = _split_heads(dense(p["v"], kv_src, w8a8=w8a8), heads)
+    if int8_kv and isinstance(p["k"]["w"], QuantizedArray):
         q = quantize_kv(kt, v)
         return q._replace(kt=q.kt.contiguous(),
                           v=q.v.permute(0, 2, 1, 3).contiguous())
@@ -296,6 +325,7 @@ def mha(p: dict, x: torch.Tensor, heads: int,
         kv_precomputed=None,
         cache_block_causal: bool = True,
         group=None,
+        w8a8: bool = False,
         ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Multi-head attention. x [B, Tq, D]; kv [B, Tk, Dkv] (cross source,
     default x); mask broadcastable to [B, H, Tq, Tk] (True = attend; Tk is
@@ -306,9 +336,10 @@ def mha(p: dict, x: torch.Tensor, heads: int,
     Tq; no decode kernel then, as in the JAX package); kv_precomputed:
     (kt, v) or QuantizedKV from `precompute_kv`. With `group` (uncached
     only) and q/k/v, o cut over it, this rank runs its heads (the local q
-    width over the head dim) and o row-parallel. Returns (out [B, Tq, D],
-    cache)."""
+    width over the head dim) and o row-parallel. `w8a8` goes to every
+    projection (`dense`). Returns (out [B, Tq, D], cache)."""
     b, tq = x.shape[:2]
+    _refuse_tp_w8a8(group, w8a8)
     if group is not None:
         if cache is not None or kv_precomputed is not None:
             raise ValueError("cached decoding under tensor parallelism is "
@@ -324,7 +355,7 @@ def mha(p: dict, x: torch.Tensor, heads: int,
         if cache is not None:
             raise ValueError("kv_precomputed cannot be combined with a KV "
                              "cache")
-        q = _split_heads(dense(p["q"], x, compute_dtype), heads)
+        q = _split_heads(dense(p["q"], x, compute_dtype, w8a8=w8a8), heads)
         if isinstance(kv_precomputed, QuantizedKV):
             kt, v = kv_precomputed.kt, kv_precomputed.v
             scales = (kv_precomputed.kt_scale, kv_precomputed.v_scale)
@@ -336,12 +367,13 @@ def mha(p: dict, x: torch.Tensor, heads: int,
             out = out.reshape(b, 1, -1)
         else:
             out = _attention_plain(q.to(compute_dtype), kt, v, mask, *scales)
-        return dense(p["o"], out.to(compute_dtype), compute_dtype), None
+        return dense(p["o"], out.to(compute_dtype), compute_dtype,
+                     w8a8=w8a8), None
 
-    q = _split_heads(dense(p["q"], x, compute_dtype), heads)
+    q = _split_heads(dense(p["q"], x, compute_dtype, w8a8=w8a8), heads)
     src = x if kv is None else kv
-    k = _split_heads(dense(p["k"], src, compute_dtype), heads)
-    v = _split_heads(dense(p["v"], src, compute_dtype), heads)
+    k = _split_heads(dense(p["k"], src, compute_dtype, w8a8=w8a8), heads)
+    v = _split_heads(dense(p["v"], src, compute_dtype, w8a8=w8a8), heads)
 
     if cache is not None:
         if kv is not None:
@@ -368,7 +400,8 @@ def mha(p: dict, x: torch.Tensor, heads: int,
             out = _attention_plain(
                 q.to(compute_dtype), cache.k, cache.v.permute(0, 2, 1, 3),
                 seen if mask is None else (mask & seen))
-        return dense(p["o"], out.to(compute_dtype), compute_dtype), cache
+        return dense(p["o"], out.to(compute_dtype), compute_dtype,
+                     w8a8=w8a8), cache
 
     if (kv is None and mask is None and not _records_grad(q, k, v)
             and flash_attention_fits(q.shape[-1])):
@@ -377,12 +410,13 @@ def mha(p: dict, x: torch.Tensor, heads: int,
             k.transpose(1, 2).to(compute_dtype).contiguous(),
             v.transpose(1, 2).to(compute_dtype).contiguous())
         out = out.transpose(1, 2).reshape(b, tq, -1)
-        return dense(p["o"], out, compute_dtype, group), None
+        return dense(p["o"], out, compute_dtype, group, w8a8), None
 
     out = _attention_plain(q.to(compute_dtype),
                            k.to(compute_dtype).permute(0, 2, 3, 1),
                            v.to(compute_dtype).permute(0, 2, 1, 3), mask)
-    return dense(p["o"], out.to(compute_dtype), compute_dtype, group), None
+    return dense(p["o"], out.to(compute_dtype), compute_dtype, group,
+                 w8a8), None
 
 
 class DecodeRoute(NamedTuple):
@@ -394,7 +428,7 @@ class DecodeRoute(NamedTuple):
 
 
 def decode_route(rows: int, d: int, heads: int, f: int, t: int,
-                 decode_blocks: bool) -> DecodeRoute:
+                 decode_blocks: bool, w8a8: bool = False) -> DecodeRoute:
     """The fused kernels a one-token decode step of `rows` rows takes, per
     sublayer, at width d with `heads` heads, MLP width f and a self-attention
     cache of t positions: each kernel where its plan takes the shape (the
@@ -402,11 +436,17 @@ def decode_route(rows: int, d: int, heads: int, f: int, t: int,
     `maybe_decode_*` dispatchers return None at shapes their kernels do not
     take. A cache too long for the self block's shared memory runs that
     sublayer as separate calls (`decode_self_attention` takes it in
-    tiles; `mha` runs plain ops where `self_attention_fits` refuses)."""
+    tiles; `mha` runs plain ops where `self_attention_fits` refuses).
+    Under `w8a8` no sublayer takes a fused kernel, whatever its leaves'
+    type, as the JAX package's `_decode_fusion_ok` turns them off: they
+    multiply bf16 activations."""
+    fused = not w8a8
     return DecodeRoute(
-        self_block=decode_blocks and self_block_fits(rows, d, heads, t),
-        cross_block=decode_blocks and cross_block_fits(rows, d, heads),
-        mlp=mlp_fits(rows, d, f))
+        self_block=(fused and decode_blocks
+                    and self_block_fits(rows, d, heads, t)),
+        cross_block=(fused and decode_blocks
+                     and cross_block_fits(rows, d, heads)),
+        mlp=fused and mlp_fits(rows, d, f))
 
 
 def _out_width(w) -> int:
@@ -420,6 +460,7 @@ def block(p: dict, x: torch.Tensor, heads: int,
           cross: Optional[torch.Tensor] = None,
           cache_block_causal: bool = True,
           tp: Optional[TP] = None,
+          w8a8: bool = False,
           ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Pre-LN transformer block with an optional cross-attention sublayer,
     over precomputed K/V (`cross_kv`, the decode loop) or over a feature
@@ -439,8 +480,9 @@ def block(p: dict, x: torch.Tensor, heads: int,
     as in any block; it never takes the decode-MLP kernel. With `tp`, each
     sublayer whose leaves were cut runs tensor-parallel (`mha`, `mlp`),
     the mixture-of-experts MLP replicated; cached decoding (the decode
-    kernels) is refused."""
+    kernels) is refused. `w8a8` goes to every product and to the route."""
     moe = p.get("moe")
+    _refuse_tp_w8a8(tp, w8a8)
     if tp is not None and (cache is not None or cross_kv is not None):
         raise ValueError("cached decoding under tensor parallelism is not "
                          "ported: the decode kernels take whole widths")
@@ -453,7 +495,7 @@ def block(p: dict, x: torch.Tensor, heads: int,
                              (moe["fc_w"].shape[-1] if moe is not None
                               else _out_width(p["mlp"]["fc"]["w"])),
                              0 if cache is None else cache.k.shape[-1],
-                             decode_blocks)
+                             decode_blocks, w8a8)
         if moe is not None:
             route = route._replace(mlp=False)
     if "attn" in p:
@@ -466,13 +508,13 @@ def block(p: dict, x: torch.Tensor, heads: int,
                            mask=mask, cache=cache,
                            compute_dtype=compute_dtype,
                            cache_block_causal=cache_block_causal,
-                           group=group)
+                           group=group, w8a8=w8a8)
             x = x + h
     if cross is not None and "xattn" in p:
         if "ln_kv" in p:
             cross = layernorm(p["ln_kv"], cross)
         h, _ = mha(p["xattn"], layernorm(p["ln_x"], x), heads, kv=cross,
-                   compute_dtype=compute_dtype, group=group)
+                   compute_dtype=compute_dtype, group=group, w8a8=w8a8)
         x = x + h
     elif cross_kv is not None and "xattn" in p:
         if route.cross_block:
@@ -480,7 +522,8 @@ def block(p: dict, x: torch.Tensor, heads: int,
                                     heads)
         else:
             h, _ = mha(p["xattn"], layernorm(p["ln_x"], x), heads,
-                       compute_dtype=compute_dtype, kv_precomputed=cross_kv)
+                       compute_dtype=compute_dtype, kv_precomputed=cross_kv,
+                       w8a8=w8a8)
             x = x + h
     if moe is not None:
         from ..parallel.moe import moe_mlp  # moe.py imports this module
@@ -495,7 +538,7 @@ def block(p: dict, x: torch.Tensor, heads: int,
         group = tp_group(group, _out_width(p["mlp"]["fc"]["w"]),
                          tp.mlp_hidden)
     return x + mlp(p["mlp"], layernorm(p["ln2"], x), compute_dtype,
-                   group), cache
+                   group, w8a8), cache
 
 
 def _kernel_weight(w) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -541,14 +584,16 @@ def _decode_cross_block(p_xattn: dict, p_ln: dict, x: torch.Tensor,
 
 def block_post_ln(p: dict, x: torch.Tensor, heads: int,
                   mask: Optional[torch.Tensor] = None,
-                  compute_dtype=torch.bfloat16) -> torch.Tensor:
+                  compute_dtype=torch.bfloat16,
+                  w8a8: bool = False) -> torch.Tensor:
     """Post-LN (BERT/MiniLM) block: x = LN1(x + attn(x));
     x = LN2(x + mlp(x)) with exact (erf) GELU and BERT's eps."""
-    h, _ = mha(p["attn"], x, heads, mask=mask, compute_dtype=compute_dtype)
+    h, _ = mha(p["attn"], x, heads, mask=mask, compute_dtype=compute_dtype,
+               w8a8=w8a8)
     x = layernorm(p["ln1"], x + h, eps=BERT_LN_EPS)
     h = dense(p["mlp"]["proj"],
-              F.gelu(dense(p["mlp"]["fc"], x, compute_dtype)),
-              compute_dtype)
+              F.gelu(dense(p["mlp"]["fc"], x, compute_dtype, w8a8=w8a8)),
+              compute_dtype, w8a8=w8a8)
     return layernorm(p["ln2"], x + h, eps=BERT_LN_EPS)
 
 

@@ -55,12 +55,15 @@ def _conv_weight(w) -> torch.Tensor:
     return w.to(torch.bfloat16)
 
 
-def conv(p: dict, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """NHWC conv with "SAME" padding: bf16 in, bf16 out."""
+def conv(p: dict, x: torch.Tensor, stride: int = 1,
+         pads: Optional[Tuple[Tuple[int, int], Tuple[int, int]]] = None
+         ) -> torch.Tensor:
+    """NHWC conv with "SAME" padding (or explicit `pads`, (low, high) per
+    spatial axis): bf16 in, bf16 out."""
     w = _conv_weight(p["w"])
     kh, kw = w.shape[2], w.shape[3]
-    ph = _same_pads(x.shape[1], kh, stride)
-    pw = _same_pads(x.shape[2], kw, stride)
+    ph, pw = pads or (_same_pads(x.shape[1], kh, stride),
+                      _same_pads(x.shape[2], kw, stride))
     x = x.to(torch.bfloat16)
     if any(ph) or any(pw):
         x = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
@@ -196,15 +199,44 @@ def init_backbone(g: torch.Generator, cfg: DetectorConfig, device) -> dict:
 # backbone + FPN
 # ---------------------------------------------------------------------------
 
+def _stem_s2d(p: dict, images: torch.Tensor) -> torch.Tensor:
+    """The 3x3 stride-2 stem conv rewritten as space-to-depth(2) and a
+    2x2 stride-1 conv (the JAX package's `_stem_s2d`): "SAME" padding of
+    an even input at stride 2 is (0, 1), so output (i, j) reads input rows
+    and columns 2i..2i+2, which the 2x2 window over depth-2 blocks i..i+1
+    covers: w2[A, B, (a, b, c)] = w[2A+a, 2B+b, c] where the tap 2A+a <= 2
+    exists, else zero (the weights scattered in float32, as the JAX
+    package dequantizes them). The same products as the strided conv."""
+    b, s, _, c = images.shape
+    w = p["w"]
+    w = (w.q.float() * w.scale.float()[:, None, None, None]
+         if isinstance(w, QuantizedArray) else w.float())   # OIHW [o, c, 3, 3]
+    cout = w.shape[0]
+    w2 = w.new_zeros(cout, 2, 2, 2, 2, c)                   # [o, A, B, a, b, c]
+    for ai in range(2):
+        for a in range(2):
+            for bi in range(2):
+                for bb in range(2):
+                    u, v = 2 * ai + a, 2 * bi + bb
+                    if u <= 2 and v <= 2:
+                        w2[:, ai, bi, a, bb] = w[:, :, u, v]
+    # both sides pack the depth as (a, b, c)
+    w2 = w2.reshape(cout, 2, 2, 4 * c).permute(0, 3, 1, 2)
+    xs = images.reshape(b, s // 2, 2, s // 2, 2, c).permute(
+        0, 1, 3, 2, 4, 5).reshape(b, s // 2, s // 2, 4 * c)
+    return conv({"w": w2, "b": p["b"]}, xs, pads=((0, 1), (0, 1)))
+
+
 def backbone_fpn(params: dict, images: torch.Tensor, cfg: DetectorConfig,
                  norm: Optional[Callable] = None) -> List[torch.Tensor]:
     """float images [B, S, S, 3] in [0, 1] -> FPN levels at
     `cfg.fpn_strides`, each [B, S/s, S/s, fpn_dim] bf16. `norm(p, x)`
-    replaces the config's norm at every norm site."""
-    if cfg.stem_s2d:
-        raise ValueError("the port has the direct stem only")
+    replaces the config's norm at every norm site. `cfg.stem_s2d` runs
+    the stem as `_stem_s2d`."""
     gn = _norm(cfg, norm)
-    x = torch.relu(gn(params["stem_gn"], conv(params["stem"], images, 2)))
+    stem = (_stem_s2d(params["stem"], images) if cfg.stem_s2d
+            else conv(params["stem"], images, 2))
+    x = torch.relu(gn(params["stem_gn"], stem))
     x = _max_pool_same(x, 3, 2)
     feats = []
     for si, blocks in enumerate(params["stages"]):
@@ -351,19 +383,21 @@ def _propose(obj: torch.Tensor, deltas: torch.Tensor, anchors: torch.Tensor,
 
 def _box_head(params: dict, feat: torch.Tensor, proposals: torch.Tensor,
               cfg: DetectorConfig, dropout_rate: float = 0.0,
-              keep: Optional[torch.Tensor] = None):
+              keep: Optional[torch.Tensor] = None, w8a8: bool = False):
     """ROI-align on the finest FPN level + 2-FC head -> (features, class
     logits, box deltas). feat [B, H, W, C], proposals [B, P, 4]. With
     `keep` (a bool mask [B, P, 1024]), dropout after the first FC layer:
-    kept units scaled by 1 / (1 - dropout_rate), the others zeroed."""
+    kept units scaled by 1 / (1 - dropout_rate), the others zeroed. `w8a8`
+    goes to the four products (`common.dense`)."""
     feats = roi_align(feat, proposals, cfg.roi_size,
                       spatial_scale=1.0 / cfg.fpn_strides[0])
     x = feats.reshape(*proposals.shape[:2], -1)
-    x = torch.relu(dense(params["box_fc1"], x))
+    x = torch.relu(dense(params["box_fc1"], x, w8a8=w8a8))
     if keep is not None and dropout_rate > 0:
         x = torch.where(keep, x / (1 - dropout_rate), 0.0)
-    x = torch.relu(dense(params["box_fc2"], x))
-    return x, dense(params["cls"], x), dense(params["box"], x)
+    x = torch.relu(dense(params["box_fc2"], x, w8a8=w8a8))
+    return (x, dense(params["cls"], x, w8a8=w8a8),
+            dense(params["box"], x, w8a8=w8a8))
 
 
 def _mask_head(params: dict, feat: torch.Tensor, boxes: torch.Tensor,
@@ -400,8 +434,8 @@ def _intermediates(params: dict, images: torch.Tensor, cfg: DetectorConfig,
                    gt_valid: Optional[torch.Tensor] = None,
                    dropout_rate: float = 0.0,
                    dropout_keep: Optional[torch.Tensor] = None,
-                   generator: Optional[torch.Generator] = None
-                   ) -> DetectorIntermediates:
+                   generator: Optional[torch.Generator] = None,
+                   w8a8: bool = False) -> DetectorIntermediates:
     """Backbone, RPN, proposals and the box head on float images in
     [0, 1]. Training passes `gt_boxes` [B, G, 4] (and their validity):
     they replace the last G proposals, so the head sees clean foreground.
@@ -430,21 +464,26 @@ def _intermediates(params: dict, images: torch.Tensor, cfg: DetectorConfig,
             keep = torch.rand((*props.shape[:2], 1024), generator=generator,
                               device=images.device) < 1 - dropout_rate
     feats, cls_logits, box_deltas = _box_head(params, fpn[0], props, cfg,
-                                              dropout_rate, keep)
+                                              dropout_rate, keep, w8a8)
     return DetectorIntermediates(props, pvalid, feats, cls_logits,
                                  box_deltas, obj, deltas, fpn)
 
 
 def forward(params: dict, images: torch.Tensor, cfg: DetectorConfig,
-            with_masks: bool = True) -> Detections:
+            with_masks: bool = True, w8a8: bool = False) -> Detections:
     """uint8 (or float on the 0..255 scale) [B, S, S, 3] -> Detections with
     `max_detections` slots per frame and ROI masks [B, N, m, m] (zeros
-    without `with_masks`)."""
+    without `with_masks`). `w8a8`: the box head's products with int8
+    weights take int8 activations (the convolutions dequantize, as the
+    JAX package's do)."""
     if cfg.family == "query":
+        if w8a8:
+            raise ValueError("w8a8 is not threaded into the query "
+                             "detector yet")
         from .query_detector import forward_query
 
         return forward_query(params, images, cfg, with_masks=with_masks)
-    inter = _intermediates(params, images.float() / 255.0, cfg)
+    inter = _intermediates(params, images.float() / 255.0, cfg, w8a8=w8a8)
     props, pvalid, p2 = inter.proposals, inter.proposal_valid, inter.fpn[0]
     cls_logits, box_deltas = inter.class_logits, inter.box_deltas
 
@@ -463,7 +502,7 @@ def forward(params: dict, images: torch.Tensor, cfg: DetectorConfig,
     det_logits = _gather_rows(fg, idx)
     # cascade-lite refinement: re-pool the selected boxes, run the shared
     # box head once more and decode; classes and scores stay from pass 1
-    _, _, deltas2 = _box_head(params, p2, det_boxes, cfg)
+    _, _, deltas2 = _box_head(params, p2, det_boxes, cfg, w8a8=w8a8)
     det_boxes = decode_boxes(det_boxes, deltas2, cfg.image_size,
                              ROI_BOX_WEIGHTS)
     if with_masks:

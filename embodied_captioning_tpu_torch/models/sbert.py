@@ -35,8 +35,10 @@ def init_sentence_encoder(g: torch.Generator, cfg: SentenceEncoderConfig,
 
 @torch.no_grad()
 def encode_tokens(params: dict, tokens: torch.Tensor,
-                  cfg: SentenceEncoderConfig) -> torch.Tensor:
-    """[B, T] int token ids -> [B, embed_dim] L2-normalised embeddings."""
+                  cfg: SentenceEncoderConfig, w8a8: bool = False
+                  ) -> torch.Tensor:
+    """[B, T] int token ids -> [B, embed_dim] L2-normalised embeddings;
+    `w8a8` goes to every product (`common.dense`)."""
     cdt = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
     t = tokens.shape[1]
     pad_mask = tokens != PAD_ID
@@ -46,16 +48,16 @@ def encode_tokens(params: dict, tokens: torch.Tensor,
         x = layernorm(params["emb_ln"], x, eps=BERT_LN_EPS)
         for blk in params["blocks"]:
             x = block_post_ln(blk, x, cfg.heads, mask=attn_mask,
-                              compute_dtype=cdt)
+                              compute_dtype=cdt, w8a8=w8a8)
         x = x.float()
     else:
         for blk in params["blocks"]:
             x, _ = block(blk, x, cfg.heads, mask=attn_mask,
-                         compute_dtype=cdt)
+                         compute_dtype=cdt, w8a8=w8a8)
         x = layernorm(params["ln"], x, out_dtype=torch.float32)
     w = pad_mask.float()[..., None]
     pooled = (x * w).sum(dim=1) / torch.clamp(w.sum(dim=1), min=1.0)
-    e = dense(params["proj"], pooled, compute_dtype=cdt).float()
+    e = dense(params["proj"], pooled, compute_dtype=cdt, w8a8=w8a8).float()
     return e / torch.clamp(torch.linalg.norm(e, dim=-1, keepdim=True),
                            min=1e-8)
 

@@ -204,8 +204,6 @@ def load_detector_artifact(path: str, device="cuda"
     top-k is always exact."""
     artifact = load_pickle(path)
     cfg = dict(artifact["serving_cfg"])
-    if cfg.get("stem_s2d", False):
-        raise ValueError("the port serves the direct stem only")
     known = {f.name for f in dataclasses.fields(DetectorConfig)} - {
         "approx_topk", "dtype"}
     cfg = {k: v for k, v in cfg.items() if k in known}

@@ -38,12 +38,17 @@ class FrameResult(NamedTuple):
 
 @torch.no_grad()
 def perceive(params: PerceptionParams, images_u8: torch.Tensor,
-             cfg: ExperimentConfig, decode_blocks: bool = True
-             ) -> FrameResult:
+             cfg: ExperimentConfig, decode_blocks: bool = True,
+             w8a8: bool = False, int8_kv: bool = True) -> FrameResult:
     """images [E, S, S, 3] uint8 -> FrameResult.
 
     `decode_blocks` picks the captioner's decode route (see
-    `models.captioner.generate`).
+    `models.captioner.generate`). The serving opt-ins (the JAX package's
+    `ECAP_W8A8` and `ECAP_INT8_KV`): `w8a8` runs every product with an
+    int8 weight (detector heads, ViT, captioner, sentence encoder) on int8
+    activations, and the decode on the route of separate calls; `int8_kv`
+    quantizes the captioner's cross-attention K/V where its projections
+    are int8 (off: bf16 K/V).
 
     With `runtime.caption_slots_per_frame` = k in (0, N), only the k
     highest-scored detection slots of EACH frame are cropped, captioned and
@@ -53,7 +58,7 @@ def perceive(params: PerceptionParams, images_u8: torch.Tensor,
     size = cfg.detector.image_size
     det_in = (resize_bilinear(images_u8.float(), size, size) if src != size
               else images_u8)
-    det = DET.forward(params.detector, det_in, cfg.detector)
+    det = DET.forward(params.detector, det_in, cfg.detector, w8a8=w8a8)
     paste = cfg.detector.paste_size or size
     det = det.replace(masks=DET.full_masks(det, paste, size))
 
@@ -84,7 +89,7 @@ def perceive(params: PerceptionParams, images_u8: torch.Tensor,
     tokens, logprobs, lengths = CAP.generate(
         params.captioner, flat, cfg.captioner,
         max_len=cfg.captioner.max_caption_len, row_valid=row_valid,
-        decode_blocks=decode_blocks)
+        decode_blocks=decode_blocks, w8a8=w8a8, int8_kv=int8_kv)
 
     # the sentence encoder masks id 0: map the captioner's pad id onto it
     se_len = cfg.sentence_encoder.max_len
@@ -92,7 +97,8 @@ def perceive(params: PerceptionParams, images_u8: torch.Tensor,
     se_src = torch.where(tokens == cfg.captioner.text.pad_id, 0, tokens)
     se_tokens = (se_src[:, :se_len] if l >= se_len
                  else F.pad(se_src, (0, se_len - l)))
-    emb = SB.encode_tokens(params.sbert, se_tokens, cfg.sentence_encoder)
+    emb = SB.encode_tokens(params.sbert, se_tokens, cfg.sentence_encoder,
+                           w8a8)
 
     def scatter(x: torch.Tensor) -> torch.Tensor:
         full = torch.zeros((e * n,) + tuple(x.shape[1:]), dtype=x.dtype,
@@ -110,14 +116,16 @@ def perceive(params: PerceptionParams, images_u8: torch.Tensor,
 
 
 def perceive_sharded(params: PerceptionParams, images_u8: torch.Tensor,
-                     cfg: ExperimentConfig, mesh, decode_blocks: bool = True
+                     cfg: ExperimentConfig, mesh, decode_blocks: bool = True,
+                     w8a8: bool = False, int8_kv: bool = True
                      ) -> FrameResult:
     """Multi-device serving: the frame batch split over the mesh's "data"
     axis, one contiguous block of frames a rank (params replicated). Each
     rank runs `perceive` on its block and an all-gather assembles the
     whole FrameResult on every rank. Caption slots are chosen per frame,
     so the split keeps which slots are captioned. The batch must be
-    divisible by the "data" axis."""
+    divisible by the "data" axis. The route and serving arguments go to
+    `perceive`."""
     from .parallel.mesh import (
         all_gather_cat, axis_group, axis_rank, axis_size)
 
@@ -126,7 +134,7 @@ def perceive_sharded(params: PerceptionParams, images_u8: torch.Tensor,
         f"batch {images_u8.shape[0]} not divisible by data axis {n}")
     per, r = images_u8.shape[0] // n, axis_rank(mesh, "data")
     local = perceive(params, images_u8[r * per:(r + 1) * per], cfg,
-                     decode_blocks)
+                     decode_blocks, w8a8, int8_kv)
     group = axis_group(mesh, "data")
     if group is None:
         return local
@@ -142,14 +150,16 @@ def perceive_sharded(params: PerceptionParams, images_u8: torch.Tensor,
 
 
 class Perceiver:
-    """Host-facing wrapper: owns params and the tokenizer; decodes caption
-    strings on demand."""
+    """Host-facing wrapper: owns params, the serving opt-ins (`w8a8`,
+    `int8_kv`, see `perceive`) and the tokenizer; decodes caption strings
+    on demand."""
 
     def __init__(self, cfg: ExperimentConfig,
                  params: Optional[PerceptionParams] = None, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", w8a8: bool = False, int8_kv: bool = True):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.w8a8, self.int8_kv = w8a8, int8_kv
         if params is None:
             g = torch.Generator(device=self.device).manual_seed(seed)
             params = init_perception(g, cfg, self.device)
@@ -169,7 +179,8 @@ class Perceiver:
             side = max(images.shape[1], images.shape[2])
             images = torch.clamp(resize_bilinear(images.float(), side, side),
                                  0, 255).to(torch.uint8)
-        return perceive(self.params, images, self.cfg)
+        return perceive(self.params, images, self.cfg, w8a8=self.w8a8,
+                        int8_kv=self.int8_kv)
 
     def captions(self, result: FrameResult) -> list:
         """[[caption per detection slot] per frame]."""

@@ -60,6 +60,12 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--max-frames", type=int, default=500)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--w8a8", action="store_true",
+                    help="int8 activations into every product with an "
+                         "int8 weight (the JAX package's ECAP_W8A8=1)")
+    ap.add_argument("--no-int8-kv", dest="int8_kv", action="store_false",
+                    help="bf16 cross-attention K/V under int8 weights "
+                         "(the JAX package's ECAP_INT8_KV=0)")
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args(argv)
 
@@ -87,7 +93,8 @@ def main(argv=None) -> int:
     from .perception import Perceiver
 
     cfg = load_config(args.preset, overrides=list(args.overrides))
-    p = Perceiver(cfg, device=args.device)
+    p = Perceiver(cfg, device=args.device, w8a8=args.w8a8,
+                  int8_kv=args.int8_kv)
     t0 = time.time()
     n_det = 0
     for i in range(0, len(frames), args.batch):

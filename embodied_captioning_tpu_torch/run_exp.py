@@ -4,7 +4,8 @@
 Usage:
   python -m embodied_captioning_tpu_torch.run_exp --trainer randombaseline \
       --mode generate --preset tiny --steps 20 --obs-dir DIR \
-      [--device cpu] [key.path=value ...]
+      [--w8a8] [--no-int8-kv] [--render-mode MODE] [--device cpu] \
+      [key.path=value ...]
   python -m embodied_captioning_tpu_torch.run_exp \
       --trainer goalexplorationbaseline-v0 --mode train --preset tiny \
       --steps 1 ppo.num_global_steps=2 [--device cpu] [key.path=value ...]
@@ -14,7 +15,10 @@ Usage:
 
 Prints one JSON line. generate: saved files, frames, seconds, frames/s
 and each env's reward; train: the number of PPO updates (`--steps`, 2 by
-default), the metrics of the last three and the seconds.
+default), the metrics of the last three and the seconds. `--w8a8`,
+`--no-int8-kv` and `--render-mode` take the place of the JAX package's
+ECAP_W8A8, ECAP_INT8_KV and ECAP_RENDER_MODE (`perception.perceive`,
+`envs.sim.resolve_attr_mode`).
 """
 
 from __future__ import annotations
@@ -39,6 +43,15 @@ def main(argv=None) -> int:
                     help="env steps for generate / updates for train")
     ap.add_argument("--obs-dir", default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--w8a8", action="store_true",
+                    help="int8 activations into every product with an "
+                         "int8 weight (the JAX package's ECAP_W8A8=1)")
+    ap.add_argument("--no-int8-kv", dest="int8_kv", action="store_false",
+                    help="bf16 cross-attention K/V under int8 weights "
+                         "(the JAX package's ECAP_INT8_KV=0)")
+    ap.add_argument("--render-mode", default=None,
+                    help="the simulator's render mode (envs.sim."
+                         "render_batch), e.g. onehot@160x48")
     ap.add_argument("overrides", nargs="*", help="a.b.c=value overrides")
     args = ap.parse_args(argv)
 
@@ -62,7 +75,9 @@ def main(argv=None) -> int:
     cfg = load_config(args.preset, yaml_path=args.config, overrides=overrides)
 
     t0 = time.time()
-    trainer = get_trainer(args.trainer)(cfg, device=args.device)
+    trainer = get_trainer(args.trainer)(
+        cfg, device=args.device, w8a8=args.w8a8, int8_kv=args.int8_kv,
+        render_mode=args.render_mode)
     print(f"[run_exp] trainer={args.trainer} mode={args.mode} "
           f"preset={args.preset} device={args.device} "
           f"init={time.time() - t0:.1f}s", flush=True)

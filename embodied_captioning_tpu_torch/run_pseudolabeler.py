@@ -34,6 +34,12 @@ def main(argv=None) -> int:
     ap.add_argument("--preset", default="tiny")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--w8a8", action="store_true",
+                    help="int8 activations into every product with an "
+                         "int8 weight (the JAX package's ECAP_W8A8=1)")
+    ap.add_argument("--no-int8-kv", dest="int8_kv", action="store_false",
+                    help="bf16 cross-attention K/V under int8 weights "
+                         "(the JAX package's ECAP_INT8_KV=0)")
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args(argv)
 
@@ -46,9 +52,12 @@ def main(argv=None) -> int:
     from .config import load_config
     from .labeling.datasets import EpisodeDetectionDataset
     from .labeling.pseudolabeler import CONSENSUS_REGISTRY
+    from .perception import Perceiver
 
     cfg = load_config(args.preset, overrides=list(args.overrides))
-    labeler = CONSENSUS_REGISTRY[args.consensus](cfg, device=args.device)
+    labeler = CONSENSUS_REGISTRY[args.consensus](
+        cfg, perceiver=Perceiver(cfg, device=args.device, w8a8=args.w8a8,
+                                 int8_kv=args.int8_kv))
     dataset = EpisodeDetectionDataset(args.exp_path, label_modality="bbs",
                                       with_depth_pose=True)
     print(f"[pseudolabeler] {len(dataset)} frames, consensus="

@@ -70,7 +70,9 @@ def test_scan_covers_every_subpackage_and_the_smoke_script():
                 "utils/coco.py", "utils/extras.py",
                 "models/tokenizer_artifacts.py", "tools/convert_weights.py",
                 "tools/torch_replica.py", "tools/port.py",
-                "port_checkpoint.py", "evaluate_finetuned_model.py"):
+                "port_checkpoint.py", "evaluate_finetuned_model.py",
+                "selfcheck_loop.py", "selfcheck_rl.py",
+                "selfcheck_cycle.py", "selfcheck_teacher_student.py"):
         assert pkg + rel in scanned, rel
     assert "chip_smoke.py" in scanned
     # every directory of the package that holds Python files is scanned

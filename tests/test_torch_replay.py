@@ -201,8 +201,8 @@ def test_replay_exp_perceive_as_jax_script(store, monkeypatch):
     jparams = JPerceiver(jload("tiny", overrides=PERCEIVE_OV)).params
     params = from_jax(jparams, "cpu")
     monkeypatch.setattr(TPER, "Perceiver",
-                        lambda cfg, device="cuda": TPerceiver(
-                            cfg, params=params, device=device))
+                        lambda cfg, device="cuda", **kw: TPerceiver(
+                            cfg, params=params, device=device, **kw))
     rc, got = _run(replay_exp.main, argv, False)
     assert rc == 0 and jrc is None
     want, got = json.loads(want[-1]), json.loads(got[-1])

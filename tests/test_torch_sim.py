@@ -93,8 +93,13 @@ def test_render_modes_and_batch_agree():
         one = S.render(s.scene, poses[i], SIZE, SIZE, 79.0)
         for k in one:
             assert torch.equal(one[k], onehot[k][i]), k
+    # every JAX mode is accepted ("+pk" names its raycast kernel, the
+    # port's visibility pass in every mode); a name of none is refused
+    pk = S.render_batch(scenes, poses, SIZE, SIZE, 79.0, 15.0, "onehot+pk")
+    for k in onehot:
+        assert torch.equal(pk[k], onehot[k]), k
     with pytest.raises(ValueError, match="attr_mode"):
-        S.render_batch(scenes, poses, SIZE, SIZE, 79.0, 15.0, "onehot+pk")
+        S.render_batch(scenes, poses, SIZE, SIZE, 79.0, 15.0, "onehot+xx")
 
 
 def test_hash_noise_matches_jitted_jax():
