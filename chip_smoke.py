@@ -321,7 +321,20 @@ Phases, each of which must pass:
      --save` (the teacher) then `selfcheck_teacher_student`; each run held
      as its phase holds it, each loop's JSON line with the JAX script's
      keys (LOOP_KEYS) and finite values, and `selfcheck_loop`'s
-     disagreement rewards not all zero; then 17b.
+     disagreement rewards not all zero; a tenth lane runs `caption_tools
+     perplexity` at the large preset on CT_MAX_CROPS crops of phase 8's
+     store (its JSON line and CSV, every perplexity finite and >= 1, the
+     preprocess, flash, LayerNorm, both block and the decode MLP kernels
+     launched); meanwhile this process runs BLIP-2 (`Blip2Config()`),
+     Florence (`FlorenceConfig()`, the caption task) and the query
+     `perceive` (13b's configuration) under `w8a8=True` on int8 trees of
+     their seeded weights, a batch each with its launches (the standalone
+     decode attentions, no block or decode-MLP kernel) and its int8 x int8
+     products counted (at least one), each held by the default route on
+     the same tree: its teacher-forced logits pick the W8A8 decode's token
+     on W8A8_MIN_AGREE of the live steps (BLIP-2, Florence), or its
+     detections are matched (QUERY_MIN_MATCHED), and W8A8's logits (the
+     query family's scores) differ from the default route's; then 17b.
 
 Float32 products and convolutions run without TF32 so the comparisons see
 the kernels' own error. Prints the card's name and power limit, frames/s
@@ -483,11 +496,16 @@ def busy_us(events) -> float:
 # loop of n calls of one wrapper launches the same kernels on every call,
 # so a trace in which some kernel's launches are not a whole multiple of
 # n lost one all the same: the loop is traced again (`traced_calls`), and
-# every retaken trace is logged and counted in RETRACES.
+# every retaken trace is logged and counted in RETRACES. Where a reading
+# needs only the device time per call (`device_us`) and no trace in
+# TRACE_TRIES comes back whole, it is read from CUDA events instead
+# (`event_device_us`), and logged and counted in EVENT_TIMED.
 MARKER = "spin_kernel"
 MARKER_CYCLES = 20_000
-TRACE_TRIES = 5
+TRACE_TRIES = 8
 RETRACES: list = []  # (first kernel, traces taken) where one was retaken
+EVENT_TIMED: list = []  # (calls, us a call) read from events, not a trace
+HEAD_START_CYCLES = 20_000_000  # ~10 ms of spin before an event-timed loop
 
 
 def trace_marker() -> None:
@@ -554,9 +572,34 @@ def device_profile(fn, iters: int = 10) -> tuple:
     return busy_us(events) / iters, by_kernel
 
 
+def event_device_us(fn, calls: int) -> float:
+    """Device time per call of `fn` from CUDA events around `calls` calls
+    queued behind a spin of HEAD_START_CYCLES, so the host has enqueued
+    them before the first starts and the card runs them back to back: the
+    kernels' time and the gaps between them, not the host's."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HEAD_START_CYCLES)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / calls
+
+
 def device_us(fn, iters: int = 10) -> float:
-    """Device busy time per call of `fn` (see device_profile)."""
-    return device_profile(fn, iters)[0]
+    """Device busy time per call of `fn` (see device_profile); from CUDA
+    events (`event_device_us`) where no trace came back whole."""
+    try:
+        return device_profile(fn, iters)[0]
+    except AssertionError as e:
+        us = event_device_us(fn, iters)
+        EVENT_TIMED.append((iters, us))
+        log(f"  ({e}: {us:.1f} us a call from CUDA events instead)")
+        return us
 
 
 def kernel_ms(fn, iters: int = 20, warmup: int = 3) -> dict:
@@ -7286,6 +7329,17 @@ TS_SCENES = 4
 TS_STEPS = 30
 TS_THRESHOLD = 0.0
 TS_TEACHER_STEPS = 150
+# `caption_tools perplexity`'s crops of phase 8's store (its default) and
+# its CSV, in phase 19's files
+CT_MAX_CROPS = 64
+CT_CSV = "perplexity.csv"
+CT_KEYS = {"crops", "out", "mean_perplexity"}
+# the families under W8A8 (beside the lanes): the default route's
+# teacher-forced logits on the same int8 tree pick the W8A8 decode's token
+# on at least this share of the live steps. Predicted, not read: phase
+# 18b's W8A8 decode against the twins read 0.9122, and random weights
+# leave near-ties that an int8 level of an activation (amax / 127) flips
+W8A8_MIN_AGREE = 0.8
 # threads of each lane's process (8 host cores shared by the lanes)
 LANE_THREADS = "2"
 # a lane's command: the entry point's main(argv) with the kernel wrappers'
@@ -7342,10 +7396,12 @@ def run_counted(module: str, argv: list, timeout: int = 600) -> dict:
                 stderr=err, seconds=time.perf_counter() - t0)
 
 
-def run_lanes(lanes: dict) -> dict:
+def run_lanes(lanes: dict, alongside=None) -> tuple:
     """Each lane, a list of (key, module, argv) run in turn (a lane stops
-    at its first failure), in a thread of its own, the lanes side by side:
-    {key: run_counted's result}, each run's output logged after all ended."""
+    at its first failure), in a thread of its own, the lanes side by side,
+    and `alongside()` in this thread meanwhile: ({key: run_counted's
+    result}, alongside's result), each run's output logged after all
+    ended."""
     import threading
 
     runs: dict = {}
@@ -7360,8 +7416,11 @@ def run_lanes(lanes: dict) -> dict:
                for steps in lanes.values()]
     for t in threads:
         t.start()
-    for t in threads:
-        t.join()
+    try:
+        beside = alongside() if alongside is not None else None
+    finally:
+        for t in threads:
+            t.join()
     for steps in lanes.values():
         for key, module, _ in steps:
             if key not in runs:
@@ -7373,7 +7432,7 @@ def run_lanes(lanes: dict) -> dict:
                 f"{r['rc']}: "
                 + (json.dumps(r["line"])[:1500] if r["line"] is not None
                    else r["stderr"][-3000:]))
-    return runs
+    return runs, beside
 
 
 def require_run(runs: dict, key: str) -> dict:
@@ -7413,7 +7472,8 @@ def lane_commands(tmp: str, store: str, coca: dict) -> dict:
     under `tmp`: 11d's detector self-check, the teacher-student loop after
     its teacher's training, 12b's `run_pseudolabeler`, 12e's and 14a's
     self-checks, 10c's `finetune_captioner`, 17a's `port_checkpoint coca`
-    (on `coca`'s checkpoint), and the other three loops."""
+    (on `coca`'s checkpoint), `caption_tools perplexity` on `store`, and
+    the other three loops."""
     teacher = os.path.join(tmp, "teacher.pkl")
     lanes = {
         "11d": [("11d", "selfcheck_detector", DET_SELFCHECK_ARGS)],
@@ -7439,6 +7499,9 @@ def lane_commands(tmp: str, store: str, coca: dict) -> dict:
         "17a": [("17a", "port_checkpoint", [
             "coca", "--checkpoint", coca["ckpt"], "--tokenizer",
             coca["bpe"], "--out", coca["out_dir"]])],
+        "caption_tools": [("caption_tools", "caption_tools", [
+            "perplexity", store, "--preset", "large", "--max-crops",
+            str(CT_MAX_CROPS), "--out", os.path.join(tmp, CT_CSV)])],
     }
     for name, argv in LOOP_ARGS.items():
         extra = (["--workdir", os.path.join(tmp, "cycle")]
@@ -7447,16 +7510,163 @@ def lane_commands(tmp: str, store: str, coca: dict) -> dict:
     return lanes
 
 
-def phase19(tmp: str, store: str, coca: dict, shapes: list,
-            smi: str) -> dict:
+def caption_tools_check(run: dict, path: str, smi: str) -> dict:
+    """`caption_tools perplexity` (a run of phase 19's lanes): its JSON
+    line (CT_KEYS, at least one crop, a finite mean), a CSV row a crop
+    with a finite perplexity >= 1, and the kernels of its path launched:
+    the ViT's preprocess, flash attention and LayerNorm, the decode loop's
+    self block, cross block and decode MLP. Returns its launches."""
+    import csv
+
+    line = run["line"]
+    with open(path) as fh:
+        rows = list(csv.DictReader(fh))
+    ppl = [float(r["perplexity"]) for r in rows]
+    if (set(line) != CT_KEYS or not line["crops"]
+            or not finite_json(line) or len(rows) != line["crops"]
+            or not all(math.isfinite(p) and p >= 1.0 for p in ppl)):
+        raise AssertionError(f"19 caption_tools perplexity: {line}, "
+                             f"{len(rows)} rows, {ppl[:4]}")
+    require_launches("19 caption_tools perplexity", run["launches"], (
+        "fused_preprocess", "flash_attention", "layernorm",
+        "decode_self_block", "decode_cross_block", "decode_mlp"))
+    log(f"  19 caption_tools perplexity (large preset, {line['crops']} "
+        f"crops of phase 8's store) on {smi}: {run['seconds']:.1f} s with "
+        f"the process's start, mean perplexity "
+        f"{line['mean_perplexity']:.2f}; launches {run['launches']}")
+    return run["launches"]
+
+
+@torch.no_grad()
+def w8a8_families(K, frames, dev, smi: str) -> dict:
+    """19, beside the lanes: BLIP-2 (`Blip2Config()`), Florence
+    (`FlorenceConfig()`, the caption task) and the query `perceive` (13b's
+    configuration: QUERY_LARGE at the large preset) under `w8a8=True`, on
+    int8 trees of their weights from a generator seeded 0 (the query
+    detector's quantized too), one batch each (VLM_CROPS quadrant crops of
+    `frames`, or the frames): its launches (preprocess, flash, LayerNorm,
+    the standalone decode attentions; no block and no decode-MLP kernel)
+    and ms (under the lanes' load), and the int8 x int8 products it ran
+    (`quantize.dense_w8a8` calls, at least one: `w8a8` reached the
+    family's int8 weights). Then held by the default route on the same
+    tree: its teacher-forced logits pick the W8A8 decode's token on
+    W8A8_MIN_AGREE of the live steps (BLIP-2, Florence), its detections
+    matched by the W8A8 route's on QUERY_MIN_MATCHED (the query family);
+    and W8A8 moves the numbers: the teacher-forced logits under `w8a8` on
+    the decode's tokens (the detection scores) differ from the default
+    route's. Returns each family's launches."""
+    from embodied_captioning_tpu_torch.models import blip2 as B
+    from embodied_captioning_tpu_torch.models import common as C
+    from embodied_captioning_tpu_torch.models import florence as F
+    from embodied_captioning_tpu_torch.models.quantize import quantize_params
+    from embodied_captioning_tpu_torch.perception import perceive
+
+    fused = ("decode_self_block", "decode_cross_block", "decode_mlp")
+
+    def counted(what, fn, need):
+        products = [0]
+        int8_product = C.dense_w8a8
+
+        def count_product(*a, **k):
+            products[0] += 1
+            return int8_product(*a, **k)
+
+        K.reset_launches()
+        C.dense_w8a8 = count_product
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            C.dense_w8a8 = int8_product
+        counts = dict(K.launches)
+        require_launches(what, counts, need)
+        if any(counts[n] for n in fused):
+            raise AssertionError(f"{what}: a fused decode kernel launched "
+                                 f"under w8a8: {counts}")
+        if not products[0]:
+            raise AssertionError(f"{what}: no int8 x int8 product ran")
+        log(f"  19 {what} on {smi}: {ms:.1f} ms a batch (beside the "
+            f"lanes); {products[0]} int8 x int8 products; launches {counts}")
+        return out, counts
+
+    def moved(what, w8a8_out, default_out):
+        if torch.equal(w8a8_out, default_out):
+            log(f"  19 {what}: equal under w8a8 and on the default route")
+            bad.append(f"{what} unmoved by w8a8")
+
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    need = ("fused_preprocess", "flash_attention", "layernorm",
+            "decode_self_attention")
+    out, bad = {}, []
+    cfg = B.Blip2Config()
+    q = quantize_params(B.init_blip2(seeded(), cfg, dev))
+    crops = center_crops(frames[:VLM_CROPS // 4], cfg.vision.image_size)
+    (toks, _, _), out["blip2"] = counted(
+        "BLIP-2 generate under w8a8 (16 crops)",
+        lambda: B.generate(q, crops, None, cfg, DECODE_LEN, w8a8=True), need)
+    ref = B.lm_logits(q, crops, toks, cfg)
+    agree, n = chosen_agree(ref, toks, 0)
+    moved("BLIP-2 lm_logits", B.lm_logits(q, crops, toks, cfg, w8a8=True),
+          ref)
+    log(f"  19 BLIP-2: the default route's lm_logits on the same int8 tree "
+        f"pick the w8a8 decode's token on {agree:.4f} of {n} live steps "
+        f"(limit {W8A8_MIN_AGREE})")
+    if agree < W8A8_MIN_AGREE:
+        bad.append("BLIP-2")
+    del q
+    cfg = F.FlorenceConfig()
+    q = quantize_params(F.init_florence(seeded(), cfg, dev))
+    (toks, _), out["florence"] = counted(
+        "Florence generate under w8a8 (caption task, 16 crops, cache 128)",
+        lambda: F.generate(q, crops, cfg, task=F.TASK_CAPTION, w8a8=True),
+        need + ("decode_cross_attention",))
+    ref = F.florence_logits(q, crops, toks, cfg)
+    agree, n = chosen_agree(ref, toks, 1)
+    moved("Florence florence_logits",
+          F.florence_logits(q, crops, toks, cfg, w8a8=True), ref)
+    log(f"  19 Florence: the default route's florence_logits on the same "
+        f"int8 tree pick the w8a8 decode's token on {agree:.4f} of {n} "
+        f"live steps (limit {W8A8_MIN_AGREE})")
+    if agree < W8A8_MIN_AGREE:
+        bad.append("Florence")
+    del q
+    torch.cuda.empty_cache()
+    cfg, per = query_perception(dev, QUERY_LARGE)
+    per = per._replace(detector=quantize_params(per.detector))
+    res, out["query"] = counted(
+        "query perceive under w8a8 (large preset, int8 detector)",
+        lambda: perceive(per, frames, cfg, w8a8=True),
+        need + ("decode_cross_attention",))
+    ref = perceive(per, frames, cfg).detections
+    hit, total = matched_share(res.detections, ref)
+    moved("query perceive scores", res.detections.scores, ref.scores)
+    log(f"  19 query perceive: the w8a8 route matches {hit} of the default "
+        f"route's {total} detections on the same int8 tree (class, IoU >= "
+        f"0.5; limit {QUERY_MIN_MATCHED})")
+    if total == 0 or hit < QUERY_MIN_MATCHED * total:
+        bad.append("query perceive")
+    if bad:
+        raise AssertionError(f"19 under w8a8 against the default route: "
+                             f"{bad}")
+    return out
+
+
+def phase19(K, frames, tmp: str, store: str, coca: dict, shapes: list,
+            dev, smi: str) -> dict:
     """The entry points that are held by their output and read for no
     time, as subprocesses on the card (COUNTED) in lanes side by side
     after every timed phase (`lane_commands`; 17b follows the lanes), each
     run held as its phase held it, and the four loops' JSON lines
-    (`check_loops`). Returns 11d's run."""
+    (`check_loops`); the three families under W8A8 in this process
+    meanwhile (`w8a8_families` on `frames`). Returns 11d's run and the
+    launches of `caption_tools` and of each family."""
     t19 = time.perf_counter()
     lanes = lane_commands(tmp, store, coca)
-    runs = run_lanes(lanes)
+    runs, fam = run_lanes(lanes, lambda: w8a8_families(K, frames, dev, smi))
     secs = time.perf_counter() - t19
     det = detector_selfcheck_check(require_run(runs, "11d"), smi)
     pseudolabel_cli_check(require_run(runs, "12b"))
@@ -7467,9 +7677,12 @@ def phase19(tmp: str, store: str, coca: dict, shapes: list,
     port_coca_check(require_run(runs, "17a"), coca, smi)
     require_run(runs, "teacher")
     check_loops(runs)
-    log(f"  phase 19: {len(lanes)} lanes in {secs:.1f} s on {smi} (each "
-        f"run's seconds are under the load of the others)")
-    return dict(det=det)
+    ct = caption_tools_check(require_run(runs, "caption_tools"),
+                             os.path.join(tmp, CT_CSV), smi)
+    log(f"  phase 19: {len(lanes)} lanes and the w8a8 families in "
+        f"{secs:.1f} s on {smi} (each run's seconds are under the load of "
+        f"the others)")
+    return dict(det=det, caption_tools=ct, **fam)
 
 
 def card_name() -> str:
@@ -7665,10 +7878,13 @@ def main() -> int:
                 p18 = phase18(K, frames13, dev, smi)
                 torch.cuda.empty_cache()
                 stage("[19] the entry points held by their output, in lanes "
-                      "side by side: 10c, 11d, 12b, 12e, 14a, 17a and the "
-                      "four learning loops")
-                det = phase19(lanes, store, p17["coca"], ft["shapes"],
-                              smi)["det"]
+                      "side by side: 10c, 11d, 12b, 12e, 14a, 17a, the "
+                      "four learning loops and caption_tools perplexity; "
+                      "BLIP-2, Florence and the query perceive under w8a8 "
+                      "beside them")
+                p19 = phase19(K, frames13, lanes, store, p17["coca"],
+                              ft["shapes"], dev, smi)
+                det = p19["det"]
                 stage("[17b] evaluate_finetuned_model --ported-dir on 17a's "
                       "directory")
                 p17["coca"] = phase17b(K, store, p17["coca"]["out_dir"], dev,
@@ -7704,7 +7920,10 @@ def main() -> int:
     # 17c's port_checkpoint sbert; launches_w8a8: over 18b's timed
     # perceive(w8a8=True) batch; launches_bf16_kv: over 18b's timed
     # perceive(int8_kv=False) batch; launches_render: over 18e's first
-    # render of each mode
+    # render of each mode; launches_caption_tools: over phase 19's
+    # `caption_tools perplexity`; launches_blip2_w8a8,
+    # launches_florence_w8a8, launches_query_w8a8: over phase 19's batch of
+    # each family under w8a8
     kernels = []
     for n, r in rows.items():
         if loop["counts"][n] > 0:
@@ -7733,13 +7952,19 @@ def main() -> int:
             launches_coca=p17["coca"][n], launches_minilm=p17["minilm"][n],
             launches_w8a8=p18["w8a8"][n], launches_bf16_kv=p18["bf16_kv"][n],
             launches_render=p18["render"].get(n, 0),
+            launches_caption_tools=p19["caption_tools"].get(n, 0),
+            launches_blip2_w8a8=p19["blip2"][n],
+            launches_florence_w8a8=p19["florence"][n],
+            launches_query_w8a8=p19["query"][n],
             **r))
     if any(k["launches"] <= 0 for k in kernels):
         print(f"chip_smoke: a kernel was never launched: {kernels}",
               file=sys.stderr)
         return 1
     log(f"profiler traces taken again for a lost launch (first kernel, "
-        f"tries): {RETRACES or 'none'}")
+        f"tries): {RETRACES or 'none'}; device times read from CUDA events "
+        f"for want of a whole trace (calls, us a call): "
+        f"{EVENT_TIMED or 'none'}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

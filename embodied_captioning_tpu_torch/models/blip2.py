@@ -14,7 +14,9 @@ of the pseudo-captioner's BLIP-2 methods.
 
 `generate` primes the LM's KV caches with the query prefix in one pass
 (full visibility within the prefix), then decodes greedily one token a
-step through the decode kernels (`common.block`).
+step through the decode kernels (`common.block`). On an int8 tree,
+`w8a8` (the JAX package's ECAP_W8A8) gives every product int8
+activations, and a decode step runs as separate calls.
 """
 
 from __future__ import annotations
@@ -100,12 +102,13 @@ def _text_embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 def qformer(params: dict, img_feats: Optional[torch.Tensor],
             cfg: Blip2Config,
-            text_tokens: Optional[torch.Tensor] = None) -> torch.Tensor:
+            text_tokens: Optional[torch.Tensor] = None,
+            w8a8: bool = False) -> torch.Tensor:
     """Queries (and optional text) attend jointly; the queries
     cross-attend the image. `img_feats=None` is the unimodal text mode
     (the ITC text branch): the text self-attends only, no queries and no
     image. Returns [B, Q(+T), width] (or [B, T, width] in text mode),
-    bf16."""
+    bf16. `w8a8` goes to every product."""
     nq = cfg.num_queries
     if img_feats is None:
         if text_tokens is None:
@@ -128,28 +131,31 @@ def qformer(params: dict, img_feats: Optional[torch.Tensor],
     for blk in params["q_blocks"]:
         # self-attention over [queries ; text]
         h, _ = mha(blk["attn"], layernorm(blk["ln1"], x), cfg.qformer_heads,
-                   mask=attn_mask)
+                   mask=attn_mask, w8a8=w8a8)
         x = x + h
         if img_feats is not None:
             # only the queries cross-attend into the image: a bf16 add into
             # the query rows
             h, _ = mha(blk["xattn"], layernorm(blk["ln_x"], x[:, :nq]),
-                       cfg.qformer_heads, kv=img_feats)
+                       cfg.qformer_heads, kv=img_feats, w8a8=w8a8)
             x = torch.cat([x[:, :nq] + h, x[:, nq:]], dim=1)
-        x = x + mlp(blk["mlp"], layernorm(blk["ln2"], x))
+        x = x + mlp(blk["mlp"], layernorm(blk["ln2"], x), w8a8=w8a8)
     return layernorm(params["q_ln"], x)
 
 
-def _image_features(params: dict, images_u8: torch.Tensor, cfg: Blip2Config
-                    ) -> torch.Tensor:
+def _image_features(params: dict, images_u8: torch.Tensor, cfg: Blip2Config,
+                    w8a8: bool = False) -> torch.Tensor:
     return vit_features(params["vision"], preprocess_for_vit(
-        images_u8, cfg.vision.image_size, cfg.vision.patch_size), cfg.vision)
+        images_u8, cfg.vision.image_size, cfg.vision.patch_size), cfg.vision,
+        w8a8=w8a8)
 
 
 def encode_image_queries(params: dict, images_u8: torch.Tensor,
-                         cfg: Blip2Config) -> torch.Tensor:
+                         cfg: Blip2Config, w8a8: bool = False
+                         ) -> torch.Tensor:
     """uint8 images [B, H, W, 3] -> query features [B, Q, width]."""
-    return qformer(params, _image_features(params, images_u8, cfg), cfg)
+    return qformer(params, _image_features(params, images_u8, cfg, w8a8),
+                   cfg, w8a8=w8a8)
 
 
 # ---------------------------------------------------------------------------
@@ -162,28 +168,31 @@ def _l2_normalise(x: torch.Tensor) -> torch.Tensor:
 
 
 def itc_score(params: dict, images_u8: torch.Tensor, tokens: torch.Tensor,
-              cfg: Blip2Config) -> torch.Tensor:
+              cfg: Blip2Config, w8a8: bool = False) -> torch.Tensor:
     """Image-text contrastive score [B] f32: the max over queries of the
     cosine of the query embedding and the text embedding, the text from
-    the Q-Former's unimodal text mode (mean over its non-PAD positions)."""
-    q = encode_image_queries(params, images_u8, cfg)
-    qe = _l2_normalise(dense(params["itc_img"], q).float())
-    txt_feats = qformer(params, None, cfg, text_tokens=tokens)
+    the Q-Former's unimodal text mode (mean over its non-PAD positions).
+    `w8a8` (the JAX package's ECAP_W8A8): every product with an int8
+    weight takes int8 activations."""
+    q = encode_image_queries(params, images_u8, cfg, w8a8)
+    qe = _l2_normalise(dense(params["itc_img"], q, w8a8=w8a8).float())
+    txt_feats = qformer(params, None, cfg, text_tokens=tokens, w8a8=w8a8)
     pad = (tokens != PAD_ID).float()[..., None]
     te = (txt_feats * pad).sum(dim=1) / torch.clamp(pad.sum(dim=1), min=1.0)
-    te = _l2_normalise(dense(params["itc_txt"], te).float())
+    te = _l2_normalise(dense(params["itc_txt"], te, w8a8=w8a8).float())
     return torch.einsum("bqd,bd->bq", qe, te).amax(dim=1)
 
 
 def itm_score(params: dict, images_u8: torch.Tensor, tokens: torch.Tensor,
-              cfg: Blip2Config) -> torch.Tensor:
+              cfg: Blip2Config, w8a8: bool = False) -> torch.Tensor:
     """Image-text matching probability [B] f32 from the joint query
-    features (their mean, rounded to bf16 as JAX's bf16 mean is)."""
-    joint = qformer(params, _image_features(params, images_u8, cfg), cfg,
-                    text_tokens=tokens)
+    features (their mean, rounded to bf16 as JAX's bf16 mean is). `w8a8`
+    as in `itc_score`."""
+    joint = qformer(params, _image_features(params, images_u8, cfg, w8a8),
+                    cfg, text_tokens=tokens, w8a8=w8a8)
     pooled = joint[:, :cfg.num_queries].float().mean(dim=1).to(
         torch.bfloat16)
-    logits = dense(params["itm_head"], pooled)
+    logits = dense(params["itm_head"], pooled, w8a8=w8a8)
     return torch.softmax(logits.float(), dim=-1)[:, 1]
 
 
@@ -191,17 +200,18 @@ def itm_score(params: dict, images_u8: torch.Tensor, tokens: torch.Tensor,
 # the captioning LM
 # ---------------------------------------------------------------------------
 
-def _lm_prefix(params: dict, images_u8: torch.Tensor, cfg: Blip2Config
-               ) -> torch.Tensor:
-    q = encode_image_queries(params, images_u8, cfg)
-    return dense(params["lm_proj"], q)  # [B, Q, lm_width] bf16
+def _lm_prefix(params: dict, images_u8: torch.Tensor, cfg: Blip2Config,
+               w8a8: bool = False) -> torch.Tensor:
+    q = encode_image_queries(params, images_u8, cfg, w8a8)
+    return dense(params["lm_proj"], q, w8a8=w8a8)  # [B, Q, lm_width] bf16
 
 
 def lm_logits(params: dict, images_u8: torch.Tensor, tokens: torch.Tensor,
-              cfg: Blip2Config) -> torch.Tensor:
+              cfg: Blip2Config, w8a8: bool = False) -> torch.Tensor:
     """Teacher-forced logits [B, T, V] (bf16) of tokens [B, T] after the
-    query prefix, which every position sees (prefix-LM mask)."""
-    prefix = _lm_prefix(params, images_u8, cfg)
+    query prefix, which every position sees (prefix-LM mask). `w8a8` as
+    in `itc_score`."""
+    prefix = _lm_prefix(params, images_u8, cfg, w8a8)
     nq = prefix.shape[1]
     t = tokens.shape[1]
     emb = params["lm_tok_emb"][tokens.long()]
@@ -213,15 +223,15 @@ def lm_logits(params: dict, images_u8: torch.Tensor, tokens: torch.Tensor,
     mask[:, :nq] = True  # the prefix is visible everywhere
     mask = mask[None, None]
     for blk in params["lm_blocks"]:
-        x, _ = block(blk, x, cfg.lm_heads, mask=mask)
+        x, _ = block(blk, x, cfg.lm_heads, mask=mask, w8a8=w8a8)
     x = layernorm(params["lm_ln"], x)
-    return dense(params["lm_head"], x[:, nq:])
+    return dense(params["lm_head"], x[:, nq:], w8a8=w8a8)
 
 
 @torch.no_grad()
 def generate(params: dict, images_u8: torch.Tensor, generator,
              cfg: Blip2Config, max_len: Optional[int] = None,
-             decode_blocks: bool = True
+             decode_blocks: bool = True, w8a8: bool = False
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """KV-cached greedy captioning of uint8 images [B, H, W, 3].
     `generator` stands where the JAX function takes a key, and is used for
@@ -229,10 +239,12 @@ def generate(params: dict, images_u8: torch.Tensor, generator,
     primed with the query prefix in one pass, then every step decodes one
     token (all max_len - 1 steps run). Finished rows emit PAD. Returns
     (tokens [B, L] int32 with BOS first, the step logits [B, L-1, V] bf16,
-    lengths [B] int32: the non-PAD tokens)."""
+    lengths [B] int32: the non-PAD tokens). `w8a8` as in `itc_score`;
+    under it each decode step runs as separate calls (the standalone
+    `decode_self_attention`), as `common.decode_route` says."""
     del generator
     max_len = max_len or cfg.max_caption_len
-    prefix = _lm_prefix(params, images_u8, cfg)
+    prefix = _lm_prefix(params, images_u8, cfg, w8a8)
     b, nq, _ = prefix.shape
     dev = prefix.device
     hd = cfg.lm_width // cfg.lm_heads
@@ -243,7 +255,7 @@ def generate(params: dict, images_u8: torch.Tensor, generator,
     for i, blk in enumerate(params["lm_blocks"]):
         x, caches[i] = block(blk, x, cfg.lm_heads, cache=caches[i],
                              cache_block_causal=False,
-                             decode_blocks=decode_blocks)
+                             decode_blocks=decode_blocks, w8a8=w8a8)
     tokens = torch.full((b, max_len), PAD_ID, dtype=torch.int32, device=dev)
     tokens[:, 0] = BOS_ID
     step_logits = torch.zeros(b, max_len - 1, cfg.vocab_size,
@@ -255,8 +267,9 @@ def generate(params: dict, images_u8: torch.Tensor, generator,
              + params["lm_pos"][nq + pos][None, None]).to(torch.bfloat16)
         for i, blk in enumerate(params["lm_blocks"]):
             x, caches[i] = block(blk, x, cfg.lm_heads, cache=caches[i],
-                                 decode_blocks=decode_blocks)
-        logits = dense(params["lm_head"], layernorm(params["lm_ln"], x))[:, 0]
+                                 decode_blocks=decode_blocks, w8a8=w8a8)
+        logits = dense(params["lm_head"], layernorm(params["lm_ln"], x),
+                       w8a8=w8a8)[:, 0]
         nxt = torch.argmax(logits.float(), dim=-1)
         nxt = torch.where(finished, PAD_ID, nxt)
         finished = finished | (nxt == EOS_ID)

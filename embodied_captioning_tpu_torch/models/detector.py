@@ -473,16 +473,14 @@ def forward(params: dict, images: torch.Tensor, cfg: DetectorConfig,
             with_masks: bool = True, w8a8: bool = False) -> Detections:
     """uint8 (or float on the 0..255 scale) [B, S, S, 3] -> Detections with
     `max_detections` slots per frame and ROI masks [B, N, m, m] (zeros
-    without `with_masks`). `w8a8`: the box head's products with int8
-    weights take int8 activations (the convolutions dequantize, as the
-    JAX package's do)."""
+    without `with_masks`). `w8a8`: the box head's products (the query
+    family's: its decoder's and heads') with int8 weights take int8
+    activations (the convolutions dequantize, as the JAX package's do)."""
     if cfg.family == "query":
-        if w8a8:
-            raise ValueError("w8a8 is not threaded into the query "
-                             "detector yet")
         from .query_detector import forward_query
 
-        return forward_query(params, images, cfg, with_masks=with_masks)
+        return forward_query(params, images, cfg, with_masks=with_masks,
+                             w8a8=w8a8)
     inter = _intermediates(params, images.float() / 255.0, cfg, w8a8=w8a8)
     props, pvalid, p2 = inter.proposals, inter.proposal_valid, inter.fpn[0]
     cls_logits, box_deltas = inter.class_logits, inter.box_deltas

@@ -9,7 +9,10 @@ One decoder emits task-conditioned token sequences: captions for
 A ViT encoder (`models/vit.py`) and a causal decoder with cross-attention
 into its features. `generate` primes the KV caches with BOS, feeds the
 task token, then decodes greedily through the decode kernels, the cross
-K/V of every layer computed once (`common.precompute_kv`). The numpy
+K/V of every layer computed once (`common.precompute_kv`; int8 under
+`int8_kv` on an int8 tree, and under `w8a8` int8 activations in every
+product and a decode step as separate calls, the JAX package's
+ECAP_INT8_KV and ECAP_W8A8). The numpy
 codecs between boxes and location tokens round-trip exactly at bin
 resolution.
 """
@@ -160,24 +163,27 @@ def init_florence(g: torch.Generator, cfg: FlorenceConfig, device) -> dict:
     }
 
 
-def _encode(params: dict, images_u8: torch.Tensor, cfg: FlorenceConfig
-            ) -> torch.Tensor:
+def _encode(params: dict, images_u8: torch.Tensor, cfg: FlorenceConfig,
+            w8a8: bool = False) -> torch.Tensor:
     return vit_features(params["vision"], preprocess_for_vit(
-        images_u8, cfg.vision.image_size, cfg.vision.patch_size), cfg.vision)
+        images_u8, cfg.vision.image_size, cfg.vision.patch_size), cfg.vision,
+        w8a8=w8a8)
 
 
 def florence_logits(params: dict, images_u8: torch.Tensor,
-                    tokens: torch.Tensor, cfg: FlorenceConfig
-                    ) -> torch.Tensor:
-    """Teacher-forced decoder logits [B, T, V] (bf16)."""
-    feats = _encode(params, images_u8, cfg)
+                    tokens: torch.Tensor, cfg: FlorenceConfig,
+                    w8a8: bool = False) -> torch.Tensor:
+    """Teacher-forced decoder logits [B, T, V] (bf16). `w8a8` (the JAX
+    package's ECAP_W8A8): every product with an int8 weight takes int8
+    activations."""
+    feats = _encode(params, images_u8, cfg, w8a8)
     t = tokens.shape[1]
     x = (params["tok_emb"][tokens.long()]
          + params["pos_emb"][None, :t]).to(torch.bfloat16)
     mask = causal_mask(t, x.device)
     for blk in params["blocks"]:
-        x, _ = block(blk, x, cfg.heads, mask=mask, cross=feats)
-    return dense(params["head"], layernorm(params["ln"], x))
+        x, _ = block(blk, x, cfg.heads, mask=mask, cross=feats, w8a8=w8a8)
+    return dense(params["head"], layernorm(params["ln"], x), w8a8=w8a8)
 
 
 def florence_loss(params: dict, images_u8: torch.Tensor,
@@ -194,21 +200,26 @@ def florence_loss(params: dict, images_u8: torch.Tensor,
 @torch.no_grad()
 def generate(params: dict, images_u8: torch.Tensor, cfg: FlorenceConfig,
              task: int = TASK_CAPTION, max_len: Optional[int] = None,
-             decode_blocks: bool = True
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             decode_blocks: bool = True, w8a8: bool = False,
+             int8_kv: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """KV-cached greedy generation conditioned on the task token: BOS at
     position 0 (its logits unused), the task token at 1, then max_len - 2
     decoded tokens (all steps run; finished rows emit PAD). Returns
     (tokens [B, max_len] int32 with BOS and the task token first, lengths
-    [B] int32: the non-PAD tokens)."""
+    [B] int32: the non-PAD tokens). `w8a8` as in `florence_logits`; under
+    it each decode step runs as separate calls (the standalone decode
+    attentions), as `common.decode_route` says. `int8_kv` (the JAX
+    package's ECAP_INT8_KV): the cross K/V of int8 projections are
+    quantized to int8 too."""
     max_len = max_len or cfg.max_seq
     b = images_u8.shape[0]
-    feats = _encode(params, images_u8, cfg)
+    feats = _encode(params, images_u8, cfg, w8a8)
     dev = feats.device
     hd = cfg.width // cfg.heads
     caches = [KVCache.create(b, max_len, cfg.heads, hd, dev)
               for _ in range(cfg.layers)]
-    cross_kvs = [precompute_kv(blk["xattn"], feats, cfg.heads)
+    cross_kvs = [precompute_kv(blk["xattn"], feats, cfg.heads, w8a8=w8a8,
+                               int8_kv=int8_kv)
                  for blk in params["blocks"]]
 
     def run_token(tok: torch.Tensor, pos: int) -> torch.Tensor:
@@ -216,8 +227,10 @@ def generate(params: dict, images_u8: torch.Tensor, cfg: FlorenceConfig,
              + params["pos_emb"][pos][None, None]).to(torch.bfloat16)
         for i, (blk, ckv) in enumerate(zip(params["blocks"], cross_kvs)):
             x, caches[i] = block(blk, x, cfg.heads, cache=caches[i],
-                                 cross_kv=ckv, decode_blocks=decode_blocks)
-        return dense(params["head"], layernorm(params["ln"], x))[:, 0]
+                                 cross_kv=ckv, decode_blocks=decode_blocks,
+                                 w8a8=w8a8)
+        return dense(params["head"], layernorm(params["ln"], x),
+                     w8a8=w8a8)[:, 0]
 
     tokens = torch.full((b, max_len), PAD_ID, dtype=torch.int32, device=dev)
     tokens[:, 0] = BOS_ID

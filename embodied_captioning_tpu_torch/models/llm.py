@@ -53,15 +53,17 @@ def init_lm(g: torch.Generator, cfg: LMConfig, device) -> dict:
     }
 
 
-def lm_logits(params: dict, tokens: torch.Tensor, cfg: LMConfig
-              ) -> torch.Tensor:
-    """Tokens [B, T] -> logits [B, T, V] (bf16)."""
+def lm_logits(params: dict, tokens: torch.Tensor, cfg: LMConfig,
+              w8a8: bool = False) -> torch.Tensor:
+    """Tokens [B, T] -> logits [B, T, V] (bf16). `w8a8` (the JAX
+    package's ECAP_W8A8): every product with an int8 weight takes int8
+    activations."""
     t = tokens.shape[1]
     x = params["tok_emb"][tokens.long()] + params["pos_emb"][None, :t]
     mask = causal_mask(t, tokens.device)
     for blk in params["blocks"]:
-        x, _ = block(blk, x, cfg.heads, mask=mask)
-    return dense(params["head"], layernorm(params["ln"], x))
+        x, _ = block(blk, x, cfg.heads, mask=mask, w8a8=w8a8)
+    return dense(params["head"], layernorm(params["ln"], x), w8a8=w8a8)
 
 
 def _token_log_probs(logits: torch.Tensor, tokens: torch.Tensor
@@ -72,10 +74,12 @@ def _token_log_probs(logits: torch.Tensor, tokens: torch.Tensor
 
 
 def sequence_log_prob(params: dict, tokens: torch.Tensor, cfg: LMConfig,
-                      prefix_len: torch.Tensor) -> torch.Tensor:
+                      prefix_len: torch.Tensor, w8a8: bool = False
+                      ) -> torch.Tensor:
     """Mean per-token log p(tokens[prefix_len:]) [B] f32 — the caption
-    scoring primitive. tokens [B, T], prefix_len [B]."""
-    lp = _token_log_probs(lm_logits(params, tokens, cfg), tokens)
+    scoring primitive. tokens [B, T], prefix_len [B]; `w8a8` as in
+    `lm_logits`."""
+    lp = _token_log_probs(lm_logits(params, tokens, cfg, w8a8), tokens)
     tgt = tokens[:, 1:]
     pos = torch.arange(tgt.shape[1], device=tokens.device)[None, :]
     mask = ((tgt != PAD_ID) & (pos >= (prefix_len[:, None] - 1))).float()
@@ -93,13 +97,16 @@ def lm_loss(params: dict, tokens: torch.Tensor, cfg: LMConfig
 class ConsensusLM:
     """Caption consensus by contextual likelihood: each candidate scored by
     its likelihood given the other views as context. Weights default to
-    `init_lm` from a generator seeded with `seed`, on `device`."""
+    `init_lm` from a generator seeded with `seed`, on `device`; `w8a8`
+    goes to `sequence_log_prob`."""
 
     def __init__(self, cfg: Optional[LMConfig] = None, seed: int = 0,
                  params: Optional[dict] = None,
-                 tokenizer: Optional[Tokenizer] = None, device="cuda"):
+                 tokenizer: Optional[Tokenizer] = None, device="cuda",
+                 w8a8: bool = False):
         self.cfg = cfg or LMConfig.tiny()
         self.device = torch.device(device)
+        self.w8a8 = w8a8
         self.params = params or init_lm(
             torch.Generator(device=self.device).manual_seed(seed), self.cfg,
             self.device)
@@ -128,5 +135,6 @@ class ConsensusLM:
                 self.params,
                 torch.as_tensor(np.asarray(rows, np.int32),
                                 device=self.device),
-                self.cfg, torch.as_tensor(prefix_lens, device=self.device))
+                self.cfg, torch.as_tensor(prefix_lens, device=self.device),
+                self.w8a8)
         return scores.cpu().numpy()

@@ -82,10 +82,13 @@ def dense_w8a8(x: torch.Tensor, w: QuantizedArray) -> torch.Tensor:
     int8 x int8 -> int32, then `y * sx * w.scale` in that order. The
     scale is `max(amax, 1e-8) * (1/127)` with the reciprocal rounded to
     float32: the product XLA's CPU compiler makes of the JAX package's
-    jitted `/ 127.0` (ROADMAP C.10)."""
+    jitted `/ 127.0` (ROADMAP C.10). The reciprocal is a host scalar, so
+    no copy to the card (and no wait for it) precedes each product: a
+    float32 tensor times a scalar that float32 holds exactly is the same
+    product on the card and on the CPU."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    sx = torch.clamp(amax, min=1e-8) * amax.new_tensor(_RECIP_127)
+    sx = torch.clamp(amax, min=1e-8) * _RECIP_127
     xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
     lead = x.shape[:-1]
     y = _int_mm_padded(xq.reshape(-1, x.shape[-1]), w.q)

@@ -24,7 +24,9 @@ serving (head dim fpn_dim / 8); every LayerNorm runs through the LayerNorm
 kernel (float32 rows: the query stream is float32), and its backward under
 training. The mask products (query embeddings x mask features, and the
 loss's cost products over pixels) are float32 products, not TF32 ones
-(PyTorch's default, which the port never changes).
+(PyTorch's default, which the port never changes). Under `w8a8` (the JAX
+package's ECAP_W8A8) the decoder's and heads' products with int8 weights
+take int8 activations.
 """
 
 from __future__ import annotations
@@ -112,15 +114,16 @@ def _pos2d(h: int, w: int, d: int, device=None) -> torch.Tensor:
                      dim=-1).reshape(h * w, d)
 
 
-def _predict(params: dict, q: torch.Tensor, mask_feat: torch.Tensor
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _predict(params: dict, q: torch.Tensor, mask_feat: torch.Tensor,
+             w8a8: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Queries [B, Q, d] f32 and mask features [B, Hm, Wm, d] bf16 ->
     (class logits [B, Q, C+1] f32, mask logits [B, Q, Hm, Wm] f32). The
     mask logits are the float32 product of the bf16 mask embeddings and
     features (exact products, float32 sums)."""
     x = layernorm(params["ln_out"], q)
-    cls = dense(params["cls"], x).float()
-    e = dense(params["mask_fc2"], torch.relu(dense(params["mask_fc1"], x)))
+    cls = dense(params["cls"], x, w8a8=w8a8).float()
+    e = dense(params["mask_fc2"], torch.relu(
+        dense(params["mask_fc1"], x, w8a8=w8a8)), w8a8=w8a8)
     b, hm, wm, d = mask_feat.shape
     masks = matmul_f32(e, mask_feat.reshape(b, hm * wm, d).transpose(1, 2))
     return cls, masks.reshape(b, -1, hm, wm)
@@ -138,10 +141,13 @@ def _attn_mask(mask_logits: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return torch.where(any_px, att, True)[:, None]
 
 
-def _decode(params: dict, images: torch.Tensor, cfg: DetectorConfig
-            ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+def _decode(params: dict, images: torch.Tensor, cfg: DetectorConfig,
+            w8a8: bool = False) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """float images [B, S, S, 3] in [0, 1] -> (class logits, mask logits)
-    at every supervision point, the first before any decoder layer."""
+    at every supervision point, the first before any decoder layer.
+    `w8a8`: the decoder's and heads' products with int8 weights take
+    int8 activations (the convolutions dequantize, as the JAX package's
+    do)."""
     from . import detector as DET
 
     fpn = DET.backbone_fpn(params, images, cfg)
@@ -156,17 +162,18 @@ def _decode(params: dict, images: torch.Tensor, cfg: DetectorConfig
              + params["level_embed"][i])
         tokens.append((t.to(f.dtype), h, w))
     q = params["query_embed"][None].expand(b, -1, -1).contiguous()
-    preds = [_predict(params, q, mask_feat)]
+    preds = [_predict(params, q, mask_feat, w8a8)]
     for li, layer in enumerate(params["layers"]):
         t, h, w = tokens[li % len(tokens)]
         att = _attn_mask(preds[-1][1], h, w)
         hx, _ = mha(layer["xattn"], layernorm(layer["ln_x"], q), HEADS,
-                    kv=t, mask=att)
+                    kv=t, mask=att, w8a8=w8a8)
         q = q + hx
-        hs, _ = mha(layer["sattn"], layernorm(layer["ln_s"], q), HEADS)
+        hs, _ = mha(layer["sattn"], layernorm(layer["ln_s"], q), HEADS,
+                    w8a8=w8a8)
         q = q + hs
-        q = q + mlp(layer["mlp"], layernorm(layer["ln_m"], q))
-        preds.append(_predict(params, q, mask_feat))
+        q = q + mlp(layer["mlp"], layernorm(layer["ln_m"], q), w8a8=w8a8)
+        preds.append(_predict(params, q, mask_feat, w8a8))
     return preds
 
 
@@ -374,8 +381,9 @@ def finalize(cls: torch.Tensor, mlog: torch.Tensor, cfg: DetectorConfig,
 
 @torch.no_grad()
 def forward_query(params: dict, images_u8: torch.Tensor, cfg: DetectorConfig,
-                  with_masks: bool = True) -> Detections:
+                  with_masks: bool = True, w8a8: bool = False) -> Detections:
     """uint8 (or float on the 0..255 scale) [B, S, S, 3] -> `Detections`
-    with `max_detections` slots a frame (`finalize` of the last layer)."""
-    cls, mlog = _decode(params, images_u8.float() / 255.0, cfg)[-1]
+    with `max_detections` slots a frame (`finalize` of the last layer).
+    `w8a8` as in `_decode`."""
+    cls, mlog = _decode(params, images_u8.float() / 255.0, cfg, w8a8)[-1]
     return finalize(cls, mlog, cfg, with_masks)

@@ -16,19 +16,11 @@ from embodied_captioning_tpu_torch.ops import augment as TA
 from embodied_captioning_tpu_torch.ops.detections import Detections as TDet
 from embodied_captioning_tpu_torch.selfcheck_detector import host_augment
 from test_augment import _mkdet, _oracle
-from torch_parity import torch_threads
 
 B, N, H, W = 6, 5, 48, 40
 FLAGS = {"all": dict(), "no-crop": dict(crop=False),
          "no-flip": dict(flip=False), "no-jitter": dict(jitter=False),
          "crop-only": dict(flip=False, jitter=False)}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    """Two intra-op threads while this module runs (see torch_threads)."""
-    with torch_threads(2):
-        yield
 
 
 def _port_det(det, mask_dtype=None) -> TDet:

@@ -36,8 +36,8 @@ from embodied_captioning_tpu_torch.envs.env import EmbodiedEnv
 from embodied_captioning_tpu_torch.mapping import voxel_map as V
 from embodied_captioning_tpu_torch.perception import Perceiver
 from torch_parity import (
-    GENERATE_OVERRIDES, jax_generate_records, port_generate_on,
-    readouts_agree)
+    GENERATE_OVERRIDES, jax_generate_records, port_generate_on, readouts_agree,
+)
 
 SEED = 12
 STEPS = 4

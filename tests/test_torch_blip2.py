@@ -31,7 +31,7 @@ from embodied_captioning_tpu_torch.train.optim import (
 from embodied_captioning_tpu_torch.params import from_jax
 from torch_parity import (
     gradient_errors, jax_kernel_path, jax_train_path, leaf_names, np32,
-    perturbed, t, torch_threads,
+    perturbed, t,
 )
 
 # bf16 logits and features: the CoCa tests' limit (test_torch_generate.py)
@@ -42,12 +42,6 @@ SCORE_ATOL = 5e-3
 # C.12): the weights' key and image seed were picked where every row of
 # the JAX package's decode agrees with the port's on both routes
 WEIGHT_KEY, IMAGE_SEED = 1, 0
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    with torch_threads(2):
-        yield
 
 
 def _inputs(cfg, seed: int, b: int = 3, t_len: int = 10):

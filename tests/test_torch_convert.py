@@ -43,7 +43,7 @@ from embodied_captioning_tpu_torch.tools.torch_replica import (
     build_torch_coca, coca_parity_report, zero_state,
 )
 from tests.test_convert import _tiny_torch_coca, _tiny_torch_vit
-from torch_parity import jax_kernel_path, jax_train_path, np32, torch_threads
+from torch_parity import jax_kernel_path, jax_train_path, np32
 
 MERGES = [("l", "o"), ("lo", "w"), ("e", "r</w>")]
 
@@ -115,9 +115,8 @@ def cocas(tmp_path_factory):
         ckpt = d / f"{name}.pt"
         torch.save(state, ckpt)
         bpe = _write_bpe(d / f"{name}.txt.gz", merges)
-        with torch_threads(2):
-            jp = JP.port_coca(str(ckpt), bpe, max_caption_len=8)
-            tp = TP.port_coca(str(ckpt), bpe, max_caption_len=8)
+        jp = JP.port_coca(str(ckpt), bpe, max_caption_len=8)
+        tp = TP.port_coca(str(ckpt), bpe, max_caption_len=8)
         out[name] = dict(state=state, ckpt=str(ckpt), bpe=bpe, jax=jp,
                          port=tp)
     return out
@@ -242,10 +241,9 @@ def test_forward_on_converted_weights_matches_jax(cocas, name):
         want = [np32(x) for x in JCAP.forward(
             jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(imgs),
             jnp.asarray(toks), cfg)]
-    with torch_threads(2):
-        got = [np32(x) for x in TCAP.forward(
-            from_jax(cocas[name]["port"][0], "cpu"), torch.from_numpy(imgs),
-            torch.from_numpy(toks), cocas[name]["port"][1])]
+    got = [np32(x) for x in TCAP.forward(
+        from_jax(cocas[name]["port"][0], "cpu"), torch.from_numpy(imgs),
+        torch.from_numpy(toks), cocas[name]["port"][1])]
     assert _corr(got[0], want[0]) > 0.999
     np.testing.assert_allclose(_log_softmax(got[0]), _log_softmax(want[0]),
                                atol=5e-2, rtol=0)
@@ -260,9 +258,8 @@ def test_forward_matches_the_replica_teacher_forced(cocas, name):
     imgs = _images(8, 2, cfg.vision.image_size)
     toks = np.random.default_rng(9).integers(
         4, cfg.text.vocab_size - 2, (2, 6)).astype(np.int64)
-    with torch_threads(2):
-        rep = coca_parity_report(c["state"], from_jax(params, "cpu"), cfg,
-                                 imgs, toks, "cpu")
+    rep = coca_parity_report(c["state"], from_jax(params, "cpu"), cfg,
+                             imgs, toks, "cpu")
     assert rep["replica_missing"] == []
     assert rep["checkpoint_unconsumed"] == []
     assert rep["text"]["mm_pairs"] * 2 == cfg.text.cross_layers
@@ -310,9 +307,8 @@ def test_greedy_generate_on_converted_coca_matches_jax(cocas, name,
         monkeypatch.setattr(mod, fn, lambda *a, _f=orig, _n=fn, **k: (
             calls.update([_n]), _f(*a, **k))[1])
     tparams, tcfg, _ = cocas[name]["port"]
-    with torch_threads(2):
-        toks, logp, lengths = TCAP.generate(from_jax(tparams, "cpu"),
-                                            torch.from_numpy(imgs), tcfg)
+    toks, logp, lengths = TCAP.generate(from_jax(tparams, "cpu"),
+                                        torch.from_numpy(imgs), tcfg)
     t = tcfg.text
     route = TCM.decode_route(4, t.width, t.heads, int(t.width * t.mlp_ratio),
                              tcfg.max_caption_len, True)

@@ -47,7 +47,6 @@ from embodied_captioning_tpu_torch.utils.checkpoint import (
     CheckpointManager, PreemptionGuard,
 )
 from torch_dist import run
-from torch_parity import torch_threads
 
 WORLD = 2
 OVERRIDES = ["runtime.num_envs=4", "sensors.height=32", "sensors.width=32",
@@ -56,12 +55,6 @@ OVERRIDES = ["runtime.num_envs=4", "sensors.height=32", "sensors.width=32",
              "ppo.num_global_steps=1", "ppo.num_mini_batch=2",
              "ppo.ppo_epoch=2"]
 PPO = dict(num_mini_batch=2, ppo_epoch=2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    with torch_threads(2):
-        yield
 
 
 def _cfg(ckpt, overrides=OVERRIDES):

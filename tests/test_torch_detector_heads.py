@@ -7,7 +7,7 @@ workers)."""
 import pytest
 
 from test_torch_detector_train import (  # noqa: F401 (fixtures and tests)
-    HEADS, HERE, _pair, base, few_torch_threads,
+    HEADS, HERE, _pair, base,
     test_every_leaf_gradient_matches_jax, test_loss_and_parts_match_jax,
 )
 

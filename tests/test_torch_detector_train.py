@@ -33,9 +33,7 @@ from embodied_captioning_tpu_torch.train.optim import (
     adam_init, adam_update, tree_leaves, value_and_grad,
     warmup_cosine_decay_schedule,
 )
-from torch_parity import (
-    gradient_errors, leaf_names, np32, perturbed, torch_threads,
-)
+from torch_parity import gradient_errors, leaf_names, np32, perturbed
 
 HEADS = ("ce", "focal", "soft", "softfocal", "msefocal")
 # the heads whose JAX gradients this file compiles; the other two compile
@@ -43,13 +41,6 @@ HEADS = ("ce", "focal", "soft", "softfocal", "msefocal")
 HERE = HEADS[:3]
 B, G, S = 2, 8, 64
 LR = 1e-3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    """Two intra-op threads while this module runs (see torch_threads)."""
-    with torch_threads(2):
-        yield
 
 
 def _ground_truth(seed: int, mask_size: int = S) -> dict:

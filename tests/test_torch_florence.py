@@ -30,7 +30,7 @@ from embodied_captioning_tpu_torch.train.optim import (
 )
 from torch_parity import (
     gradient_errors, jax_kernel_path, jax_train_path, leaf_names, np32,
-    perturbed, torch_threads,
+    perturbed,
 )
 
 # bf16 logits: the CoCa tests' limit (test_torch_generate.py)
@@ -44,12 +44,6 @@ ATOL = 5e-2
 # key and image seed were picked where no row parts before token 12 in any
 # of the eight cases, and the decodes are GEN_LEN tokens long
 WEIGHT_KEY, IMAGE_SEED, GEN_LEN = 5, 0, 12
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    with torch_threads(2):
-        yield
 
 
 @pytest.fixture(scope="module")

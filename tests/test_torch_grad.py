@@ -39,6 +39,7 @@ D, H = 64, 2
 # C.21: the kernel branch, forced on the CPU
 # ---------------------------------------------------------------------------
 
+
 def _view(ptr: int, shape, dtype) -> torch.Tensor:
     """A CPU tensor over the memory at address `ptr`."""
     n = math.prod(shape)

@@ -72,7 +72,11 @@ def test_scan_covers_every_subpackage_and_the_smoke_script():
                 "tools/torch_replica.py", "tools/port.py",
                 "port_checkpoint.py", "evaluate_finetuned_model.py",
                 "selfcheck_loop.py", "selfcheck_rl.py",
-                "selfcheck_cycle.py", "selfcheck_teacher_student.py"):
+                "selfcheck_cycle.py", "selfcheck_teacher_student.py",
+                "compute_cosine_sim.py", "compute_detection_statistics.py",
+                "compute_performance_measures.py", "caption_tools.py",
+                "visualize_exp.py", "visualize_cosine_similarity.py",
+                "build_vocab.py"):
         assert pkg + rel in scanned, rel
     assert "chip_smoke.py" in scanned
     # every directory of the package that holds Python files is scanned

@@ -36,17 +36,11 @@ from embodied_captioning_tpu_torch.train.optim import (
 )
 from torch_parity import (
     gradient_errors, jax_kernel_path, jax_train_path, leaf_names, np32,
-    perturbed, t, torch_threads,
+    perturbed, t,
 )
 
 # bf16 logits and stream: the CoCa tests' limit (test_torch_generate.py)
 LOGIT_ATOL = 5e-2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    with torch_threads(2):
-        yield
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,6 @@ from embodied_captioning_tpu_torch import selfcheck_teacher_student as TS
 from embodied_captioning_tpu_torch.config import load_config, to_dict
 from embodied_captioning_tpu_torch.models import detector as DET
 from embodied_captioning_tpu_torch.params import to_numpy
-from torch_parity import torch_threads
 
 LOOP_KEYS = {"preset", "loop_steps", "seconds", "loop_fps",
              "reward_mean_first_half", "reward_mean_second_half",
@@ -47,12 +46,6 @@ TS_KEYS = {"teacher_map50", "eval_sha", "pool_frames", "teacher_detections",
            "steps", "scenes", "generations", "student_vanilla_map50",
            "student_soft_map50", "student_semantic_map_map50"}
 SMALL = ["sensors.height=64", "sensors.width=64"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    with torch_threads(2):
-        yield
 
 
 def _run(main, argv):

@@ -45,18 +45,12 @@ from embodied_captioning_tpu_torch.train.optim import (
 )
 from torch_parity import (
     gradient_errors, jax_kernel_path, jax_train_path, leaf_names, np32,
-    perturbed, torch_threads,
+    perturbed,
 )
 
 DIM, HID, E = 16, 32, 4
 EXPERTS = 4  # the tiny captioner's
 LOGIT_ATOL = 5e-2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    with torch_threads(2):
-        yield
 
 
 def _tree(tree):

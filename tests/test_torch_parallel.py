@@ -55,7 +55,7 @@ from embodied_captioning_tpu_torch.train.optim import (
     tree_leaves, tree_map, tree_map_with_path,
 )
 from torch_dist import run
-from torch_parity import jax_kernel_path, torch_threads
+from torch_parity import jax_kernel_path
 
 WORLD = 2
 HEADS, DIM = 4, 64
@@ -63,12 +63,6 @@ VIT = dict(image_size=56, patch_size=14, width=64, layers=2, heads=4,
            pool_queries=4, pool_heads=2, embed_dim=32)
 PERCEIVE_OVER = {"runtime": {"caption_slots_per_frame": 2},
                  "detector": {"score_threshold": 0.0}}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    with torch_threads(2):
-        yield
 
 
 def _np_tree(tree):

@@ -42,7 +42,7 @@ from embodied_captioning_tpu_torch.params import from_jax, to_numpy
 from embodied_captioning_tpu_torch.perception import Perceiver
 from embodied_captioning_tpu_torch.train import optim as TO
 from embodied_captioning_tpu_torch.train import pipelines as TP
-from torch_parity import STORE_OVERRIDES, jax_store, torch_threads
+from torch_parity import STORE_OVERRIDES, jax_store
 
 REPO = Path(__file__).resolve().parents[1]
 LR = 1e-4  # TeacherStudent's default step size
@@ -50,13 +50,6 @@ LR = 1e-4  # TeacherStudent's default step size
 # its second (the bias-corrected moments' ratio, by Cauchy-Schwarz), plus
 # the decay's lr * 1e-4 * |p|: two trajectories part by at most 2 of that
 ADAM_STEP = 1.0014 * LR
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    """Two intra-op threads while this module runs (see torch_threads)."""
-    with torch_threads(2):
-        yield
 
 
 def _leaves(tree) -> list:

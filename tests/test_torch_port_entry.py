@@ -37,7 +37,7 @@ from embodied_captioning_tpu_torch.tools import port as TP
 from embodied_captioning_tpu_torch.utils.obs_store import save_obs
 from chip_smoke import minilm_state
 from test_torch_convert import _write_bpe, replica_state, same_tree
-from torch_parity import jax_kernel_path, torch_threads
+from torch_parity import jax_kernel_path
 
 REPO = Path(__file__).resolve().parents[1]
 # the CoCa of these tests: text 64 wide, so every decode sublayer takes
@@ -68,8 +68,7 @@ def _run(main, argv, jax_side):
             with jax_kernel_path(blocks=True):
                 rc = main()
         else:
-            with torch_threads(2):
-                rc = main(argv + ["--device", "cpu"])
+            rc = main(argv + ["--device", "cpu"])
     return json.loads(buf.getvalue().splitlines()[-1]), rc
 
 

@@ -36,20 +36,12 @@ from embodied_captioning_tpu_torch.params import from_jax
 from embodied_captioning_tpu_torch.perception import Perceiver
 from torch_parity import (
     STORE_OVERRIDES, jax_kernel_path, jax_store, jax_train_path,
-    torch_threads,
 )
 
 REPO = Path(__file__).resolve().parents[1]
 
 WORDS = ("a", "red", "blue", "brown", "couch", "bed", "tv", "plant", "table",
          "on", "the", "floor", "small", "large", "blurry", "dark")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    """Two intra-op threads while this module runs (see torch_threads)."""
-    with torch_threads(2):
-        yield
 
 
 def _groups(seed: int, n_objects: int = 12):

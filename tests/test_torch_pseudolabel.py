@@ -44,9 +44,7 @@ from embodied_captioning_tpu_torch.models import detector as TD
 from embodied_captioning_tpu_torch.ops.detections import Detections as TDet
 from embodied_captioning_tpu_torch.perception import Perceiver
 from embodied_captioning_tpu_torch.sensor_data import Pose, quat_from_yaw
-from torch_parity import (
-    STORE_OVERRIDES, jax_kernel_path, jax_store, np32, t, torch_threads,
-)
+from torch_parity import STORE_OVERRIDES, jax_kernel_path, jax_store, np32, t
 
 HFOV = 79.0
 SIZE = 64
@@ -55,13 +53,6 @@ BATCH = 4
 HOST_CONSENSUS = ("vanilla", "logits", "soft", "majority", "max_score")
 SAMPLE_FIELDS = ("boxes", "classes", "logits", "masks", "valid", "scores",
                  "object_ids", "embeddings")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    """Two intra-op threads while this module runs (see torch_threads)."""
-    with torch_threads(2):
-        yield
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +306,6 @@ def test_forward_mc_on_handed_masks_matches_jax(tta_pair):
 # ---------------------------------------------------------------------------
 # labeling/pseudolabeler.py: the seven consensus labelers
 # ---------------------------------------------------------------------------
-
 
 
 def _port_sample(s):

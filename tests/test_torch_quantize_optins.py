@@ -29,13 +29,7 @@ from embodied_captioning_tpu_torch.config import merge as tmerge
 from embodied_captioning_tpu_torch.models import common as TC
 from embodied_captioning_tpu_torch.models import quantize as TQ
 from embodied_captioning_tpu_torch.params import from_jax
-from torch_parity import jax_kernel_path, np32, t, torch_threads
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    with torch_threads(2):
-        yield
+from torch_parity import jax_kernel_path, np32, t
 
 
 @contextlib.contextmanager

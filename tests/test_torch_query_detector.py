@@ -39,7 +39,7 @@ from embodied_captioning_tpu_torch.params import from_jax, to_numpy
 from embodied_captioning_tpu_torch.train.optim import value_and_grad
 from torch_parity import (
     gradient_errors, jax_kernel_path, jax_train_path, leaf_names, np32,
-    perturbed, t, torch_threads,
+    perturbed, t,
 )
 
 QCFG = dict(image_size=64, backbone_width=16, fpn_dim=64, family="query",
@@ -55,12 +55,6 @@ def _cfgs(name: str, **over):
     kw = dict(TINY, **over)
     return (dataclasses.replace(JCfg.tiny(), **kw),
             dataclasses.replace(TCfg.tiny(), **kw))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    with torch_threads(2):
-        yield
 
 
 def _gt_batch(rng, b: int, g: int, size: int, num_classes: int = 6):

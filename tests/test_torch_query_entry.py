@@ -33,16 +33,9 @@ from embodied_captioning_tpu_torch.models.quantize import QuantizedArray
 from embodied_captioning_tpu_torch.params import (
     dump_tree, from_jax, load_detector_artifact, load_pickle, to_numpy,
 )
-from torch_parity import torch_threads
 
 REPO = Path(__file__).resolve().parents[1]
 QUERY = ["detector.family=query", "detector.query_aux_topk=3"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    with torch_threads(2):
-        yield
 
 
 def _jax_query_params(seed: int = 0):

@@ -21,15 +21,9 @@ from embodied_captioning_tpu_torch.config import load_config
 from embodied_captioning_tpu_torch.models import detector as TD
 from embodied_captioning_tpu_torch.params import load_pickle
 from embodied_captioning_tpu_torch.train.optim import tree_leaves
-from torch_parity import STORE_OVERRIDES, torch_threads
+from torch_parity import STORE_OVERRIDES
 
 QUERY = ["detector.family=query", "detector.query_aux_topk=3"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    with torch_threads(2):
-        yield
 
 
 def _run_main(main, argv):

@@ -32,16 +32,9 @@ from embodied_captioning_tpu_torch.config import SimConfig as TSimCfg
 from embodied_captioning_tpu_torch.envs import sim as TS
 from embodied_captioning_tpu_torch.models import detector as TD
 from embodied_captioning_tpu_torch.params import from_jax
-from torch_parity import torch_threads
 
 MODES = ("gather", "onehot16", "onehot+vr", "onehot+pk", "gather+pk",
          "onehot16+vr", "onehot@16x48", "onehot@8x3", "onehot@16x4")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    with torch_threads(2):
-        yield
 
 
 def _poses(rng, n):

@@ -31,7 +31,7 @@ from embodied_captioning_tpu_torch.config import load_config
 from embodied_captioning_tpu_torch.envs import registry as R
 from embodied_captioning_tpu_torch.params import from_jax
 from embodied_captioning_tpu_torch.utils import image_io as IO
-from torch_parity import jax_kernel_path, torch_threads
+from torch_parity import jax_kernel_path
 
 REPO = Path(__file__).resolve().parent.parent
 OV = ["sensors.height=24", "sensors.width=24", "sim.scene_size=6.0",
@@ -41,12 +41,6 @@ TPerceiver = TPER.Perceiver
 # --perceive: the tiny preset on 64^2 frames, a score threshold that
 # leaves some slots of the random detector valid and some not
 PERCEIVE_OV = ["detector.score_threshold=0.3"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    with torch_threads(2):
-        yield
 
 
 @pytest.fixture(scope="module")

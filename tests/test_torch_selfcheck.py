@@ -49,18 +49,9 @@ from embodied_captioning_tpu_torch.ops.detections import (
 )
 from embodied_captioning_tpu_torch.params import from_jax, load_pickle
 from embodied_captioning_tpu_torch.train.optim import tree_leaves
-from torch_parity import (
-    jax_kernel_path, jax_train_path, np32, perturbed, torch_threads,
-)
+from torch_parity import jax_kernel_path, jax_train_path, np32, perturbed
 
 REPO = Path(__file__).resolve().parents[1]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    """Two intra-op threads while this module runs (see torch_threads)."""
-    with torch_threads(2):
-        yield
 
 
 def _script(name: str):

@@ -42,7 +42,7 @@ from embodied_captioning_tpu_torch.labeling.datasets import Sample
 from embodied_captioning_tpu_torch.models import sbert as TSB
 from embodied_captioning_tpu_torch.params import from_jax, to_numpy
 from embodied_captioning_tpu_torch.train.optim import relative_gap, update_gaps
-from torch_parity import jax_kernel_path, jax_train_path, torch_threads
+from torch_parity import jax_kernel_path, jax_train_path
 
 REPO = Path(__file__).resolve().parents[1]
 # the JAX scripts' configuration (selfcheck_loop.py:40-50)
@@ -56,12 +56,6 @@ AGREE_2 = 0.95
 # 2 steps (measured 0.28 for the detector, 0.23 for the captioner); a step
 # of half or twice the size would read 0.5 or 1.0, none 1.0
 MOVE_GAP = 0.4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    with torch_threads(2):
-        yield
 
 
 def _script(name: str):

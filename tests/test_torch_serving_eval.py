@@ -44,16 +44,10 @@ from embodied_captioning_tpu_torch.models import detector as TDET
 from embodied_captioning_tpu_torch.ops.detections import Detections as TDet
 from embodied_captioning_tpu_torch.params import from_jax, to_numpy
 from embodied_captioning_tpu_torch.train import optim as TO
-from torch_parity import perturbed, torch_threads
+from torch_parity import perturbed
 
 REPO = Path(__file__).resolve().parents[1]
 BATCH = 4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    with torch_threads(2):
-        yield
 
 
 def _script(name: str):

@@ -62,7 +62,7 @@ from embodied_captioning_tpu_torch.train.optim import (
 )
 from test_tp import BASE_TP_CFG
 from torch_dist import _cap_cfg, run
-from torch_parity import jax_train_path, leaf_names, np32, torch_threads
+from torch_parity import jax_train_path, leaf_names, np32
 
 LR = 1e-4
 TRIPLET = 0.1
@@ -79,12 +79,6 @@ TINY = dict(
     text=dict(context_length=16, vocab_size=1023, width=64, heads=2,
               layers=1, cross_layers=1),
     max_caption_len=8)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    with torch_threads(2):
-        yield
 
 
 def _cfg_dict(jcfg) -> dict:

@@ -1,25 +1,10 @@
 """The port's PPO trainers (agents/goal_exploration.py, extra_trainers.py,
-registry, run_exp --mode train) against the JAX package's.
-
-- The whole slice: one PPO update of `goalexplorationbaseline-v0` over 2
-  decisions of 2 env steps, unfused and fused, on the tiny settings of the
-  generate tests (2 envs, 128^2 sensors), with the JAX
-  trainer's weights. The port is handed the JAX run's decisions (its
-  `_act`, replaced in the test), its frames (the unfused loop's
-  observations; the fused loop's renders) and its minibatch
-  permutations; it runs its own perception (block decode route; the JAX
-  package with ECAP_USE_PALLAS=1 ECAP_PALLAS_BLOCKS=1), fusion, rewards,
-  policy inputs, GAE and update. Window rewards within rtol 1e-4 / atol
-  1e-5 (the loop tolerance of the generate tests); the stored policy maps
-  within atol 1e-4 on all but 1e-3 of their elements (the voxel grids'
-  tolerance of the device loop tests);
-  orientations, masks and the handed decisions equal; the bootstrap value
-  within 2 bf16 ulps; the parameters after the update within Adam's
-  per-step bound of 2 * lr, with a mean difference under a tenth of the
-  mean move (tests/test_torch_policy.py says why).
-- Every trainer of the JAX package but "myppo" is registered; the light
-  trainers act as the JAX package's; the goal-exploration variants mirror
-  tests/test_trainers.py; checkpoints load across the packages.
+registry, run_exp --mode train) against the JAX package's: every trainer
+of the JAX package is registered; the light trainers act as the JAX
+package's; the goal-exploration variants mirror tests/test_trainers.py;
+checkpoints load across the packages; the KL env's reward in fused
+windows (ROADMAP C.19). The whole slice against the JAX trainer is in
+test_torch_trainers_slice.py.
 """
 
 import dataclasses
@@ -38,7 +23,6 @@ from embodied_captioning_tpu.agents import policy as JP
 from embodied_captioning_tpu.agents.registry import get_trainer as jget
 from embodied_captioning_tpu.agents.registry import list_trainers as jlist
 from embodied_captioning_tpu.config import load_config as jload
-from embodied_captioning_tpu.envs import device_loop as JDL
 from embodied_captioning_tpu_torch import params as P
 from embodied_captioning_tpu_torch import run_exp
 from embodied_captioning_tpu_torch.agents import goal_exploration as GE
@@ -47,182 +31,16 @@ from embodied_captioning_tpu_torch.agents import policy as TP
 from embodied_captioning_tpu_torch.agents import ppo as TPPO
 from embodied_captioning_tpu_torch.agents.registry import get_trainer
 from embodied_captioning_tpu_torch.config import load_config
-from embodied_captioning_tpu_torch.envs import device_loop as DL
 from embodied_captioning_tpu_torch.perception import Perceiver
-from torch_parity import GENERATE_OVERRIDES, jax_kernel_path, np32
+from torch_parity import GENERATE_OVERRIDES, TRAIN_SLICE, np32
 
 LIGHT = ["runtime.num_envs=1", "sensors.height=48", "sensors.width=48",
          "sim.scene_size=6.0", "sim.num_objects=4", "sim.episode_steps=6",
          "map.voxel_size=0.1", "ppo.replanning_steps=3"]
 
-SEED = 12
-# the generate tests' settings on the disagreement env (the KL env reads
-# a frame's detections, which the fused loop does not hand it); scene
-# seed 12 gives both loop forms a reward in env 0 within the 4 steps
-SLICE = GENERATE_OVERRIDES[:-1] + [
-    f"sim.scene_seed={SEED}", "sim.episode_steps=8", "ppo.num_global_steps=2",
-    "ppo.ppo_epoch=2", "ppo.num_mini_batch=2"]
-
 
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
-
-
-# ---------------------------------------------------------------------------
-# the whole slice against the JAX trainer
-# ---------------------------------------------------------------------------
-
-def _jax_train(fused: bool, monkeypatch):
-    """`train(1, 2, fused)` of the JAX trainer, recording its decisions,
-    the frames its perception saw, the rollout and key of its update, its
-    initial and final policy parameters."""
-    jtr = jget("goalexplorationbaseline-v0")(jload("tiny", overrides=SLICE))
-    rec = dict(params0=_np(jtr.ppo_state.params), decisions=[], frames=[],
-               updates=[])
-    own_act = jtr._act
-
-    def act(key, maps, orients, deterministic=False):
-        out = own_act(key, maps, orients, deterministic)
-        rec["decisions"].append(tuple(None if x is None else np32(x)
-                                      for x in out))
-        return out
-
-    jtr._act = act
-    if fused:
-        real_render = JDL._render_scan
-
-        def render(scenes, poses, cfg, want_depth=True):
-            out = real_render(scenes, poses, cfg, want_depth)
-            jax.debug.callback(
-                lambda rgb, depth: rec["frames"].append(
-                    {"rgb": torch.from_numpy(np.array(rgb)),
-                     "depth": torch.from_numpy(np.array(depth))}),
-                out[0], out[1], ordered=True)
-            return out
-
-        monkeypatch.setattr(JDL, "_render_scan", render)
-    else:
-        own_pf = jtr.perceive_and_fuse
-
-        def perceive_and_fuse(obs):
-            rec["frames"].append({k: np.array(v) for k, v in obs.items()})
-            return own_pf(obs)
-
-        jtr.perceive_and_fuse = perceive_and_fuse
-    real_update = JGE.ppo_update
-
-    def update(state, rollout, key, cfg, categorical=False):
-        # copies: the rollout's maps, orientations and masks are views of
-        # the storage's buffers, which `after_update` overwrites
-        rec["updates"].append((jax.tree_util.tree_map(np.array, rollout),
-                               key))
-        return real_update(state, rollout, key, cfg, categorical)
-
-    monkeypatch.setattr(JGE, "ppo_update", update)
-    with jax_kernel_path(blocks=True):
-        rec["metrics"] = jtr.train(num_updates=1, decisions_per_update=2,
-                                   fused=fused)
-    rec["params1"] = _np(jtr.ppo_state.params)
-    rec["perception"] = _np(jtr.perceiver.params)
-    monkeypatch.undo()
-    jtr.envs.close()
-    return rec
-
-
-def _port_train(rec, fused: bool, monkeypatch):
-    """The port's `train(1, 2, fused)` on the JAX run's weights, handed its
-    decisions, frames and permutations; returns (trainer, rollouts)."""
-    cfg = load_config("tiny", overrides=SLICE)
-    tr = get_trainer("goalexplorationbaseline-v0")(
-        cfg, device="cpu",
-        perceiver=Perceiver(cfg, params=P.from_jax(rec["perception"], "cpu"),
-                            device="cpu"))
-    tr.ppo_state = TPPO.create_state(P.from_jax(rec["params0"], "cpu"),
-                                     cfg.ppo)
-    decisions = iter(rec["decisions"])
-    tr._act = lambda maps, orients, deterministic=False: next(decisions)
-    frames = iter(rec["frames"])
-    if fused:
-        monkeypatch.setattr(DL, "_render_scan",
-                            lambda scenes, poses, c: next(frames))
-    else:
-        own_pf = tr.perceive_and_fuse
-        tr.perceive_and_fuse = lambda obs, timer=None: own_pf(
-            {k: torch.from_numpy(v) for k, v in next(frames).items()})
-    keys = iter(rec["updates"])
-    rollouts = []
-
-    def update(state, rollout, generator, c, categorical=False):
-        _, key = next(keys)
-        perms = [torch.from_numpy(np.asarray(jax.random.permutation(
-            k, rollout.rewards.size))) for k in jax.random.split(
-                key, c.ppo_epoch)]
-        rollouts.append(type(rollout)(*(None if x is None else np.array(x)
-                                        for x in rollout)))
-        return TPPO.ppo_update_with(state, rollout, perms, c, categorical)
-
-    monkeypatch.setattr(GE, "ppo_update", update)
-    tr.train(num_updates=1, decisions_per_update=2, fused=fused)
-    assert next(decisions, None) is None and next(frames, None) is None
-    tr.envs.close()
-    return tr, rollouts
-
-
-@pytest.mark.parametrize("fused", [False, True])
-def test_train_matches_jax_on_handed_decisions_and_frames(fused,
-                                                          monkeypatch):
-    rec = _jax_train(fused, monkeypatch)
-    assert len(rec["frames"]) == 4 and len(rec["decisions"]) == 2
-    tr, rollouts = _port_train(rec, fused, monkeypatch)
-    (want, _), got = rec["updates"][0], rollouts[0]
-    # not vacuous: the disagreement moves
-    assert np.abs(want.rewards).max() > 1e-3, want.rewards
-    np.testing.assert_allclose(got.rewards, want.rewards, rtol=1e-4,
-                               atol=1e-5)
-    # a mask pixel at the bf16 threshold may mark a voxel on the other
-    # side (the device loop tests allow 1e-3 of the voxels): a top-down
-    # cell then moves the pixels resized from it
-    off = np.abs(got.maps - want.maps) > 1e-4
-    assert off.mean() <= 1e-3, off.mean()
-    assert np.abs(want.maps[..., 0]).max() > 1e-3
-    for f in ("orientation", "masks", "raw_actions", "log_probs"):
-        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
-                                      err_msg=f)
-    np.testing.assert_array_equal(got.values[:-1], want.values[:-1])
-    np.testing.assert_allclose(got.values[-1], want.values[-1], rtol=0,
-                               atol=2 ** -6 * np.abs(want.values[-1]).max())
-    lr = tr.cfg.ppo.lr
-    steps = tr.cfg.ppo.ppo_epoch * tr.cfg.ppo.num_mini_batch
-    p0 = TPPO.tree_leaves(P.from_jax(rec["params0"], "cpu"))
-    p1 = TPPO.tree_leaves(P.from_jax(rec["params1"], "cpu"))
-    mine = TPPO.tree_leaves(tr.ppo_state.params)
-    diff = np.concatenate([(a - b).abs().numpy().ravel()
-                           for a, b in zip(mine, p1)])
-    move = np.concatenate([(b - a).abs().numpy().ravel()
-                           for a, b in zip(p0, p1)])
-    assert diff.max() <= 2 * lr * steps
-    assert diff.mean() <= 0.1 * move.mean() and move.mean() > 0.5 * lr
-    assert len(tr.metrics_log) == 1
-    # each loss within a limit scaled by its own magnitude. Measured gaps
-    # (loss, action_loss, value_loss): 3.1e-3, 3.4e-3, 7.1e-3 unfused;
-    # 2.9e-2, 3.2e-2, 1.5e-3 fused. Two causes, read by handing inputs
-    # across: the port's update on JAX's own rollout is already 1.0e-2 off
-    # in the action loss in both forms (at 128^2 maps the trunk's bf16
-    # gradients are chaotic, ROADMAP C.20, and Adam turns a near-zero
-    # gradient element of either sign into a whole lr step, while the
-    # action loss, about mean((ratio - 1) * advantage), is of the order of
-    # those steps); in the fused form the maps' flipped top-down cell
-    # moves JAX's own update on the port's maps by 2.2e-2. The bootstrap
-    # value (2 bf16 ulps, unfused) moves it by 4.6e-4.
-    want_m, got_m = rec["metrics"][0], tr.metrics_log[0]
-    assert set(got_m) == set(want_m)
-    for k, rtol in (("loss", 5e-2), ("action_loss", 5e-2),
-                    ("value_loss", 2e-2)):
-        np.testing.assert_allclose(got_m[k], want_m[k], rtol=rtol,
-                                   err_msg=k)
-    np.testing.assert_allclose(got_m["entropy"], want_m["entropy"],
-                               rtol=1e-6)
-    assert tr._step == 4
 
 
 # ---------------------------------------------------------------------------
@@ -487,7 +305,7 @@ def test_kl_env_reward_is_zero_in_fused_windows():
     handed to `set_last_frame`, which `fused_window` never calls, so
     `train(fused=True)` on SemanticDisagreement-kl gets zero rewards in
     both packages, though the maps fuse the frames."""
-    ov = SLICE + ["runtime.env_name=SemanticDisagreement-kl"]
+    ov = TRAIN_SLICE + ["runtime.env_name=SemanticDisagreement-kl"]
     rewards = {}
     for key, trainer, module in (
             ("jax", jget("goalexplorationbaseline-v0")(

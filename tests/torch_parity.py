@@ -4,11 +4,14 @@ package: numpy conversion and the JAX kernel-path switch."""
 from __future__ import annotations
 
 import contextlib
+import os
+import tempfile
 
 import jax
 import numpy as np
 import pytest
 import torch
+from jax.experimental.compilation_cache import compilation_cache
 
 
 def np32(x) -> np.ndarray:
@@ -31,14 +34,45 @@ def t(x, dtype=None) -> torch.Tensor:
     return out if dtype is None else out.to(dtype)
 
 
+# the persistent compilation cache of the programs compiled inside
+# `_persist_every_compile`: under the temporary directory, so that each
+# checkout (each TMPDIR) keeps its own, apart from the suite's shared one
+PORT_JAX_CACHE = os.path.join(tempfile.gettempdir(), "ecap_port_jax_cache")
+
+
+@contextlib.contextmanager
+def _persist_every_compile():
+    """The persistent compilation cache takes every program compiled
+    inside, however short its compile (the package's threshold is 0.3 s),
+    in PORT_JAX_CACHE. The interpret-mode kernel path compiles hundreds of
+    small programs a test, and every `jax.clear_caches()` drops them from
+    memory: from the disk, the next test (or another worker) loads them
+    in place of compiling them again. Results are the same programs'
+    either way. The directory and threshold are restored on exit."""
+    keys = ("jax_persistent_cache_min_compile_time_secs",
+            "jax_compilation_cache_dir")
+    old = {k: getattr(jax.config, k) for k in keys}
+    jax.config.update(keys[0], 0.0)
+    jax.config.update(keys[1], PORT_JAX_CACHE)
+    compilation_cache.reset_cache()  # the cache reads its dir once
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            jax.config.update(k, v)
+        compilation_cache.reset_cache()
+
+
 @contextlib.contextmanager
 def jax_kernel_path(blocks: bool = False):
     """Run the JAX package with ECAP_USE_PALLAS=1 (its Pallas kernels in
     interpret mode on the CPU); with `blocks` also ECAP_PALLAS_BLOCKS=1,
     the whole-block decode kernels, which is the configuration the port's
     default decode route (`decode_blocks=True`) mirrors. The flags are
-    read at trace time, so the jit caches are cleared on entry and exit."""
-    with pytest.MonkeyPatch.context() as mp:
+    read at trace time, so the jit caches are cleared on entry and exit.
+    Inside, every program goes to the persistent compilation cache
+    (`_persist_every_compile`)."""
+    with pytest.MonkeyPatch.context() as mp, _persist_every_compile():
         mp.setenv("ECAP_USE_PALLAS", "1")
         if blocks:
             mp.setenv("ECAP_PALLAS_BLOCKS", "1")
@@ -60,8 +94,9 @@ def jax_train_path():
     its Pallas flash attention has no VJP (jax.grad through it fails to
     linearize). Attention is then XLA attention with bf16 scores and the
     max under stop_gradient, LayerNorm `_layernorm_ref`, the preprocess the
-    unfused `preprocess_for_vit`."""
-    with pytest.MonkeyPatch.context() as mp:
+    unfused `preprocess_for_vit`. Inside, every program goes to the
+    persistent compilation cache (`_persist_every_compile`)."""
+    with pytest.MonkeyPatch.context() as mp, _persist_every_compile():
         for name in ("ECAP_USE_PALLAS", "ECAP_PALLAS_LN", "ECAP_PALLAS_BLOCKS",
                      "ECAP_HEADMAJOR", "ECAP_FUSE_QKV_ENC", "ECAP_W8A8"):
             mp.delenv(name, raising=False)
@@ -73,19 +108,14 @@ def jax_train_path():
     jax.clear_caches()
 
 
-@contextlib.contextmanager
-def torch_threads(n: int):
-    """torch's intra-op threads set to `n` inside, restored on exit. The
-    tier-1 run puts six test workers on the machine's cores: small torch
-    ops on all of them spin at each parallel region's barrier for the
-    threads other workers hold (a detector training test took 86 s on 8
-    threads beside a loaded CPU, 5.5 s on 2)."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(n)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(old)
+# The tier-1 run puts six test workers on the machine's cores: small
+# torch ops on all of them spin at each parallel region's barrier for the
+# threads other workers hold (a detector training test took 86 s on 8
+# threads beside a loaded CPU, 5.5 s on 2). Most port test files import
+# this module, and each xdist worker imports every test file, so every
+# worker keeps two intra-op threads.
+TEST_TORCH_THREADS = 2
+torch.set_num_threads(TEST_TORCH_THREADS)
 
 
 def leaf_names(tree, path: str = "") -> list:
@@ -143,6 +173,14 @@ GENERATE_OVERRIDES = [
     "sim.num_objects=6", "sim.scene_size=8.0", "map.voxel_size=0.2",
     "runtime.caption_slots_per_frame=2", "detector.score_threshold=0.0",
     "runtime.env_name=SemanticDisagreement-kl"]
+
+# the trainers' tests (test_torch_trainers*.py): the generate tests'
+# settings on the disagreement env (the KL env reads a frame's detections,
+# which the fused loop does not hand it); scene seed 12 gives both loop
+# forms a reward in env 0 within the 4 steps
+TRAIN_SLICE = GENERATE_OVERRIDES[:-1] + [
+    "sim.scene_seed=12", "sim.episode_steps=8", "ppo.num_global_steps=2",
+    "ppo.ppo_epoch=2", "ppo.num_mini_batch=2"]
 
 
 def _readouts(envs, base_reward) -> dict:
@@ -608,65 +646,64 @@ def probe_update_gaps(store: str = "") -> list:
                                    P._negated(TP.adam_update))}
     jper = JPer(jload_config("tiny"))
     rows = []
-    with torch_threads(2):
-        for cls, head in (("TeacherStudent", "ce"),
-                          ("TeacherStudent", "focal"),
-                          ("OnlineTeacherStudent", "ce"),
-                          ("OnlineTeacherStudent", "focal")):
-            for name, fault in faults.items():
-                saved = fault and getattr(TP, fault[0])
-                if fault:
-                    setattr(TP, fault[0], fault[1])
-                try:
-                    jts, tts = P._pair(cls, head, jper)
-                    before = P._leaves(tts.student)
-                    row = dict(cls=cls, head=head, fault=name)
-                    for i, batch in enumerate((P._batch(), P._batch(
-                            rng=np.random.default_rng(1)))):
-                        jts.training_step(batch)
-                        tts.training_step(batch)
-                        row[f"step{i + 1}"] = gaps(before, jts, tts)
-                finally:
-                    if fault:
-                        setattr(TP, fault[0], saved)
-                rows.append(row)
-        if not store:
-            return rows
-        if not os.path.exists(store):
-            jax_store(store)
-            for f in glob.glob(os.path.join(store, "*",
-                                            "*modality_bbs_id_*.npz")):
-                d = np.load(f, allow_pickle=True)["arr_0"].item()
-                inst = dict(d["instances"])
-                inst["boxes"] = np.asarray(inst["boxes"], np.float32) + 0.25
-                np.savez_compressed(
-                    f.replace("modality_bbs_id_3", "modality_bbsgt_id_4"),
-                    np.array({"instances": inst}, dtype=object))
-        for name in ("Pipeline", "OnlinePipeline", "GTPipeline",
-                     "SWAPipeline"):
-            kw = dict(consensus="soft", head="focal")
-            if name == "SWAPipeline":
-                kw["snapshot_every"] = 1
-            jpipe = getattr(JP, name)(jload_config(
-                "tiny", overrides=STORE_OVERRIDES), **kw)
-            jlogs = jpipe.run_round(store)
-            params = jax.tree_util.tree_map(np.asarray, JD.init_detector(
-                jax.random.split(jax.random.PRNGKey(0))[0],
-                jpipe.cfg.detector))
-            real = TD.init_detector
-            TD.init_detector = lambda g, cfg, dev: from_jax(params, dev)
+    for cls, head in (("TeacherStudent", "ce"),
+                      ("TeacherStudent", "focal"),
+                      ("OnlineTeacherStudent", "ce"),
+                      ("OnlineTeacherStudent", "focal")):
+        for name, fault in faults.items():
+            saved = fault and getattr(TP, fault[0])
+            if fault:
+                setattr(TP, fault[0], fault[1])
             try:
-                tpipe = getattr(TP, name)(
-                    load_config("tiny", overrides=STORE_OVERRIDES),
-                    device="cpu", perceiver=P._port_perceiver(
-                        jper, STORE_OVERRIDES), **kw)
+                jts, tts = P._pair(cls, head, jper)
+                before = P._leaves(tts.student)
+                row = dict(cls=cls, head=head, fault=name)
+                for i, batch in enumerate((P._batch(), P._batch(
+                        rng=np.random.default_rng(1)))):
+                    jts.training_step(batch)
+                    tts.training_step(batch)
+                    row[f"step{i + 1}"] = gaps(before, jts, tts)
             finally:
-                TD.init_detector = real
-            tlogs = tpipe.run_round(store)
-            rows.append(dict(pipeline=name, steps=len(jlogs), **gaps(
-                P._leaves(params), jpipe.ts, tpipe.ts), loss=[
-                    {k: float(f"{abs(t[k] - j[k]) / max(abs(j[k]), 1e-4):.2e}")
-                     for k in j} for t, j in zip(tlogs, jlogs)]))
+                if fault:
+                    setattr(TP, fault[0], saved)
+            rows.append(row)
+    if not store:
+        return rows
+    if not os.path.exists(store):
+        jax_store(store)
+        for f in glob.glob(os.path.join(store, "*",
+                                        "*modality_bbs_id_*.npz")):
+            d = np.load(f, allow_pickle=True)["arr_0"].item()
+            inst = dict(d["instances"])
+            inst["boxes"] = np.asarray(inst["boxes"], np.float32) + 0.25
+            np.savez_compressed(
+                f.replace("modality_bbs_id_3", "modality_bbsgt_id_4"),
+                np.array({"instances": inst}, dtype=object))
+    for name in ("Pipeline", "OnlinePipeline", "GTPipeline",
+                 "SWAPipeline"):
+        kw = dict(consensus="soft", head="focal")
+        if name == "SWAPipeline":
+            kw["snapshot_every"] = 1
+        jpipe = getattr(JP, name)(jload_config(
+            "tiny", overrides=STORE_OVERRIDES), **kw)
+        jlogs = jpipe.run_round(store)
+        params = jax.tree_util.tree_map(np.asarray, JD.init_detector(
+            jax.random.split(jax.random.PRNGKey(0))[0],
+            jpipe.cfg.detector))
+        real = TD.init_detector
+        TD.init_detector = lambda g, cfg, dev: from_jax(params, dev)
+        try:
+            tpipe = getattr(TP, name)(
+                load_config("tiny", overrides=STORE_OVERRIDES),
+                device="cpu", perceiver=P._port_perceiver(
+                    jper, STORE_OVERRIDES), **kw)
+        finally:
+            TD.init_detector = real
+        tlogs = tpipe.run_round(store)
+        rows.append(dict(pipeline=name, steps=len(jlogs), **gaps(
+            P._leaves(params), jpipe.ts, tpipe.ts), loss=[
+                {k: float(f"{abs(t[k] - j[k]) / max(abs(j[k]), 1e-4):.2e}")
+                 for k in j} for t, j in zip(tlogs, jlogs)]))
     return rows
 
 
@@ -779,6 +816,68 @@ def jax_store(root: str, steps: int = 4, overrides=STORE_OVERRIDES):
     return jcfg
 
 
+# ---------------------------------------------------------------------------
+# the teacher-student loop's student loss (ROADMAP C.49)
+# ---------------------------------------------------------------------------
+
+def probe_student_loss(teacher: str, keys=(1, 2, 3)) -> list:
+    """The detector loss of a student at initialisation on one batch of
+    the teacher-student loop's pseudo-labels (the port's pool of 2 scenes
+    from seed 2000, labelled by `teacher`, a `selfcheck_detector --save`
+    pickle, at threshold 0.5), per consensus mode and key: the JAX
+    package's at `init_detector(PRNGKey(key))`, the port's on those
+    weights, and the port's at its own init from a generator seeded
+    `key` (the entry points' students start at seed + 1)."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from embodied_captioning_tpu.config import load_config as jload
+    from embodied_captioning_tpu.config import merge as jmerge
+    from embodied_captioning_tpu.models import detector as JD
+    from embodied_captioning_tpu.ops.detections import Detections as JDet
+    from embodied_captioning_tpu_torch import selfcheck_teacher_student as TS
+    from embodied_captioning_tpu_torch.config import load_config, merge
+    from embodied_captioning_tpu_torch.models import detector as TD
+    from embodied_captioning_tpu_torch.params import from_jax
+    from embodied_captioning_tpu_torch.selfcheck_detector import (
+        FIELDS, stack_detections)
+
+    params, train_cfg = TS.load_teacher(teacher, "cpu")
+    over = {"detector": train_cfg,
+            "map": {"grid": (256, 64, 256), "max_objects": 128}}
+    cfg = merge(load_config("tiny"), over)
+    jdcfg = jmerge(jload("tiny"), over).detector
+    pool = TS.collect_with_pose(cfg, 2, 16, 2000, np.random.default_rng(0),
+                                "cpu")
+    samples = TS.label_pool(params, pool, dataclasses.replace(
+        cfg.detector, score_threshold=0.5), 8, "cpu")
+    rows = []
+    for mode in ("vanilla", "soft"):
+        pseudo, head = TS.consensus(mode, samples, cfg, "cpu")
+        frames = TS.to_frames([p for p in pseudo if p.valid.any()])[:8]
+        imgs = np.stack([f[0] for f in frames])
+        gt = stack_detections([f[1] for f in frames], "cpu")
+        jgt = JDet(**{k: jnp.asarray(np.stack([f[1][k] for f in frames]))
+                      for k in FIELDS})
+        for key in keys:
+            p0 = JD.init_detector(jax.random.PRNGKey(key), jdcfg)
+            want = float(JD.detector_loss(p0, jnp.asarray(imgs), jgt, jdcfg,
+                                          head=head)[0])
+            with torch.no_grad():
+                handed = float(TD.detector_loss(
+                    from_jax(p0, "cpu"), torch.from_numpy(imgs), gt,
+                    cfg.detector, head=head)[0])
+                own = float(TD.detector_loss(
+                    TD.init_detector(torch.Generator().manual_seed(key),
+                                     cfg.detector, "cpu"),
+                    torch.from_numpy(imgs), gt, cfg.detector, head=head)[0])
+            rows.append({"mode": mode, "frames": len(frames), "key": key,
+                         "jax": want, "port on the JAX weights": handed,
+                         "port at its own init": own})
+    return rows
+
+
 if __name__ == "__main__":
     import sys
     from pathlib import Path
@@ -817,6 +916,9 @@ if __name__ == "__main__":
     elif what == "query-chaos":
         for row in probe_query_chaos():
             print(row)
+    elif what == "student-loss" and len(sys.argv) == 3:
+        for row in probe_student_loss(sys.argv[2]):
+            print(row)
     elif what == "generate-scan":
         rows = probe_generate_scan()
         for row in rows:
@@ -827,4 +929,5 @@ if __name__ == "__main__":
         sys.exit("usage: python tests/torch_parity.py render | rollout-scan "
                  "| rollout-scan-blocks | beam | generate-scan | grad-chaos "
                  "| preprocess-diff | preprocess-rounding | template-cosines "
-                 "| update-gaps [STORE_DIR] | query-chaos")
+                 "| update-gaps [STORE_DIR] | query-chaos "
+                 "| student-loss TEACHER_PKL")
