@@ -96,7 +96,11 @@ Phases, each of which must pass:
      `randombaseline`'s unfused loop (2 envs, 128^2 frames, 3-step
      episodes: both envs auto-reset, on the VectorEnv's worker stream):
      frames, tokens, and the CPU's fusion of the card's detections against
-     the card's rewards (rtol 1e-4, atol 1e-5);
+     the card's rewards (rtol 1e-4, atol 1e-5); then the divisions by a
+     constant (ROADMAP C.10) card against CPU bit for bit: the int8 cross
+     K/V at the serving shape, both detectors' float input and the first
+     FPN level the card computes from it, the separate preprocess ops, the
+     box coder and the smooth-L1 loss;
   6. profile one full-width perceive batch on each decode route and one
      rollout_fused step: device time by kernel, the ported kernels' share,
      the device's idle share (device time is the union of the kernels'
@@ -2381,6 +2385,123 @@ def tiny_card_vs_cpu(dev) -> None:
         f" of {int(cap.sum())} rows, boxes max diff {box:.3e}")
     if tok.float().mean().item() < 0.9:
         raise AssertionError("tiny preset: card and CPU disagree")
+
+
+def divisions_card_vs_cpu(dev) -> None:
+    """ROADMAP C.10: where the port divides by a constant it multiplies by
+    the float32 reciprocal, as the jitted JAX package does and as PyTorch
+    on the card does for a host number, so the card and the CPU give equal
+    bits. Held here: the int8 cross K/V at the serving shape (16 crops x 12
+    heads x 64 x 257); the rcnn and query detectors' float input on phase
+    5's frames (at the detector's size, beside a frame of every byte
+    value), read where each detector hands it to `backbone_fpn`, and the
+    first FPN level the card computes from it against the one it computes
+    from the CPU's input (the levels of the two devices are reported:
+    their convolutions sum in other orders); the separate preprocess ops
+    at an identity resize; the box coder; the smooth-L1 loss. Any
+    difference raises."""
+    import dataclasses
+
+    from embodied_captioning_tpu_torch.config import ExperimentConfig
+    from embodied_captioning_tpu_torch.models import detector as DET
+    from embodied_captioning_tpu_torch.models.quantize import (
+        QuantizedKV, quantize_kv)
+    from embodied_captioning_tpu_torch.ops import image as IM
+
+    compared = {}
+
+    def same(what: str, want: torch.Tensor, got: torch.Tensor) -> None:
+        want, got = want.detach().cpu(), got.detach().cpu()
+        if (want.shape != got.shape or want.dtype != got.dtype
+                or not torch.equal(want, got)):
+            raise AssertionError(f"phase 5 divisions: {what}: the card's "
+                                 f"bits are not the CPU's")
+        compared[what] = want.numel()
+
+    g = torch.Generator().manual_seed(22)
+    kt = torch.randn(16, 12, 64, 257, generator=g).to(torch.bfloat16)
+    v = torch.randn(16, 257, 12, 64, generator=g).to(torch.bfloat16)
+    for name, a, b in zip(QuantizedKV._fields, quantize_kv(kt, v),
+                          quantize_kv(kt.to(dev), v.to(dev))):
+        same(f"quantize_kv {name}", a, b)
+
+    det_cfg = ExperimentConfig.preset_config("tiny").detector
+    size = det_cfg.image_size
+    every_byte = torch.arange(256, dtype=torch.uint8).reshape(16, 16, 1)
+    frames = torch.cat([
+        synthetic_frames(2, size, 7, "cpu"),
+        every_byte.repeat(size // 16 + 1, size // 16 + 1, 3)[None, :size,
+                                                              :size]])
+    fpn = DET.backbone_fpn
+    worst = {}
+    for family in ("rcnn", "query"):
+        cfg = dataclasses.replace(det_cfg, family=family,
+                                  score_threshold=0.0)
+        params = DET.init_detector(torch.Generator().manual_seed(5), cfg,
+                                   "cpu")
+        seen = []
+
+        def spy(p, images, c, *a, **k):
+            out = fpn(p, images, c, *a, **k)
+            seen.append((images, out[0]))
+            return out
+
+        DET.backbone_fpn = spy
+        try:
+            DET.forward(params, frames, cfg)
+            p_dev = to_device(params, dev)
+            DET.forward(p_dev, frames.to(dev), cfg)
+        finally:
+            DET.backbone_fpn = fpn
+        (x_cpu, f_cpu), (x_card, f_card) = seen[0], seen[-1]
+        same(f"{family} float input", x_cpu, x_card)
+        same(f"{family} FPN level 0 from the CPU's input", f_card,
+             fpn(p_dev, x_cpu.to(dev), cfg)[0])
+        worst[family] = (f_card.float().cpu() - f_cpu.float()).abs().max()
+
+    img = frames[0]  # one [H, W, 3] image takes the separate ops
+    same("separate preprocess", IM.preprocess_for_vit(img, size, 8),
+         IM.preprocess_for_vit(img.to(dev), size, 8))
+    xy = torch.rand(64, 2, generator=g) * size * 0.6
+    boxes = torch.cat([xy, xy + torch.rand(64, 2, generator=g) * size * 0.4
+                       + 1], 1)
+    deltas = torch.randn(4096, 4, generator=g)
+    deltas[:, 2:] = 0  # exp(0) = 1 on both devices
+    anchors = boxes.repeat(64, 1)
+    same("box coder", DET.decode_boxes(anchors, deltas, size,
+                                       DET.ROI_BOX_WEIGHTS),
+         DET.decode_boxes(anchors.to(dev), deltas.to(dev), size,
+                          DET.ROI_BOX_WEIGHTS))
+    x = torch.randn(65536, generator=g) * 0.3
+    same("smooth-L1", DET._smooth_l1(x), DET._smooth_l1(x.to(dev)))
+    # controls on the card: the old spelling, a division by the host
+    # number, is what the card computed before (so no number moves there),
+    # and the CPU's division differs from it where the checks above must
+    # see it
+    u8 = torch.arange(256, dtype=torch.uint8)
+    amax = kt.float().abs().amax(dim=2).clamp(min=1e-8)
+    split = {}
+    if dev.type == "cuda":
+        same("control: to_float is the card's `/ 255.0`",
+             u8.to(dev).float() / 255.0, IM.to_float(u8.to(dev)))
+        same("control: the K scales are the card's `/ 127.0`",
+             amax.to(dev) / 127.0,
+             quantize_kv(kt.to(dev), v.to(dev)).kt_scale)
+        split = {"/ 255.0": int((u8.float() / 255.0 != (
+                     u8.to(dev).float() / 255.0).cpu()).sum()),
+                 "/ 127.0": int((amax / 127.0 != (
+                     amax.to(dev) / 127.0).cpu()).sum())}
+        if not all(split.values()):
+            raise AssertionError(f"phase 5 divisions: the old spelling no "
+                                 f"longer differs, card vs CPU {split}")
+    log(f"  divisions by a constant card vs CPU (C.10): equal bits at "
+        f"{len(compared)} sites, {sum(compared.values())} values ("
+        + ", ".join(f"{k} {n}" for k, n in compared.items())
+        + "); FPN level 0 card vs CPU max abs diff "
+        + ", ".join(f"{k} {float(w):.3e}" for k, w in worst.items())
+        + "; the old spelling, card vs CPU, differed on "
+        + ", ".join(f"{k} {n} of {256 if '255' in k else amax.numel()}"
+                    for k, n in split.items()))
 
 
 def check_frames(what: str, got: dict, want: dict) -> float:
@@ -7776,6 +7897,7 @@ def main() -> int:
         stage("[5] tiny preset: card vs CPU")
         tiny_card_vs_cpu(dev)
         tiny_generate_card_vs_cpu(dev)
+        divisions_card_vs_cpu(dev)
         stage("[6] device time of one full-width perceive batch on each "
             "decode route and of one rollout_fused step")
         from embodied_captioning_tpu_torch.perception import perceive

@@ -29,6 +29,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import ExperimentConfig, PPOConfig
+from ..ops.geometry import reciprocal32
 from ..parallel.mesh import axis_group, make_mesh
 from ..train.optim import tree_leaves, tree_unflatten, value_and_grad
 from ..utils.checkpoint import CheckpointManager, PreemptionGuard
@@ -49,10 +50,13 @@ def _all_sum(t: torch.Tensor, group) -> torch.Tensor:
 
 def _global_normalise(group, n_total: int):
     """`ppo.normalise` over every rank's advantages: mean and population
-    std from sums over the group."""
+    std from sums over the group. Each sum is divided as the jitted
+    `jnp.mean` divides, by a product with the float32 reciprocal."""
+    inv_n = reciprocal32(n_total)
+
     def normalise(adv: torch.Tensor) -> torch.Tensor:
-        mean = _all_sum(adv.sum(), group) / n_total
-        var = _all_sum(torch.square(adv - mean).sum(), group) / n_total
+        mean = _all_sum(adv.sum(), group) * inv_n
+        var = _all_sum(torch.square(adv - mean).sum(), group) * inv_n
         return (adv - mean) / (torch.sqrt(var) + 1e-5)
 
     return normalise
@@ -64,7 +68,7 @@ def _partial_loss(params: dict, batch: Batch, rows: torch.Tensor, mb: int,
     rows, of which `rows` are this rank's: the per-row terms summed over
     them and divided by mb, the entropy (a function of log_std alone)
     divided by the world size. The ranks' shares sum to the loss."""
-    ent = gaussian_entropy(params["log_std"]) / world
+    ent = gaussian_entropy(params["log_std"]) * reciprocal32(world)
     if rows.numel() == 0:
         zero = params["log_std"].sum() * 0.0
         return zero - cfg.entropy_coef * ent, (zero, zero, ent)
@@ -79,10 +83,10 @@ def _partial_loss(params: dict, batch: Batch, rows: torch.Tensor, mb: int,
     ratio = torch.exp(lp - batch.old_log_probs[rows])
     s1 = ratio * adv
     s2 = torch.clamp(ratio, 1 - cfg.clip_param, 1 + cfg.clip_param) * adv
-    action_loss = -torch.sum(torch.minimum(s1, s2)) / mb
+    action_loss = -torch.sum(torch.minimum(s1, s2)) * reciprocal32(mb)
     v_clip = old_v + torch.clamp(v - old_v, -cfg.clip_param, cfg.clip_param)
     value_loss = 0.5 * torch.sum(torch.maximum(
-        torch.square(v - ret), torch.square(v_clip - ret))) / mb
+        torch.square(v - ret), torch.square(v_clip - ret))) * reciprocal32(mb)
     total = (action_loss + cfg.value_loss_coef * value_loss
              - cfg.entropy_coef * ent)
     return total, (action_loss, value_loss, ent)

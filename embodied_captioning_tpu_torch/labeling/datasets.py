@@ -6,7 +6,8 @@ reference's torch Dataset family, ref: experimenting_env/detector/
 dataset.py): `EpisodeDetectionDataset` pairs each rgb frame with the
 label modality (`bbs`, or `bbsgt`) of its episode, `collate` pads samples
 into fixed-shape numpy batches, `SequentialEpisodeDataset` yields windows
-of consecutive observations. Samples are numpy; a caller moves a batch to
+of consecutive observations, `PartiallyAnnotatedEpisodeDataset` keeps the
+labels of a seeded fraction of frames. Samples are numpy; a caller moves a batch to
 its device. Augmentations (ref: detector/augmentations.py "none" /
 "bbs_crop" / "bbs_crop_strong" / "strong_image") are numpy transforms
 that keep boxes and masks consistent.
@@ -188,6 +189,28 @@ class SequentialEpisodeDataset:
 
     def __getitem__(self, i: int) -> List[Sample]:
         return [self.base[j] for j in self.windows[i]]
+
+
+class PartiallyAnnotatedEpisodeDataset(EpisodeDetectionDataset):
+    """Only a fraction of frames carry labels; the others yield every label
+    slot invalid, for semi-supervised training
+    (ref: detector/dataset.py:527 PartiallyAnnotatedEpisodeFullDataset).
+    Frame i is annotated where the i-th draw of
+    `np.random.default_rng(seed).random(len(index))` is below
+    `annotated_fraction`: the JAX package's draw, so both pick the same
+    frames."""
+
+    def __init__(self, *args, annotated_fraction: float = 0.5, seed: int = 0,
+                 **kw):
+        super().__init__(*args, **kw)
+        rng = np.random.default_rng(seed)
+        self._annotated = rng.random(len(self.index)) < annotated_fraction
+
+    def __getitem__(self, i: int) -> Sample:
+        s = super().__getitem__(i)
+        if not self._annotated[i]:
+            s.valid[:] = False
+        return s
 
 
 def _resize_masks(masks: np.ndarray, h: int, w: int) -> np.ndarray:

@@ -36,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import CaptionerConfig
+from ..ops.geometry import reciprocal32
 from ..parallel.mesh import (
     all_gather_cat, axis_group, axis_size, max_replicated,
     partition_spec_for, replicate, sum_replicated,
@@ -310,7 +311,7 @@ def _filter_logits(logits: torch.Tensor, top_k: int, top_p: float,
     """logits / temperature with everything below the k-th largest, and
     below the nucleus of mass top_p, set to -inf (HF LogitsProcessor
     semantics; 0 switches a filter off)."""
-    logits = logits.float() / temperature
+    logits = logits.float() * reciprocal32(temperature)
     v = logits.shape[-1]
     if 0 < top_k < v:
         kth = torch.sort(logits, dim=-1).values[:, v - top_k][:, None]

@@ -68,6 +68,7 @@ from ..kernels.decode_attention import (
     self_block_fits,
 )
 from ..kernels.flash_attention import HEAD_DIMS
+from ..ops.geometry import reciprocal32
 from ..parallel.mesh import replicate, sum_replicated
 from .quantize import (
     QuantizedArray, QuantizedKV, dense_w8a8, maybe_dequant, quantize_kv,
@@ -257,7 +258,8 @@ def sinusoidal_positions(t: int, dim: int, device=None) -> torch.Tensor:
     """[t, 2 * (dim // 2)] float32: sin then cos of pos / 10000^(2i/dim)."""
     pos = torch.arange(t, dtype=torch.float32, device=device)[:, None]
     i = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
-    angle = pos / torch.pow(torch.tensor(10000.0, device=device), 2 * i / dim)
+    angle = pos / torch.pow(torch.tensor(10000.0, device=device),
+                            2 * i * reciprocal32(dim))
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
@@ -301,7 +303,8 @@ def _attention_plain(q: torch.Tensor, kt: torch.Tensor, v: torch.Tensor,
     JAX package's `stop_gradient` makes it."""
     dh, cdt = q.shape[-1], q.dtype
     logits = matmul_f32(q.permute(0, 2, 1, 3), kt.to(cdt))
-    logits = logits.to(cdt).float() / math.sqrt(dh)
+    # the jitted `/ sqrt(dh)`: a product with its float32 reciprocal
+    logits = logits.to(cdt).float() * reciprocal32(math.sqrt(dh))
     if kt_scale is not None:
         logits = logits * kt_scale[:, :, None, :]
     if mask is not None:

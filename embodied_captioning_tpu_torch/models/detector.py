@@ -25,7 +25,8 @@ import torch.nn.functional as F
 
 from ..config import DetectorConfig
 from ..ops.detections import Detections, pairwise_iou
-from ..ops.image import paste_masks, roi_align
+from ..ops.geometry import reciprocal32
+from ..ops.image import paste_masks, roi_align, to_float
 from ..ops.nms import class_aware_nms_topk, nms_topk
 from .common import dense, dense_init, randn
 from .quantize import QuantizedArray
@@ -315,8 +316,11 @@ def decode_boxes(anchors: torch.Tensor, deltas: torch.Tensor, size: int,
     if const_anchors:
         aw, ah, ax, ay = (t.to(deltas.dtype) for t in (aw, ah, ax, ay))
     wx, wy, ww, wh = weights
-    dx, dy = deltas[..., 0] / wx, deltas[..., 1] / wy
-    dw, dh = deltas[..., 2] / ww, deltas[..., 3] / wh
+    # the jitted JAX program's products with the weights' reciprocals
+    dx = deltas[..., 0] * reciprocal32(wx)
+    dy = deltas[..., 1] * reciprocal32(wy)
+    dw = deltas[..., 2] * reciprocal32(ww)
+    dh = deltas[..., 3] * reciprocal32(wh)
     cx = ax + dx * aw
     cy = ay + dy * ah
     w = aw * torch.exp(torch.clamp(dw, -4.0, 4.0))
@@ -394,7 +398,7 @@ def _box_head(params: dict, feat: torch.Tensor, proposals: torch.Tensor,
     x = feats.reshape(*proposals.shape[:2], -1)
     x = torch.relu(dense(params["box_fc1"], x, w8a8=w8a8))
     if keep is not None and dropout_rate > 0:
-        x = torch.where(keep, x / (1 - dropout_rate), 0.0)
+        x = torch.where(keep, x * reciprocal32(1 - dropout_rate), 0.0)
     x = torch.relu(dense(params["box_fc2"], x, w8a8=w8a8))
     return (x, dense(params["cls"], x, w8a8=w8a8),
             dense(params["box"], x, w8a8=w8a8))
@@ -481,7 +485,7 @@ def forward(params: dict, images: torch.Tensor, cfg: DetectorConfig,
 
         return forward_query(params, images, cfg, with_masks=with_masks,
                              w8a8=w8a8)
-    inter = _intermediates(params, images.float() / 255.0, cfg, w8a8=w8a8)
+    inter = _intermediates(params, to_float(images), cfg, w8a8=w8a8)
     props, pvalid, p2 = inter.proposals, inter.proposal_valid, inter.fpn[0]
     cls_logits, box_deltas = inter.class_logits, inter.box_deltas
 
@@ -587,7 +591,7 @@ def forward_mc(params: dict, images: torch.Tensor, cfg: DetectorConfig,
         raise ValueError("forward_mc supports the rcnn family only (the "
                          "reference's MC-dropout wraps its Mask R-CNN "
                          "predictor, not Mask2Former)")
-    images = images.float() / 255.0
+    images = to_float(images)
     fpn = backbone_fpn(params, images, cfg)
     obj, deltas = _rpn_head(params, fpn)
     anchors = all_anchors(cfg.image_size, cfg.fpn_strides, images.device)
@@ -611,7 +615,8 @@ def forward_mc(params: dict, images: torch.Tensor, cfg: DetectorConfig,
 
 def _smooth_l1(x: torch.Tensor, beta: float = 1.0 / 9.0) -> torch.Tensor:
     ax = torch.abs(x)
-    return torch.where(ax < beta, 0.5 * ax * ax / beta, ax - 0.5 * beta)
+    return torch.where(ax < beta, 0.5 * ax * ax * reciprocal32(beta),
+                       ax - 0.5 * beta)
 
 
 def _focal(probs: torch.Tensor, targets_onehot: torch.Tensor,
@@ -671,7 +676,7 @@ def detector_loss(params: dict, images_u8: torch.Tensor, gt: Detections,
         from .query_detector import query_detector_loss
 
         return query_detector_loss(params, images_u8, gt, cfg, head=head)
-    images = images_u8.float() / 255.0
+    images = to_float(images_u8)
     inter = _intermediates(params, images, cfg, gt.boxes, gt.valid,
                            dropout_rate, dropout_keep, generator)
     dev = images.device
@@ -722,7 +727,7 @@ def detector_loss(params: dict, images_u8: torch.Tensor, gt: Detections,
         soft = torch.cat([torch.log(torch.clamp(_take(gt_soft, r_gt),
                                                 min=1e-8)),
                           log_eps.expand(*r_gt.shape, 1)], dim=-1)
-        soft = torch.softmax(soft / soft_temperature, dim=-1)
+        soft = torch.softmax(soft * reciprocal32(soft_temperature), dim=-1)
         soft = torch.where(fg[..., None], soft, onehot)
         if head == "soft":
             distill = -(soft * logp).sum(dim=-1)
@@ -889,7 +894,7 @@ def calibrate_affine(params: dict, image_batches, cfg: DetectorConfig,
     pooled, n = None, 0
     for images in image_batches:
         trace.clear()
-        fpn0 = backbone_fpn(params, images.float() / 255.0, cfg, rec)[0]
+        fpn0 = backbone_fpn(params, to_float(images), cfg, rec)[0]
         # detections from a forward that records nothing; the mask head is
         # replayed per image on the boxes and classes serving feeds it
         det = forward(params, images, cfg, with_masks=False)

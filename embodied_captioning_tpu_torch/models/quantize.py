@@ -152,13 +152,15 @@ def quantize_params(params: Any, min_size: int = MIN_QUANT_SIZE) -> Any:
 
 
 def quantize_kv(kt: torch.Tensor, v: torch.Tensor) -> QuantizedKV:
-    """kt [B,H,Dh,K], v [B,K,H,Dh] (bf16) -> QuantizedKV."""
+    """kt [B,H,Dh,K], v [B,K,H,Dh] (bf16) -> QuantizedKV. The scales are
+    `max(amax, 1e-8) * (1/127)`, as in `dense_w8a8`: the JAX package's
+    `quantize_kv` runs inside the jitted `perceive`."""
     kt_f = kt.float()
-    kt_scale = torch.clamp(kt_f.abs().amax(dim=2), min=1e-8) / 127.0
+    kt_scale = torch.clamp(kt_f.abs().amax(dim=2), min=1e-8) * _RECIP_127
     kt_q = torch.clamp(torch.round(kt_f / kt_scale[:, :, None, :]),
                        -127, 127).to(torch.int8)
     v_f = v.float()
-    v_scale = torch.clamp(v_f.abs().amax(dim=1), min=1e-8) / 127.0
+    v_scale = torch.clamp(v_f.abs().amax(dim=1), min=1e-8) * _RECIP_127
     v_q = torch.clamp(torch.round(v_f / v_scale[:, None, :, :]),
                       -127, 127).to(torch.int8)
     return QuantizedKV(kt_q, kt_scale, v_q, v_scale)

@@ -39,7 +39,8 @@ import torch
 from ..config import DetectorConfig
 from ..ops.assignment import hungarian_batch
 from ..ops.detections import Detections
-from ..ops.image import resize_bilinear, roi_align
+from ..ops.geometry import reciprocal32
+from ..ops.image import resize_bilinear, roi_align, to_float
 from .common import (
     dense, dense_init, layernorm, layernorm_init, matmul_f32, mha, mha_init,
     mlp, randn, sinusoidal_positions,
@@ -195,7 +196,7 @@ def _costs(cls: torch.Tensor, mlog: torch.Tensor, gt_cls: torch.Tensor,
     gt = g.transpose(-1, -2)
     logp, log1p = torch.log(p + EPS), torch.log(1.0 - p + EPS)
     cost_bce = -(torch.matmul(logp, gt) + torch.matmul(log1p, 1.0 - gt)
-                 ) / npix
+                 ) * reciprocal32(npix)
     inter = torch.matmul(p, gt)
     cost_dice = 1.0 - (2.0 * inter + 1.0) / (
         p.sum(-1)[..., :, None] + g.sum(-1)[..., None, :] + 1.0)
@@ -296,7 +297,7 @@ def query_detector_loss(params: dict, images_u8: torch.Tensor,
     if gt.masks is None:
         raise ValueError("query family trains mask-supervised; gt.masks "
                          "required")
-    images = images_u8.float() / 255.0
+    images = to_float(images_u8)
     preds = _decode(params, images, cfg)
     gmask = gt_masks(gt.masks, *preds[0][1].shape[2:])
     last = len(preds) - 1
@@ -311,7 +312,7 @@ def query_detector_loss(params: dict, images_u8: torch.Tensor,
         losses = _loss_from(cls, bce, dice, w, gt.classes,
                             cfg.no_object_weight, cfg.num_classes)
         total = total + losses.mean()
-    total = total / len(preds)
+    total = total * reciprocal32(len(preds))
     return total, {"total": total,
                    "layers": torch.tensor(len(preds), device=images.device)}
 
@@ -385,5 +386,5 @@ def forward_query(params: dict, images_u8: torch.Tensor, cfg: DetectorConfig,
     """uint8 (or float on the 0..255 scale) [B, S, S, 3] -> `Detections`
     with `max_detections` slots a frame (`finalize` of the last layer).
     `w8a8` as in `_decode`."""
-    cls, mlog = _decode(params, images_u8.float() / 255.0, cfg, w8a8)[-1]
+    cls, mlog = _decode(params, to_float(images_u8), cfg, w8a8)[-1]
     return finalize(cls, mlog, cfg, with_masks)

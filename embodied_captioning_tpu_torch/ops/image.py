@@ -14,6 +14,14 @@ import torch
 
 from ..kernels import fused_preprocess
 from ..kernels.preprocess import CLIP_MEAN, CLIP_STD
+from .geometry import reciprocal32
+
+# The JAX package's paths run jitted, and XLA turns a division by a
+# constant into a product with the constant's float32 reciprocal
+# (`reciprocal32`); PyTorch on the card does the same for a division by a
+# host number, but on the CPU it divides. `normalize` and `to_float` spell
+# the product, so the CPU, the card and the jitted reference compute one
+# arithmetic.
 
 
 def _interp_weights(src: torch.Tensor, in_n: int,
@@ -58,10 +66,18 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int
 
 def normalize(img: torch.Tensor, mean: Sequence[float] = CLIP_MEAN,
               std: Sequence[float] = CLIP_STD) -> torch.Tensor:
-    """Normalise [..., H, W, 3] float images in [0, 1]."""
+    """Normalise [..., H, W, 3] float images in [0, 1]: `(img - mean)`
+    times the reciprocals of `std`, as the jitted JAX program computes it."""
     m = torch.tensor(mean, dtype=torch.float32, device=img.device)
-    s = torch.tensor(std, dtype=torch.float32, device=img.device)
-    return (img.float() - m) / s
+    r = torch.tensor([reciprocal32(c) for c in std], dtype=torch.float32,
+                     device=img.device)
+    return (img.float() - m) * r
+
+
+def to_float(img_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 images -> float32 in [0, 1]: the product with the float32
+    reciprocal of 255 that the jitted `x / 255.0` computes."""
+    return img_u8.float() * reciprocal32(255.0)
 
 
 def patchify(img: torch.Tensor, patch: int) -> torch.Tensor:
@@ -81,8 +97,7 @@ def preprocess_for_vit(img_u8: torch.Tensor, image_size: int, patch: int
     if (img_u8.dtype == torch.uint8 and img_u8.dim() == 4
             and image_size % patch == 0):
         return fused_preprocess(img_u8.contiguous(), image_size, patch)
-    x = img_u8.float() / 255.0
-    x = resize_bilinear(x, image_size, image_size)
+    x = resize_bilinear(to_float(img_u8), image_size, image_size)
     return patchify(normalize(x), patch)
 
 
@@ -90,7 +105,9 @@ def _box_interp_weights(boxes: torch.Tensor, samples: int, h: int, w: int
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-box weights wy [..., N, samples, H], wx [..., N, samples, W]
     for half-pixel-centred samples spanning each XYXY box. Box arithmetic
-    runs in the boxes' dtype, as in the JAX package."""
+    runs in the boxes' dtype, as in the JAX package. `/ samples` divides
+    on the CPU and multiplies by the reciprocal on the card: no single
+    spelling is the JAX package's on every path (ROADMAP C.50)."""
     x1, y1 = boxes[..., 0:1], boxes[..., 1:2]
     bw = torch.clamp(boxes[..., 2:3] - x1, min=1e-3)
     bh = torch.clamp(boxes[..., 3:4] - y1, min=1e-3)

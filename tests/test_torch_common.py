@@ -11,7 +11,7 @@ from embodied_captioning_tpu.models import common as JC
 from embodied_captioning_tpu.models.quantize import quantize_params as jqp
 from embodied_captioning_tpu_torch.models import common as TC
 from embodied_captioning_tpu_torch.params import from_jax
-from torch_parity import jax_kernel_path, np32, t
+from torch_parity import jax_kernel_path, jitted_quantize_kv, np32, t
 
 D, H = 64, 2
 
@@ -235,7 +235,9 @@ def test_a_step_with_heads_four_wide_takes_the_reference_route(
     v0 = jnp.asarray(rng.standard_normal((b, tmax, heads, d // heads)),
                      jnp.bfloat16)
     x = jnp.asarray(rng.standard_normal((b, 1, d)), jnp.bfloat16)
-    with jax_kernel_path(blocks=decode_blocks):
+    # the int8 cross K/V quantized as the jitted `perceive` quantizes it
+    # (ROADMAP C.10)
+    with jax_kernel_path(blocks=decode_blocks), jitted_quantize_kv():
         ckv = JC.precompute_kv(p["xattn"], img, heads)
         ref, rc = JC.block(p, x, heads,
                            cache=JC.KVCache(k0, v0, jnp.int32(pos)),

@@ -3,6 +3,7 @@
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -402,13 +403,17 @@ def test_fused_preprocess_plain(in_size, out_size, patch):
     if out_size == 224 or in_size == out_size:
         np.testing.assert_array_equal(np32(out), want)
     assert torch.equal(TI.preprocess_for_vit(t(img), out_size, patch), out)
+    # the port's unfused ops take the jitted JAX program's products with
+    # the reciprocals of 255 and of std (ROADMAP C.10), the kernel the
+    # IEEE divisions of the JAX package's eager path (C.24, C.50): at the
+    # identity size the unfused ops equal the jitted JAX preprocess
     unfused = TI.patchify(TI.normalize(TI.resize_bilinear(
-        t(img).float() / 255.0, out_size, out_size)), patch)
+        TI.to_float(t(img)), out_size, out_size)), patch)
     if in_size == out_size:
-        assert torch.equal(out, unfused)
-    else:
-        np.testing.assert_allclose(np32(out), np32(unfused), atol=2e-6,
-                                   rtol=0)
+        jitted = jax.jit(j_preprocess, static_argnums=(1, 2))(
+            jnp.asarray(img), out_size, patch)
+        np.testing.assert_array_equal(np32(unfused), np.asarray(jitted))
+    np.testing.assert_allclose(np32(out), np32(unfused), atol=2e-6, rtol=0)
 
 
 @pytest.mark.parametrize("out_size,in_size,patch",

@@ -71,7 +71,9 @@ def test_quantize_params_and_kv_match_jax():
     assert isinstance(out["emb"], torch.Tensor)
     kt = jnp.asarray(rng.standard_normal((2, 3, 8, 10)), jnp.bfloat16)
     v = jnp.asarray(rng.standard_normal((2, 10, 3, 8)), jnp.bfloat16)
-    for a, b in zip(TQ.quantize_kv(t(kt), t(v)), jqkv(kt, v)):
+    # `quantize_kv` jitted, as the jitted `perceive` runs it: its
+    # `/ 127.0` is then a product with the float32 reciprocal (ROADMAP C.10)
+    for a, b in zip(TQ.quantize_kv(t(kt), t(v)), jax.jit(jqkv)(kt, v)):
         np.testing.assert_array_equal(np32(a), np32(b))
 
 

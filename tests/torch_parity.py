@@ -88,6 +88,20 @@ def jax_kernel_path(blocks: bool = False):
 
 
 @contextlib.contextmanager
+def jitted_quantize_kv():
+    """The JAX package's `quantize_kv` jitted, as the jitted `perceive`
+    runs it: there XLA turns its `/ 127.0` into a product with the float32
+    reciprocal, which the port spells (ROADMAP C.10); called eagerly it
+    divides. `precompute_kv` imports it at each call, so the patch reaches
+    every caller."""
+    from embodied_captioning_tpu.models import quantize as jquantize
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jquantize, "quantize_kv", jax.jit(jquantize.quantize_kv))
+        yield
+
+
+@contextlib.contextmanager
 def jax_train_path():
     """Run the JAX package on its default path (ECAP_USE_PALLAS and
     ECAP_PALLAS_LN unset): the path its `train_step` differentiates, since
