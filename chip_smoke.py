@@ -20,8 +20,13 @@ Phases, each of which must pass:
      shapes the main paths give it: max error, kernel / plain / library
      time, the kernel's and the library call's device time per call
      (torch.profiler over its timing loop), and the least time the card
-     could take (bound). Flash attention at head dims 32, 64, 128 and T =
-     1, 16, 65, 257 (and 640 at D = 128, the streaming kernel), causal and
+     could take (bound); the warpgroup kernels' tensor-core and copy
+     instructions counted in the built library (cuobjdump -sass: each of
+     the 11 flash_wg and mlp_wg_kernel instances the wrappers dispatch to
+     is there and issues wgmma and TMA loads through mbarriers, and no
+     mma.sync; no cuobjdump fails the phase). Flash attention at head dims 32, 64, 128
+     and T = 1, 16, 65, 257 (and 640 at D = 128, streamed through the K/V
+     ring), causal and
      with valid_len < T, and at head dims 8 and 16 (the query detector's)
      at T = 1, 16, 64, 65, 257 the same ways, twice for equal bits, timed
      at the query decoder's shapes [16, 8, 64, 16] and [16, 8, 64, 32]; the decode MLP at 1, 16, 17 and 64 rows with int8
@@ -350,10 +355,12 @@ Usage: python3 chip_smoke.py
        python3 chip_smoke.py --sass LIB   (instructions of the preprocess
                                            kernel in a built kernel
                                            library, by cuobjdump)
-       python3 chip_smoke.py --self-attention ROOT
-                                          (phase 2's decode_self_attention
-                                           cases through the kernels of
-                                           the checkout at ROOT)
+       python3 chip_smoke.py --rows ROOT NAME [NAME ...]
+                                          (phase 2's rows NAME, of
+                                           flash_attention, decode_mlp,
+                                           decode_self_attention and
+                                           by_kernel, through the kernels
+                                           of the checkout at ROOT)
 """
 
 from __future__ import annotations
@@ -434,14 +441,17 @@ MIN_EMB_COSINE = 0.9999
 MIN_SPEC_FIRST_TOKEN = 0.8
 BEAMS = 4
 # the port's kernels, as the profiler names them
-PORTED_KERNELS = ("flash_head", "flash_stream", "self_attn_tiled_kernel",
+PORTED_KERNELS = ("flash_wg", "flash_head", "flash_stream",
+                  "self_attn_tiled_kernel",
                   "cross_attn_kernel", "cross_attn_tiled_kernel",
-                  "mlp_ln_kernel", "mlp_gemm_kernel",
+                  "mlp_wg_kernel",
                   "self_qkv_kernel", "self_attn_kernel", "block_out_kernel",
                   "cross_q_kernel", "layernorm_kernel", "layernorm_vec_kernel",
                   "layernorm_bwd_regs", "layernorm_bwd_sum",
                   "layernorm_bwd_rows", "layernorm_bwd_cols",
                   "raycast_kernel", "preprocess_kernel")
+# the decode MLP's kernel (decode_mlp.cu): two launches a call, fc and proj
+MLP_KERNEL = "mlp_wg_kernel"
 # the self block's and the cross block's three launches (decode_block.cu);
 # both end in block_out_kernel, which belongs to the block whose first
 # launch came last before it
@@ -763,18 +773,12 @@ def self_attention_cases(K, dev) -> list:
     return cases
 
 
-def kernel_checks(K, QZ, dev) -> dict:
-    """Kernel vs plain at the main path's shapes: FRAMES x SLOTS = ROWS
-    crops; ViT-L attention [ROWS, 16, 257, 64]; decode batch ROWS, 12 heads
-    of 64, self cache T=30, cross K=256 int8; MLP 768 -> 3072 -> 768 int8."""
-    g = torch.Generator(device=dev).manual_seed(1)
-    bf = torch.bfloat16
-
-    def rn(*shape, scale=1.0, dtype=bf):
-        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
-
+def flash_checks(K, rn) -> dict:
+    """Phase 2's flash attention row: the kernel against its plain version
+    at every head dim and edge, then timed at the ViT-L shape [ROWS, 16,
+    257, 64], at T = 640 and at the query decoder's shapes beside SDPA and
+    the bound. `rn(*shape)` draws bf16 inputs on the card."""
     rows = {}
-
     # flash attention ------------------------------------------------------
     # tolerance: bf16 outputs of |o| < 2 whose f32 sums run in another
     # order (a flipped rounding of p or o is 1-2 bf16 ulps). Edges: every
@@ -838,61 +842,15 @@ def kernel_checks(K, QZ, dev) -> dict:
     del q6, k6, v6
     rows["flash_attention"]["cases"] += query_flash_cases(K, rn)
 
-    # decode self-attention: cases a-c (self_attention_cases) ---------------
-    cases = self_attention_cases(K, dev)
-    rows["decode_self_attention"] = dict(
-        source=PORT_KERNELS + "attention.cuh",
-        replaces=TPU_KERNELS + "decode_attention.py:82",
-        **cases[0], cases=cases[1:])
-    b, h, dh = ROWS, 12, 64
-    out = torch.empty(b, h, dh, device=dev)
+    return rows["flash_attention"]
 
-    # decode cross-attention over int8 K/V ---------------------------------
-    nk = 256
-    q = rn(b, h, dh)
-    qkv = QZ.quantize_kv(rn(b, h, dh, nk), rn(b, nk, h, dh))
-    kt8, v8 = qkv.kt.contiguous(), qkv.v.permute(0, 2, 1, 3).contiguous()
-    ks, vs = qkv.kt_scale.contiguous(), qkv.v_scale.contiguous()
-    err = check_close("decode_cross_attention int8",
-                      K.decode_cross_attention(q, kt8, v8, ks, vs),
-                      K.decode_cross_attention_plain(q, kt8, v8, ks, vs),
-                      1e-3)
-    ktb, vb = rn(b, h, dh, nk), rn(b, h, nk, dh)
-    check_close("decode_cross_attention bf16",
-                K.decode_cross_attention(q, ktb, vb),
-                K.decode_cross_attention_plain(q, ktb, vb), 1e-3)
-    # the tiny preset's heads (2 of 32 over 16 keys); then the shapes of
-    # the tiled kernel: 11 keys (one tile, copied element by element into
-    # rows padded to 12), heads 8 wide, and K/V beyond one block's shared
-    # memory, which go through in tiles of keys with an online softmax:
-    # 4096 keys (tiles of 16-byte rows), 1001 (rows copied element by
-    # element) and heads 4096 wide (one group of PV threads, tiles of 8
-    # keys at bf16)
-    for n, hh, dd, kk in ((4, 2, 32, 16), (3, 2, 32, 11), (3, 4, 64, 11),
-                          (3, 2, 8, 11), (2, 3, 64, 4096),
-                          (2, 3, 64, 1001), (1, 2, 4096, 37)):
-        qx = rn(n, hh, dd)
-        sx = QZ.quantize_kv(rn(n, hh, dd, kk), rn(n, kk, hh, dd))
-        args8 = (sx.kt.contiguous(), sx.v.permute(0, 2, 1, 3).contiguous(),
-                 sx.kt_scale.contiguous(), sx.v_scale.contiguous())
-        args16 = (rn(n, hh, dd, kk), rn(n, hh, kk, dd))
-        for kind, ax in (("int8", args8), ("bf16", args16)):
-            check_close(f"decode_cross_attention {kind} [{n},{hh},{dd}] x "
-                        f"{kk} keys", K.decode_cross_attention(qx, *ax),
-                        K.decode_cross_attention_plain(qx, *ax), 1e-3)
-    cb, cf = bound_ms(nbytes(q, kt8, v8, ks, vs, out), 4 * b * h * dh * nk)
-    rows["decode_cross_attention"] = dict(
-        source=PORT_KERNELS + "decode_attention.cu",
-        replaces=TPU_KERNELS + "decode_attention.py:137",
-        max_abs_err=err,
-        **kernel_ms(lambda: K.decode_cross_attention(q, kt8, v8, ks, vs),
-                    100),
-        plain_ms=time_ms(lambda: K.decode_cross_attention_plain(
-            q, kt8, v8, ks, vs), 100),
-        bound_ms=cb, bound_by=cf,
-        **cold_l2(K.decode_cross_attention, (q, kt8, v8, ks, vs), 100),
-        **NO_LIBRARY)  # no PyTorch call takes int8 K/V with scales
 
+def mlp_checks(K, QZ, rn, b: int) -> dict:
+    """Phase 2's decode-MLP row: the kernel against its plain version at
+    1, 16, 17 and b rows, int8 and bf16 weights, and at the tiny preset's
+    width, each twice for equal bits; then timed at [b, 768] int8 beside
+    two library matmuls and the bound."""
+    rows = {}
     # decode MLP (tolerance: bf16 output of |x + y| < 8): int8 and bf16
     # weights at every row count the decode paths use (64: perceive and
     # 16 crops x 4 beams; 16: speculative; 1-8: tiny) and one past a
@@ -953,6 +911,85 @@ def kernel_checks(K, QZ, dev) -> dict:
         plain_ms=time_ms(lambda: K.decode_mlp_plain(*margs), 100),
         bound_ms=mb, bound_by=mf,
         **library(two_matmuls, 100))
+    return rows["decode_mlp"]
+
+
+def kernel_checks(K, QZ, dev) -> dict:
+    """Kernel vs plain at the main path's shapes: FRAMES x SLOTS = ROWS
+    crops; ViT-L attention [ROWS, 16, 257, 64]; decode batch ROWS, 12 heads
+    of 64, self cache T=30, cross K=256 int8; MLP 768 -> 3072 -> 768 int8."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    bf = torch.bfloat16
+
+    def rn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    rows = {}
+
+    sass = tensor_core_sass(K.build())
+    check_wgmma_paths(sass)
+    rows["flash_attention"] = flash_checks(K, rn)
+    rows["flash_attention"]["sass"] = {
+        fn: ops for fn, ops in sass.items() if "flash" in fn}
+
+    # decode self-attention: cases a-c (self_attention_cases) ---------------
+    cases = self_attention_cases(K, dev)
+    rows["decode_self_attention"] = dict(
+        source=PORT_KERNELS + "attention.cuh",
+        replaces=TPU_KERNELS + "decode_attention.py:82",
+        **cases[0], cases=cases[1:])
+    b, h, dh = ROWS, 12, 64
+    out = torch.empty(b, h, dh, device=dev)
+
+    # decode cross-attention over int8 K/V ---------------------------------
+    nk = 256
+    q = rn(b, h, dh)
+    qkv = QZ.quantize_kv(rn(b, h, dh, nk), rn(b, nk, h, dh))
+    kt8, v8 = qkv.kt.contiguous(), qkv.v.permute(0, 2, 1, 3).contiguous()
+    ks, vs = qkv.kt_scale.contiguous(), qkv.v_scale.contiguous()
+    err = check_close("decode_cross_attention int8",
+                      K.decode_cross_attention(q, kt8, v8, ks, vs),
+                      K.decode_cross_attention_plain(q, kt8, v8, ks, vs),
+                      1e-3)
+    ktb, vb = rn(b, h, dh, nk), rn(b, h, nk, dh)
+    check_close("decode_cross_attention bf16",
+                K.decode_cross_attention(q, ktb, vb),
+                K.decode_cross_attention_plain(q, ktb, vb), 1e-3)
+    # the tiny preset's heads (2 of 32 over 16 keys); then the shapes of
+    # the tiled kernel: 11 keys (one tile, copied element by element into
+    # rows padded to 12), heads 8 wide, and K/V beyond one block's shared
+    # memory, which go through in tiles of keys with an online softmax:
+    # 4096 keys (tiles of 16-byte rows), 1001 (rows copied element by
+    # element) and heads 4096 wide (one group of PV threads, tiles of 8
+    # keys at bf16)
+    for n, hh, dd, kk in ((4, 2, 32, 16), (3, 2, 32, 11), (3, 4, 64, 11),
+                          (3, 2, 8, 11), (2, 3, 64, 4096),
+                          (2, 3, 64, 1001), (1, 2, 4096, 37)):
+        qx = rn(n, hh, dd)
+        sx = QZ.quantize_kv(rn(n, hh, dd, kk), rn(n, kk, hh, dd))
+        args8 = (sx.kt.contiguous(), sx.v.permute(0, 2, 1, 3).contiguous(),
+                 sx.kt_scale.contiguous(), sx.v_scale.contiguous())
+        args16 = (rn(n, hh, dd, kk), rn(n, hh, kk, dd))
+        for kind, ax in (("int8", args8), ("bf16", args16)):
+            check_close(f"decode_cross_attention {kind} [{n},{hh},{dd}] x "
+                        f"{kk} keys", K.decode_cross_attention(qx, *ax),
+                        K.decode_cross_attention_plain(qx, *ax), 1e-3)
+    cb, cf = bound_ms(nbytes(q, kt8, v8, ks, vs, out), 4 * b * h * dh * nk)
+    rows["decode_cross_attention"] = dict(
+        source=PORT_KERNELS + "decode_attention.cu",
+        replaces=TPU_KERNELS + "decode_attention.py:137",
+        max_abs_err=err,
+        **kernel_ms(lambda: K.decode_cross_attention(q, kt8, v8, ks, vs),
+                    100),
+        plain_ms=time_ms(lambda: K.decode_cross_attention_plain(
+            q, kt8, v8, ks, vs), 100),
+        bound_ms=cb, bound_by=cf,
+        **cold_l2(K.decode_cross_attention, (q, kt8, v8, ks, vs), 100),
+        **NO_LIBRARY)  # no PyTorch call takes int8 K/V with scales
+
+    rows["decode_mlp"] = mlp_checks(K, QZ, rn, b)
+    rows["decode_mlp"]["sass"] = {
+        fn: ops for fn, ops in sass.items() if "mlp" in fn}
     log_rows(rows)
     return rows
 
@@ -1469,6 +1506,69 @@ def preprocess_sass(lib: Path) -> dict:
         out[f"preprocess_kernel<{m.group(1)}>" if m
             else "preprocess_kernel"] = r
     return out
+
+
+# the kernels whose tensor-core and copy instructions phase 2 counts, and
+# the opcodes: wgmma (HGMMA), mma.sync (HMMA), TMA loads (UTMALDG),
+# mbarrier operations (SYNCS), cp.async (LDGSTS), ldmatrix (LDSM)
+TENSOR_CORE_KERNELS = ("flash_wg", "flash_head", "flash_stream",
+                       "mlp_wg_kernel")
+TENSOR_CORE_OPCODES = ("HGMMA", "HMMA", "UTMALDG", "SYNCS", "LDGSTS",
+                       "LDSM")
+# every instance the wrappers dispatch to flash_wg (flash_plan's 0-5 at
+# D = 64, 0 at 128) and to mlp_wg_kernel (int8 and bf16 weights, fc and
+# proj), by their demangled names (flash_wg is in namespace wg)
+WGMMA_INSTANCES = (
+    *(f"wg::flash_wg<64, {n}>" for n in range(6)), "wg::flash_wg<128, 0>",
+    *(f"mlp_wg_kernel<{w}, {fc}>" for w in ("signed char", "__nv_bfloat16")
+      for fc in ("true", "false")))
+
+
+def demangle(names: list) -> list:
+    """C++ names by c++filt, the mangled ones where it is missing."""
+    import shutil
+
+    exe = shutil.which("c++filt")
+    if not exe or not names:
+        return names
+    out = subprocess.run([exe], input="\n".join(names), capture_output=True,
+                         text=True, check=True).stdout.splitlines()
+    return out if len(out) == len(names) else names
+
+
+def tensor_core_sass(lib: Path) -> dict:
+    """{kernel instance: {opcode: count}} of TENSOR_CORE_OPCODES in each
+    instance of TENSOR_CORE_KERNELS (cuobjdump -sass). Raises where the
+    toolkit has no cuobjdump."""
+    text = sass_text(lib)
+    if not text:
+        raise AssertionError("cuobjdump not found: the kernels' tensor-core "
+                             "instructions cannot be read")
+    found = {}
+    for name in TENSOR_CORE_KERNELS:
+        for fn, ins in sass_functions(text, name).items():
+            ops = [o for _, o, _ in ins]
+            found[fn] = {o: ops.count(o) for o in TENSOR_CORE_OPCODES}
+    short = [re.sub(r"\(.*", "", n.replace("(anonymous namespace)::", "")
+                    ).removeprefix("void ")
+             for n in demangle(list(found))]
+    return dict(zip(short, found.values()))
+
+
+def check_wgmma_paths(sass: dict) -> None:
+    """Each instance of WGMMA_INSTANCES is in the library, issues wgmma fed
+    by TMA through mbarriers, and no mma.sync."""
+    for fn, ops in sass.items():
+        log(f"  {fn} (cuobjdump -sass): {ops}")
+    missing = [fn for fn in WGMMA_INSTANCES if fn not in sass]
+    if missing:
+        raise AssertionError(f"warpgroup kernel instances not found in the "
+                             f"library: {missing} (found {list(sass)})")
+    for fn in WGMMA_INSTANCES:
+        ops = sass[fn]
+        if not (ops["HGMMA"] and ops["UTMALDG"] and ops["SYNCS"]) or (
+                ops["HMMA"]):
+            raise AssertionError(f"{fn}: not a wgmma/TMA path: {ops}")
 
 
 def loop_kernel_checks(K, dev, scenes, poses, cfg) -> dict:
@@ -2640,17 +2740,18 @@ def profile_run(what: str, fn, unprofiled_us: float, top: int = 15
     log("    ported kernels, device us per launch: " + "; ".join(
         f"{kernel_name(e.key)} {e.self_device_time_total / e.count:.1f} "
         f"x{e.count}" for e in ported))
-    # the decode MLP's and the two blocks' three launches run once per
-    # call each; a launch started early by programmatic dependent launch
-    # counts from its start, so a call's time is the union of its launches
+    # the decode MLP's two launches (fc, then proj: one kernel template)
+    # and the two blocks' three launches run once per call each; a launch
+    # started early by programmatic dependent launch counts from its
+    # start, so a call's time is the union of its launches
     calls = block_calls(events)
-    for name, first, parts in (
-            ("decode_mlp", "mlp_ln_kernel", ("mlp_ln_kernel",
-                                             "mlp_gemm_kernel")),
-            ("decode_self_block", SELF_BLOCK_KERNELS[0], SELF_BLOCK_KERNELS),
+    for name, first, parts, per_call in (
+            ("decode_mlp", MLP_KERNEL, (MLP_KERNEL,), 2),
+            ("decode_self_block", SELF_BLOCK_KERNELS[0], SELF_BLOCK_KERNELS,
+             1),
             ("decode_cross_block", CROSS_BLOCK_KERNELS[0],
-             CROSS_BLOCK_KERNELS)):
-        n = sum(e.count for e in ported if first in e.key)
+             CROSS_BLOCK_KERNELS, 1)):
+        n = sum(e.count for e in ported if first in e.key) // per_call
         if n:
             span = busy_us(calls.get(first) or [
                 e for e in events if any(k in e.name for k in parts)])
@@ -7814,26 +7915,78 @@ def card_name() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def self_attention_only(root: Path) -> int:
-    """decode_self_attention's cases (phase 2's) through the kernels of the
+def by_kernel_times(K, QZ, rn) -> dict:
+    """Device time per call of each kernel under the flash attention and
+    decode-MLP wrappers at the main shapes (profiler), and the MLP's time
+    from CUDA events around back-to-back calls (its launches and the gaps
+    between them)."""
+    out = {}
+    for t in (257, 640):
+        q, k, v = (rn(ROWS, 16, t, 64) for _ in range(3))
+        out[f"flash_attention [{ROWS},16,{t},64]"] = device_profile(
+            lambda: K.flash_attention(q, k, v))[1]
+    dm, f = 768, 3072
+    wfc = QZ.quantize_array(rn(dm, f, scale=dm ** -0.5, dtype=torch.float32))
+    wpj = QZ.quantize_array(rn(f, dm, scale=f ** -0.5, dtype=torch.float32))
+    args = (rn(ROWS, dm), 1.0 + rn(dm, scale=0.1, dtype=torch.float32),
+            rn(dm, scale=0.1, dtype=torch.float32), wfc.q, wfc.scale,
+            rn(f, scale=0.02, dtype=torch.float32), wpj.q, wpj.scale,
+            rn(dm, scale=0.02, dtype=torch.float32))
+    busy, kernels = device_profile(lambda: K.decode_mlp(*args), 20)
+    out["decode_mlp int8"] = dict(
+        kernels, busy_us=busy,
+        events_us=event_device_us(lambda: K.decode_mlp(*args), 200))
+    for name, r in out.items():
+        log(f"  {name}: {r}")
+    return out
+
+
+# the rows `--rows` can run: name -> (K, QZ, rn, dev) -> row
+ROW_CHECKS = {
+    "flash_attention": lambda K, QZ, rn, dev: flash_checks(K, rn),
+    "decode_mlp": lambda K, QZ, rn, dev: mlp_checks(K, QZ, rn, ROWS),
+    "decode_self_attention": lambda K, QZ, rn, dev: (
+        lambda c: dict(**c[0], cases=c[1:]))(self_attention_cases(K, dev)),
+    "by_kernel": lambda K, QZ, rn, dev: by_kernel_times(K, QZ, rn),
+}
+
+
+def rows_only(root: Path, names: list) -> int:
+    """Phase 2's rows `names` (of ROW_CHECKS) through the kernels of the
     checkout at `root`, built from its sources: an earlier commit's, to
-    time beside this one's in one call. Prints one JSON line of the
-    cases."""
+    time beside this one's in one call. Prints one JSON line of the rows
+    and of the tensor-core instructions of the flash and MLP kernels."""
+    unknown = [n for n in names if n not in ROW_CHECKS]
+    if unknown:
+        print(f"chip_smoke: no row {unknown}; rows: {list(ROW_CHECKS)}",
+              file=sys.stderr)
+        return 2
     sys.path.insert(0, str(root.resolve()))
     from embodied_captioning_tpu_torch import kernels as K
+    from embodied_captioning_tpu_torch.models import quantize as QZ
 
     log(card_name())
     torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def rn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
     try:
-        K.build()
-        log(f"decode_self_attention of {root} ({Path(K.__file__).parent})")
-        cases = self_attention_cases(K, torch.device("cuda"))
-        log_rows({"decode_self_attention": dict(**cases[0],
-                                                cases=cases[1:])})
+        sass = tensor_core_sass(K.build())
+        log(f"{', '.join(names)} of {root} ({Path(K.__file__).parent})")
+        for fn, ops in sass.items():
+            log(f"  {fn} (cuobjdump -sass): {ops}")
+        rows = {}
+        for name in names:
+            rows[name] = ROW_CHECKS[name](K, QZ, rn, dev)
+            if name != "by_kernel":
+                log_rows({name: rows[name]})
     except Exception:
         traceback.print_exc()
         return 1
-    print(json.dumps({"self_attention_cases": cases, "root": str(root)}))
+    print(json.dumps({"rows": rows, "sass": sass, "root": str(root)}))
     return 0
 
 
@@ -7847,8 +8000,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--self-attention"] and len(sys.argv) == 3:
-        return self_attention_only(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--rows"] and len(sys.argv) >= 4:
+        return rows_only(Path(sys.argv[2]), sys.argv[3:])
     try:
         from embodied_captioning_tpu_torch import kernels as K
         from embodied_captioning_tpu_torch.models import quantize as QZ

@@ -47,11 +47,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "ecap_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "ecap_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "ecap_decode_self_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ecap_decode_cross_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _P],
-    "ecap_decode_mlp": [_P] * 12 + [_I, _I, _I, _F, _I, _I, _I, _P],
+    "ecap_decode_mlp": [_P] * 11 + [_I, _I, _I, _F, _I, _I, _I, _P],
     "ecap_decode_self_block": [_P] * 20 + [_I] * 5 + [_F, _I, _I, _I, _P],
     "ecap_decode_cross_block": [_P] * 16 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
     "ecap_raycast_minargmin": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -220,12 +220,15 @@ def decode_mlp_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     return (xf + y).to(x.dtype)
 
 
-# the split-K products of the decode MLP and the self block
-# (csrc/splitk.cuh)
-MLP_COLS = 32          # output columns per block
+# the split-K products of the self and cross blocks (csrc/splitk.cuh) and
+# of the decode MLP (csrc/decode_mlp.cu)
+MLP_COLS = 32          # output columns per block of the blocks' products
+MLP_TILE = 64          # output columns per block of the MLP's proj
+MLP_FC_TILE = 128      # ... and of its fc, which normalises its slice of x
 MLP_MAX_SPLITS = 8     # blocks of one column tile: a portable cluster
 MLP_MAX_SLICE = 512    # contraction per block
-MLP_MAX_WIDTH = 1024   # the MLP's LayerNorm launch holds a row in registers
+MLP_FC_MAX_SLICE = 384  # fc's (32 KB of shared memory a 64-deep chunk)
+MLP_MAX_WIDTH = 1024   # the widest decoder the MLP kernel is built for
 QKV_COLS = 64          # output columns per block of the self block's q/k/v
 SM_COUNT = 132         # H100 SXM
 
@@ -245,17 +248,36 @@ def _splits(k: int, n: int, cols: int = MLP_COLS) -> int:
     return splits
 
 
+def _fc_splits(d: int, f: int) -> int:
+    """Splits of fc's D-long contraction: the most (a power of two, slices
+    a multiple of 16 and at most MLP_FC_MAX_SLICE long) that keep its
+    blocks of MLP_FC_TILE columns within one an SM, so that a proj block
+    fits on each SM beside them and starts while fc runs."""
+    tiles = -(-f // MLP_FC_TILE)
+    splits = 1
+    while (2 * splits <= MLP_MAX_SPLITS and d % (32 * splits) == 0
+           and (tiles * 2 * splits <= SM_COUNT
+                or d // splits > MLP_FC_MAX_SLICE)):
+        splits *= 2
+    if d // splits > MLP_FC_MAX_SLICE:
+        raise ValueError(f"a contraction of {d} does not split into "
+                         f"slices of at most {MLP_FC_MAX_SLICE}")
+    return splits
+
+
 def mlp_plan(rows: int, d: int, f: int) -> Tuple[int, int]:
     """(splits of the fc product's D-long contraction, splits of the proj
     product's F-long contraction) for `decode_mlp` at [rows, d] -> f -> d:
-    each product's blocks are (columns / 32) x splits x ceil(rows / 64)."""
+    fc's blocks are ceil(f / 128) x splits x ceil(rows / 64), proj's
+    ceil(d / 64) x splits x ceil(rows / 64), the splits of a column tile
+    one cluster."""
     if rows < 1:
         raise ValueError(f"decode_mlp needs at least one row, got {rows}")
     if d % MLP_COLS or f % MLP_COLS or not 0 < d <= MLP_MAX_WIDTH or f <= 0:
         raise ValueError(f"decode_mlp takes widths D and F that are "
                          f"multiples of {MLP_COLS}, D up to "
                          f"{MLP_MAX_WIDTH}; got D={d}, F={f}")
-    return _splits(d, f), _splits(f, d)
+    return _fc_splits(d, f), _splits(f, d, MLP_TILE)
 
 
 def _takes(plan, *shape) -> bool:
@@ -277,7 +299,7 @@ def decode_mlp(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                wpj: torch.Tensor, spj: torch.Tensor, bpj: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """x bf16 [B,D]; LN g, b f32 [D]; wfc [D,F] and wpj [F,D] both int8 or
-    both bf16; scales and biases f32 -> bf16 [B,D]. Three launches (see
+    both bf16; scales and biases f32 -> bf16 [B,D]. Two launches (see
     csrc/decode_mlp.cu), counted as one call; D and F as `mlp_plan`
     takes them."""
     if _lib.dispatch_device(x) == "cpu":
@@ -295,14 +317,13 @@ def decode_mlp(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     _lib.check(spj, "spj", f32, (d,))
     _lib.check(bpj, "bpj", f32, (d,))
     s_fc, s_pj = mlp_plan(bsz, d, f)
-    # h [B, F], then the LayerNorm output [B, D]
-    scratch = torch.empty(bsz, f + d, dtype=torch.bfloat16, device=x.device)
+    h = torch.empty(bsz, f, dtype=torch.bfloat16, device=x.device)
     out = torch.empty_like(x)
     _lib.call("ecap_decode_mlp", x.data_ptr(), g.data_ptr(), b.data_ptr(),
               wfc.data_ptr(), sfc.data_ptr(), bfc.data_ptr(), wpj.data_ptr(),
-              spj.data_ptr(), bpj.data_ptr(), scratch.data_ptr(),
-              scratch.data_ptr() + 2 * bsz * f, out.data_ptr(), bsz, d, f,
-              float(eps), int(wfc.dtype == torch.int8), s_fc, s_pj)
+              spj.data_ptr(), bpj.data_ptr(), h.data_ptr(), out.data_ptr(),
+              bsz, d, f, float(eps), int(wfc.dtype == torch.int8), s_fc,
+              s_pj)
     _lib.launches["decode_mlp"] += 1
     return out
 

@@ -76,7 +76,7 @@ def _fake_call(name, *a):
                                   (db, (d,), torch.float32, got[2])):
             _view(ptr, shape, dt).copy_(v)
     elif name == "ecap_flash_attention":
-        q, k, v, o, bh, tt, d, causal, vl, _ = a
+        q, k, v, o, bh, tt, d, causal, vl, _, _ = a  # scale, kernel
         qkv = [_view(p, (bh, 1, tt, d), torch.bfloat16) for p in (q, k, v)]
         _view(o, (bh, 1, tt, d), torch.bfloat16).copy_(
             K.flash_attention_plain(*qkv, bool(causal), vl))

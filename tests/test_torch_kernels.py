@@ -487,21 +487,82 @@ _MLP_WIDTHS = [(64, 256), (512, 2048), (768, 3072)]
 @pytest.mark.parametrize("d,f", _MLP_WIDTHS)
 def test_mlp_plan_covers_the_decode_shapes(rows, d, f):
     from embodied_captioning_tpu_torch.kernels.decode_attention import (
-        MLP_COLS, MLP_MAX_SLICE, MLP_MAX_SPLITS, SM_COUNT, mlp_plan)
+        MLP_FC_MAX_SLICE, MLP_FC_TILE, MLP_MAX_SLICE, MLP_MAX_SPLITS,
+        MLP_TILE, SM_COUNT, mlp_plan)
 
     s_fc, s_pj = mlp_plan(rows, d, f)
-    for k, n, s in ((d, f, s_fc), (f, d, s_pj)):
+    for k, s, most in ((d, s_fc, MLP_FC_MAX_SLICE), (f, s_pj, MLP_MAX_SLICE)):
         # a power of two up to the portable cluster size, slices that the
-        # m16n8k16 steps cover and that fit shared memory
+        # wgmma k-steps of 16 cover and that fit shared memory
         assert 1 <= s <= MLP_MAX_SPLITS and s & (s - 1) == 0
-        assert k % (16 * s) == 0 and k // s <= MLP_MAX_SLICE
-        # the fewest splits that give every SM a block, where k allows it
-        blocks = n // MLP_COLS * s
-        assert blocks >= SM_COUNT or s == MLP_MAX_SPLITS or k % (32 * s)
-        assert s == 1 or n // MLP_COLS * (s // 2) < SM_COUNT
+        assert k % (16 * s) == 0 and k // s <= most
+    # fc: the most splits that keep its blocks within one an SM, where d
+    # allows them
+    fc_tiles = -(-f // MLP_FC_TILE)
+    assert fc_tiles * s_fc <= SM_COUNT or d // (s_fc // 2 or 1) > (
+        MLP_FC_MAX_SLICE)
+    assert (fc_tiles * 2 * s_fc > SM_COUNT or s_fc == MLP_MAX_SPLITS
+            or d % (32 * s_fc))
+    # proj: the fewest splits that give every SM a block, where f allows it
+    blocks = d // MLP_TILE * s_pj
+    assert blocks >= SM_COUNT or s_pj == MLP_MAX_SPLITS or f % (32 * s_pj)
+    assert s_pj == 1 or d // MLP_TILE * (s_pj // 2) < SM_COUNT
     if (d, f) == (768, 3072):
-        # the serving shape: 192 blocks in each product
-        assert (s_fc, s_pj) == (2, 8)
+        # the serving shape: 96 fc blocks (24 column tiles of 128 x 4
+        # slices of 192), 96 proj blocks (12 of 64 x 8 slices of 384)
+        assert (s_fc, s_pj) == (4, 8)
+
+
+@pytest.mark.parametrize("d,t,valid_len,kernel", [
+    (64, 257, None, 5),    # ViT-L: 4 tiles and one key, S in registers
+    (64, 272, None, 5),    # 4 tiles and 16 keys: the last that fits
+    (64, 273, None, 0),    # one key more: two passes
+    (64, 320, None, 0),
+    (64, 640, None, 0),    # the blocked TPU kernel's length
+    (64, 640, 250, 4),     # only the live keys count
+    (64, 256, None, 4),
+    (64, 65, None, 2),
+    (64, 32, None, 1),     # the Q-Former's queries
+    (64, 1, None, 1),
+    (128, 16, None, 0),    # D = 128: always two passes
+    (128, 640, None, 0),
+    (8, 64, None, -1),     # the query decoder's heads: mma.sync
+    (16, 64, None, -1),
+    (32, 257, None, -1),   # MiniLM's and the large query decoder's
+])
+def test_flash_plan_routes_head_dims_and_lengths(d, t, valid_len, kernel):
+    from embodied_captioning_tpu_torch.kernels.flash_attention import (
+        flash_plan)
+
+    assert flash_plan(d, t, valid_len) == kernel
+
+
+@pytest.mark.parametrize("d", [4, 48, 96, 256])
+def test_flash_plan_raises_on_head_dims_without_a_kernel(d):
+    from embodied_captioning_tpu_torch.kernels.flash_attention import (
+        flash_plan)
+
+    with pytest.raises(ValueError, match="head dims"):
+        flash_plan(d, 64)
+
+
+def test_trace_script_marks_every_phase_of_the_decode_mlp():
+    """scripts/trace_decode_mlp.py times the phases at the kernel's
+    `// mark N:` lines: they are numbered 0, 1, ... and each becomes a
+    store in the instrumented source."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "scripts/trace_decode_mlp.py"
+    spec = importlib.util.spec_from_file_location("trace_decode_mlp", path)
+    tr = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tr)
+    phases = tr.phases(tr.SOURCE.read_text())
+    assert sorted(phases) == list(range(11))
+    src = tr.instrumented_source()
+    assert not tr.MARK.search(src)
+    for n in phases:
+        assert f"TR({n});" in src
 
 
 @pytest.mark.parametrize("rows,d,f", [(0, 768, 3072), (4, 48, 192),

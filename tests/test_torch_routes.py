@@ -70,8 +70,8 @@ def test_heads_four_wide_fall_back_in_both_blocks():
 
 
 def test_an_mlp_wider_than_its_layernorm_launch_falls_back():
-    # D = 1056: a multiple of 32, but the MLP's LayerNorm launch holds a
-    # row of at most 1024 in registers
+    # D = 1056: a multiple of 32, but past the widest decoder the MLP
+    # kernel takes (MLP_MAX_WIDTH, 1024); its fc would need slices of 528
     assert not DA.mlp_fits(4, 1056, 4224)
     with pytest.raises(ValueError):
         DA.mlp_plan(4, 1056, 4224)
